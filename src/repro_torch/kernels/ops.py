@@ -1,0 +1,246 @@
+"""Streaming serve ops: y = x @ W_g with W_g never materialized whole.
+
+The serve half of the JAX package's ``kernels/ops.py``.  Every zampled
+linear of the serving engine calls ``serve_matmul`` (or
+``serve_matvec`` at B=1); each regenerates the group's Q edges, draws
+the mask bits straight from the encoded score words, and contracts
+against the activations.
+
+Impl dispatch: ``"cuda"`` is the CUDA kernel (``kernels.qz_decode``),
+``"chunked"`` the plain torch path below.  With no impl given (and no
+``REPRO_SERVE_IMPL`` override) a CUDA tensor goes to the kernel and a
+CPU tensor to the plain path; ``"cuda"`` on a CPU tensor raises.
+
+CANONICAL CONTRACTION TREE.  The summation order is part of the serve
+contract, as in the JAX package (``SERVE_BM = 256``): the flat rows of
+the group are cut into (window, bm) blocks, visited in ascending order,
+and each block adds to the output the dot of its input rows with its
+tile of weights.  For output column ``o`` this reads
+
+    y_o = sum over blocks t, ascending, of
+          ( sum over the block's input rows i, ascending, of x_i * W_io )
+
+where each inner sum starts from 0.0, every product and add is rounded
+on its own (no FMA), and a block that holds no row of column ``o``
+adds nothing.  Cells of the JAX tile that hold no live row contribute
+exact zeros there, so both trees give the same values.  Each edge
+weight ``sum_k vals_k * bit_k`` also sums in ascending k.  The plain
+path and the kernel compute exactly this, so they agree bit for bit,
+and a batch row's result does not depend on the batch size.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+
+from ..core.hashrng import bernoulli_u32
+from ..core.qspec import QSpec, row_indices, row_values
+from ..core.sampling import mask_u32, quant_threshold_u24, as_word
+
+SERVE_BM = 256
+VALID_SERVE_IMPLS = ("chunked", "cuda")
+
+# edges regenerated at once by the plain path (bounds its temporaries)
+_CHUNK_EDGES = 1 << 22
+
+
+def resolve_serve_impl(impl: Optional[str], x: torch.Tensor) -> str:
+    """The impl a call runs: the argument, else ``REPRO_SERVE_IMPL``,
+    else the kernel for a CUDA tensor and the plain path for a CPU one."""
+    impl = impl or os.environ.get("REPRO_SERVE_IMPL")
+    if impl is None:
+        return "cuda" if x.is_cuda else "chunked"
+    if impl not in VALID_SERVE_IMPLS:
+        raise ValueError(f"unknown serve impl {impl!r}; valid impls: "
+                         f"{', '.join(VALID_SERVE_IMPLS)}")
+    if impl == "cuda" and not x.is_cuda:
+        raise ValueError("serve impl 'cuda' needs CUDA tensors; got a "
+                         f"tensor on {x.device}")
+    return impl
+
+
+def serve_group_dims(spec: QSpec):
+    """(groups, d_in, d_out) of a spec's flat row space: a (L, d_in,
+    d_out) leaf has L groups of contiguous rows, a 2-D leaf one."""
+    if spec.shard_count != 1 or spec.major_axis != 0:
+        raise ValueError(
+            "serve ops address the single-block identity row layout "
+            f"(shard_count=1, major_axis=0); spec has shard_count="
+            f"{spec.shard_count}, major_axis={spec.major_axis}")
+    if len(spec.shape) < 2:
+        raise ValueError(f"serve ops need a >=2-D spec, got {spec.shape}")
+    if len(spec.shape) == 2:
+        return 1, spec.shape[0], spec.shape[1]
+    d_in = 1
+    for s in spec.shape[1:-1]:
+        d_in *= s
+    return spec.shape[0], d_in, spec.shape[-1]
+
+
+def serve_block_grid(spec: QSpec, bm: int, row_offset: int, sub: int):
+    """(w0, nblocks, bpw): the canonical blocks of a group's rows
+    [row_offset, row_offset + sub), in ascending (window, block) order."""
+    bpw = max(1, -(-spec.rows_per_window // bm))
+    w0 = row_offset // spec.rows_per_window
+    w1 = (row_offset + sub - 1) // spec.rows_per_window
+    return w0, (w1 - w0 + 1) * bpw, bpw
+
+
+def serve_block_of(spec: QSpec, rows: torch.Tensor, bm: int) -> torch.Tensor:
+    """Canonical block index of each flat row (ascending with the row)."""
+    bpw = max(1, -(-spec.rows_per_window // bm))
+    win = rows // spec.rows_per_window
+    return win * bpw + (rows - win * spec.rows_per_window) // bm
+
+
+def serve_operand(words: torch.Tensor, qbits: Optional[int]) -> torch.Tensor:
+    """The kernel's score operand: f32 scores clipped to probabilities,
+    or the codec's uint8/uint16 words as they are."""
+    if qbits is None:
+        return torch.clamp(words.to(torch.float32), 0.0, 1.0)
+    want = {8: torch.uint8, 16: torch.uint16}.get(qbits)
+    if want is None:
+        raise NotImplementedError(
+            f"{qbits}-bit words: the packed sub-byte carry is not ported "
+            "yet; the port serves f32, u16 and u8")
+    if words.dtype != want:
+        raise ValueError(f"{qbits}-bit words must be {want}, got "
+                         f"{words.dtype}")
+    return words
+
+
+def words_as_int(words: torch.Tensor) -> torch.Tensor:
+    """uint8/uint16 words as int32 values (uint16 through an int16
+    view: torch's CUDA kernels take few ops on uint16)."""
+    if words.dtype == torch.uint16:
+        return words.view(torch.int16).to(torch.int32) & 0xFFFF
+    return words.to(torch.int32)
+
+
+def serve_edge_bits(spec: QSpec, p: torch.Tensor, step,
+                    rows: torch.Tensor, qbits: Optional[int]) -> torch.Tensor:
+    """The mask bit (float32 0/1, ``(..., d)``) of each Q edge of the
+    flat rows ``rows``, drawn from the score operand ``p``
+    (``serve_operand``) at the edge's global z coordinate."""
+    rows = rows.to(torch.int64)
+    idx = row_indices(spec, rows)
+    coords = (rows // spec.rows_per_window)[..., None] * spec.window + idx
+    u = mask_u32(spec.seed, spec.tensor_id, as_word(step), coords)
+    if qbits is None:
+        return bernoulli_u32(u, p[coords])
+    thr = quant_threshold_u24(words_as_int(p)[coords], qbits)
+    return ((u >> 8) < thr).to(torch.float32)
+
+
+def serve_edge_weights(spec: QSpec, p: torch.Tensor, step,
+                       rows: torch.Tensor, qbits: Optional[int]):
+    """Streamed weight values at flat rows ``rows``: the rows' Q values
+    times their edges' mask bits, summed in ascending k."""
+    prod = row_values(spec, rows) * serve_edge_bits(spec, p, step, rows,
+                                                   qbits)
+    acc = prod[..., 0]
+    for k in range(1, spec.d):
+        acc = acc + prod[..., k]
+    return acc
+
+
+def serve_contract_plain(spec: QSpec, p: torch.Tensor, step,
+                         X: torch.Tensor, row_offset: int, d_in: int,
+                         d_out: int, qbits: Optional[int],
+                         bm: int = SERVE_BM) -> torch.Tensor:
+    """The plain torch version of the serve kernels: (B, d_in) -> (B,
+    d_out) through the canonical tree, regenerating the weights a few
+    input rows at a time."""
+    dev = X.device
+    X = X.to(torch.float32)
+    B = X.shape[0]
+    y = torch.zeros((B, d_out), dtype=torch.float32, device=dev)
+    part = torch.zeros_like(y)
+    cols = torch.arange(d_out, dtype=torch.int64, device=dev)
+    step_rows = max(1, _CHUNK_EDGES // (d_out * spec.d))
+    for i0 in range(0, d_in, step_rows):
+        i1 = min(d_in, i0 + step_rows)
+        ii = torch.arange(i0, i1, dtype=torch.int64, device=dev)
+        rows = row_offset + ii[:, None] * d_out + cols  # (ci, d_out)
+        W = serve_edge_weights(spec, p, step, rows, qbits)
+        blk = serve_block_of(spec, rows, bm)
+        nxt = serve_block_of(spec, rows + d_out, bm)
+        flush = (blk != nxt) | (ii[:, None] == d_in - 1)
+        for c in range(i1 - i0):
+            part = part + X[:, i0 + c, None] * W[c]
+            y = torch.where(flush[c], y + part, y)
+            part = torch.where(flush[c], 0.0, part)
+    return y
+
+
+def _contract(spec: QSpec, words, step, X, group: int,
+              qbits: Optional[int], impl: Optional[str], bm: int, single):
+    groups, d_in, d_out = serve_group_dims(spec)
+    if not 0 <= group < groups:
+        raise ValueError(f"group {group} out of range [0, {groups})")
+    if X.shape[-1] != d_in:
+        raise ValueError(f"activation has trailing dim {X.shape[-1]}, spec "
+                         f"group expects d_in={d_in}")
+    if words.device != X.device:
+        raise ValueError(f"words on {words.device}, activations on "
+                         f"{X.device}")
+    impl = resolve_serve_impl(impl, X)
+    row_offset = group * d_in * d_out
+    p = serve_operand(words, qbits)
+    if impl == "cuda":
+        from . import qz_decode
+
+        fn = qz_decode.qz_sample_matvec if single else qz_decode.qz_sample_matmul
+        return fn(spec, p, step, X, row_offset=row_offset, d_in=d_in,
+                  d_out=d_out, qbits=qbits, bm=bm)
+    Xb = X[None] if single else X
+    y = serve_contract_plain(spec, p, step, Xb, row_offset, d_in, d_out,
+                             qbits, bm)
+    return y[0] if single else y
+
+
+def serve_matvec(spec: QSpec, words: torch.Tensor, step, x: torch.Tensor, *,
+                 group: int = 0, qbits: Optional[int] = None,
+                 impl: Optional[str] = None, bm: int = SERVE_BM):
+    """Streamed y = x @ W_g: encoded words + x (d_in,) -> (d_out,) f32.
+
+    ``words``: f32 scores (clipped in-op), or the codec's uint8/uint16
+    words with ``qbits`` set.  ``step`` is the draw word; ``group``
+    selects the stacked layer.
+    """
+    if x.ndim != 1:
+        raise ValueError(f"serve_matvec takes x (d_in,), got {tuple(x.shape)}")
+    return _contract(spec, words, step, x, int(group), qbits, impl,
+                     int(bm), True)
+
+
+def serve_matmul(spec: QSpec, words: torch.Tensor, step, X: torch.Tensor, *,
+                 group: int = 0, qbits: Optional[int] = None,
+                 impl: Optional[str] = None, bm: int = SERVE_BM):
+    """Streamed Y = X @ W_g for a (B, d_in) batch -> (B, d_out) f32."""
+    if X.ndim != 2:
+        raise ValueError(f"serve_matmul takes X (B, d_in), got "
+                         f"{tuple(X.shape)}")
+    return _contract(spec, words, step, X, int(group), qbits, impl,
+                     int(bm), False)
+
+
+def serve_embed_rows(spec: QSpec, words: torch.Tensor, step,
+                     tokens: torch.Tensor, *, qbits: Optional[int] = None):
+    """Streamed embedding rows: tokens (...) -> (..., d_model) f32.
+
+    Row t of the (vocab, d_model) table is the flat-row run
+    [t*d_model, (t+1)*d_model); plain torch on every device, as in the
+    JAX package (a gather has no contraction to fuse into).
+    """
+    groups, _, d_out = serve_group_dims(spec)
+    if groups != 1:
+        raise ValueError(f"serve_embed_rows addresses 2-D table leaves; "
+                         f"spec shape {spec.shape} has {groups} groups")
+    p = serve_operand(words, qbits)
+    cols = torch.arange(d_out, dtype=torch.int64, device=tokens.device)
+    rows = tokens.to(torch.int64)[..., None] * d_out + cols
+    return serve_edge_weights(spec, p, step, rows, qbits)
