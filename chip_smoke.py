@@ -1,23 +1,46 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
 
-Serves qwen2-0.5b at full width (24 layers, d_model 896, 14 heads with 2
-KV heads, d_ff 4864, padded vocab 152064) off u8 downlink words through
-the streaming engine, every zampled linear on the hand-written CUDA
-serve kernel, and checks it in phases, one printed line or more each:
+Two paths at full width, every Pallas kernel they run replaced by a
+hand-written CUDA kernel:
+
+- serving: qwen2-0.5b (24 layers, d_model 896, 14 heads with 2 KV heads,
+  d_ff 4864, padded vocab 152064) off u8 downlink words through the
+  streaming engine, every zampled linear on the serve kernel;
+- training: the paper's federated round (Fig. 4) on MNISTFC
+  784-300-100-10, compression 8, d=10, window 128, K=10 clients, E=100
+  local SGD steps at lr 0.5, psum_u32 1-bit uplink, u8 downlink, on the
+  sample-reconstruct forward, the plan backward and the sample-pack
+  upload kernels; evaluation draws sampled networks off the u8 carry.
+
+Phases, one printed line or more each:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc builds the kernel from the sources in the checkout, with
-   what ``-Xptxas -v`` reports;
-3. kernel against its plain torch version on the card, bitwise, at every
-   linear shape of the model (groups 0 and 23, B in {1, 4}, u8 words, and
-   f32 and u16 at one shape), and the lm_head also against a float64
-   product of the plainly regenerated weights;
+2. build: nvcc builds both kernel libraries from the sources in the
+   checkout, one process each, started together, with what
+   ``-Xptxas -v`` reports;
+3. serve kernel against its plain torch version on the card, bitwise, at
+   every linear shape of the model (groups 0 and 23, B in {1, 4}, u8
+   words, and f32 and u16 at one shape), and the lm_head also against a
+   float64 product of the plainly regenerated weights;
 4. serving: ServeScheduler with 4 lanes answers 4 ragged prompts for 8
    new tokens each, and the first request rerun alone (B=1) must give
    the same tokens; each engine step must launch the kernel 169 times;
-5. kernels: one JSON line with each kernel's launches, times and bound;
-6. last line: {"ok": true, "device": {...}}.
+5. serve kernel times, bounds and plain times;
+6. training kernels against their plain versions on the card, bitwise,
+   at the three zampled MNISTFC leaves (sample-reconstruct at K=10 f32
+   and K=1 u8/f32, plan backward at K=10, sample-pack at K=10), and the
+   transpose plan's values built on the card against the kernels' own
+   regenerated Q values;
+7. federated training: 5 rounds through the kernels, round 0 rerun on
+   the plain path (bitwise the same words, dense leaves and loss),
+   launch counts (3 E per round for the forward and backward kernels, 3
+   for the upload, 3 per sampled network in evaluation), falling loss,
+   rising sampled accuracy, metered wire bytes, round and step times;
+8. training kernel times, bounds, plain times and torch.sparse.mm
+   yardsticks;
+9. one JSON line with every kernel's launches, times and bound, the
+   card, the run's total seconds, and last {"ok": true, "device": ...}.
 
 Usage, from the repo root on a machine with a CUDA GPU:
     python3 chip_smoke.py
@@ -34,6 +57,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 SEED = 0
 DRAW_WORD = 2
 PROMPTS = [[5, 17, 42, 7], [1, 2, 3], [9, 9, 1, 0, 3], [4, 4]]
@@ -50,6 +74,16 @@ PEAK_OPS_PER_S = 67e12
 OPS_PER_WEIGHT = 12 + 21 + 23 + 2  # row hash, base, stride, window base
 OPS_PER_EDGE = 3 + 1 + 20 + 4  # index, coord, mask hash, threshold compare
 OPS_PER_DRAWN = 40 + 8 + 6 + 1  # 2 value hashes, 2 uniforms, Box-Muller, add
+# the training kernels' operations (see csrc/qz_reconstruct.cu)
+OPS_ROW_EDGE = 4  # an edge's in-window index and coordinate
+OPS_VALUE = 54  # an edge's value: 2 value hashes, 2 uniforms, Box-Muller
+OPS_DRAW = 24  # one client's draw at one coordinate: mask hash + compare
+OPS_PACK = 2  # shift and OR of a drawn bit into its lane
+FED_ROUNDS = 5
+FED_K = 10
+FED_E = 100
+FED_BATCH = 64
+EVAL_NETS = 10
 LINEARS = ("blocks/attn/wq", "blocks/attn/wk", "blocks/attn/wv",
            "blocks/attn/wo", "blocks/mlp/gate", "blocks/mlp/up",
            "blocks/mlp/down")
@@ -80,6 +114,425 @@ def event_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _bound_ms(ops_n: float, bytes_n: float):
+    """(least ms, what binds) for work of ops_n operations and bytes_n
+    bytes on the card."""
+    t_ops, t_bytes = ops_n / PEAK_OPS_PER_S, bytes_n / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def profile_device_us(fn, tags):
+    """Run ``fn`` under torch.profiler: ({tag: (device us, launches)} of
+    the CUDA kernels whose name holds the tag, all kernels' device us)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_tag = {tag: [0.0, 0] for tag in tags}
+    total = 0.0
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = evt.time_range.elapsed_us()
+        total += us
+        for tag in tags:
+            if tag in evt.name:
+                by_tag[tag][0] += us
+                by_tag[tag][1] += 1
+    return {t: tuple(v) for t, v in by_tag.items()}, total
+
+
+def training_phases(card: str, dev) -> list:
+    """Phases 6-8: the federated round's kernels at full MNISTFC width.
+    Returns the four training kernels' rows of the kernels line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.comm.bitpack import packed_len
+    from repro_torch.comm.downlink import get_codec
+    from repro_torch.comm.metering import round_wire_report
+    from repro_torch.configs.mnistfc import MNISTFC
+    from repro_torch.core.federated import (FederatedConfig, encode_state,
+                                            federated_round)
+    from repro_torch.core.sampling import (as_words, clip_probs,
+                                           sample_mask_hash,
+                                           sample_mask_qhash)
+    from repro_torch.core.transpose_plan import build_transpose_plan, row_plan
+    from repro_torch.core.zampling import ZamplingConfig, build_specs
+    from repro_torch.data import (client_batch_stream, iid_client_split,
+                                  make_teacher_dataset)
+    from repro_torch.kernels import ops, qz_decode
+    from repro_torch.kernels import qz_reconstruct as qr
+    from repro_torch.models.mlp import mlp_accuracy, mlp_loss, mlp_template
+    from repro_torch.train import evaluate
+
+    # --- the configuration: experiments/paper.py Fig. 4 at quick=False
+    zspecs = build_specs(mlp_template(MNISTFC), ZamplingConfig(
+        compression=8, d=10, window=128, min_size=128, seed=1))
+    specs = zspecs.specs
+    rng = np.random.RandomState(SEED)
+    scores = {p: rng.rand(s.n).astype(np.float32) for p, s in specs.items()}
+    dense = {p: np.zeros(zspecs.template[p].shape, np.float32)
+             for p in zspecs.dense_paths}
+    cfg = FederatedConfig(num_clients=FED_K, local_steps=FED_E,
+                          local_lr=0.5, aggregate="psum_u32", downlink="u8")
+    round_words = [int(w) for w in rng.randint(0, 2**32, FED_ROUNDS,
+                                                dtype=np.uint64)]
+    eval_words = [int(w) for w in rng.randint(0, 2**32, EVAL_NETS,
+                                              dtype=np.uint64)]
+    say(f"train: MNISTFC {MNISTFC}, zampled "
+        + ", ".join(f"{p} {s.shape} m={s.m} n={s.n} rpw={s.rows_per_window}"
+                    for p, s in specs.items())
+        + f"; dense {list(zspecs.dense_paths)}; K={FED_K} E={FED_E} "
+        f"batch {FED_BATCH} lr 0.5 psum_u32/u8")
+
+    def words_k(k):
+        return as_words(rng.randint(0, 2**32, k, dtype=np.uint64), dev)
+
+    # --- 6. kernels against their plain versions ---------------------------
+    max_err = {name: 0.0 for name in qr.LAUNCHES}
+
+    def check(name, got, want, what):
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, want))
+        diff = (got.double() - want.double()).abs().max().item()
+        max_err[name] = max(max_err[name], diff)
+        say(f"train-kernel-vs-plain: {name} {what}: bitwise={same} "
+            f"max_abs_err={diff:.3e}")
+        if not same:
+            die(f"{name} differs from its plain version ({what})")
+
+    t0 = time.perf_counter()
+    u8 = get_codec("u8")
+    for path, spec in specs.items():
+        P = clip_probs(torch.from_numpy(
+            rng.rand(FED_K, spec.n).astype(np.float32) * 1.2 - 0.1).to(dev))
+        steps = words_k(FED_K)
+        W = qr.qz_sample_reconstruct_batched_fwd(spec, P, steps)
+        check("qz_sample_reconstruct_batched_fwd", W,
+              ops.sample_reconstruct_plain(spec, P, steps),
+              f"{path} K={FED_K} f32")
+        check("qz_sample_reconstruct_fwd",
+              qr.qz_sample_reconstruct_fwd(spec, P[3], steps[3:4]), W[3],
+              f"{path} K=1 f32 against the batched kernel's row 3")
+        q8 = u8.encode(spec, P[0], round_words[0])
+        check("qz_sample_reconstruct_fwd",
+              qr.qz_sample_reconstruct_fwd(spec, q8, steps[:1], 8),
+              ops.sample_reconstruct_plain(spec, q8[None], steps[:1], 8)[0],
+              f"{path} K=1 u8")
+        check("qz_sample_reconstruct_fwd",
+              qr.qz_sample_reconstruct_fwd(spec, q8, steps[:1], 8),
+              qr.qz_sample_reconstruct_fwd(spec, u8.decode(spec, q8),
+                                           steps[:1]),
+              f"{path} K=1 u8 words against f32 on the decoded scores")
+        G = torch.from_numpy(rng.randn(FED_K, spec.m).astype(np.float32)
+                             ).to(dev)
+        check("qz_reconstruct_batched_bwd_plan",
+              qr.qz_reconstruct_batched_bwd_plan(spec, G),
+              ops.plan_bwd_plain(spec, G), f"{path} K={FED_K} seeded G")
+        check("qz_sample_pack_batched_fwd",
+              qr.qz_sample_pack_batched_fwd(spec, P, steps),
+              ops.sample_pack_plain(spec, P, steps), f"{path} K={FED_K}")
+        # the plan's values are a gather of row_plan's, built on the card;
+        # the kernels regenerate Q from the same device functions as
+        # qz_edges
+        gidx, vals = row_plan(spec, dev)
+        rows = torch.arange(spec.m, device=dev)
+        idx, _, kvals, _ = qz_decode.qz_edges(spec, P[0], 0, rows)
+        win = (rows // spec.rows_per_window)[:, None] * spec.window
+        plan = build_transpose_plan(spec, dev)
+        ok_idx = torch.equal(gidx[:spec.m], win + idx.to(torch.int64))
+        ok_val = torch.equal(vals[:spec.m], kvals)
+        say(f"train-plan: {path}: deg {plan.deg}, {plan.n_edges} edges; "
+            f"row plan indices equal the kernels' = {ok_idx}, values "
+            f"bitwise = {ok_val}")
+        if not (ok_idx and ok_val):
+            die(f"the card-built plan differs from the kernels' Q ({path})")
+    say(f"phase 6 done in {time.perf_counter() - t0:.1f} s; every "
+        "comparison bitwise")
+
+    # --- 7. federated training through the kernels ---------------------------
+    t0 = time.perf_counter()
+    ds = make_teacher_dataset(n_train=8000, n_test=1500, seed=0)
+    stream = client_batch_stream(iid_client_split(ds, FED_K, seed=0),
+                                 FED_BATCH, FED_E, seed=0)
+    batches = [dict(zip(("x", "y"), next(stream))) for _ in range(FED_ROUNDS)]
+    test = {"x": torch.from_numpy(ds.x_test).to(dev),
+            "y": torch.from_numpy(ds.y_test).to(dev)}
+
+    def acc_fn(params):
+        return mlp_accuracy(params, test)
+
+    state0 = encode_state(zspecs, cfg, {"scores": scores, "dense": dense},
+                          device=dev)
+    acc0, std0 = evaluate(zspecs, state0, acc_fn, eval_words, carried="u8",
+                          device=dev)
+    say(f"train: data and state ready in {time.perf_counter() - t0:.1f} s; "
+        f"sampled accuracy before: {acc0:.4f} +- {std0:.4f} "
+        f"({EVAL_NETS} networks)")
+
+    qz_decode.reset_launches()
+    qr.reset_launches()
+    state, round_s, losses = state0, [], []
+    rep = round_wire_report(zspecs, cfg.aggregate, FED_K, downlink="u8")
+    for r in range(FED_ROUNDS):
+        t1 = time.perf_counter()
+        state, met = federated_round(zspecs, state, mlp_loss, batches[r],
+                                     round_words[r], cfg, round_index=r,
+                                     device=dev)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t1)
+        losses.append(float(met["loss"]))
+        if r == 0:
+            state_r0, loss_r0 = state, met["loss"].clone()
+        up = (sum(4 * packed_len(s.n) for s in specs.values())
+              + 4 * zspecs.dense_total)
+        down = (sum(w.numel() * w.element_size()
+                    for w in state["scores"].values())
+                + sum(4 * d.numel() for d in state["dense"].values()))
+        say(f"train: round {r}: loss {losses[-1]:.6f}, {round_s[-1]:.3f} s; "
+            f"uplink {up} B/client (metrics "
+            f"{met['uplink_bytes_per_client']:.0f}, report "
+            f"{rep['uplink_bytes_per_client']:.0f}), downlink "
+            f"{down} B/client (metrics "
+            f"{met['downlink_bytes_per_client']:.0f}, report "
+            f"{rep['downlink_bytes_per_client']:.0f})")
+        if not (up == met["uplink_bytes_per_client"]
+                == rep["uplink_bytes_per_client"]
+                and down == met["downlink_bytes_per_client"]
+                == rep["downlink_bytes_per_client"]):
+            die("metered wire bytes differ from round_wire_report's")
+    fit_launches = dict(qr.LAUNCHES)
+    want = {"qz_sample_reconstruct_batched_fwd": 3 * FED_E * FED_ROUNDS,
+            "qz_reconstruct_batched_bwd_plan": 3 * FED_E * FED_ROUNDS,
+            "qz_sample_pack_batched_fwd": 3 * FED_ROUNDS,
+            "qz_sample_reconstruct_fwd": 0}
+    say(f"train: launches in {FED_ROUNDS} rounds {fit_launches}, expected "
+        f"{want}")
+    if fit_launches != want or any(qz_decode.LAUNCHES.values()):
+        die("training launch counts differ from 3E per round (forward, "
+            "backward) and 3 per round (upload)")
+    qr.reset_launches()
+    acc1, std1 = evaluate(zspecs, state, acc_fn, eval_words, carried="u8",
+                          device=dev)
+    eval_launches = dict(qr.LAUNCHES)
+    say(f"train: sampled accuracy after: {acc1:.4f} +- {std1:.4f} "
+        f"({EVAL_NETS} networks); evaluation launches {eval_launches}")
+    if (eval_launches["qz_sample_reconstruct_fwd"] != 3 * EVAL_NETS
+            or sum(eval_launches.values()) != 3 * EVAL_NETS):
+        die("evaluation must launch the K=1 kernel 3 times per network")
+    med = float(np.median(round_s[1:]))
+    say(f"train: losses {losses}; round times {[round(t, 4) for t in round_s]}"
+        f" s; median round (rounds 1-{FED_ROUNDS - 1}) {med:.4f} s, "
+        f"{1e3 * med / FED_E:.3f} ms per local step (K={FED_K} clients, "
+        f"3 forward + 3 backward launches each) on {card}")
+    if not losses[-1] < losses[0]:
+        die(f"the loss did not fall: {losses}")
+    if not acc1 > acc0:
+        die(f"sampled accuracy did not rise: {acc0} -> {acc1}")
+
+    qr.reset_launches()
+    ref_state, ref_met = federated_round(
+        zspecs, state0, mlp_loss, batches[0], round_words[0], cfg,
+        round_index=0, impl="ref", device=dev)
+    torch.cuda.synchronize()
+    same_words = all(torch.equal(ref_state["scores"][p], state_r0["scores"][p])
+                     for p in specs)
+    same_dense = all(torch.equal(ref_state["dense"][p], state_r0["dense"][p])
+                     for p in zspecs.dense_paths)
+    same_loss = torch.equal(ref_met["loss"], loss_r0)
+    say(f"train: round 0 on the plain path: u8 words bitwise={same_words}, "
+        f"dense bitwise={same_dense}, loss bitwise={same_loss} "
+        f"({float(ref_met['loss']):.9f}); kernel launches "
+        f"{sum(qr.LAUNCHES.values())}")
+    if not (same_words and same_dense and same_loss) or any(
+            qr.LAUNCHES.values()):
+        die("round 0 through the kernels differs from the plain path")
+    say(f"phase 7 done in {time.perf_counter() - t0:.1f} s")
+
+    # --- 8. kernel times at the main path's shapes -------------------------
+    t0 = time.perf_counter()
+    decoded = {p: u8.decode(s, state["scores"][p]) for p, s in specs.items()}
+    acc = {name: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                  "library_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
+                  "bound_ms": 0.0, "shapes": {}} for name in qr.LAUNCHES}
+    kernel_tag = {"qz_sample_reconstruct_batched_fwd":
+                  "sample_reconstruct_kernel",
+                  "qz_sample_reconstruct_fwd": "sample_reconstruct_kernel",
+                  "qz_reconstruct_batched_bwd_plan": "plan_bwd_kernel",
+                  "qz_sample_pack_batched_fwd": "sample_pack_kernel"}
+
+    def add(name, path, kernel, t_p, t_y, ops_n, bytes_n):
+        """One kernel at one leaf: CUDA-event ms per launch over 50
+        back-to-back launches, and its device ms per launch by
+        torch.profiler over 10."""
+        t_k = event_ms(kernel, 50)
+        by_tag, _ = profile_device_us(
+            lambda: [kernel() for _ in range(10)], (kernel_tag[name],))
+        us, n_l = by_tag[kernel_tag[name]]
+        t_d = 1e-3 * us / n_l if n_l else None  # no device trace: None
+        b, _ = _bound_ms(ops_n, bytes_n)
+        a = acc[name]
+        a["ms"] += t_k
+        a["device_ms"] = (a["device_ms"] + t_d
+                          if t_d is not None and a["device_ms"] is not None
+                          else None)
+        a["plain_ms"] += t_p
+        a["library_ms"] += t_y if t_y is not None else 0.0
+        a["ops_ms"] += 1e3 * ops_n / PEAK_OPS_PER_S
+        a["bytes_ms"] += 1e3 * bytes_n / PEAK_BYTES_PER_S
+        a["bound_ms"] += b
+        a["shapes"][path] = {"ms": t_k, "device_ms": t_d, "plain_ms": t_p,
+                             "library_ms": t_y, "bound_ms": b, "ops": ops_n,
+                             "bytes": bytes_n}
+        say(f"time: {name} {path}: kernel {t_k:.4f} ms (device "
+            f"{'not measured' if t_d is None else f'{t_d:.4f} ms'}), plain "
+            f"{t_p:.3f} ms, "
+            + (f"torch.sparse.mm {t_y:.4f} ms, " if t_y is not None else "")
+            + f"bound {b:.5f} ms ({card})")
+
+    for path, spec in specs.items():
+        m, n, d = spec.m, spec.n, spec.d
+        gidx, vals = row_plan(spec, dev)
+        cols, qv = gidx[:m].reshape(-1), vals[:m].reshape(-1)
+        rows_q = torch.arange(m, device=dev).repeat_interleave(d)
+        Q = torch.sparse_coo_tensor(
+            torch.stack([rows_q, cols]), qv, (m, n),
+            check_invariants=False).coalesce().to_sparse_csr()
+        QT = torch.sparse_coo_tensor(
+            torch.stack([cols, rows_q]), qv, (n, m),
+            check_invariants=False).coalesce().to_sparse_csr()
+        P = decoded[path].expand(FED_K, n).contiguous()
+        steps = words_k(FED_K)
+        Z = sample_mask_hash(P, spec.seed, spec.tensor_id, steps)
+        bits = Z[:, gidx[:m]] > 0  # (K, m, d): this run's draws
+        drawn, any_drawn = float(bits.sum()), float(bits.any(0).sum())
+        row_ops = m * OPS_PER_WEIGHT + m * d * OPS_ROW_EDGE
+        Zt = Z.t().contiguous()
+        add("qz_sample_reconstruct_batched_fwd", path,
+            lambda: qr.qz_sample_reconstruct_batched_fwd(spec, P, steps),
+            event_ms(lambda: ops.sample_reconstruct_plain(spec, P, steps), 3),
+            event_ms(lambda: torch.sparse.mm(Q, Zt), 50),
+            row_ops + any_drawn * OPS_VALUE + FED_K * m * d * OPS_DRAW
+            + drawn, FED_K * (4 * n + 4 * m) + 4 * FED_K)
+        q = state["scores"][path]
+        s1 = steps[:1]
+        z1 = sample_mask_qhash(q[None], 8, spec.seed, spec.tensor_id, s1)
+        b1 = z1[:, gidx[:m]] > 0
+        z1t = z1.t().contiguous()
+        add("qz_sample_reconstruct_fwd", path,
+            lambda: qr.qz_sample_reconstruct_fwd(spec, q, s1, 8),
+            event_ms(lambda: ops.sample_reconstruct_plain(spec, q[None], s1,
+                                                          8), 3),
+            event_ms(lambda: torch.sparse.mm(Q, z1t), 50),
+            row_ops + float(b1.sum()) * (OPS_VALUE + 1) + m * d * OPS_DRAW,
+            n + 4 * m + 4)
+        G = torch.from_numpy(rng.randn(FED_K, m).astype(np.float32)).to(dev)
+        Gt = G.t().contiguous()
+        plan = build_transpose_plan(spec, dev)
+        add("qz_reconstruct_batched_bwd_plan", path,
+            lambda: qr.qz_reconstruct_batched_bwd_plan(spec, G),
+            event_ms(lambda: ops.plan_bwd_plain(spec, G), 3),
+            event_ms(lambda: torch.sparse.mm(QT, Gt), 50),
+            2.0 * FED_K * m * d,
+            8 * n * plan.deg + 4 * FED_K * (m + n))
+        add("qz_sample_pack_batched_fwd", path,
+            lambda: qr.qz_sample_pack_batched_fwd(spec, P, steps),
+            event_ms(lambda: ops.sample_pack_plain(spec, P, steps), 3),
+            None, FED_K * n * (OPS_DRAW + OPS_PACK),
+            FED_K * (4 * n + 8 * packed_len(n)) + 4 * FED_K)
+
+    meta = {
+        "qz_sample_reconstruct_batched_fwd": (
+            "src/repro/kernels/qz_reconstruct.py:553", fit_launches, FED_E,
+            "one round: E launches per zampled leaf, K=10",
+            "torch.sparse.mm(Q_csr, Z^T) on the drawn masks (no draw)"),
+        "qz_sample_reconstruct_fwd": (
+            "src/repro/kernels/qz_reconstruct.py:507", eval_launches, 1,
+            "one sampled network off the u8 carry: 1 launch per leaf",
+            "torch.sparse.mm(Q_csr, z) on the drawn mask (no draw)"),
+        "qz_reconstruct_batched_bwd_plan": (
+            "src/repro/kernels/qz_reconstruct.py:396", fit_launches, FED_E,
+            "one round: E launches per zampled leaf, K=10",
+            "torch.sparse.mm(Q^T_csr, G^T)"),
+        "qz_sample_pack_batched_fwd": (
+            "src/repro/kernels/qz_reconstruct.py:621", fit_launches, 1,
+            "one round: 1 launch per zampled leaf, K=10", None),
+    }
+    rows = []
+    for name, (replaces, launch_src, times, per, lib) in meta.items():
+        a = acc[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/qz_reconstruct.cu",
+            "replaces": replaces, "launches": launch_src[name],
+            "max_abs_err": max_err[name], "ms": times * a["ms"],
+            "device_ms": (None if a["device_ms"] is None
+                          else times * a["device_ms"]),
+            "plain_ms": times * a["plain_ms"],
+            "bound_ms": times * a["bound_ms"],
+            "bound_by": ("operations" if a["ops_ms"] >= a["bytes_ms"]
+                         else "bytes"),
+            "library_ms": times * a["library_ms"] if lib else None,
+            "library_call": lib, "per": per, "shapes": a["shapes"],
+        })
+        dms = rows[-1]["device_ms"]
+        say(f"time: {name} per {per}: kernel {rows[-1]['ms']:.4f} ms "
+            f"(device {'not measured' if dms is None else f'{dms:.4f} ms'})"
+            f", bound "
+            f"{rows[-1]['bound_ms']:.5f} ms ({rows[-1]['bound_by']}), plain "
+            f"{rows[-1]['plain_ms']:.2f} ms"
+            + (f", {lib} {rows[-1]['library_ms']:.4f} ms" if lib else "")
+            + f" ({card})")
+    k_round = sum(r["ms"] for r in rows
+                  if r["name"] != "qz_sample_reconstruct_fwd")
+    say(f"share: training kernel time per round (CUDA events) / median round "
+        f"time: {k_round:.3f} / {1e3 * med:.3f} ms = "
+        f"{k_round / (1e3 * med):.4f} ({card})")
+
+    # device time by kernel, by torch.profiler over one more round and
+    # one evaluation; CUDA-event times above include the host's launch
+    # cost between back-to-back calls
+    tags = {"qz_sample_reconstruct_batched_fwd": "sample_reconstruct_kernel",
+            "qz_reconstruct_batched_bwd_plan": "plan_bwd_kernel",
+            "qz_sample_pack_batched_fwd": "sample_pack_kernel"}
+    by_tag, dev_us = profile_device_us(
+        lambda: federated_round(zspecs, state, mlp_loss, batches[-1],
+                                round_words[-1], cfg,
+                                round_index=FED_ROUNDS, device=dev),
+        tuple(tags.values()))
+    ev_tag, ev_us = profile_device_us(
+        lambda: evaluate(zspecs, state, acc_fn, eval_words, carried="u8",
+                         device=dev), ("sample_reconstruct_kernel",))
+    if dev_us <= 0:
+        say("profile: torch.profiler showed no device time; device times "
+            "not measured")
+    else:
+        for row in rows:
+            if row["name"] == "qz_sample_reconstruct_fwd":
+                us, n_l = ev_tag["sample_reconstruct_kernel"]
+                us /= EVAL_NETS
+            else:
+                us, n_l = by_tag[tags[row["name"]]]
+            row["device_ms_in_main_path"] = 1e-3 * us
+            say(f"profile: {row['name']}: device {1e-3 * us:.4f} ms per "
+                f"{row['per'].split(':')[0]} in the main path's run "
+                f"({n_l} launches) ({card})")
+        say(f"profile: one round: all kernels {1e-3 * dev_us:.3f} ms of "
+            f"device time; busy share over the median round "
+            f"{1e-3 * dev_us / (1e3 * med):.4f}; training kernels "
+            f"{1e-3 * sum(v[0] for v in by_tag.values()):.3f} ms; one "
+            f"evaluation of {EVAL_NETS} networks {1e-3 * ev_us:.3f} ms "
+            f"({card})")
+    say(f"phase 8 done in {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -94,7 +547,7 @@ def main() -> None:
 
     from repro_torch.configs import get_arch
     from repro_torch.core.zampling import ZamplingConfig, build_specs
-    from repro_torch.kernels import ops, qz_decode
+    from repro_torch.kernels import nvcc, ops, qz_decode, qz_reconstruct
     from repro_torch.models.model import build_model, param_template
     from repro_torch.serve import (ServeConfig, ServeScheduler,
                                    make_serve_state, serve_generate)
@@ -115,12 +568,16 @@ def main() -> None:
 
     # --- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    qz_decode.build()
-    say(f"build: qz_decode.cu in {time.perf_counter() - t0:.1f} s, nvcc "
-        f"{' '.join(qz_decode.NVCC_FLAGS)}")
-    for line in qz_decode.BUILD_LOG.splitlines():
-        if any(w in line for w in ("registers", "spill", "Compiling entry")):
-            say(f"build: ptxas: {line.strip()}")
+    libs = (qz_decode.LIBRARY, qz_reconstruct.LIBRARY)
+    nvcc.build_all(libs)
+    say(f"build: {', '.join(lib.source for lib in libs)} in "
+        f"{time.perf_counter() - t0:.1f} s (one nvcc each, in parallel), "
+        f"nvcc {' '.join(nvcc.NVCC_FLAGS)}")
+    for lib in libs:
+        for line in lib.log.splitlines():
+            if any(w in line for w in ("registers", "spill",
+                                       "Compiling entry")):
+                say(f"build: {lib.source}: ptxas: {line.strip()}")
 
     # --- the full-width serving state -------------------------------------
     cfg = get_arch("qwen2-0.5b")
@@ -262,6 +719,7 @@ def main() -> None:
     torch.cuda.synchronize()
     rids = [sched.submit(p) for p in PROMPTS]
     qz_decode.reset_launches()
+    qz_reconstruct.reset_launches()
     step_ms = []
     while sched.pending:
         t0 = time.perf_counter()
@@ -275,6 +733,8 @@ def main() -> None:
     torch.cuda.synchronize()
     t_single = time.perf_counter() - t0
     launches = dict(qz_decode.LAUNCHES)
+    if any(qz_reconstruct.LAUNCHES.values()):
+        die(f"serving launched training kernels: {qz_reconstruct.LAUNCHES}")
     single_steps = len(PROMPTS[0]) + NEW_TOKENS - 1
     per_step = 7 * L + 1
     for rid, prompt in zip(rids, PROMPTS):
@@ -388,7 +848,12 @@ def main() -> None:
         f"{rows[0]['ms']:.3f} / {med:.3f} ms = {rows[0]['ms'] / med:.3f}, "
         f"single request {rows[1]['ms']:.3f} / {single_ms:.3f} ms = "
         f"{rows[1]['ms'] / single_ms:.3f} ({card})")
+    del sstate, sched, eng, model
+    torch.cuda.empty_cache()
+
+    rows += training_phases(card, dev)
     say(f"card: {card}")
+    say(f"total: {time.perf_counter() - T_START:.1f} s for the whole run")
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -14,7 +14,7 @@ at a boundary.  The packed sub-byte codecs are not ported yet.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
@@ -31,6 +31,11 @@ class DownlinkCodec:
     wire_dtype = torch.float32
     quantized: bool = False
     packed: bool = False
+
+    def downlink_bits_per_client(self, n: int) -> int:
+        """Exact bits the server puts on the wire per client for an
+        n-coordinate score broadcast."""
+        return self.bits * n
 
     def encode(self, spec, scores: torch.Tensor, word) -> torch.Tensor:
         raise NotImplementedError
@@ -96,6 +101,22 @@ _REGISTRY: Dict[str, DownlinkCodec] = {
                         QuantizedDown("u8", 8, torch.uint8))
 }
 _LATER = ("packed4", "packed2", "u4", "u2")
+
+
+def codec_names() -> List[str]:
+    """The ported codecs' names (the packed ones come later)."""
+    return sorted(_REGISTRY)
+
+
+def codec_for_dtype(dtype: torch.dtype) -> DownlinkCodec:
+    """The codec whose wire leaves carry ``dtype``: floating leaves are
+    f32 scores, uint8/uint16 the u8/u16 words."""
+    if dtype.is_floating_point:
+        return _REGISTRY["f32"]
+    for codec in _REGISTRY.values():
+        if codec.quantized and codec.wire_dtype == dtype:
+            return codec
+    raise ValueError(f"no downlink codec carries dtype {dtype}")
 
 
 def get_codec(name: str) -> DownlinkCodec:

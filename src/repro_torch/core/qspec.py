@@ -55,6 +55,25 @@ class QSpec:
     def compression(self) -> float:
         return self.m / self.n
 
+    # --- layout: rows grouped into shard_count contiguous blocks, the
+    # tensor flattened with major_axis moved to the front
+    @property
+    def m_blk(self) -> int:
+        return self.m // self.shard_count
+
+    @property
+    def nw_loc(self) -> int:
+        return self.num_windows // self.shard_count
+
+    @property
+    def m_pad_loc(self) -> int:
+        return self.nw_loc * self.rows_per_window
+
+    @property
+    def moved_shape(self) -> tuple:
+        a = self.major_axis
+        return (self.shape[a], *self.shape[:a], *self.shape[a + 1:])
+
 
 def make_qspec(tensor_id: int, shape, fan_in: int, *,
                compression: float = 32.0, d: int = 8, window: int = 512,
@@ -87,6 +106,19 @@ def make_qspec(tensor_id: int, shape, fan_in: int, *,
                  num_windows=num_windows, rows_per_window=rows_per_window,
                  m_pad=m_pad, fan_in=int(fan_in), seed=int(seed),
                  major_axis=major_axis, shard_count=shard_count)
+
+
+def padded_row_window(spec: QSpec, rp: torch.Tensor) -> torch.Tensor:
+    """Padded row id -> global window id (shard-block aware), int64."""
+    blk = rp // spec.m_pad_loc
+    loc = rp % spec.m_pad_loc
+    return blk * spec.nw_loc + torch.clamp(loc // spec.rows_per_window,
+                                           max=spec.nw_loc - 1)
+
+
+def padded_row_valid(spec: QSpec, rp: torch.Tensor) -> torch.Tensor:
+    """True where a padded row id maps to a real weight."""
+    return (rp % spec.m_pad_loc) < spec.m_blk
 
 
 def row_state(spec: QSpec, rows: torch.Tensor) -> torch.Tensor:

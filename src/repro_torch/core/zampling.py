@@ -9,14 +9,25 @@ every hash stream, so the port must number leaves in that same order.
 Scores come in from outside (numpy arrays, a JAX state through
 ``repro_torch.convert``); the JAX package's ``init_state`` draws them
 with ``jax.random``, which has no torch twin.
+
+``MaskProgram`` is the mask lifecycle of ``mode="sample"`` with the
+draw fused into the kernels: scores in, weights or upload lanes out
+(``kernels.ops``).  A score leaf of shape (n,) is one client with one
+draw word; (K, n) is K clients with K draw words, which is how the
+federated round calls it (the JAX package vmaps a single client).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, NamedTuple, Tuple
+from typing import Any, Callable, Dict, Iterator, NamedTuple, Optional, Tuple
 
+import torch
+
+from ..device import as_tensor, resolve_device
 from .qspec import QSpec, make_qspec
+from .sampling import as_word, as_words, clip_probs, sample_mask_hash
 
 
 class LeafSpec(NamedTuple):
@@ -56,6 +67,10 @@ class ZamplingSpecs:
     @property
     def n_total(self) -> int:
         return sum(s.n for s in self.specs.values())
+
+    @property
+    def dense_total(self) -> int:
+        return sum(math.prod(self.template[p].shape) for p in self.dense_paths)
 
 
 def _as_leaf(leaf) -> LeafSpec:
@@ -133,3 +148,185 @@ def build_specs(template: dict, config: ZamplingConfig,
             dense.append(path)
     return ZamplingSpecs(specs=specs, dense_paths=tuple(dense),
                          template=flat, config=config)
+
+
+# ---------------------------------------------------------------------------
+# State on a device, and the codec a score dict carries
+# ---------------------------------------------------------------------------
+
+def state_to(zspecs: ZamplingSpecs, state, device) -> Dict[str, Any]:
+    """``{"scores": {path: (n,) scores or wire words}, "dense": {path:
+    f32 leaf}}`` from numpy arrays or tensors, on ``device``; any other
+    key of ``state`` is left out."""
+    return {"scores": {p: as_tensor(state["scores"][p], device)
+                       for p in zspecs.specs},
+            "dense": {p: as_tensor(state["dense"][p], device, torch.float32)
+                      for p in zspecs.dense_paths}}
+
+
+def infer_downlink(scores) -> str:
+    """The codec a score dict carries, from its leaves' dtypes."""
+    from ..comm.downlink import codec_for_dtype  # comm sits above core
+
+    names = {codec_for_dtype(v.dtype).name for v in scores.values()}
+    if len(names) > 1:
+        raise ValueError(f"score leaves mix downlink codecs {sorted(names)}")
+    return names.pop() if names else "f32"
+
+
+def validate_carried(zspecs: ZamplingSpecs, scores, carried: str) -> str:
+    """Check an explicit codec tag against the leaves' dtype and length;
+    returns the codec's name."""
+    from ..comm.downlink import get_codec
+
+    codec = get_codec(carried)
+    for path, spec in zspecs.specs.items():
+        leaf = scores[path]
+        if codec.quantized:
+            ok = leaf.dtype == codec.wire_dtype and leaf.shape[-1] == spec.n
+        else:
+            ok = leaf.dtype.is_floating_point
+        if not ok:
+            raise ValueError(
+                f"score leaf {path!r} (dtype {leaf.dtype}, trailing dim "
+                f"{leaf.shape[-1]}) cannot carry the tagged codec "
+                f"{codec.name!r} (n={spec.n})")
+    return codec.name
+
+
+def resolve_carried(zspecs: ZamplingSpecs, scores,
+                    carried: Optional[str] = None) -> str:
+    """An explicit tag, validated; else the codec the dtypes name."""
+    if carried is not None:
+        return validate_carried(zspecs, scores, carried)
+    return infer_downlink(scores)
+
+
+# ---------------------------------------------------------------------------
+# The mask program
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MaskProgram:
+    """The configured mask lifecycle over a spec set: ``mode="sample"``
+    with the draw fused into the kernels (``kernels.ops``).  ``packed``
+    picks the upload's form: uint32 wire lanes, or the f32 {0,1} mask.
+    ``downlink`` names the codec of the server's broadcast; the
+    ``*_from_wire`` path draws straight from its u8/u16 words."""
+
+    zspecs: ZamplingSpecs
+    mode: str = "sample"
+    fused: bool = True
+    packed: bool = False
+    downlink: str = "f32"
+    impl: Optional[str] = None  # kernels.ops impl override
+
+    def __post_init__(self):
+        if self.mode != "sample":
+            raise NotImplementedError(
+                f"mask mode {self.mode!r}: the port runs mode='sample'; "
+                "continuous and discretize come with a later slice")
+        if not self.fused:
+            raise NotImplementedError(
+                "the composed mask path (explicit draw, then the "
+                "qz_reconstruct_fwd kernels) comes with a later slice")
+
+    @property
+    def codec(self):
+        from ..comm.downlink import get_codec  # comm sits above core
+
+        return get_codec(self.downlink)
+
+    def _wire_words(self, wire_scores, path: str) -> torch.Tensor:
+        codec = self.codec
+        q = wire_scores[path]
+        if q.dtype != codec.wire_dtype:
+            raise ValueError(
+                f"score leaf {path!r} has dtype {q.dtype}, but downlink "
+                f"codec {codec.name!r} carries {codec.wire_dtype}; encode "
+                "the state first (core.federated.encode_state)")
+        return q
+
+    def decode_scores(self, wire_scores) -> Dict[str, torch.Tensor]:
+        """Encoded broadcast -> the client's f32 trainable scores
+        (the same tensors under the ``f32`` codec)."""
+        codec = self.codec
+        if not codec.quantized:
+            return dict(wire_scores)
+        return {path: codec.decode(spec, self._wire_words(wire_scores, path))
+                for path, spec in self.zspecs.specs.items()}
+
+    def weights(self, scores, dense, steps) -> Dict[str, torch.Tensor]:
+        """{path: leaf} of one forward pass: a fresh draw at ``steps``
+        (a word for (n,) scores, K words for (K, n) scores)."""
+        from ..kernels import ops  # kernels sit above core
+
+        leaves = {}
+        for path, spec in self.zspecs.specs.items():
+            p = clip_probs(scores[path])
+            op = (ops.sample_reconstruct_batched if p.ndim == 2
+                  else ops.sample_reconstruct)
+            leaves[path] = op(spec, p, steps, impl=self.impl)
+        leaves.update({path: dense[path] for path in self.zspecs.dense_paths})
+        return leaves
+
+    def upload(self, scores, steps) -> Dict[str, torch.Tensor]:
+        """The end-of-round upload: fresh gradient-free bits at
+        ``steps``, as wire lanes when ``packed``, else f32 masks."""
+        from ..kernels import ops
+
+        out = {}
+        for path, spec in self.zspecs.specs.items():
+            p = clip_probs(scores[path].detach())
+            if self.packed:
+                op = (ops.sample_pack_batched if p.ndim == 2
+                      else ops.sample_pack)
+                out[path] = op(spec, p, steps, impl=self.impl)
+            else:
+                words = (as_words(steps, p.device) if p.ndim == 2
+                         else as_word(steps))
+                out[path] = sample_mask_hash(p, spec.seed, spec.tensor_id,
+                                             words)
+        return out
+
+    def weights_from_wire(self, wire_scores, dense,
+                          steps) -> Dict[str, torch.Tensor]:
+        """One forward pass drawn straight from the encoded broadcast:
+        the u8/u16 threshold compare in the kernel, no f32 scores.
+        Gradient-free; training decodes first (``decode_scores``)."""
+        codec = self.codec
+        if not codec.quantized:
+            return self.weights(wire_scores, dense, steps)
+        from ..kernels import ops
+
+        leaves = {}
+        for path, spec in self.zspecs.specs.items():
+            q = self._wire_words(wire_scores, path)
+            op = (ops.sample_reconstruct_batched if q.ndim == 2
+                  else ops.sample_reconstruct)
+            leaves[path] = op(spec, q, steps, qbits=codec.bits,
+                              impl=self.impl)
+        leaves.update({path: dense[path] for path in self.zspecs.dense_paths})
+        return leaves
+
+
+def sample_weights(zspecs: ZamplingSpecs, state, key, *,
+                   mode: Optional[str] = None,
+                   downlink: Optional[str] = None,
+                   carried: Optional[str] = None,
+                   impl: Optional[str] = None,
+                   device="cuda") -> Dict[str, torch.Tensor]:
+    """One fresh sampled network, {path: leaf}, at the draw word
+    ``key``.  ``state["scores"]`` holds f32 scores or a codec's wire
+    words (``carried`` names the codec; without it the dtypes do); an
+    explicit ``downlink`` must agree with what the state carries."""
+    from ..comm.downlink import get_codec
+
+    st = state_to(zspecs, state, resolve_device(device))
+    resolved = resolve_carried(zspecs, st["scores"], carried)
+    if downlink is not None and get_codec(downlink).name != resolved:
+        raise ValueError(f"downlink={downlink!r} does not match the state's "
+                         f"score representation ({resolved!r})")
+    program = MaskProgram(zspecs, mode=mode or zspecs.config.mode,
+                          downlink=resolved, impl=impl)
+    return program.weights_from_wire(st["scores"], st["dense"], as_word(key))

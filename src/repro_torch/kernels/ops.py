@@ -1,13 +1,28 @@
-"""Streaming serve ops: y = x @ W_g with W_g never materialized whole.
+"""The reconstruction ops: training (fused sample-reconstruct, upload
+pack) and streaming serve (y = x @ W_g with W_g never materialized).
 
-The serve half of the JAX package's ``kernels/ops.py``.  Every zampled
-linear of the serving engine calls ``serve_matmul`` (or
-``serve_matvec`` at B=1); each regenerates the group's Q edges, draws
-the mask bits straight from the encoded score words, and contracts
-against the activations.
+TRAINING HALF (the JAX package's ``kernels/ops.py:143-811``, what the
+federated round needs).  ``sample_reconstruct_batched`` is
+``W_k = Q Bern(P_k)`` for K stacked clients as a
+``torch.autograd.Function``: the forward draws the masks inside the op
+(CUDA kernel 8, ``qz_sample_reconstruct_batched_fwd``; kernel 7 at
+K=1), the backward is the straight-through ``grad_P = Q^T grad_W`` over
+the canonical transpose plan (kernel 6), and the draw words get no
+gradient.  With ``qbits`` the operand is the u8/u16 downlink words and
+the op has no gradient.  ``sample_pack_batched`` draws the upload and
+emits wire lanes (kernel 10); a spec with ``window % 32 != 0`` takes
+the plain path, as the JAX package's does.  Impl dispatch: ``"cuda"``
+(the kernels) or ``"ref"`` (the plain torch versions below), by the
+argument, else ``REPRO_RECONSTRUCT_IMPL``, else the tensor's device;
+``"cuda"`` on a CPU tensor raises.  The round calls the batched ops
+directly: there are no vmap rules to install.
 
-Impl dispatch: ``"cuda"`` is the CUDA kernel (``kernels.qz_decode``),
-``"chunked"`` the plain torch path below.  With no impl given (and no
+SERVE HALF.  Every zampled linear of the serving engine calls
+``serve_matmul`` (or ``serve_matvec`` at B=1); each regenerates the
+group's Q edges, draws the mask bits straight from the encoded score
+words, and contracts against the activations.  Impl dispatch:
+``"cuda"`` is the CUDA kernel (``kernels.qz_decode``), ``"chunked"``
+the plain torch path below.  With no impl given (and no
 ``REPRO_SERVE_IMPL`` override) a CUDA tensor goes to the kernel and a
 CPU tensor to the plain path; ``"cuda"`` on a CPU tensor raises.
 
@@ -36,16 +51,179 @@ from typing import Optional
 
 import torch
 
+from ..comm.bitpack import pack_mask
 from ..core.hashrng import bernoulli_u32
 from ..core.qspec import QSpec, row_indices, row_values
-from ..core.sampling import mask_u32, quant_threshold_u24, as_word
+from ..core.reconstruct import (_insert_padding_batched,
+                                _select_valid_batched, _unmove_batched,
+                                plan_apply_batched)
+from ..core.sampling import (as_word, as_words, mask_u32,
+                              quant_threshold_u24, sample_mask_hash,
+                              sample_mask_qhash, word_values)
+from ..core.transpose_plan import resolve_bwd_path, row_plan
 
 SERVE_BM = 256
 VALID_SERVE_IMPLS = ("chunked", "cuda")
+VALID_IMPLS = ("ref", "cuda")
 
 # edges regenerated at once by the plain path (bounds its temporaries)
 _CHUNK_EDGES = 1 << 22
 
+
+# ---------------------------------------------------------------------------
+# Training half
+# ---------------------------------------------------------------------------
+
+def resolve_impl(impl: Optional[str], x: torch.Tensor) -> str:
+    """The impl a training op runs: the argument, else
+    ``REPRO_RECONSTRUCT_IMPL``, else the kernels for a CUDA tensor and
+    the plain path for a CPU one."""
+    impl = impl or os.environ.get("REPRO_RECONSTRUCT_IMPL")
+    if impl is None:
+        return "cuda" if x.is_cuda else "ref"
+    if impl not in VALID_IMPLS:
+        raise ValueError(f"unknown reconstruction impl {impl!r}; valid "
+                         f"impls: {', '.join(VALID_IMPLS)}")
+    if impl == "cuda" and not x.is_cuda:
+        raise ValueError("reconstruction impl 'cuda' needs CUDA tensors; "
+                         f"got a tensor on {x.device}")
+    return impl
+
+
+def _draw(spec: QSpec, P: torch.Tensor, steps: torch.Tensor, qbits):
+    if qbits is None:
+        return sample_mask_hash(P, spec.seed, spec.tensor_id, steps)
+    return sample_mask_qhash(P, qbits, spec.seed, spec.tensor_id, steps)
+
+
+def sample_reconstruct_plain(spec: QSpec, P: torch.Tensor, steps,
+                             qbits: Optional[int] = None) -> torch.Tensor:
+    """The plain torch version of kernels 8 and 7: (K, n) operand + (K,)
+    draw words -> W (K, m) in moved flat order.  Each row sums, in
+    ascending k, its edge value where the client drew a 1 and +0.0
+    elsewhere, as the kernel does."""
+    steps = as_words(steps, P.device).reshape(-1)
+    bits = _draw(spec, P, steps, qbits) > 0  # (K, n)
+    gidx, vals = row_plan(spec, P.device)
+    bg = bits[:, gidx]  # (K, m_pad, d)
+    acc = torch.where(bg[..., 0], vals[:, 0], 0.0)
+    for k in range(1, spec.d):
+        acc = acc + torch.where(bg[..., k], vals[:, k], 0.0)
+    return _select_valid_batched(spec, acc)
+
+
+def plan_bwd_plain(spec: QSpec, G: torch.Tensor) -> torch.Tensor:
+    """The plain torch version of kernel 6: (K, m) cotangents in moved
+    flat order -> (K, n) over the canonical transpose plan."""
+    return plan_apply_batched(
+        spec, _insert_padding_batched(spec, G.to(torch.float32)))
+
+
+def sample_pack_plain(spec: QSpec, P: torch.Tensor, steps) -> torch.Tensor:
+    """The plain torch version of kernel 10: (K, n) probabilities ->
+    (K, ceil(n/32)) upload lanes."""
+    steps = as_words(steps, P.device).reshape(-1)
+    return pack_mask(sample_mask_hash(P, spec.seed, spec.tensor_id, steps))
+
+
+def _fwd_many(spec, P, steps, impl, qbits, single=False):
+    if impl == "ref":
+        return sample_reconstruct_plain(spec, P, steps, qbits)
+    from . import qz_reconstruct
+
+    if single:
+        return qz_reconstruct.qz_sample_reconstruct_fwd(
+            spec, P[0], steps, qbits)[None]
+    return qz_reconstruct.qz_sample_reconstruct_batched_fwd(spec, P, steps,
+                                                            qbits)
+
+
+def _bwd_many(spec, G, impl):
+    resolve_bwd_path()
+    if impl == "ref":
+        return plan_bwd_plain(spec, G)
+    from . import qz_reconstruct
+
+    return qz_reconstruct.qz_reconstruct_batched_bwd_plan(spec, G)
+
+
+class _SampleReconstruct(torch.autograd.Function):
+    """W = Q Bern(P), straight-through: grad_P = Q^T grad_W."""
+
+    @staticmethod
+    def forward(ctx, P, steps, spec, impl, single):
+        ctx.spec, ctx.impl = spec, impl
+        return _fwd_many(spec, P, steps, impl, None, single)
+
+    @staticmethod
+    def backward(ctx, gW):
+        return (_bwd_many(ctx.spec, gW.contiguous(), ctx.impl), None, None,
+                None, None)
+
+
+def _sample_reconstruct(spec, P, steps, qbits, impl, single):
+    if P.ndim != 2 or P.shape[-1] != spec.n:
+        raise ValueError(f"operand has shape {tuple(P.shape)}, spec "
+                         f"expects (K, {spec.n})")
+    impl = resolve_impl(impl, P)
+    steps = as_words(steps, P.device).reshape(-1)
+    if qbits is not None:
+        W = _fwd_many(spec, P.contiguous(), steps, impl, int(qbits), single)
+    else:
+        W = _SampleReconstruct.apply(P.to(torch.float32).contiguous(), steps,
+                                     spec, impl, single)
+    return _unmove_batched(spec, W)
+
+
+def sample_reconstruct_batched(spec: QSpec, P: torch.Tensor, steps, *,
+                               qbits: Optional[int] = None,
+                               impl: Optional[str] = None) -> torch.Tensor:
+    """Fused W_k = Q Bern(P_k) for K stacked clients: P (K, n) clipped
+    probabilities + (K,) draw words -> (K, *spec.shape) f32.
+
+    Differentiable in P (straight-through); chain through
+    ``clip_probs`` for the paper's gate.  With ``qbits`` P is the
+    (K, n) u8/u16 word slab and the draw is the threshold compare."""
+    return _sample_reconstruct(spec, P, steps, qbits, impl, False)
+
+
+def sample_reconstruct(spec: QSpec, p: torch.Tensor, step, *,
+                       qbits: Optional[int] = None,
+                       impl: Optional[str] = None) -> torch.Tensor:
+    """Fused w = Q Bern(p) for one client: (n,) + a draw word ->
+    spec.shape f32.  Kernel 7 (the batched kernel at K=1) forward; the
+    backward is kernel 6 at K=1."""
+    return _sample_reconstruct(spec, p[None], step, qbits, impl, True)[0]
+
+
+def sample_pack_batched(spec: QSpec, P: torch.Tensor, steps, *,
+                        impl: Optional[str] = None) -> torch.Tensor:
+    """Fused upload draw for K clients: P (K, n) probabilities + (K,)
+    draw words -> (K, ceil(n/32)) lanes (int64 holding uint32), equal
+    to ``pack_mask(sample_mask_hash(P, ...))``.  No gradient."""
+    if P.ndim != 2 or P.shape[-1] != spec.n:
+        raise ValueError(f"P has shape {tuple(P.shape)}, spec expects "
+                         f"(K, {spec.n})")
+    impl = resolve_impl(impl, P)
+    steps = as_words(steps, P.device).reshape(-1)
+    P = P.detach().to(torch.float32).contiguous()
+    # the kernel emits whole lanes per window, as the Pallas one does
+    if impl == "ref" or spec.window % 32 != 0:
+        return sample_pack_plain(spec, P, steps)
+    from . import qz_reconstruct
+
+    return qz_reconstruct.qz_sample_pack_batched_fwd(spec, P, steps)
+
+
+def sample_pack(spec: QSpec, p: torch.Tensor, step, *,
+                impl: Optional[str] = None) -> torch.Tensor:
+    """Fused upload draw for one client: (n,) -> (ceil(n/32),) lanes."""
+    return sample_pack_batched(spec, p[None], step, impl=impl)[0]
+
+
+# ---------------------------------------------------------------------------
+# Serve half
+# ---------------------------------------------------------------------------
 
 def resolve_serve_impl(impl: Optional[str], x: torch.Tensor) -> str:
     """The impl a call runs: the argument, else ``REPRO_SERVE_IMPL``,
@@ -112,14 +290,6 @@ def serve_operand(words: torch.Tensor, qbits: Optional[int]) -> torch.Tensor:
     return words
 
 
-def words_as_int(words: torch.Tensor) -> torch.Tensor:
-    """uint8/uint16 words as int32 values (uint16 through an int16
-    view: torch's CUDA kernels take few ops on uint16)."""
-    if words.dtype == torch.uint16:
-        return words.view(torch.int16).to(torch.int32) & 0xFFFF
-    return words.to(torch.int32)
-
-
 def serve_edge_bits(spec: QSpec, p: torch.Tensor, step,
                     rows: torch.Tensor, qbits: Optional[int]) -> torch.Tensor:
     """The mask bit (float32 0/1, ``(..., d)``) of each Q edge of the
@@ -131,7 +301,7 @@ def serve_edge_bits(spec: QSpec, p: torch.Tensor, step,
     u = mask_u32(spec.seed, spec.tensor_id, as_word(step), coords)
     if qbits is None:
         return bernoulli_u32(u, p[coords])
-    thr = quant_threshold_u24(words_as_int(p)[coords], qbits)
+    thr = quant_threshold_u24(word_values(p)[coords], qbits)
     return ((u >> 8) < thr).to(torch.float32)
 
 

@@ -16,31 +16,19 @@ launches in ``LAUNCHES``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Dict, Optional
 
 import torch
 
 from ..core.qspec import QSpec, sigma_f32
 from ..core.sampling import as_word
+from .nvcc import KernelLibrary, raise_on
 from .ops import SERVE_BM, serve_contract_plain
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("qz_decode.cu", "qz_common.cuh")
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
 MAX_BATCH = 128  # keeps the CTA's shared memory under 48 KB
 MAX_ROWS = 1 << 31  # the kernel's row arithmetic is uint32
 
 LAUNCHES: Dict[str, int] = {"qz_sample_matmul": 0, "qz_sample_matvec": 0}
-BUILD_LOG = ""
-_LIB: Optional[ctypes.CDLL] = None
 
 _KIND = {None: 0, 8: 1, 16: 2}
 _DTYPE = {None: torch.float32, 8: torch.uint8, 16: torch.uint16}
@@ -51,37 +39,7 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    path = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if not path.exists():
-        raise RuntimeError("nvcc not found: the serve kernel builds on a "
-                           "machine with the CUDA toolkit")
-    return str(path)
-
-
-def build() -> ctypes.CDLL:
-    """Compile (once per source digest) and load the kernel library."""
-    global _LIB, BUILD_LOG
-    if _LIB is not None:
-        return _LIB
-    digest = hashlib.sha256()
-    for name in SOURCES:
-        digest.update((CSRC / name).read_bytes())
-    out = BUILD_DIR / f"libqz_decode_{digest.hexdigest()[:16]}.so"
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / "qz_decode.cu")]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_LOG = (res.stdout + res.stderr).strip()
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{BUILD_LOG}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+def _bind(lib: ctypes.CDLL) -> None:
     P, I, U, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                   ctypes.c_float)
     lib.qz_serve_matmul.argtypes = [P, I, I, U, P, P, I, U, U, I, U, I, F,
@@ -90,8 +48,14 @@ def build() -> ctypes.CDLL:
     lib.qz_edges.argtypes = [P, I, I, U, P, I, U, U, I, U, I, F, P, P, P,
                              P, P]
     lib.qz_edges.restype = I
-    _LIB = lib
-    return lib
+
+
+LIBRARY = KernelLibrary("qz_decode.cu", ("qz_common.cuh",), _bind)
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source digest) and load the kernel library."""
+    return LIBRARY.load()
 
 
 def _check_words(spec: QSpec, p: torch.Tensor, qbits) -> None:
@@ -106,11 +70,6 @@ def _check_words(spec: QSpec, p: torch.Tensor, qbits) -> None:
                          f"{_DTYPE[qbits]}, got {tuple(p.shape)} {p.dtype}")
     if not p.is_contiguous():
         raise ValueError("score operand must be contiguous")
-
-
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
 
 
 def _launch(spec: QSpec, p, step, X, row_offset, d_in, d_out, qbits, bm):
@@ -135,7 +94,7 @@ def _launch(spec: QSpec, p, step, X, row_offset, d_in, d_out, qbits, bm):
         Y.data_ptr(), B, spec.seed & 0xFFFFFFFF, spec.tensor_id,
         spec.window, spec.rows_per_window, spec.d, sigma_f32(spec),
         row_offset, d_in, d_out, bm, stream)
-    _raise_on(rc, "qz_serve_matmul")
+    raise_on(rc, "qz_serve_matmul")
     return Y
 
 
@@ -193,6 +152,6 @@ def qz_edges(spec: QSpec, p: torch.Tensor, step, rows: torch.Tensor,
             spec.window, spec.rows_per_window, spec.d, sigma_f32(spec),
             idx.data_ptr(), bits.data_ptr(), vals.data_ptr(), w.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
-        _raise_on(rc, "qz_edges")
+        raise_on(rc, "qz_edges")
     return idx, bits, vals, w
 

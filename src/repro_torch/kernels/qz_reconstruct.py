@@ -1,0 +1,200 @@
+"""The federated round's CUDA kernels for Hopper (sm_90a), and wrappers.
+
+Replaces four Pallas kernels of the JAX package's
+``kernels/qz_reconstruct.py``:
+
+- ``qz_sample_reconstruct_batched_fwd`` (the round's forward) and
+  ``qz_sample_reconstruct_fwd`` (its K=1 entry: ``evaluate`` off the u8
+  carry) — one CUDA kernel, ``sample_reconstruct_kernel``;
+- ``qz_reconstruct_batched_bwd_plan`` (the round's backward) —
+  ``plan_bwd_kernel``;
+- ``qz_sample_pack_batched_fwd`` (the round's upload) —
+  ``sample_pack_kernel``.
+
+The source is ``csrc/qz_reconstruct.cu`` (design, bound and summation
+order are described there), built by ``kernels.nvcc`` at first use.
+Given CUDA tensors a wrapper launches its kernel, checks the launch and
+counts it in ``LAUNCHES``, or raises; nothing falls back.  Given CPU
+tensors it runs the kernel's plain torch version in ``kernels.ops``,
+which computes the same elementwise operations in the same order.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from ..core.qspec import QSpec, sigma_f32
+from ..core.transpose_plan import build_transpose_plan
+from .nvcc import KernelLibrary, raise_on
+
+MAX_D = 40  # a row's d edges sit in the CTA's shared memory
+MAX_K = 1024
+MAX_ROWS = 1 << 31  # row and coordinate arithmetic is uint32
+
+LAUNCHES: Dict[str, int] = {
+    "qz_sample_reconstruct_batched_fwd": 0,
+    "qz_sample_reconstruct_fwd": 0,
+    "qz_reconstruct_batched_bwd_plan": 0,
+    "qz_sample_pack_batched_fwd": 0,
+}
+
+_KIND = {None: 0, 8: 1, 16: 2}
+_DTYPE = {None: torch.float32, 8: torch.uint8, 16: torch.uint16}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    P, I, U, L, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                     ctypes.c_longlong, ctypes.c_float)
+    lib.qz_sample_reconstruct.argtypes = [P, I, I, P, I, L, U, U, U, I, U,
+                                          I, F, P, P]
+    lib.qz_sample_reconstruct.restype = I
+    lib.qz_plan_bwd.argtypes = [P, P, P, I, U, U, I, I, U, P, P]
+    lib.qz_plan_bwd.restype = I
+    lib.qz_sample_pack.argtypes = [P, P, I, L, U, U, P, P]
+    lib.qz_sample_pack.restype = I
+
+
+LIBRARY = KernelLibrary("qz_reconstruct.cu", ("qz_common.cuh",), _bind)
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source digest) and load the kernel library."""
+    return LIBRARY.load()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _step_words(steps: torch.Tensor, K: int, device) -> torch.Tensor:
+    """(K,) draw words: int64 holding uint32 values, on the device."""
+    if (steps.dtype != torch.int64 or steps.device != device
+            or tuple(steps.shape) != (K,) or not steps.is_contiguous()):
+        raise ValueError(f"draw words must be a contiguous ({K},) int64 "
+                         f"tensor on {device}, got {tuple(steps.shape)} "
+                         f"{steps.dtype} on {steps.device}")
+    return steps
+
+
+def _check_spec(spec: QSpec) -> None:
+    if spec.shard_count != 1:
+        raise ValueError("the kernels take the single-block layout "
+                         f"(shard_count=1), got {spec.shard_count}")
+    if spec.m_pad >= MAX_ROWS or spec.n >= MAX_ROWS:
+        raise ValueError(f"spec has m_pad={spec.m_pad}, n={spec.n}; the "
+                         f"kernels take fewer than {MAX_ROWS}")
+
+
+def _check_operand(spec: QSpec, P: torch.Tensor, qbits) -> int:
+    if qbits not in _KIND:
+        raise NotImplementedError(
+            f"qbits={qbits}: the packed sub-byte carry is not ported yet")
+    if P.dtype != _DTYPE[qbits] or P.ndim != 2 or P.shape[1] != spec.n:
+        raise ValueError(f"operand must be (K, {spec.n}) {_DTYPE[qbits]}, "
+                         f"got {tuple(P.shape)} {P.dtype}")
+    if not P.is_contiguous():
+        raise ValueError("operand must be contiguous")
+    K = P.shape[0]
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"{K} clients outside [1, {MAX_K}]")
+    return K
+
+
+def _launch_sample_reconstruct(spec: QSpec, P, steps, qbits):
+    if not P.is_cuda:
+        raise ValueError("the sample-reconstruct kernel takes CUDA tensors")
+    _check_spec(spec)
+    K = _check_operand(spec, P, qbits)
+    if not 1 <= spec.d <= MAX_D:
+        raise ValueError(f"d={spec.d} outside [1, {MAX_D}]")
+    words = _step_words(steps, K, P.device)
+    W = torch.empty((K, spec.m), dtype=torch.float32, device=P.device)
+    rc = build().qz_sample_reconstruct(
+        P.data_ptr(), _KIND[qbits], qbits or 0, words.data_ptr(), K, spec.n,
+        spec.m, spec.seed & 0xFFFFFFFF, spec.tensor_id, spec.window,
+        spec.rows_per_window, spec.d, sigma_f32(spec), W.data_ptr(),
+        _stream(P))
+    raise_on(rc, "qz_sample_reconstruct")
+    return W
+
+
+def qz_sample_reconstruct_batched_fwd(spec: QSpec, P: torch.Tensor,
+                                      steps: torch.Tensor,
+                                      qbits: Optional[int] = None):
+    """W (K, m) moved flat order = Q Bern(P_k), drawn at words ``steps``
+    (K,); ``P`` (K, n) clipped f32 probabilities, or u8/u16 words."""
+    if not P.is_cuda:
+        from .ops import sample_reconstruct_plain
+
+        return sample_reconstruct_plain(spec, P, steps, qbits)
+    W = _launch_sample_reconstruct(spec, P, steps, qbits)
+    LAUNCHES["qz_sample_reconstruct_batched_fwd"] += 1
+    return W
+
+
+def qz_sample_reconstruct_fwd(spec: QSpec, p: torch.Tensor, step: torch.Tensor,
+                              qbits: Optional[int] = None):
+    """w (m,) = Q Bern(p) for one client: the batched kernel at K=1, so
+    it equals a row of ``qz_sample_reconstruct_batched_fwd`` bit for bit."""
+    if not p.is_cuda:
+        from .ops import sample_reconstruct_plain
+
+        return sample_reconstruct_plain(spec, p[None], step, qbits)[0]
+    w = _launch_sample_reconstruct(spec, p[None], step, qbits)[0]
+    LAUNCHES["qz_sample_reconstruct_fwd"] += 1
+    return w
+
+
+def qz_reconstruct_batched_bwd_plan(spec: QSpec, G: torch.Tensor):
+    """grad_Z (K, n) = Q^T G_k over the canonical transpose plan; ``G``
+    (K, m) f32 cotangents in moved flat order."""
+    if not G.is_cuda:
+        from .ops import plan_bwd_plain
+
+        return plan_bwd_plain(spec, G)
+    _check_spec(spec)
+    if G.dtype != torch.float32 or G.ndim != 2 or G.shape[1] != spec.m:
+        raise ValueError(f"G must be (K, {spec.m}) float32, got "
+                         f"{tuple(G.shape)} {G.dtype}")
+    K = G.shape[0]
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"{K} clients outside [1, {MAX_K}]")
+    G = G.contiguous()
+    plan = build_transpose_plan(spec, G.device)
+    out = torch.empty((K, spec.n), dtype=torch.float32, device=G.device)
+    rc = build().qz_plan_bwd(
+        G.data_ptr(), plan.rows.data_ptr(), plan.vals.data_ptr(), K, spec.n,
+        spec.m, plan.deg, spec.window, spec.rows_per_window, out.data_ptr(),
+        _stream(G))
+    raise_on(rc, "qz_plan_bwd")
+    LAUNCHES["qz_reconstruct_batched_bwd_plan"] += 1
+    return out
+
+
+def qz_sample_pack_batched_fwd(spec: QSpec, P: torch.Tensor,
+                               steps: torch.Tensor):
+    """Upload lanes (K, ceil(n/32)) int64 holding uint32 of Bern(P_k),
+    ``comm.bitpack.pack_mask``'s layout; ``P`` (K, n) f32 probabilities."""
+    if not P.is_cuda:
+        from .ops import sample_pack_plain
+
+        return sample_pack_plain(spec, P, steps)
+    _check_spec(spec)
+    K = _check_operand(spec, P, None)
+    words = _step_words(steps, K, P.device)
+    out = torch.empty((K, (spec.n + 31) // 32), dtype=torch.int64,
+                      device=P.device)
+    rc = build().qz_sample_pack(
+        P.data_ptr(), words.data_ptr(), K, spec.n, spec.seed & 0xFFFFFFFF,
+        spec.tensor_id, out.data_ptr(), _stream(P))
+    raise_on(rc, "qz_sample_pack")
+    LAUNCHES["qz_sample_pack_batched_fwd"] += 1
+    return out

@@ -22,12 +22,13 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve_device
 from ..kernels import ops
 from ..models import attention as attn
 from ..models.attention import KVCache
 from ..models.common import rms_norm
 from ..models.model import Model, attn_dims
-from .state import ServeState, resolve_device
+from .state import ServeState
 
 _LATER_MODES = {
     "load": "reconstruct-on-load serving comes with the load/cached slice "

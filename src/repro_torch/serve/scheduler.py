@@ -21,10 +21,11 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..models.model import Model
 from .cache import ServeConfig
 from .decode import ServeEngine, build_serve_engine, check_mode
-from .state import ServeState, resolve_device
+from .state import ServeState
 
 
 @dataclass

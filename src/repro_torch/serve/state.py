@@ -16,54 +16,12 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Mapping, Optional
 
-import numpy as np
 import torch
 
 from ..comm.downlink import get_codec
 from ..core.sampling import as_word
-from ..core.zampling import ZamplingSpecs
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on; a CUDA device with no card
-    present raises instead of falling back to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but torch sees no CUDA device; "
-            "pass device='cpu' to run the plain torch path")
-    return dev
-
-
-def as_tensor(a, device, dtype=None) -> torch.Tensor:
-    """numpy array (bf16 included, through float32) or tensor -> tensor."""
-    if isinstance(a, torch.Tensor):
-        t = a
-    else:
-        a = np.asarray(a)
-        if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
-            a = a.astype(np.float32)
-        t = torch.from_numpy(np.array(a))
-    if dtype is not None:
-        t = t.to(dtype)
-    return t.to(device)
-
-
-def infer_codec(scores: Mapping[str, torch.Tensor]) -> str:
-    """The codec a score dict carries, from its leaves' dtypes."""
-    names = set()
-    for v in scores.values():
-        if v.dtype.is_floating_point:
-            names.add("f32")
-        elif v.dtype == torch.uint8:
-            names.add("u8")
-        elif v.dtype == torch.uint16:
-            names.add("u16")
-        else:
-            raise ValueError(f"no downlink codec carries dtype {v.dtype}")
-    if len(names) > 1:
-        raise ValueError(f"score leaves mix codecs {sorted(names)}")
-    return names.pop() if names else "f32"
+from ..core.zampling import ZamplingSpecs, infer_downlink
+from ..device import as_tensor, resolve_device
 
 
 @dataclass(frozen=True)
@@ -110,7 +68,7 @@ def make_serve_state(zspecs: ZamplingSpecs, state, key, *,
     """
     dev = resolve_device(device)
     scores = {p: as_tensor(state["scores"][p], dev) for p in zspecs.specs}
-    found = infer_codec(scores)
+    found = infer_downlink(scores)
     if carried is not None and get_codec(carried).name != found:
         raise ValueError(f"score leaves carry {found!r}, tagged "
                          f"{carried!r}")

@@ -1,12 +1,17 @@
-"""The CUDA serve kernel against its plain torch version, on the card.
+"""The port's CUDA kernels against their plain torch versions, on the card.
 
 Marked ``gpu``: without a CUDA device every test skips (decided inside
 the fixture).  On the card:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
-This is chip_smoke.py's kernel phase at a small size: the kernel must
-equal the plain version bitwise (f32, u8 and u16 words, B in {1, 4}, two
-groups), with Q indices and mask bits exact, and the engine's scheduler
-lanes must give a single request's tokens.
+This is chip_smoke.py's kernel phases at a small size.  The serve
+kernel must equal the plain version bitwise (f32, u8 and u16 words, B
+in {1, 4}, two groups), with Q indices and mask bits exact, and the
+engine's scheduler lanes must give a single request's tokens.  The
+training kernels (sample-reconstruct at K=3 and K=1, the plan backward,
+the sample-pack upload) must equal their plain versions bitwise, count
+one launch each, and the card-built plan's values must equal the
+kernels' regenerated Q; a local step through them must equal one on
+the plain path.
 """
 
 import numpy as np
@@ -17,7 +22,12 @@ from repro_torch.comm.downlink import get_codec
 from repro_torch.configs import get_arch
 from repro_torch.core.qspec import make_qspec, row_indices
 from repro_torch.core.zampling import ZamplingConfig, build_specs
-from repro_torch.kernels import ops, qz_decode
+from repro_torch.core.federated import FederatedConfig, encode_state
+from repro_torch.core.federated import federated_round
+from repro_torch.core.sampling import as_words, clip_probs
+from repro_torch.core.transpose_plan import row_plan
+from repro_torch.kernels import ops, qz_decode, qz_reconstruct
+from repro_torch.models.mlp import SMALL_DIMS, mlp_loss, mlp_template
 from repro_torch.models.model import build_model, param_template
 from repro_torch.serve import (ServeConfig, ServeScheduler,
                                make_serve_state, serve_generate)
@@ -98,3 +108,100 @@ def test_scheduler_lane_equals_single_request(cuda):
         out = serve_generate(model, sstate, torch.tensor([p]), 3, seq_len=8,
                              device=cuda)
         assert out[0, len(p):].tolist() == results[rid].tolist()
+
+
+# multi-window with a ragged last window; padding rows (m_pad > m)
+TRAIN_SPECS = [((96, 80), 96, 128), ((7, 300), 7, 64)]
+
+
+@pytest.fixture
+def cuda_train():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    qz_reconstruct.build()
+    qz_decode.build()
+    return torch.device("cuda")
+
+
+def _train_spec(i):
+    shape, fan_in, window = TRAIN_SPECS[i]
+    return make_qspec(5, shape, fan_in, compression=8, d=10, window=window,
+                      seed=1)
+
+
+def _counted(name, fn):
+    before = qz_reconstruct.LAUNCHES[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert qz_reconstruct.LAUNCHES[name] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("i", range(len(TRAIN_SPECS)))
+def test_training_kernels_equal_plain(cuda_train, i):
+    spec = _train_spec(i)
+    rng = np.random.RandomState(i)
+    P = clip_probs(torch.from_numpy(
+        rng.rand(3, spec.n).astype(np.float32) * 1.4 - 0.2).to(cuda_train))
+    steps = as_words(rng.randint(0, 2**32, 3, dtype=np.uint64), cuda_train)
+    W = _counted("qz_sample_reconstruct_batched_fwd",
+                 lambda: qz_reconstruct.qz_sample_reconstruct_batched_fwd(
+                     spec, P, steps))
+    assert torch.equal(W, ops.sample_reconstruct_plain(spec, P, steps))
+    for k in range(3):
+        assert torch.equal(_counted(
+            "qz_sample_reconstruct_fwd",
+            lambda: qz_reconstruct.qz_sample_reconstruct_fwd(
+                spec, P[k], steps[k:k + 1])), W[k])
+    codec = get_codec("u8")
+    q = codec.encode(spec, P[0], 7)
+    w8 = qz_reconstruct.qz_sample_reconstruct_fwd(spec, q, steps[:1], 8)
+    assert torch.equal(w8, ops.sample_reconstruct_plain(
+        spec, q[None], steps[:1], 8)[0])
+    assert torch.equal(w8, qz_reconstruct.qz_sample_reconstruct_fwd(
+        spec, codec.decode(spec, q), steps[:1]))
+    G = torch.from_numpy(rng.randn(3, spec.m).astype(np.float32)).to(
+        cuda_train)
+    assert torch.equal(_counted(
+        "qz_reconstruct_batched_bwd_plan",
+        lambda: qz_reconstruct.qz_reconstruct_batched_bwd_plan(spec, G)),
+        ops.plan_bwd_plain(spec, G))
+    assert torch.equal(_counted(
+        "qz_sample_pack_batched_fwd",
+        lambda: qz_reconstruct.qz_sample_pack_batched_fwd(spec, P, steps)),
+        ops.sample_pack_plain(spec, P, steps))
+    # the plan's values (built on the card) are the kernels' Q values
+    gidx, vals = row_plan(spec, cuda_train)
+    rows = torch.arange(spec.m, device=cuda_train)
+    idx, _, kvals, _ = qz_decode.qz_edges(spec, P[0], 0, rows)
+    assert torch.equal(vals[:spec.m], kvals)
+    assert torch.equal(gidx[:spec.m], (rows // spec.rows_per_window)[:, None]
+                       * spec.window + idx.to(torch.int64))
+
+
+def test_round_through_kernels_equals_plain(cuda_train):
+    zspecs = build_specs(mlp_template(SMALL_DIMS), ZamplingConfig(
+        compression=8, d=10, window=128, min_size=128, seed=1))
+    rng = np.random.RandomState(0)
+    state = {"scores": {p: rng.rand(s.n).astype(np.float32)
+                        for p, s in zspecs.specs.items()},
+             "dense": {p: np.zeros(zspecs.template[p].shape, np.float32)
+                       for p in zspecs.dense_paths}}
+    cfg = FederatedConfig(num_clients=3, local_steps=2, local_lr=0.5,
+                          aggregate="psum_u32", downlink="u8")
+    st = encode_state(zspecs, cfg, state, device=cuda_train)
+    batch = {"x": rng.randn(3, 2, 8, 784).astype(np.float32),
+             "y": rng.randint(0, 10, (3, 2, 8)).astype(np.int32)}
+    qz_reconstruct.reset_launches()
+    a, ma = federated_round(zspecs, st, mlp_loss, batch, 5, cfg,
+                            device=cuda_train)
+    assert qz_reconstruct.LAUNCHES["qz_sample_reconstruct_batched_fwd"] == 6
+    assert qz_reconstruct.LAUNCHES["qz_reconstruct_batched_bwd_plan"] == 6
+    assert qz_reconstruct.LAUNCHES["qz_sample_pack_batched_fwd"] == 3
+    b, mb = federated_round(zspecs, st, mlp_loss, batch, 5, cfg, impl="ref",
+                            device=cuda_train)
+    assert torch.equal(ma["loss"], mb["loss"])
+    for p in zspecs.specs:
+        assert torch.equal(a["scores"][p], b["scores"][p])
+    for p in zspecs.dense_paths:
+        assert torch.equal(a["dense"][p], b["dense"][p])

@@ -13,8 +13,14 @@ import torch
 
 import repro_torch
 from repro_torch.configs import get_arch
-from repro_torch.core.zampling import ZamplingConfig, build_specs
+from repro_torch.core.federated import (FederatedConfig, encode_state,
+                                        federated_round)
+from repro_torch.core.zampling import (ZamplingConfig, build_specs,
+                                       sample_weights)
+from repro_torch.models.mlp import (SMALL_DIMS, mlp_accuracy, mlp_loss,
+                                    mlp_template)
 from repro_torch.models.model import build_model, param_template
+from repro_torch.train import evaluate, federated_fit
 from repro_torch.serve import (ServeConfig, ServeScheduler,
                                build_serve_engine, make_serve_state,
                                serve_generate)
@@ -42,7 +48,13 @@ def _modules():
 
 def test_every_module_and_chip_smoke_import_without_jax():
     mods = _modules()
-    assert "repro_torch.kernels.qz_decode" in mods
+    for m in ("kernels.qz_decode", "kernels.qz_reconstruct", "kernels.nvcc",
+              "core.federated", "core.reconstruct", "core.transpose_plan",
+              "comm.bitpack", "comm.protocol", "comm.metering",
+              "train.fit", "train.local", "data.synthetic",
+              "data.federated_split", "models.mlp", "configs.mnistfc",
+              "optim.optimizers", "device"):
+        assert f"repro_torch.{m}" in mods
     code = _BLOCKED + "\n".join(
         ["import importlib", f"sys.path.insert(0, {str(ROOT)!r})"]
         + [f"importlib.import_module({m!r})" for m in mods]
@@ -84,6 +96,39 @@ def test_entry_points_default_to_the_card():
         # with a card, the default is the card: a CPU state is refused
         with pytest.raises(ValueError, match="lives on"):
             calls[1]()
+        return
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_training_entry_points_default_to_the_card():
+    zspecs = build_specs(mlp_template(SMALL_DIMS), ZamplingConfig(
+        compression=8, d=10, window=128, min_size=128))
+    rng = np.random.RandomState(0)
+    state = {"scores": {p: rng.rand(s.n).astype(np.float32)
+                        for p, s in zspecs.specs.items()},
+             "dense": {p: np.zeros(zspecs.template[p].shape, np.float32)
+                       for p in zspecs.dense_paths}}
+    cfg = FederatedConfig(num_clients=2, local_steps=1, aggregate="psum_u32",
+                          downlink="u8")
+    x = rng.randn(2, 1, 4, 784).astype(np.float32)
+    y = rng.randint(0, 10, (2, 1, 4)).astype(np.int32)
+    test = {"x": torch.from_numpy(x[0, 0]), "y": torch.from_numpy(y[0, 0])}
+    calls = [
+        lambda: encode_state(zspecs, cfg, state),
+        lambda: sample_weights(zspecs, state, 3),
+        lambda: federated_round(zspecs, state, mlp_loss, {"x": x, "y": y}, 1,
+                                cfg),
+        lambda: federated_fit(zspecs, state, mlp_loss,
+                              {"x": x[None], "y": y[None]}, [1], cfg),
+        lambda: evaluate(zspecs, state, lambda p: mlp_accuracy(p, test),
+                         [1]),
+    ]
+    if torch.cuda.is_available():
+        # with a card, the default is the card
+        enc = calls[0]()
+        assert all(v.is_cuda for v in enc["scores"].values())
         return
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
