@@ -74,7 +74,10 @@ PEAK_OPS_PER_S = 67e12
 OPS_PER_WEIGHT = 12 + 21 + 23 + 2  # row hash, base, stride, window base
 OPS_PER_EDGE = 3 + 1 + 20 + 4  # index, coord, mask hash, threshold compare
 OPS_PER_DRAWN = 40 + 8 + 6 + 1  # 2 value hashes, 2 uniforms, Box-Muller, add
-# the training kernels' operations (see csrc/qz_reconstruct.cu)
+# the training kernels' least work (see csrc/qz_reconstruct.cu): one
+# draw per (client, coordinate), however many edges read it; the
+# transpose plan's m*d real entries (4-byte row, 4-byte value); the
+# upload's 4-byte wire lanes
 OPS_ROW_EDGE = 4  # an edge's in-window index and coordinate
 OPS_VALUE = 54  # an edge's value: 2 value hashes, 2 uniforms, Box-Muller
 OPS_DRAW = 24  # one client's draw at one coordinate: mask hash + compare
@@ -418,8 +421,8 @@ def training_phases(card: str, dev) -> list:
             lambda: qr.qz_sample_reconstruct_batched_fwd(spec, P, steps),
             event_ms(lambda: ops.sample_reconstruct_plain(spec, P, steps), 3),
             event_ms(lambda: torch.sparse.mm(Q, Zt), 50),
-            row_ops + any_drawn * OPS_VALUE + FED_K * m * d * OPS_DRAW
-            + drawn, FED_K * (4 * n + 4 * m) + 4 * FED_K)
+            row_ops + any_drawn * OPS_VALUE + FED_K * n * OPS_DRAW + drawn,
+            FED_K * (4 * n + 4 * m) + 4 * FED_K)
         q = state["scores"][path]
         s1 = steps[:1]
         z1 = sample_mask_qhash(q[None], 8, spec.seed, spec.tensor_id, s1)
@@ -430,22 +433,20 @@ def training_phases(card: str, dev) -> list:
             event_ms(lambda: ops.sample_reconstruct_plain(spec, q[None], s1,
                                                           8), 3),
             event_ms(lambda: torch.sparse.mm(Q, z1t), 50),
-            row_ops + float(b1.sum()) * (OPS_VALUE + 1) + m * d * OPS_DRAW,
+            row_ops + float(b1.sum()) * (OPS_VALUE + 1) + n * OPS_DRAW,
             n + 4 * m + 4)
         G = torch.from_numpy(rng.randn(FED_K, m).astype(np.float32)).to(dev)
         Gt = G.t().contiguous()
-        plan = build_transpose_plan(spec, dev)
         add("qz_reconstruct_batched_bwd_plan", path,
             lambda: qr.qz_reconstruct_batched_bwd_plan(spec, G),
             event_ms(lambda: ops.plan_bwd_plain(spec, G), 3),
             event_ms(lambda: torch.sparse.mm(QT, Gt), 50),
-            2.0 * FED_K * m * d,
-            8 * n * plan.deg + 4 * FED_K * (m + n))
+            2.0 * FED_K * m * d, 8 * m * d + 4 * FED_K * (m + n))
         add("qz_sample_pack_batched_fwd", path,
             lambda: qr.qz_sample_pack_batched_fwd(spec, P, steps),
             event_ms(lambda: ops.sample_pack_plain(spec, P, steps), 3),
             None, FED_K * n * (OPS_DRAW + OPS_PACK),
-            FED_K * (4 * n + 8 * packed_len(n)) + 4 * FED_K)
+            FED_K * (4 * n + 4 * packed_len(n)) + 4 * FED_K)
 
     meta = {
         "qz_sample_reconstruct_batched_fwd": (

@@ -101,7 +101,9 @@ def plan_apply_batched(spec: QSpec, g_pad: torch.Tensor) -> torch.Tensor:
     plan edges in ascending e (padding entries add exact zeros)."""
     plan = build_transpose_plan(spec, g_pad.device)
     k = g_pad.shape[0]
-    gath = g_pad[:, plan.grows].reshape(k, spec.n, plan.deg)
+    row0 = torch.arange(spec.num_windows, device=g_pad.device)[:, None, None]
+    rows = plan.rows.to(torch.int64) + row0 * spec.rows_per_window
+    gath = g_pad[:, rows.reshape(-1)].reshape(k, spec.n, plan.deg)
     return _rows_sum(plan.vals.reshape(spec.n, plan.deg), gath)
 
 

@@ -86,15 +86,14 @@ class TransposePlan:
     """Inverted row plan on one device: ``rows[w, c, e]`` is the
     window-local source row of edge ``e`` into coordinate
     ``w*window + c`` and ``vals[w, c, e]`` its Q value (0 on padding
-    entries, which point at row 0); ``grows`` the same rows as global
-    padded-row ids (n * deg,) int64; ``counts`` the exact in-degree
-    (n,); ``deg`` its maximum (>= 1)."""
+    entries, which point at row 0); ``counts`` the exact in-degree
+    (n,); ``deg`` its maximum (>= 1).  Window ``w``'s rows start at
+    padded row ``w * rows_per_window``."""
 
     deg: int
     rows: torch.Tensor  # (num_windows, window, deg) int32
     vals: torch.Tensor  # (num_windows, window, deg) f32
     counts: torch.Tensor  # (n,) int64
-    grows: torch.Tensor  # (n * deg,) int64
 
     @property
     def n_edges(self) -> int:
@@ -129,13 +128,9 @@ def _build_transpose_plan(spec: QSpec, device: torch.device):
     flat_vals = torch.zeros(spec.n * deg, dtype=torch.float32, device=device)
     flat_vals[torch.from_numpy(slot).to(device)] = vals.reshape(-1)[
         torch.from_numpy(src).to(device)]
-    nw = spec.num_windows
-    off = np.repeat(np.arange(nw, dtype=np.int64) * spec.rows_per_window,
-                    spec.window * deg)
-    shape = (nw, spec.window, deg)
+    shape = (spec.num_windows, spec.window, deg)
     return TransposePlan(
         deg=deg,
         rows=torch.from_numpy(rows).to(device).reshape(shape),
         vals=flat_vals.reshape(shape),
-        counts=torch.from_numpy(counts).to(device),
-        grows=torch.from_numpy(rows.astype(np.int64) + off).to(device))
+        counts=torch.from_numpy(counts).to(device))

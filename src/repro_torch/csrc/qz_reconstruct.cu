@@ -11,14 +11,17 @@
 // coordinate (f32 probabilities, or the u8/u16 threshold compare).  One
 // thread owns one row: it regenerates the row's d edges (coordinates
 // and values) once into shared memory, then for each of the K clients
-// gathers that client's draw at each edge and sums in ascending j, each
-// add rounded on its own.  The Pallas kernel selects window bits by a
-// one-hot MXU product; here the draw is read by gather.  Only the valid
-// rows [0, m) of the single-block layout are computed (the padding rows
-// the JAX wrapper slices off are never formed).
-// Bound: operations.  Per row 2 row hashes, per edge 2 value hashes and
-// a Box-Muller, per (client, edge) one mask hash and a compare; the
-// operand and output are a few bytes per weight.
+// gathers that client's draw at each edge and sums vals * bit in
+// ascending j, each multiply and add rounded on its own.  The Pallas
+// kernel selects window bits by a one-hot MXU product; here the draw is
+// read by gather.  Only the valid rows [0, m) of the single-block
+// layout are computed (the padding rows the JAX wrapper slices off are
+// never formed).
+// Bound: bytes at MNISTFC width.  The least work is per row 2 row
+// hashes, per edge 2 value hashes and a Box-Muller, one mask hash and
+// a compare per (client, coordinate) (this kernel redraws per (client,
+// edge), d*m/n = 80 times that at compression 8, d = 10), an add per
+// drawn edge; against the K operand rows read and K output rows written.
 //
 // plan_bwd_kernel replaces qz_reconstruct_batched_bwd_plan.  It reads
 // the global (num_windows, window, deg) transpose plan directly (no
@@ -88,9 +91,8 @@ sample_reconstruct_kernel(const void* __restrict__ P, int qbits,
     const uint32_t hm = sHm[k];
     float acc = 0.0f;
     for (int j = 0; j < s.d; ++j) {
-      const float prod = qz::mask_bit<KIND>(words, qbits, hm, sCoord[j * THREADS + t])
-                             ? sVal[j * THREADS + t]
-                             : 0.0f;
+      const float bit = qz::mask_bit<KIND>(words, qbits, hm, sCoord[j * THREADS + t]) ? 1.0f : 0.0f;
+      const float prod = __fmul_rn(sVal[j * THREADS + t], bit);
       acc = (j == 0) ? prod : __fadd_rn(acc, prod);
     }
     W[static_cast<long long>(k) * m + r] = acc;

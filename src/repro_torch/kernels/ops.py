@@ -54,7 +54,7 @@ import torch
 from ..comm.bitpack import pack_mask
 from ..core.hashrng import bernoulli_u32
 from ..core.qspec import QSpec, row_indices, row_values
-from ..core.reconstruct import (_insert_padding_batched,
+from ..core.reconstruct import (_insert_padding_batched, _rows_sum,
                                 _select_valid_batched, _unmove_batched,
                                 plan_apply_batched)
 from ..core.sampling import (as_word, as_words, mask_u32,
@@ -100,16 +100,12 @@ def sample_reconstruct_plain(spec: QSpec, P: torch.Tensor, steps,
                              qbits: Optional[int] = None) -> torch.Tensor:
     """The plain torch version of kernels 8 and 7: (K, n) operand + (K,)
     draw words -> W (K, m) in moved flat order.  Each row sums, in
-    ascending k, its edge value where the client drew a 1 and +0.0
-    elsewhere, as the kernel does."""
+    ascending k, its edge value times the client's drawn bit, as the
+    kernel does."""
     steps = as_words(steps, P.device).reshape(-1)
-    bits = _draw(spec, P, steps, qbits) > 0  # (K, n)
     gidx, vals = row_plan(spec, P.device)
-    bg = bits[:, gidx]  # (K, m_pad, d)
-    acc = torch.where(bg[..., 0], vals[:, 0], 0.0)
-    for k in range(1, spec.d):
-        acc = acc + torch.where(bg[..., k], vals[:, k], 0.0)
-    return _select_valid_batched(spec, acc)
+    return _select_valid_batched(
+        spec, _rows_sum(vals, _draw(spec, P, steps, qbits)[:, gidx]))
 
 
 def plan_bwd_plain(spec: QSpec, G: torch.Tensor) -> torch.Tensor:

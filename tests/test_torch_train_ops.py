@@ -148,7 +148,8 @@ def test_row_plan_and_transpose_plan(i):
                                atol=BOX_MULLER_ATOL * t.sigma)
     # the values are placed by gather: exactly the row plan's value of
     # the edge (source row r, the slot k whose coordinate is c)
-    rows = tp.grows.reshape(t.n, tp.deg)
+    row0 = torch.arange(t.num_windows)[:, None, None] * t.rows_per_window
+    rows = (tp.rows.to(torch.int64) + row0).reshape(t.n, tp.deg)
     vals = tp.vals.reshape(t.n, tp.deg)
     live = torch.arange(tp.deg)[None] < tp.counts[:, None]
     c_ids = torch.arange(t.n)[:, None].expand(t.n, tp.deg)[live]
