@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
 
-Two paths at full width, every Pallas kernel they run replaced by a
+Three paths at full width, every Pallas kernel they run replaced by a
 hand-written CUDA kernel:
 
 - serving: qwen2-0.5b (24 layers, d_model 896, 14 heads with 2 KV heads,
   d_ff 4864, padded vocab 152064) off u8 downlink words through the
   streaming engine, every zampled linear on the serve kernel;
-- training: the paper's federated round (Fig. 4) on MNISTFC
+- federated training: the paper's round (Fig. 4) on MNISTFC
   784-300-100-10, compression 8, d=10, window 128, K=10 clients, E=100
   local SGD steps at lr 0.5, psum_u32 1-bit uplink, u8 downlink, on the
   sample-reconstruct forward, the plan backward and the sample-pack
-  upload kernels; evaluation draws sampled networks off the u8 carry.
+  upload kernels; evaluation draws sampled networks off the u8 carry;
+  the composed round (explicit masks on the reconstruct kernels) once;
+- local training: the paper's Fig. 6 zampling_d16 on MNISTFC at
+  compression 1, d=16, Adam at lr 1e-2, batch 128, in sample mode (the
+  K=1 sample-reconstruct forward, the K=1 plan backward) and in
+  continuous mode (the K=1 reconstruct forward); the expected and
+  discretized networks on the reconstruct forward.
 
 Phases, one printed line or more each:
 
@@ -27,19 +33,33 @@ Phases, one printed line or more each:
    new tokens each, and the first request rerun alone (B=1) must give
    the same tokens; each engine step must launch the kernel 169 times;
 5. serve kernel times, bounds and plain times;
-6. training kernels against their plain versions on the card, bitwise,
-   at the three zampled MNISTFC leaves (sample-reconstruct at K=10 f32
-   and K=1 u8/f32, plan backward at K=10, sample-pack at K=10), and the
-   transpose plan's values built on the card against the kernels' own
-   regenerated Q values;
+6. federated-round kernels against their plain versions on the card,
+   bitwise, at the three zampled MNISTFC leaves (sample-reconstruct at
+   K=10 f32 and K=1 u8/f32, plan backward at K=10, sample-pack at
+   K=10), and the transpose plan's values built on the card against the
+   kernels' own regenerated Q values;
 7. federated training: 5 rounds through the kernels, round 0 rerun on
    the plain path (bitwise the same words, dense leaves and loss),
    launch counts (3 E per round for the forward and backward kernels, 3
    for the upload, 3 per sampled network in evaluation), falling loss,
    rising sampled accuracy, metered wire bytes, round and step times;
-8. training kernel times, bounds, plain times and torch.sparse.mm
-   yardsticks;
-9. one JSON line with every kernel's launches, times and bound, the
+8. federated-round kernel times, bounds, plain times and
+   torch.sparse.mm yardsticks;
+9. the reconstruct forward (K=1 and K=10), the K=1 plan backward and the
+   sample-reconstruct forward (K=1 and K=10) against their plain
+   versions, bitwise, at Fig. 6's three leaves for d in {1, 16, 256},
+   and the card-built plans against the kernels' Q;
+10. local training: step 0 through the kernels against the plain path
+   (loss, gradients, Adam-updated state, bitwise), 500 sample-mode
+   steps (3 forward and 3 backward launches each), the loss trend,
+   sampled (10 networks), best-mask, expected and discretized accuracy,
+   step times; then the same for 100 continuous-mode steps; then one
+   composed federated round against phase 7's fused round 0 (bitwise
+   words, dense leaves and loss; kernel 3 and kernel 6 launches only);
+11. reconstruct-forward and K=1 plan-backward times, device times,
+   bounds, plain times and torch.sparse.mm yardsticks, and the device
+   busy share of a local step;
+12. one JSON line with every kernel's launches, times and bound, the
    card, the run's total seconds, and last {"ok": true, "device": ...}.
 
 Usage, from the repo root on a machine with a CUDA GPU:
@@ -82,11 +102,21 @@ OPS_ROW_EDGE = 4  # an edge's in-window index and coordinate
 OPS_VALUE = 54  # an edge's value: 2 value hashes, 2 uniforms, Box-Muller
 OPS_DRAW = 24  # one client's draw at one coordinate: mask hash + compare
 OPS_PACK = 2  # shift and OR of a drawn bit into its lane
+OPS_MAC = 2  # a multiply and an add per (client, edge) whose operand is not 0
+OPS_PLAN = 2  # a multiply and an add per real transpose-plan entry
 FED_ROUNDS = 5
 FED_K = 10
 FED_E = 100
 FED_BATCH = 64
 EVAL_NETS = 10
+# local zampling: the paper's Fig. 6 zampling_d16 (experiments/paper.py
+# :466-492 at quick=False), 500 of its 4000 steps
+LOCAL_D = 16
+LOCAL_DS = (1, 16, 256)  # phase 9: every d of the paper's local runs
+LOCAL_STEPS = 500
+CONT_STEPS = 100
+LOCAL_LR = 1e-2
+LOCAL_BATCH = 128
 LINEARS = ("blocks/attn/wq", "blocks/attn/wk", "blocks/attn/wv",
            "blocks/attn/wo", "blocks/mlp/gate", "blocks/mlp/up",
            "blocks/mlp/down")
@@ -150,6 +180,92 @@ def profile_device_us(fn, tags):
     return {t: tuple(v) for t, v in by_tag.items()}, total
 
 
+class KernelTimes:
+    """Each training kernel's times at the leaves of a path, summed:
+    CUDA-event ms per launch over 50 back-to-back launches (host launch
+    cost included), device ms per launch by torch.profiler over 10, the
+    plain version's and the library call's ms as the caller timed them,
+    and the bound of each leaf's least work."""
+
+    def __init__(self, card: str, tags: dict):
+        self.card, self.tags = card, tags  # {kernel name: profiler tag}
+        self.acc = {name: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                           "library_ms": 0.0, "ops_ms": 0.0,
+                           "bytes_ms": 0.0, "bound_ms": 0.0, "shapes": {}}
+                    for name in tags}
+
+    def add(self, name, path, kernel, t_p, t_y, ops_n, bytes_n):
+        """One kernel at one leaf; ``t_y`` None where no library call
+        computes the same function."""
+        t_k = event_ms(kernel, 50)
+        tag = self.tags[name]
+        by_tag, _ = profile_device_us(
+            lambda: [kernel() for _ in range(10)], (tag,))
+        us, n_l = by_tag[tag]
+        t_d = 1e-3 * us / n_l if n_l else None  # no device trace: None
+        b, _ = _bound_ms(ops_n, bytes_n)
+        a = self.acc[name]
+        a["ms"] += t_k
+        a["device_ms"] = (a["device_ms"] + t_d
+                          if t_d is not None and a["device_ms"] is not None
+                          else None)
+        a["plain_ms"] += t_p
+        a["library_ms"] += t_y if t_y is not None else 0.0
+        a["ops_ms"] += 1e3 * ops_n / PEAK_OPS_PER_S
+        a["bytes_ms"] += 1e3 * bytes_n / PEAK_BYTES_PER_S
+        a["bound_ms"] += b
+        a["shapes"][path] = {"ms": t_k, "device_ms": t_d, "plain_ms": t_p,
+                             "library_ms": t_y, "bound_ms": b, "ops": ops_n,
+                             "bytes": bytes_n}
+        say(f"time: {name} {path}: kernel {t_k:.4f} ms (device "
+            f"{'not measured' if t_d is None else f'{t_d:.4f} ms'}), plain "
+            f"{t_p:.3f} ms, "
+            + (f"torch.sparse.mm {t_y:.4f} ms, " if t_y is not None else "")
+            + f"bound {b:.5f} ms ({self.card})")
+
+    def row(self, name, replaces, launches, max_err, times, per, lib):
+        """The kernels-line entry: the leaves' sums times ``times``
+        launches per leaf in one ``per``."""
+        a = self.acc[name]
+        r = {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/qz_reconstruct.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max_err, "ms": times * a["ms"],
+            "device_ms": (None if a["device_ms"] is None
+                          else times * a["device_ms"]),
+            "plain_ms": times * a["plain_ms"],
+            "bound_ms": times * a["bound_ms"],
+            "bound_by": ("operations" if a["ops_ms"] >= a["bytes_ms"]
+                         else "bytes"),
+            "library_ms": times * a["library_ms"] if lib else None,
+            "library_call": lib, "per": per, "shapes": a["shapes"],
+        }
+        dms = r["device_ms"]
+        say(f"time: {name} per {per}: kernel {r['ms']:.4f} ms (device "
+            f"{'not measured' if dms is None else f'{dms:.4f} ms'}), bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']}), plain "
+            f"{r['plain_ms']:.2f} ms"
+            + (f", {lib} {r['library_ms']:.4f} ms" if lib else "")
+            + f" ({self.card})")
+        return r
+
+
+def check_bitwise(max_err, name, got, want, what):
+    """Die unless a kernel's output equals its plain version's, bit for
+    bit; record the largest difference."""
+    import torch
+
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got, want))
+    diff = (got.double() - want.double()).abs().max().item()
+    max_err[name] = max(max_err[name], diff)
+    say(f"train-kernel-vs-plain: {name} {what}: bitwise={same} "
+        f"max_abs_err={diff:.3e}")
+    if not same:
+        die(f"{name} differs from its plain version ({what})")
+
+
 def training_phases(card: str, dev) -> list:
     """Phases 6-8: the federated round's kernels at full MNISTFC width.
     Returns the four training kernels' rows of the kernels line."""
@@ -201,14 +317,7 @@ def training_phases(card: str, dev) -> list:
     max_err = {name: 0.0 for name in qr.LAUNCHES}
 
     def check(name, got, want, what):
-        torch.cuda.synchronize()
-        same = bool(torch.equal(got, want))
-        diff = (got.double() - want.double()).abs().max().item()
-        max_err[name] = max(max_err[name], diff)
-        say(f"train-kernel-vs-plain: {name} {what}: bitwise={same} "
-            f"max_abs_err={diff:.3e}")
-        if not same:
-            die(f"{name} differs from its plain version ({what})")
+        check_bitwise(max_err, name, got, want, what)
 
     t0 = time.perf_counter()
     u8 = get_codec("u8")
@@ -311,10 +420,10 @@ def training_phases(card: str, dev) -> list:
                 == rep["downlink_bytes_per_client"]):
             die("metered wire bytes differ from round_wire_report's")
     fit_launches = dict(qr.LAUNCHES)
-    want = {"qz_sample_reconstruct_batched_fwd": 3 * FED_E * FED_ROUNDS,
-            "qz_reconstruct_batched_bwd_plan": 3 * FED_E * FED_ROUNDS,
-            "qz_sample_pack_batched_fwd": 3 * FED_ROUNDS,
-            "qz_sample_reconstruct_fwd": 0}
+    want = {name: 0 for name in qr.LAUNCHES}
+    want.update({"qz_sample_reconstruct_batched_fwd": 3 * FED_E * FED_ROUNDS,
+                 "qz_reconstruct_batched_bwd_plan": 3 * FED_E * FED_ROUNDS,
+                 "qz_sample_pack_batched_fwd": 3 * FED_ROUNDS})
     say(f"train: launches in {FED_ROUNDS} rounds {fit_launches}, expected "
         f"{want}")
     if fit_launches != want or any(qz_decode.LAUNCHES.values()):
@@ -361,43 +470,12 @@ def training_phases(card: str, dev) -> list:
     # --- 8. kernel times at the main path's shapes -------------------------
     t0 = time.perf_counter()
     decoded = {p: u8.decode(s, state["scores"][p]) for p, s in specs.items()}
-    acc = {name: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
-                  "library_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
-                  "bound_ms": 0.0, "shapes": {}} for name in qr.LAUNCHES}
-    kernel_tag = {"qz_sample_reconstruct_batched_fwd":
-                  "sample_reconstruct_kernel",
-                  "qz_sample_reconstruct_fwd": "sample_reconstruct_kernel",
-                  "qz_reconstruct_batched_bwd_plan": "plan_bwd_kernel",
-                  "qz_sample_pack_batched_fwd": "sample_pack_kernel"}
-
-    def add(name, path, kernel, t_p, t_y, ops_n, bytes_n):
-        """One kernel at one leaf: CUDA-event ms per launch over 50
-        back-to-back launches, and its device ms per launch by
-        torch.profiler over 10."""
-        t_k = event_ms(kernel, 50)
-        by_tag, _ = profile_device_us(
-            lambda: [kernel() for _ in range(10)], (kernel_tag[name],))
-        us, n_l = by_tag[kernel_tag[name]]
-        t_d = 1e-3 * us / n_l if n_l else None  # no device trace: None
-        b, _ = _bound_ms(ops_n, bytes_n)
-        a = acc[name]
-        a["ms"] += t_k
-        a["device_ms"] = (a["device_ms"] + t_d
-                          if t_d is not None and a["device_ms"] is not None
-                          else None)
-        a["plain_ms"] += t_p
-        a["library_ms"] += t_y if t_y is not None else 0.0
-        a["ops_ms"] += 1e3 * ops_n / PEAK_OPS_PER_S
-        a["bytes_ms"] += 1e3 * bytes_n / PEAK_BYTES_PER_S
-        a["bound_ms"] += b
-        a["shapes"][path] = {"ms": t_k, "device_ms": t_d, "plain_ms": t_p,
-                             "library_ms": t_y, "bound_ms": b, "ops": ops_n,
-                             "bytes": bytes_n}
-        say(f"time: {name} {path}: kernel {t_k:.4f} ms (device "
-            f"{'not measured' if t_d is None else f'{t_d:.4f} ms'}), plain "
-            f"{t_p:.3f} ms, "
-            + (f"torch.sparse.mm {t_y:.4f} ms, " if t_y is not None else "")
-            + f"bound {b:.5f} ms ({card})")
+    kt = KernelTimes(card, {
+        "qz_sample_reconstruct_batched_fwd": "sample_reconstruct_kernel",
+        "qz_sample_reconstruct_fwd": "sample_reconstruct_kernel",
+        "qz_reconstruct_batched_bwd_plan": "plan_bwd_kernel",
+        "qz_sample_pack_batched_fwd": "sample_pack_kernel"})
+    add = kt.add
 
     for path, spec in specs.items():
         m, n, d = spec.m, spec.n, spec.d
@@ -465,31 +543,9 @@ def training_phases(card: str, dev) -> list:
             "src/repro/kernels/qz_reconstruct.py:621", fit_launches, 1,
             "one round: 1 launch per zampled leaf, K=10", None),
     }
-    rows = []
-    for name, (replaces, launch_src, times, per, lib) in meta.items():
-        a = acc[name]
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/qz_reconstruct.cu",
-            "replaces": replaces, "launches": launch_src[name],
-            "max_abs_err": max_err[name], "ms": times * a["ms"],
-            "device_ms": (None if a["device_ms"] is None
-                          else times * a["device_ms"]),
-            "plain_ms": times * a["plain_ms"],
-            "bound_ms": times * a["bound_ms"],
-            "bound_by": ("operations" if a["ops_ms"] >= a["bytes_ms"]
-                         else "bytes"),
-            "library_ms": times * a["library_ms"] if lib else None,
-            "library_call": lib, "per": per, "shapes": a["shapes"],
-        })
-        dms = rows[-1]["device_ms"]
-        say(f"time: {name} per {per}: kernel {rows[-1]['ms']:.4f} ms "
-            f"(device {'not measured' if dms is None else f'{dms:.4f} ms'})"
-            f", bound "
-            f"{rows[-1]['bound_ms']:.5f} ms ({rows[-1]['bound_by']}), plain "
-            f"{rows[-1]['plain_ms']:.2f} ms"
-            + (f", {lib} {rows[-1]['library_ms']:.4f} ms" if lib else "")
-            + f" ({card})")
+    rows = [kt.row(name, replaces, launch_src[name], max_err[name], times,
+                   per, lib)
+            for name, (replaces, launch_src, times, per, lib) in meta.items()]
     k_round = sum(r["ms"] for r in rows
                   if r["name"] != "qz_sample_reconstruct_fwd")
     say(f"share: training kernel time per round (CUDA events) / median round "
@@ -531,7 +587,389 @@ def training_phases(card: str, dev) -> list:
             f"evaluation of {EVAL_NETS} networks {1e-3 * ev_us:.3f} ms "
             f"({card})")
     say(f"phase 8 done in {time.perf_counter() - t0:.1f} s")
-    return rows
+    fed = {"zspecs": zspecs, "cfg": cfg, "state0": state0,
+           "batch0": batches[0], "word0": round_words[0],
+           "state_r0": state_r0, "loss_r0": loss_r0}
+    return rows, fed
+
+
+
+def local_phases(card: str, dev, fed: dict, rows: list) -> list:
+    """Phases 9-11: the local-zampling path at full MNISTFC width (the
+    paper's Fig. 6 zampling_d16) and the composed federated round.
+    Updates the max_abs_err of kernels 7 and 8 in ``rows`` with the
+    repaired d range; returns the rows of kernels 1, 3 and 5."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.comm.downlink import get_codec
+    from repro_torch.configs.mnistfc import MNISTFC
+    from repro_torch.core.federated import federated_round
+    from repro_torch.core.sampling import as_words, clip_probs, sample_mask_hash
+    from repro_torch.core.transpose_plan import build_transpose_plan, row_plan
+    from repro_torch.core.zampling import (ZamplingConfig, build_specs,
+                                           init_state, sample_weights)
+    from repro_torch.data import make_teacher_dataset
+    from repro_torch.kernels import ops, qz_decode
+    from repro_torch.kernels import qz_reconstruct as qr
+    from repro_torch.models.mlp import mlp_accuracy, mlp_loss, mlp_template
+    from repro_torch.optim import adam
+    from repro_torch.train import (LocalTrainConfig, evaluate,
+                                   train_local_zampling, train_step)
+
+    def fig6(d):
+        return build_specs(mlp_template(MNISTFC), ZamplingConfig(
+            compression=1.0, d=d, window=128, min_size=128, seed=0))
+
+    max_err = {name: 0.0 for name in qr.LAUNCHES}
+
+    def check(name, got, want, what):
+        check_bitwise(max_err, name, got, want, what)
+
+    def launches_are(what, want):
+        got = {k: v for k, v in qr.LAUNCHES.items() if v}
+        want = {k: v for k, v in want.items() if v}
+        say(f"local: launches in {what}: {got}, expected {want}")
+        if got != want or any(qz_decode.LAUNCHES.values()):
+            die(f"launch counts of {what} differ from the expected")
+
+    # --- 9. kernels 1, 3, 5 and the repaired 7, 8 against plain ------------
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED + 1)
+    for d in LOCAL_DS:
+        for path, spec in fig6(d).specs.items():
+            what = f"Fig. 6 {path} d={d}"
+            P = clip_probs(torch.from_numpy(
+                rng.rand(FED_K, spec.n).astype(np.float32) * 1.2 - 0.1).to(dev))
+            steps = as_words(rng.randint(0, 2**32, FED_K, dtype=np.uint64),
+                             dev)
+            g = torch.from_numpy(rng.randn(spec.m).astype(np.float32)).to(dev)
+            W = qr.qz_reconstruct_batched_fwd(spec, P)
+            check("qz_reconstruct_batched_fwd", W,
+                  ops.reconstruct_plain(spec, P), f"{what} K={FED_K}")
+            w = qr.qz_reconstruct_fwd(spec, P[3])
+            check("qz_reconstruct_fwd", w,
+                  ops.reconstruct_plain(spec, P[3:4])[0], f"{what} K=1")
+            check("qz_reconstruct_fwd", w, W[3],
+                  f"{what} K=1 against the batched kernel's row 3")
+            check("qz_reconstruct_bwd_plan", qr.qz_reconstruct_bwd_plan(spec, g),
+                  ops.plan_bwd_one_plain(spec, g), f"{what} seeded g")
+            W = qr.qz_sample_reconstruct_batched_fwd(spec, P, steps)
+            check("qz_sample_reconstruct_batched_fwd", W,
+                  ops.sample_reconstruct_plain(spec, P, steps),
+                  f"{what} K={FED_K}")
+            check("qz_sample_reconstruct_fwd",
+                  qr.qz_sample_reconstruct_fwd(spec, P[5], steps[5:6]),
+                  ops.sample_reconstruct_plain(spec, P[5:6], steps[5:6])[0],
+                  f"{what} K=1")
+            Z = sample_mask_hash(P, spec.seed, spec.tensor_id, steps)
+            check("qz_reconstruct_batched_fwd",
+                  qr.qz_reconstruct_batched_fwd(spec, Z), W,
+                  f"{what} K={FED_K} on the drawn masks against kernel 8")
+            gidx, vals = row_plan(spec, dev)
+            r = torch.arange(spec.m, device=dev)
+            idx, _, kvals, _ = qz_decode.qz_edges(spec, P[0], 0, r)
+            ok = (torch.equal(vals[:spec.m], kvals) and torch.equal(
+                gidx[:spec.m], (r // spec.rows_per_window)[:, None]
+                * spec.window + idx.to(torch.int64)))
+            say(f"local-plan: {what}: deg {build_transpose_plan(spec, dev).deg}"
+                f"; row plan equals the kernels' Q = {ok}")
+            if not ok:
+                die(f"the card-built plan differs from the kernels' Q ({what})")
+            del P, W, Z, gidx, vals, idx, kvals
+        torch.cuda.empty_cache()
+    for row in rows:
+        if row["name"] in ("qz_sample_reconstruct_batched_fwd",
+                           "qz_sample_reconstruct_fwd"):
+            row["max_abs_err"] = max(row["max_abs_err"], max_err[row["name"]])
+    say(f"phase 9 done in {time.perf_counter() - t0:.1f} s; every "
+        "comparison bitwise")
+
+    # --- 10. local zampling at full width -----------------------------------
+    t0 = time.perf_counter()
+    zs = fig6(LOCAL_D)
+    specs = zs.specs
+    rng0 = np.random.RandomState(SEED)  # tests/test_torch_local_reference.py
+    scores = {p: rng0.rand(s.n).astype(np.float32) for p, s in specs.items()}
+    dense = {p: np.zeros(zs.template[p].shape, np.float32)
+             for p in zs.dense_paths}
+    step_words = [int(w) for w in rng0.randint(0, 2**32, LOCAL_STEPS,
+                                               dtype=np.uint64)]
+    eval_words = [int(w) for w in rng0.randint(0, 2**32, EVAL_NETS,
+                                               dtype=np.uint64)]
+    ds = make_teacher_dataset(n_train=8000, n_test=1500, seed=0)
+    it = ds.batches(LOCAL_BATCH, seed=0)
+    batches = [{"x": torch.from_numpy(x).to(dev),
+                "y": torch.from_numpy(y).to(dev)}
+               for x, y in (next(it) for _ in range(LOCAL_STEPS))]
+    test = {"x": torch.from_numpy(ds.x_test).to(dev),
+            "y": torch.from_numpy(ds.y_test).to(dev)}
+    state0 = init_state(zs, scores, dense, device=dev)
+    opt = adam(LOCAL_LR)
+    say(f"local: Fig. 6 zampling_d16, MNISTFC {MNISTFC} at compression 1, "
+        f"d={LOCAL_D}: "
+        + ", ".join(f"{p} m={s.m} n={s.n}" for p, s in specs.items())
+        + f"; Adam lr {LOCAL_LR}, batch {LOCAL_BATCH}, {LOCAL_STEPS} sample "
+        f"steps and {CONT_STEPS} continuous steps; data on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def acc_fn(params):
+        return mlp_accuracy(params, test)
+
+    def step0(mode, impl):
+        flat = {**state0["scores"], **state0["dense"]}
+        return train_step(zs, state0, opt.init(flat), batches[0],
+                          step_words[0], mlp_loss, opt, mode=mode, impl=impl)
+
+    def step0_bitwise(mode, want):
+        qr.reset_launches()
+        qz_decode.reset_launches()
+        k_state, _, k_loss, k_grads = step0(mode, None)
+        torch.cuda.synchronize()
+        launches_are(f"step 0 ({mode})", want)
+        qr.reset_launches()
+        p_state, _, p_loss, p_grads = step0(mode, "ref")
+        torch.cuda.synchronize()
+        same = {"loss": torch.equal(k_loss, p_loss)}
+        for part in ("scores", "dense"):
+            same[f"{part} gradients"] = all(torch.equal(
+                k_grads[part][p], p_grads[part][p]) for p in k_grads[part])
+            same[f"updated {part}"] = all(torch.equal(
+                k_state[part][p], p_state[part][p]) for p in k_state[part])
+        say(f"local: step 0 ({mode}) through the kernels against the plain "
+            f"path: {same}; loss {float(k_loss):.9f}; plain-path launches "
+            f"{sum(qr.LAUNCHES.values())}")
+        if not all(same.values()) or any(qr.LAUNCHES.values()):
+            die(f"step 0 ({mode}) through the kernels differs from the "
+                "plain path")
+
+    def run(cfg, words, n):
+        """train_local_zampling over the first n batches: (state, losses,
+        seconds of each step, launches)."""
+        marks = []
+
+        def timed():
+            for b in batches[:n]:
+                marks.append(time.perf_counter())
+                yield b
+
+        qr.reset_launches()
+        qz_decode.reset_launches()
+        state, hist = train_local_zampling(zs, state0, mlp_loss, timed(), cfg,
+                                           words, device=dev)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return state, hist["loss"], np.diff(marks), dict(qr.LAUNCHES)
+
+    def show_losses(mode, losses):
+        at = list(range(0, len(losses), 100)) + [len(losses) - 1]
+        say(f"local: {mode} loss at steps {at}: "
+            f"{[round(losses[t], 6) for t in at]}; mean of the first 20 "
+            f"{np.mean(losses[:20]):.6f}, of the last 20 "
+            f"{np.mean(losses[-20:]):.6f}")
+        if not np.mean(losses[-20:]) < np.mean(losses[:20]):
+            die(f"the {mode}-mode loss did not fall")
+
+    def counted_eval(mode):
+        qr.reset_launches()
+        v, _ = evaluate(zs, state, acc_fn, mode=mode, device=dev)
+        launches_are(f"the {mode} evaluation", {"qz_reconstruct_fwd": 3})
+        return v
+
+    step0_bitwise("sample", {"qz_sample_reconstruct_fwd": 3,
+                             "qz_reconstruct_bwd_plan": 3})
+    state, losses, step_s, local_launches = run(
+        LocalTrainConfig(steps=LOCAL_STEPS, lr=LOCAL_LR, eval_every=10**9),
+        step_words, LOCAL_STEPS)
+    launches_are(f"{LOCAL_STEPS} sample steps",
+                 {"qz_sample_reconstruct_fwd": 3 * LOCAL_STEPS,
+                  "qz_reconstruct_bwd_plan": 3 * LOCAL_STEPS})
+    show_losses("sample", losses)
+    med = float(np.median(step_s[1:]))
+    say(f"local: sample step times: step 0 {1e3 * step_s[0]:.3f} ms, median "
+        f"of steps 1-{LOCAL_STEPS - 1} {1e3 * med:.4f} ms (min "
+        f"{1e3 * step_s[1:].min():.4f}, max {1e3 * step_s[1:].max():.4f}) on "
+        f"{card}")
+    with torch.no_grad():
+        sampled = [float(acc_fn(sample_weights(zs, state, w, device=dev)))
+                   for w in eval_words]
+    expected = counted_eval("continuous")
+    discretized = counted_eval("discretize")
+    say(f"local: after {LOCAL_STEPS} sample steps: sampled accuracy "
+        f"{np.mean(sampled):.4f} +- {np.std(sampled):.4f} ({EVAL_NETS} "
+        f"networks), best mask {max(sampled):.4f}, expected {expected:.4f}, "
+        f"discretized {discretized:.4f}")
+    sample_state = state
+
+    step0_bitwise("continuous", {"qz_reconstruct_fwd": 3,
+                                 "qz_reconstruct_bwd_plan": 3})
+    state, c_losses, c_step_s, cont_launches = run(
+        LocalTrainConfig(steps=CONT_STEPS, lr=LOCAL_LR, mode="continuous",
+                         eval_every=10**9), None, CONT_STEPS)
+    launches_are(f"{CONT_STEPS} continuous steps",
+                 {"qz_reconstruct_fwd": 3 * CONT_STEPS,
+                  "qz_reconstruct_bwd_plan": 3 * CONT_STEPS})
+    show_losses("continuous", c_losses)
+    c_med = float(np.median(c_step_s[1:]))
+    c_expected = counted_eval("continuous")
+    c_discretized = counted_eval("discretize")
+    with torch.no_grad():
+        c_sampled = [float(acc_fn(sample_weights(zs, state, w, device=dev)))
+                     for w in eval_words]
+    say(f"local: after {CONT_STEPS} continuous steps: expected "
+        f"{c_expected:.4f}, discretized {c_discretized:.4f}, sampled "
+        f"{np.mean(c_sampled):.4f} +- {np.std(c_sampled):.4f}; median step "
+        f"{1e3 * c_med:.4f} ms on {card}")
+    if not all(np.isfinite(losses + c_losses)):
+        die("a local loss is not finite")
+    say("local-json: " + json.dumps({
+        "sample": {"losses": losses, "sampled_accuracy": sampled,
+                   "expected_accuracy": expected,
+                   "discretized_accuracy": discretized,
+                   "median_step_ms": 1e3 * med},
+        "continuous": {"losses": c_losses, "expected_accuracy": c_expected,
+                       "discretized_accuracy": c_discretized,
+                       "sampled_accuracy": c_sampled,
+                       "median_step_ms": 1e3 * c_med}}))
+
+    # the composed federated round against the fused round 0 (phase 7)
+    zs4 = fed["zspecs"]
+    ccfg = dataclasses.replace(fed["cfg"], mask_path="composed")
+    qr.reset_launches()
+    qz_decode.reset_launches()
+    t1 = time.perf_counter()
+    c_round, c_met = federated_round(zs4, fed["state0"], mlp_loss,
+                                     fed["batch0"], fed["word0"], ccfg,
+                                     round_index=0, device=dev)
+    torch.cuda.synchronize()
+    c_round_s = time.perf_counter() - t1
+    composed_launches = dict(qr.LAUNCHES)
+    launches_are("the composed round",
+                 {"qz_reconstruct_batched_fwd": 3 * FED_E,
+                  "qz_reconstruct_batched_bwd_plan": 3 * FED_E})
+    same = (all(torch.equal(c_round["scores"][p], fed["state_r0"]["scores"][p])
+                for p in zs4.specs),
+            all(torch.equal(c_round["dense"][p], fed["state_r0"]["dense"][p])
+                for p in zs4.dense_paths),
+            torch.equal(c_met["loss"], fed["loss_r0"]))
+    say(f"local: composed round 0 against the fused round 0: u8 words "
+        f"bitwise={same[0]}, dense bitwise={same[1]}, loss bitwise="
+        f"{same[2]} ({float(c_met['loss']):.9f}); {c_round_s:.3f} s")
+    if not all(same):
+        die("the composed round differs from the fused round")
+    say(f"phase 10 done in {time.perf_counter() - t0:.1f} s")
+
+    # --- 11. times of kernels 1, 3 and 5 --------------------------------------
+    t0 = time.perf_counter()
+    kt = KernelTimes(card, {
+        "qz_reconstruct_fwd": "mask_reconstruct_kernel",
+        "qz_reconstruct_batched_fwd": "mask_reconstruct_kernel",
+        "qz_reconstruct_bwd_plan": "plan_bwd_kernel"})
+
+    def add(name, path, kernel, plain, library, ops_n, bytes_n):
+        kt.add(name, path, kernel, event_ms(plain, 3), event_ms(library, 50),
+               ops_n, bytes_n)
+
+    def csr(spec, dev, transpose):
+        gidx, vals = row_plan(spec, dev)
+        m, d = spec.m, spec.d
+        cols, qv = gidx[:m].reshape(-1), vals[:m].reshape(-1)
+        rq = torch.arange(m, device=dev).repeat_interleave(d)
+        ij, shape = ((torch.stack([cols, rq]), (spec.n, m)) if transpose
+                     else (torch.stack([rq, cols]), (m, spec.n)))
+        return torch.sparse_coo_tensor(
+            ij, qv, shape, check_invariants=False).coalesce().to_sparse_csr()
+
+    def fwd_work(spec, Z):
+        """(ops, bytes) of W = Q Z: per row, per edge, per edge some
+        client's operand is not 0, per (client, edge) whose is not 0."""
+        gidx, _ = row_plan(spec, dev)
+        live = Z[:, gidx[:spec.m]] != 0  # (K, m, d): this run's operands
+        K, m, d = Z.shape[0], spec.m, spec.d
+        ops_n = (m * OPS_PER_WEIGHT + m * d * OPS_ROW_EDGE
+                 + float(live.any(0).sum()) * OPS_VALUE
+                 + float(live.sum()) * OPS_MAC)
+        return ops_n, K * (4 * spec.n + 4 * m)
+
+    for path, spec in specs.items():
+        z = clip_probs(sample_state["scores"][path])  # continuous operand
+        Q = csr(spec, dev, False)
+        zt = z[:, None].contiguous()
+        add("qz_reconstruct_fwd", path,
+            lambda: qr.qz_reconstruct_fwd(spec, z),
+            lambda: ops.reconstruct_plain(spec, z[None]),
+            lambda: torch.sparse.mm(Q, zt), *fwd_work(spec, z[None]))
+        g = torch.from_numpy(rng.randn(spec.m).astype(np.float32)).to(dev)
+        QT = csr(spec, dev, True)
+        gt = g[:, None].contiguous()
+        md = spec.m * spec.d
+        add("qz_reconstruct_bwd_plan", path,
+            lambda: qr.qz_reconstruct_bwd_plan(spec, g),
+            lambda: ops.plan_bwd_one_plain(spec, g),
+            lambda: torch.sparse.mm(QT, gt), OPS_PLAN * md,
+            8 * md + 4 * (spec.m + spec.n))
+    u8 = get_codec("u8")
+    for path, spec in zs4.specs.items():
+        P = u8.decode(spec, fed["state_r0"]["scores"][path]).expand(
+            FED_K, spec.n).contiguous()
+        steps = as_words(rng.randint(0, 2**32, FED_K, dtype=np.uint64), dev)
+        Z = sample_mask_hash(P, spec.seed, spec.tensor_id, steps)
+        Q = csr(spec, dev, False)
+        Zt = Z.t().contiguous()
+        add("qz_reconstruct_batched_fwd", path,
+            lambda: qr.qz_reconstruct_batched_fwd(spec, Z),
+            lambda: ops.reconstruct_plain(spec, Z),
+            lambda: torch.sparse.mm(Q, Zt), *fwd_work(spec, Z))
+
+    meta = {
+        "qz_reconstruct_fwd": (
+            "src/repro/kernels/qz_reconstruct.py:199", cont_launches, 1,
+            "one continuous-mode local step: 1 launch per zampled leaf",
+            "torch.sparse.mm(Q_csr, z)"),
+        "qz_reconstruct_batched_fwd": (
+            "src/repro/kernels/qz_reconstruct.py:269", composed_launches,
+            FED_E, "one composed round: E launches per zampled leaf, K=10",
+            "torch.sparse.mm(Q_csr, Z^T) on the drawn masks"),
+        "qz_reconstruct_bwd_plan": (
+            "src/repro/kernels/qz_reconstruct.py:349", local_launches, 1,
+            "one sample-mode local step: 1 launch per zampled leaf",
+            "torch.sparse.mm(Q^T_csr, g)"),
+    }
+    out = [kt.row(name, replaces, launch_src[name], max_err[name], times,
+                  per, lib)
+           for name, (replaces, launch_src, times, per, lib) in meta.items()]
+
+    # device time of local steps in the main path, by torch.profiler
+    flat = {**sample_state["scores"], **sample_state["dense"]}
+
+    def steps10(mode):
+        st, os_ = sample_state, opt.init(flat)
+        for t in range(10):
+            st, os_, loss, _ = train_step(zs, st, os_, batches[t],
+                                          step_words[t], mlp_loss, opt,
+                                          mode=mode)
+            float(loss)
+
+    for mode, m_ms, kernel_tags in (
+            ("sample", med, ("sample_reconstruct_kernel", "plan_bwd_kernel")),
+            ("continuous", c_med, ("mask_reconstruct_kernel",
+                                   "plan_bwd_kernel"))):
+        by_tag, dev_us = profile_device_us(lambda: steps10(mode),
+                                           kernel_tags)
+        if dev_us <= 0:
+            say("profile: torch.profiler showed no device time; device "
+                "times not measured")
+            continue
+        say(f"profile: 10 {mode}-mode local steps: all kernels "
+            f"{1e-3 * dev_us / 10:.4f} ms of device time per step, busy "
+            f"share over the median step {1e-3 * dev_us / 10 / (1e3 * m_ms):.4f}"
+            + "".join(f"; {t} {1e-3 * v[0] / 10:.4f} ms per step ({v[1]} "
+                      f"launches)" for t, v in by_tag.items())
+            + f" ({card})")
+    say(f"phase 11 done in {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> None:
@@ -852,7 +1290,9 @@ def main() -> None:
     del sstate, sched, eng, model
     torch.cuda.empty_cache()
 
-    rows += training_phases(card, dev)
+    train_rows, fed = training_phases(card, dev)
+    rows += train_rows
+    rows += local_phases(card, dev, fed, rows)
     say(f"card: {card}")
     say(f"total: {time.perf_counter() - T_START:.1f} s for the whole run")
     say(json.dumps({"kernels": rows}))

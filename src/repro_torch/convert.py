@@ -1,10 +1,14 @@
-"""Carry the JAX package's serving and federated states across to the port.
+"""Carry the JAX package's serving, federated and local states across
+to the port.
 
 The JAX package's ``ServeState`` holds ``words`` and ``dense`` dicts
 keyed by path strings and a uint32 draw word ``step``; as numpy arrays
 they become the port's ``ServeState`` under the same paths.  A
 federated round state ``{"scores": {path: f32 scores or u8/u16 wire
-words}, "dense": {path: leaf}}`` becomes the same dict of tensors.  bf16
+words}, "dense": {path: leaf}}`` becomes the same dict of tensors, and
+so does a local-training state, whose Adam state (``step``, ``mu``,
+``nu`` over the same tree) becomes the port's ``AdamState`` over the
+flat {path: leaf} dict the port's optimizers see.  bf16
 leaves (``ml_dtypes`` arrays) widen to float32.  The port's spec set is
 rebuilt from the JAX template's shapes and config, and every QSpec is
 checked field by field against the JAX one, so a mismatch in leaf order
@@ -19,10 +23,12 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from .core.zampling import (ZamplingConfig, ZamplingSpecs, build_specs,
                             state_to)
-from .device import resolve_device
+from .device import as_tensor, resolve_device
+from .optim import AdamState
 from .serve.state import ServeState, make_serve_state
 
 
@@ -77,3 +83,38 @@ def federated_state_from_jax(jzspecs, jstate, *, device="cuda"):
     zspecs = zspecs_from_jax(jzspecs)
     return zspecs, federated_state_from_arrays(
         zspecs, jstate["scores"], jstate["dense"], device=device)
+
+
+def local_state_from_arrays(zspecs: ZamplingSpecs, scores, dense,
+                            adam_state=None, *, device="cuda"):
+    """(the port's local state, its ``AdamState`` or None) from numpy
+    ``scores``/``dense`` dicts keyed by the JAX package's path strings
+    and, optionally, an Adam state ``(step, mu, nu)`` whose ``mu``/``nu``
+    are ``{"scores": {...}, "dense": {...}}`` dicts of the same leaves."""
+    dev = resolve_device(device)
+    state = federated_state_from_arrays(zspecs, scores, dense, device=dev)
+    if adam_state is None:
+        return state, None
+    step, mu, nu = adam_state
+
+    def flat(tree):
+        return {p: as_tensor(np.asarray(tree[part][p]), dev, torch.float32)
+                for part, paths in (("scores", zspecs.specs),
+                                    ("dense", zspecs.dense_paths))
+                for p in paths}
+
+    return state, AdamState(
+        torch.as_tensor(int(np.asarray(step)), dtype=torch.int32,
+                        device=dev), flat(mu), flat(nu))
+
+
+def local_state_from_jax(jzspecs, jstate, jadam_state=None, *,
+                         device="cuda"):
+    """(the port's ZamplingSpecs, local state, AdamState or None) for a
+    JAX ``ZamplingSpecs``, a JAX local state (``init_state`` or
+    ``train_local_zampling``'s) and, optionally, its ``AdamState``."""
+    zspecs = zspecs_from_jax(jzspecs)
+    state, opt = local_state_from_arrays(zspecs, jstate["scores"],
+                                         jstate["dense"], jadam_state,
+                                         device=device)
+    return zspecs, state, opt

@@ -24,8 +24,12 @@ Draw words, as the JAX package derives them (``federated.py:891-893``,
 ``fold_word(kw, e)``, the upload at ``fold_word(kw, E)``, and the
 server's encode dither is keyed by ``fold_word(as_word(key), r)``.
 
-Partial participation, streaming aggregation, the downlink schedules,
-the composed mask path and the sharded round raise
+``mask_path="composed"`` runs the composed oracle: explicit
+straight-through masks on the reconstruct kernels (kernel 3 forward,
+kernel 6 backward) and the upload as ``pack_mask`` of the drawn mask;
+it gives the fused round's state and loss bit for bit.  Partial
+participation, streaming aggregation, the downlink schedules, the
+continuous and discretize modes and the sharded round raise
 ``NotImplementedError``: they come with later slices.
 """
 
@@ -42,13 +46,13 @@ from ..comm.protocol import mean0, resolve_transport
 from ..device import as_tensor, resolve_device
 from ..optim import Optimizer, sgd
 from .sampling import as_word, as_words, fold_word
-from .zampling import MaskProgram, ZamplingSpecs, infer_downlink, state_to
+from .zampling import (MASK_MODES, MaskProgram, ZamplingSpecs,
+                       infer_downlink, state_to)
 
 # (params with a leading K axis, batch with a leading K axis) -> (K,)
 LossFn = Callable[[Dict[str, torch.Tensor], Dict[str, torch.Tensor]],
                   torch.Tensor]
 
-MASK_MODES = ("sample", "continuous", "discretize")
 _MASK_PATHS = ("fused", "composed")
 DOWNLINK_SCHEDULES = ("constant", "cosine", "frontier")
 WIRE_METRIC_KEYS = (
@@ -67,9 +71,9 @@ def _later(what: str):
 
 @dataclass(frozen=True)
 class FederatedConfig:
-    """The JAX package's fields and defaults.  Values this slice does
-    not run raise: modes other than ``sample``, ``mask_path="composed"``,
-    ``stream_chunk > 0`` and schedules other than ``constant``."""
+    """The JAX package's fields and defaults.  Values the port does not
+    run yet raise: modes other than ``sample``, ``stream_chunk > 0`` and
+    schedules other than ``constant``."""
 
     num_clients: int = 10
     local_steps: int = 1  # "epochs" per round in the paper (up to 100)
@@ -106,8 +110,6 @@ class FederatedConfig:
                 f"valid schedules: {', '.join(DOWNLINK_SCHEDULES)}")
         if self.mode != "sample":
             raise _later(f"mode={self.mode!r}")
-        if self.mask_path == "composed":
-            raise _later("mask_path='composed'")
         if self.stream_chunk:
             raise _later("streaming aggregation (stream_chunk > 0)")
         if self.downlink_schedule != "constant":
@@ -118,7 +120,8 @@ def mask_program(zspecs: ZamplingSpecs, cfg: FederatedConfig,
                  impl: Optional[str] = None) -> MaskProgram:
     """The round's mask lifecycle; ``packed`` is the transport's."""
     transport = resolve_transport(cfg.aggregate, cfg.mode)
-    return MaskProgram(zspecs, mode=cfg.mode, fused=True,
+    return MaskProgram(zspecs, mode=cfg.mode,
+                       fused=cfg.mask_path == "fused",
                        packed=transport.packed_wire, downlink=cfg.downlink,
                        impl=impl)
 

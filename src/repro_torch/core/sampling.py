@@ -1,6 +1,6 @@
 """Mask-draw primitives: the counter spaces, the clip, draw words, the
-mask stream and the quantized-word threshold, as in the JAX package's
-``core/sampling.py``.
+mask stream, the discretized mask and the quantized-word threshold, as
+in the JAX package's ``core/sampling.py``.
 
 The bit at coordinate ``j`` of tensor ``tensor_id`` under draw word
 ``step`` is ``1[uniform(hash_u32(seed, tensor_id, MASK_CTR, step, j))
@@ -94,6 +94,12 @@ def sample_mask_st_hash(p: torch.Tensor, seed: int, tensor_id: int, step):
     """Straight-through hash Bernoulli: forward z, backward identity."""
     z = sample_mask_hash(p, seed, tensor_id, step)
     return p + (z - p).detach()
+
+
+def discretize_mask(p: torch.Tensor) -> torch.Tensor:
+    """Round-to-nearest mask (paper App. A 'discretized network'):
+    1[p >= 0.5] in float32, no gradient."""
+    return (p >= 0.5).to(torch.float32)
 
 
 def word_values(q: torch.Tensor) -> torch.Tensor:

@@ -7,14 +7,20 @@ tree-flatten order, which sorts dict keys at every level: the id keys
 every hash stream, so the port must number leaves in that same order.
 
 Scores come in from outside (numpy arrays, a JAX state through
-``repro_torch.convert``); the JAX package's ``init_state`` draws them
-with ``jax.random``, which has no torch twin.
+``repro_torch.convert``): ``init_state`` takes them, where the JAX
+package's draws them with ``jax.random``, which has no torch twin.
 
-``MaskProgram`` is the mask lifecycle of ``mode="sample"`` with the
-draw fused into the kernels: scores in, weights or upload lanes out
-(``kernels.ops``).  A score leaf of shape (n,) is one client with one
-draw word; (K, n) is K clients with K draw words, which is how the
-federated round calls it (the JAX package vmaps a single client).
+``MaskProgram`` is the mask lifecycle: scores in, weights or upload
+lanes out (``kernels.ops``).  ``mode`` is ``sample`` (a fresh
+Bernoulli mask per forward pass), ``continuous`` (the expected
+network, w = Q p) or ``discretize`` (w = Q 1[p >= 0.5]).  Sample mode
+with ``fused`` draws inside the reconstruct kernel; every other
+combination is the composed path: the explicit straight-through mask
+(``masks``), then ``weights_from_masks`` on the reconstruct kernels.
+Fused and composed give the same weights and gradients bit for bit.
+A score leaf of shape (n,) is one client with one draw word; (K, n) is
+K clients with K draw words, which is how the federated round calls it
+(the JAX package vmaps a single client).
 """
 
 from __future__ import annotations
@@ -27,7 +33,11 @@ import torch
 
 from ..device import as_tensor, resolve_device
 from .qspec import QSpec, make_qspec
-from .sampling import as_word, as_words, clip_probs, sample_mask_hash
+from .sampling import (as_word, as_words, clip_probs, discretize_mask,
+                       sample_mask_hash, sample_mask_qhash,
+                       sample_mask_st_hash)
+
+MASK_MODES = ("sample", "continuous", "discretize")
 
 
 class LeafSpec(NamedTuple):
@@ -164,6 +174,35 @@ def state_to(zspecs: ZamplingSpecs, state, device) -> Dict[str, Any]:
                       for p in zspecs.dense_paths}}
 
 
+def init_state(zspecs: ZamplingSpecs, scores, dense_init=None, *,
+               device="cuda") -> Dict[str, Any]:
+    """``{"scores": {path: (n,) f32}, "dense": {path: leaf}}`` on
+    ``device``, from given scores (numpy or tensors, one (n,) leaf per
+    zampled path).  ``dense_init``: a nested or flat dict of real
+    parameters to take dense leaves from; a dense leaf it lacks is ones
+    where the path names a scale or norm, else zeros (the JAX package's
+    ``init_state`` heuristics)."""
+    for path, spec in zspecs.specs.items():
+        if tuple(scores[path].shape) != (spec.n,):
+            raise ValueError(f"scores of {path!r} have shape "
+                             f"{tuple(scores[path].shape)}, spec expects "
+                             f"({spec.n},)")
+    given = dict(flatten(dense_init)) if dense_init is not None else {}
+    dense = {}
+    for path in zspecs.dense_paths:
+        if path in given:
+            dense[path] = given[path]
+        else:
+            leaf = zspecs.template[path]
+            fill = (torch.ones if "scale" in path or "norm" in path.lower()
+                    else torch.zeros)
+            dense[path] = fill(leaf.shape)
+    return state_to(zspecs, {"scores": {p: as_tensor(scores[p], "cpu",
+                                                     torch.float32)
+                                        for p in zspecs.specs},
+                             "dense": dense}, resolve_device(device))
+
+
 def infer_downlink(scores) -> str:
     """The codec a score dict carries, from its leaves' dtypes."""
     from ..comm.downlink import codec_for_dtype  # comm sits above core
@@ -208,11 +247,11 @@ def resolve_carried(zspecs: ZamplingSpecs, scores,
 
 @dataclass(frozen=True)
 class MaskProgram:
-    """The configured mask lifecycle over a spec set: ``mode="sample"``
-    with the draw fused into the kernels (``kernels.ops``).  ``packed``
-    picks the upload's form: uint32 wire lanes, or the f32 {0,1} mask.
-    ``downlink`` names the codec of the server's broadcast; the
-    ``*_from_wire`` path draws straight from its u8/u16 words."""
+    """The configured mask lifecycle over a spec set (``mode`` x
+    ``fused``).  ``packed`` picks the upload's form: uint32 wire lanes,
+    or the f32 {0,1} mask.  ``downlink`` names the codec of the server's
+    broadcast; the ``*_from_wire`` path draws straight from its u8/u16
+    words."""
 
     zspecs: ZamplingSpecs
     mode: str = "sample"
@@ -222,14 +261,9 @@ class MaskProgram:
     impl: Optional[str] = None  # kernels.ops impl override
 
     def __post_init__(self):
-        if self.mode != "sample":
-            raise NotImplementedError(
-                f"mask mode {self.mode!r}: the port runs mode='sample'; "
-                "continuous and discretize come with a later slice")
-        if not self.fused:
-            raise NotImplementedError(
-                "the composed mask path (explicit draw, then the "
-                "qz_reconstruct_fwd kernels) comes with a later slice")
+        if self.mode not in MASK_MODES:
+            raise ValueError(f"unknown mask mode {self.mode!r}; valid "
+                             f"modes: {', '.join(MASK_MODES)}")
 
     @property
     def codec(self):
@@ -256,9 +290,49 @@ class MaskProgram:
         return {path: codec.decode(spec, self._wire_words(wire_scores, path))
                 for path, spec in self.zspecs.specs.items()}
 
+    # -- the composed path ---------------------------------------------
+    def mask(self, p: torch.Tensor, spec: QSpec, step) -> torch.Tensor:
+        """One tensor's mask from CLIPPED probabilities ``p``: the
+        straight-through draw at ``step`` (a word for (n,), K words for
+        (K, n)), ``p`` itself, or the rounded mask."""
+        if self.mode == "sample":
+            if p.ndim == 2:
+                step = as_words(step, p.device)
+            return sample_mask_st_hash(p, spec.seed, spec.tensor_id, step)
+        if self.mode == "continuous":
+            return p
+        return discretize_mask(p)
+
+    def masks(self, scores, step) -> Dict[str, torch.Tensor]:
+        """{path: mask}, one fresh draw per tensor at ``step``."""
+        return {path: self.mask(clip_probs(scores[path]), spec, step)
+                for path, spec in self.zspecs.specs.items()}
+
+    def mask_from_wire(self, q: torch.Tensor, spec: QSpec, step):
+        """One tensor's mask from its encoded broadcast words: in sample
+        mode the u8/u16 threshold compare (bit-identical to drawing on
+        the decoded scores); otherwise the mode's mask of the decoded
+        probabilities."""
+        codec = self.codec
+        if codec.quantized and self.mode == "sample":
+            words = as_words(step, q.device) if q.ndim == 2 else as_word(step)
+            return sample_mask_qhash(q, codec.bits, spec.seed,
+                                     spec.tensor_id, words)
+        return self.mask(clip_probs(codec.decode(spec, q)), spec, step)
+
+    def masks_from_wire(self, wire_scores, step) -> Dict[str, torch.Tensor]:
+        """{path: mask} drawn directly from the encoded broadcast."""
+        return {path: self.mask_from_wire(self._wire_words(wire_scores, path),
+                                          spec, step)
+                for path, spec in self.zspecs.specs.items()}
+
+    # -- weights -------------------------------------------------------
     def weights(self, scores, dense, steps) -> Dict[str, torch.Tensor]:
         """{path: leaf} of one forward pass: a fresh draw at ``steps``
         (a word for (n,) scores, K words for (K, n) scores)."""
+        if not (self.fused and self.mode == "sample"):
+            return weights_from_masks(self.zspecs, self.masks(scores, steps),
+                                      {"dense": dense}, impl=self.impl)
         from ..kernels import ops  # kernels sit above core
 
         leaves = {}
@@ -271,32 +345,43 @@ class MaskProgram:
         return leaves
 
     def upload(self, scores, steps) -> Dict[str, torch.Tensor]:
-        """The end-of-round upload: fresh gradient-free bits at
-        ``steps``, as wire lanes when ``packed``, else f32 masks."""
+        """The end-of-round upload of sample mode: fresh gradient-free
+        bits at ``steps``, as wire lanes when ``packed`` (drawn in the
+        pack kernel when ``fused``), else f32 masks."""
+        if self.mode != "sample":
+            raise NotImplementedError(
+                f"the upload of mode={self.mode!r} is not ported yet; it "
+                "comes with the federated continuous/discretize modes")
+        from ..comm.bitpack import pack_mask  # comm sits above core
         from ..kernels import ops
 
         out = {}
         for path, spec in self.zspecs.specs.items():
             p = clip_probs(scores[path].detach())
-            if self.packed:
+            if self.packed and self.fused:
                 op = (ops.sample_pack_batched if p.ndim == 2
                       else ops.sample_pack)
                 out[path] = op(spec, p, steps, impl=self.impl)
-            else:
-                words = (as_words(steps, p.device) if p.ndim == 2
-                         else as_word(steps))
-                out[path] = sample_mask_hash(p, spec.seed, spec.tensor_id,
-                                             words)
+                continue
+            words = (as_words(steps, p.device) if p.ndim == 2
+                     else as_word(steps))
+            z = sample_mask_hash(p, spec.seed, spec.tensor_id, words)
+            out[path] = pack_mask(z) if self.packed else z
         return out
 
     def weights_from_wire(self, wire_scores, dense,
                           steps) -> Dict[str, torch.Tensor]:
         """One forward pass drawn straight from the encoded broadcast:
-        the u8/u16 threshold compare in the kernel, no f32 scores.
-        Gradient-free; training decodes first (``decode_scores``)."""
+        in fused sample mode the u8/u16 threshold compare in the kernel,
+        no f32 scores.  Gradient-free; training decodes first
+        (``decode_scores``)."""
         codec = self.codec
         if not codec.quantized:
             return self.weights(wire_scores, dense, steps)
+        if not (self.fused and self.mode == "sample"):
+            return weights_from_masks(
+                self.zspecs, self.masks_from_wire(wire_scores, steps),
+                {"dense": dense}, impl=self.impl)
         from ..kernels import ops
 
         leaves = {}
@@ -310,23 +395,58 @@ class MaskProgram:
         return leaves
 
 
-def sample_weights(zspecs: ZamplingSpecs, state, key, *,
-                   mode: Optional[str] = None,
-                   downlink: Optional[str] = None,
-                   carried: Optional[str] = None,
-                   impl: Optional[str] = None,
-                   device="cuda") -> Dict[str, torch.Tensor]:
-    """One fresh sampled network, {path: leaf}, at the draw word
-    ``key``.  ``state["scores"]`` holds f32 scores or a codec's wire
-    words (``carried`` names the codec; without it the dtypes do); an
-    explicit ``downlink`` must agree with what the state carries."""
+def weights_from_masks(zspecs: ZamplingSpecs, masks, state, *,
+                       impl: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    """{path: leaf}: every zampled leaf reconstructed from its mask
+    ((n,) on ``ops.reconstruct``, (K, n) on ``ops.reconstruct_batched``),
+    the dense leaves from ``state["dense"]``."""
+    from ..kernels import ops  # kernels sit above core
+
+    leaves = {}
+    for path, spec in zspecs.specs.items():
+        z = masks[path]
+        op = ops.reconstruct_batched if z.ndim == 2 else ops.reconstruct
+        leaves[path] = op(spec, z, impl=impl)
+    leaves.update({path: state["dense"][path] for path in zspecs.dense_paths})
+    return leaves
+
+
+def _program(zspecs: ZamplingSpecs, st, mode, fused, downlink, carried,
+             impl) -> MaskProgram:
     from ..comm.downlink import get_codec
 
-    st = state_to(zspecs, state, resolve_device(device))
     resolved = resolve_carried(zspecs, st["scores"], carried)
     if downlink is not None and get_codec(downlink).name != resolved:
         raise ValueError(f"downlink={downlink!r} does not match the state's "
                          f"score representation ({resolved!r})")
-    program = MaskProgram(zspecs, mode=mode or zspecs.config.mode,
-                          downlink=resolved, impl=impl)
+    return MaskProgram(zspecs, mode=mode or zspecs.config.mode, fused=fused,
+                       downlink=resolved, impl=impl)
+
+
+def sample_masks(zspecs: ZamplingSpecs, state, key, *,
+                 mode: Optional[str] = None,
+                 carried: Optional[str] = None,
+                 device="cuda") -> Dict[str, torch.Tensor]:
+    """{path: z} straight-through masks, one fresh draw per tensor at
+    the draw word ``key``; a u8/u16 carry draws by the threshold
+    compare."""
+    st = state_to(zspecs, state, resolve_device(device))
+    program = _program(zspecs, st, mode, False, None, carried, None)
+    return program.masks_from_wire(st["scores"], as_word(key))
+
+
+def sample_weights(zspecs: ZamplingSpecs, state, key, *,
+                   mode: Optional[str] = None, fused: bool = True,
+                   downlink: Optional[str] = None,
+                   carried: Optional[str] = None,
+                   impl: Optional[str] = None,
+                   device="cuda") -> Dict[str, torch.Tensor]:
+    """One network, {path: leaf}: sampled at the draw word ``key``, or
+    the expected (``mode="continuous"``) or discretized network, which
+    draw nothing.  ``fused=False`` is the composed path.
+    ``state["scores"]`` holds f32 scores or a codec's wire words
+    (``carried`` names the codec; without it the dtypes do); an
+    explicit ``downlink`` must agree with what the state carries."""
+    st = state_to(zspecs, state, resolve_device(device))
+    program = _program(zspecs, st, mode, fused, downlink, carried, impl)
     return program.weights_from_wire(st["scores"], st["dense"], as_word(key))

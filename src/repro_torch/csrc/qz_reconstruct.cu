@@ -1,34 +1,49 @@
-// The federated round's kernels for Hopper: the batched sample-
-// reconstruct forward, the transpose-plan backward and the upload
-// sample-pack.  Device functions (hash, Q-row regeneration, mask draw,
-// quantized threshold, Box-Muller) come from qz_common.cuh, the code
-// the serve kernel (qz_decode.cu) already holds bitwise against torch.
+// The training kernels for Hopper: the reconstruct forward (from explicit
+// masks or drawn in the body), the transpose-plan backward and the
+// upload sample-pack.  Device functions (hash, Q-row regeneration, mask
+// draw, quantized threshold, Box-Muller) come from qz_common.cuh, the
+// code the serve kernel (qz_decode.cu) already holds bitwise against
+// torch.
 //
-// sample_reconstruct_kernel replaces qz_sample_reconstruct_batched_fwd
-// and, at K = 1, qz_sample_reconstruct_fwd (src/repro/kernels/
-// qz_reconstruct.py).  W[k, r] = sum_j vals[r, j] * z_k[idx[r, j]] with
-// z_k ~ Bern(p_k) drawn in the body from the hash stream at the edge's
-// coordinate (f32 probabilities, or the u8/u16 threshold compare).  One
-// thread owns one row: it regenerates the row's d edges (coordinates
-// and values) once into shared memory, then for each of the K clients
-// gathers that client's draw at each edge and sums vals * bit in
-// ascending j, each multiply and add rounded on its own.  The Pallas
-// kernel selects window bits by a one-hot MXU product; here the draw is
-// read by gather.  Only the valid rows [0, m) of the single-block
-// layout are computed (the padding rows the JAX wrapper slices off are
-// never formed).
-// Bound: bytes at MNISTFC width.  The least work is per row 2 row
-// hashes, per edge 2 value hashes and a Box-Muller, one mask hash and
-// a compare per (client, coordinate) (this kernel redraws per (client,
-// edge), d*m/n = 80 times that at compression 8, d = 10), an add per
-// drawn edge; against the K operand rows read and K output rows written.
+// reconstruct_rows is the forward of four Pallas kernels of
+// src/repro/kernels/qz_reconstruct.py.  W[k, r] = sum_j vals[r, j] *
+// z_k[idx[r, j]] in ascending j, each multiply and add rounded on its
+// own, with z_k either
+//   - drawn in the body, z_k ~ Bern(p_k) from the hash stream at the
+//     edge's coordinate (f32 probabilities, or the u8/u16 threshold
+//     compare): sample_reconstruct_kernel, replacing
+//     qz_sample_reconstruct_batched_fwd and, at K = 1,
+//     qz_sample_reconstruct_fwd;
+//   - read from an explicit (K, n) f32 operand (masks, or the
+//     probabilities themselves in continuous mode):
+//     mask_reconstruct_kernel, replacing qz_reconstruct_batched_fwd and,
+//     at K = 1 through its own entry, qz_reconstruct_fwd.
+// One thread owns one row.  It regenerates the row's edges (coordinates
+// and values) once, into shared memory that only it reads, then for each
+// of the K clients gathers that client's operand at each edge and sums.
+// A row's d edges are staged CHUNK at a time, so any d fits (the paper
+// runs d up to 256); a later chunk picks the client's partial sum back
+// up from W, which holds exactly the float the thread wrote, so the sum
+// is the same ascending-j sequence of rounded adds as with one chunk.
+// The Pallas kernels gather through a one-hot MXU product; here it is a
+// plain gather.  Only the valid rows [0, m) of the single-block layout
+// are computed (the padding rows the JAX wrapper slices off are never
+// formed).
+// Bound: at MNISTFC width, bytes for the drawn forward at K = 10 and
+// operations for K = 1.  The least work is per row 2 row hashes, per
+// edge its index and, where some client's operand is not 0, 2 value
+// hashes and a Box-Muller; per (client, edge) a multiply-add where the
+// operand is not 0; for a drawn operand one mask hash and a compare per
+// (client, coordinate) (this kernel redraws per (client, edge)).
+// Against that, the K operand rows read and the K output rows written.
 //
-// plan_bwd_kernel replaces qz_reconstruct_batched_bwd_plan.  It reads
-// the global (num_windows, window, deg) transpose plan directly (no
-// per-row-block re-binning as the Pallas grid needs): one thread per
-// (coordinate, client) sums vals[c, e] * g_k[w*rpw + rows[c, e]] over e
-// in ascending order, the canonical plan order, each multiply and add
-// rounded on its own.  Padding entries (value 0) add exact zeros.
+// plan_bwd_kernel replaces qz_reconstruct_batched_bwd_plan and, at K = 1
+// through its own entry, qz_reconstruct_bwd_plan.  It reads the global
+// (num_windows, window, deg) transpose plan directly (no per-row-block
+// re-binning as the Pallas grid needs): one thread per (coordinate,
+// client) sums vals[c, e] * g_k[w*rpw + rows[c, e]] over e in ascending
+// order, the canonical plan order, each multiply and add rounded on its
+// own.  Padding entries (value 0) add exact zeros.
 // Bound: bytes (the plan's rows and values dominate).
 //
 // sample_pack_kernel replaces qz_sample_pack_batched_fwd.  One thread
@@ -50,13 +65,83 @@ namespace {
 
 constexpr int THREADS = 128;
 
+// A row's edges staged in shared memory at once: 8 bytes per edge and
+// thread, 32 KB a CTA, plus 4 bytes per client (at most 4 KB), under the
+// 48 KB a launch gets without opting in to more.
+constexpr int CHUNK = 32;
+
+// The explicit f32 operand of mask_reconstruct_kernel: no draw.
+constexpr int KIND_VALUES = 3;
+
 template <int KIND>
 __device__ __forceinline__ const void* client_words(const void* P, int k,
                                                     long long n) {
   const long long off = static_cast<long long>(k) * n;
-  if (KIND == qz::KIND_F32) return static_cast<const float*>(P) + off;
+  if (KIND == qz::KIND_F32 || KIND == KIND_VALUES) {
+    return static_cast<const float*>(P) + off;
+  }
   if (KIND == qz::KIND_U8) return static_cast<const uint8_t*>(P) + off;
   return static_cast<const uint16_t*>(P) + off;
+}
+
+// Client k's operand at a global coordinate: its value, or its drawn bit.
+template <int KIND>
+__device__ __forceinline__ float edge_operand(const void* __restrict__ words,
+                                              int qbits, uint32_t hm,
+                                              uint32_t coord) {
+  if (KIND == KIND_VALUES) return static_cast<const float*>(words)[coord];
+  return qz::mask_bit<KIND>(words, qbits, hm, coord) ? 1.0f : 0.0f;
+}
+
+// Dynamic shared memory: K mask prefixes (drawn kinds), then ch x THREADS
+// coordinates and ch x THREADS values, ch = min(d, CHUNK).  MULTI is
+// d > CHUNK, fixed at compile time so that the one-chunk instance (every
+// d the round and Fig. 6 run) has no chunk loop and no read-back.
+template <int KIND, bool MULTI>
+__device__ __forceinline__ void reconstruct_rows(const void* __restrict__ P,
+                                            int qbits,
+                                            const long long* __restrict__ steps,
+                                            int K, long long n, uint32_t m,
+                                            const qz::SpecArgs& s,
+                                            float* __restrict__ W) {
+  extern __shared__ uint32_t smem[];
+  const int ch = s.d < CHUNK ? s.d : CHUNK;
+  const int nh = KIND == KIND_VALUES ? 0 : K;
+  uint32_t* sHm = smem;
+  uint32_t* sCoord = sHm + nh;
+  float* sVal = reinterpret_cast<float*>(sCoord + ch * THREADS);
+
+  const int t = threadIdx.x;
+  for (int k = t; k < nh; k += THREADS) {
+    sHm[k] = qz::mask_prefix(s.seed, s.tensor_id, static_cast<uint32_t>(steps[k]));
+  }
+  __syncthreads();  // the only data threads share: the mask prefixes
+  const uint32_t r = blockIdx.x * THREADS + t;
+  if (r >= m) return;
+  const uint32_t hq = qz::prefix2(s.seed, s.tensor_id);
+  const qz::RowEdges e = qz::row_edges(hq, r, s.window);
+  const uint32_t wbase = (r / s.rows_per_window) * s.window;
+  for (int j0 = 0; j0 < (MULTI ? s.d : ch); j0 += ch) {
+    const int nj = s.d - j0 < ch ? s.d - j0 : ch;
+    for (int jj = 0; jj < nj; ++jj) {
+      sCoord[jj * THREADS + t] = wbase + e.index(j0 + jj, s.window);
+      sVal[jj * THREADS + t] = e.value(j0 + jj, s.sigma);
+    }
+    for (int k = 0; k < K; ++k) {
+      const void* words = client_words<KIND>(P, k, n);
+      const uint32_t hm = nh ? sHm[k] : 0u;
+      float* out = W + static_cast<long long>(k) * m + r;
+      // -0 + x == x for every x, so a sum started at -0 is the sum started
+      // at the first product; a later chunk resumes from the partial sum
+      // written for the last
+      float acc = (MULTI && j0 > 0) ? *out : -0.0f;
+      for (int jj = 0; jj < nj; ++jj) {
+        const float z = edge_operand<KIND>(words, qbits, hm, sCoord[jj * THREADS + t]);
+        acc = __fadd_rn(acc, __fmul_rn(sVal[jj * THREADS + t], z));
+      }
+      *out = acc;
+    }
+  }
 }
 
 template <int KIND>
@@ -65,37 +150,20 @@ sample_reconstruct_kernel(const void* __restrict__ P, int qbits,
                           const long long* __restrict__ steps, int K,
                           long long n, uint32_t m, qz::SpecArgs s,
                           float* __restrict__ W) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* sHm = smem;                          // K mask prefixes
-  uint32_t* sCoord = sHm + K;                    // d x THREADS coordinates
-  float* sVal = reinterpret_cast<float*>(sCoord + s.d * THREADS);  // values
+  if (s.d > CHUNK) {
+    reconstruct_rows<KIND, true>(P, qbits, steps, K, n, m, s, W);
+  } else {
+    reconstruct_rows<KIND, false>(P, qbits, steps, K, n, m, s, W);
+  }
+}
 
-  const int t = threadIdx.x;
-  for (int k = t; k < K; k += THREADS) {
-    sHm[k] = qz::mask_prefix(s.seed, s.tensor_id, static_cast<uint32_t>(steps[k]));
-  }
-  const uint32_t r = blockIdx.x * THREADS + t;
-  if (r < m) {
-    const uint32_t hq = qz::prefix2(s.seed, s.tensor_id);
-    const qz::RowEdges e = qz::row_edges(hq, r, s.window);
-    const uint32_t wbase = (r / s.rows_per_window) * s.window;
-    for (int j = 0; j < s.d; ++j) {
-      sCoord[j * THREADS + t] = wbase + e.index(j, s.window);
-      sVal[j * THREADS + t] = e.value(j, s.sigma);
-    }
-  }
-  __syncthreads();
-  if (r >= m) return;
-  for (int k = 0; k < K; ++k) {
-    const void* words = client_words<KIND>(P, k, n);
-    const uint32_t hm = sHm[k];
-    float acc = 0.0f;
-    for (int j = 0; j < s.d; ++j) {
-      const float bit = qz::mask_bit<KIND>(words, qbits, hm, sCoord[j * THREADS + t]) ? 1.0f : 0.0f;
-      const float prod = __fmul_rn(sVal[j * THREADS + t], bit);
-      acc = (j == 0) ? prod : __fadd_rn(acc, prod);
-    }
-    W[static_cast<long long>(k) * m + r] = acc;
+__global__ void __launch_bounds__(THREADS)
+mask_reconstruct_kernel(const float* __restrict__ Z, int K, long long n,
+                        uint32_t m, qz::SpecArgs s, float* __restrict__ W) {
+  if (s.d > CHUNK) {
+    reconstruct_rows<KIND_VALUES, true>(Z, 0, nullptr, K, n, m, s, W);
+  } else {
+    reconstruct_rows<KIND_VALUES, false>(Z, 0, nullptr, K, n, m, s, W);
   }
 }
 
@@ -152,6 +220,32 @@ qz::SpecArgs spec_args(unsigned seed, unsigned tensor_id, int window,
   return s;
 }
 
+// Dynamic shared memory of reconstruct_rows for nh mask prefixes and degree d.
+size_t rows_smem(int nh, int d) {
+  const int ch = d < CHUNK ? d : CHUNK;
+  return sizeof(uint32_t) * (static_cast<size_t>(nh) + 2u * ch * THREADS);
+}
+
+int mask_reconstruct(const float* Z, int K, long long n, unsigned m,
+                     unsigned seed, unsigned tensor_id, int window,
+                     unsigned rows_per_window, int d, float sigma, float* W,
+                     void* stream) {
+  const qz::SpecArgs s = spec_args(seed, tensor_id, window, rows_per_window, d, sigma);
+  const dim3 grid((m + THREADS - 1) / THREADS);
+  mask_reconstruct_kernel<<<grid, THREADS, rows_smem(0, d), static_cast<cudaStream_t>(stream)>>>(
+      Z, K, n, m, s, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int plan_bwd(const float* G, const int* rows, const float* vals, int K,
+             unsigned n, unsigned m, int deg, int window,
+             unsigned rows_per_window, float* out, void* stream) {
+  const dim3 grid((n + THREADS - 1) / THREADS, K);
+  plan_bwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      G, rows, vals, n, m, deg, static_cast<uint32_t>(window), rows_per_window, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -164,7 +258,7 @@ int qz_sample_reconstruct(const void* P, int kind, int qbits,
                           float sigma, float* W, void* stream) {
   const qz::SpecArgs s = spec_args(seed, tensor_id, window, rows_per_window, d, sigma);
   const dim3 grid((m + THREADS - 1) / THREADS);
-  const size_t smem = sizeof(uint32_t) * (static_cast<size_t>(K) + 2u * d * THREADS);
+  const size_t smem = rows_smem(K, d);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case qz::KIND_F32:
@@ -182,14 +276,38 @@ int qz_sample_reconstruct(const void* P, int kind, int qbits,
   return static_cast<int>(cudaGetLastError());
 }
 
+// W (K, m) = Q Z_k for the K clients' explicit operands Z (K, n).
+int qz_reconstruct_batched(const float* Z, int K, long long n, unsigned m,
+                           unsigned seed, unsigned tensor_id, int window,
+                           unsigned rows_per_window, int d, float sigma,
+                           float* W, void* stream) {
+  return mask_reconstruct(Z, K, n, m, seed, tensor_id, window,
+                          rows_per_window, d, sigma, W, stream);
+}
+
+// w (m,) = Q z for one operand z (n,).
+int qz_reconstruct_one(const float* z, long long n, unsigned m,
+                       unsigned seed, unsigned tensor_id, int window,
+                       unsigned rows_per_window, int d, float sigma, float* w,
+                       void* stream) {
+  return mask_reconstruct(z, 1, n, m, seed, tensor_id, window,
+                          rows_per_window, d, sigma, w, stream);
+}
+
 // out (K, n) = Q^T G_k over the transpose plan; G (K, m) moved order.
 int qz_plan_bwd(const float* G, const int* rows, const float* vals, int K,
                 unsigned n, unsigned m, int deg, int window,
                 unsigned rows_per_window, float* out, void* stream) {
-  const dim3 grid((n + THREADS - 1) / THREADS, K);
-  plan_bwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      G, rows, vals, n, m, deg, static_cast<uint32_t>(window), rows_per_window, out);
-  return static_cast<int>(cudaGetLastError());
+  return plan_bwd(G, rows, vals, K, n, m, deg, window, rows_per_window, out,
+                  stream);
+}
+
+// out (n,) = Q^T g over the transpose plan for one cotangent g (m,).
+int qz_plan_bwd_one(const float* g, const int* rows, const float* vals,
+                    unsigned n, unsigned m, int deg, int window,
+                    unsigned rows_per_window, float* out, void* stream) {
+  return plan_bwd(g, rows, vals, 1, n, m, deg, window, rows_per_window, out,
+                  stream);
 }
 
 // out (K, ceil(n/32)) lanes of Bern(P_k), P (K, n) f32 probabilities.

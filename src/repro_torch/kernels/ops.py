@@ -2,20 +2,25 @@
 pack) and streaming serve (y = x @ W_g with W_g never materialized).
 
 TRAINING HALF (the JAX package's ``kernels/ops.py:143-811``, what the
-federated round needs).  ``sample_reconstruct_batched`` is
-``W_k = Q Bern(P_k)`` for K stacked clients as a
+federated round and local training need).  ``sample_reconstruct_batched``
+is ``W_k = Q Bern(P_k)`` for K stacked clients as a
 ``torch.autograd.Function``: the forward draws the masks inside the op
 (CUDA kernel 8, ``qz_sample_reconstruct_batched_fwd``; kernel 7 at
 K=1), the backward is the straight-through ``grad_P = Q^T grad_W`` over
-the canonical transpose plan (kernel 6), and the draw words get no
-gradient.  With ``qbits`` the operand is the u8/u16 downlink words and
-the op has no gradient.  ``sample_pack_batched`` draws the upload and
-emits wire lanes (kernel 10); a spec with ``window % 32 != 0`` takes
-the plain path, as the JAX package's does.  Impl dispatch: ``"cuda"``
-(the kernels) or ``"ref"`` (the plain torch versions below), by the
-argument, else ``REPRO_RECONSTRUCT_IMPL``, else the tensor's device;
-``"cuda"`` on a CPU tensor raises.  The round calls the batched ops
-directly: there are no vmap rules to install.
+the canonical transpose plan (kernel 6; kernel 5,
+``qz_reconstruct_bwd_plan``, at K=1), and the draw words get no
+gradient.  ``reconstruct_batched`` is ``W_k = Q Z_k`` from explicit
+operands (masks, or probabilities in continuous mode) with the same
+backward: kernel 3 forward (kernel 1, ``qz_reconstruct_fwd``, for the
+single-client ``reconstruct``).  With ``qbits`` the operand is the
+u8/u16 downlink words and the op has no gradient.
+``sample_pack_batched`` draws the upload and emits wire lanes (kernel
+10); a spec with ``window % 32 != 0`` takes the plain path, as the JAX
+package's does.  Impl dispatch: ``"cuda"`` (the kernels) or ``"ref"``
+(the plain torch versions below), by the argument, else
+``REPRO_RECONSTRUCT_IMPL``, else the tensor's device; ``"cuda"`` on a
+CPU tensor raises.  The round calls the batched ops directly: there are
+no vmap rules to install.
 
 SERVE HALF.  Every zampled linear of the serving engine calls
 ``serve_matmul`` (or ``serve_matvec`` at B=1); each regenerates the
@@ -54,13 +59,13 @@ import torch
 from ..comm.bitpack import pack_mask
 from ..core.hashrng import bernoulli_u32
 from ..core.qspec import QSpec, row_indices, row_values
-from ..core.reconstruct import (_insert_padding_batched, _rows_sum,
-                                _select_valid_batched, _unmove_batched,
-                                plan_apply_batched)
+from ..core.reconstruct import (_insert_padding_batched, _move_batched,
+                                _unmove_batched, plan_apply_batched,
+                                reconstruct_batched_ref)
 from ..core.sampling import (as_word, as_words, mask_u32,
                               quant_threshold_u24, sample_mask_hash,
                               sample_mask_qhash, word_values)
-from ..core.transpose_plan import resolve_bwd_path, row_plan
+from ..core.transpose_plan import resolve_bwd_path
 
 SERVE_BM = 256
 VALID_SERVE_IMPLS = ("chunked", "cuda")
@@ -96,16 +101,21 @@ def _draw(spec: QSpec, P: torch.Tensor, steps: torch.Tensor, qbits):
     return sample_mask_qhash(P, qbits, spec.seed, spec.tensor_id, steps)
 
 
+def reconstruct_plain(spec: QSpec, Z: torch.Tensor) -> torch.Tensor:
+    """The plain torch version of kernels 3 and 1: (K, n) operands ->
+    W (K, m) in moved flat order, each row summing its edge value times
+    the client's operand in ascending k: ``reconstruct_batched_ref``."""
+    return _move_batched(spec, reconstruct_batched_ref(spec, Z))
+
+
 def sample_reconstruct_plain(spec: QSpec, P: torch.Tensor, steps,
                              qbits: Optional[int] = None) -> torch.Tensor:
     """The plain torch version of kernels 8 and 7: (K, n) operand + (K,)
-    draw words -> W (K, m) in moved flat order.  Each row sums, in
-    ascending k, its edge value times the client's drawn bit, as the
-    kernel does."""
+    draw words -> W (K, m) in moved flat order: the drawn masks through
+    ``reconstruct_plain``, as the kernel multiplies each edge value by
+    the client's drawn bit."""
     steps = as_words(steps, P.device).reshape(-1)
-    gidx, vals = row_plan(spec, P.device)
-    return _select_valid_batched(
-        spec, _rows_sum(vals, _draw(spec, P, steps, qbits)[:, gidx]))
+    return reconstruct_plain(spec, _draw(spec, P, steps, qbits))
 
 
 def plan_bwd_plain(spec: QSpec, G: torch.Tensor) -> torch.Tensor:
@@ -115,6 +125,12 @@ def plan_bwd_plain(spec: QSpec, G: torch.Tensor) -> torch.Tensor:
         spec, _insert_padding_batched(spec, G.to(torch.float32)))
 
 
+def plan_bwd_one_plain(spec: QSpec, g: torch.Tensor) -> torch.Tensor:
+    """The plain torch version of kernel 5: one (m,) cotangent in moved
+    flat order -> (n,) over the canonical transpose plan."""
+    return plan_bwd_plain(spec, g[None])[0]
+
+
 def sample_pack_plain(spec: QSpec, P: torch.Tensor, steps) -> torch.Tensor:
     """The plain torch version of kernel 10: (K, n) probabilities ->
     (K, ceil(n/32)) upload lanes."""
@@ -122,53 +138,93 @@ def sample_pack_plain(spec: QSpec, P: torch.Tensor, steps) -> torch.Tensor:
     return pack_mask(sample_mask_hash(P, spec.seed, spec.tensor_id, steps))
 
 
-def _fwd_many(spec, P, steps, impl, qbits, single=False):
+def _fwd_many(spec, P, steps, impl, qbits, single):
+    """Kernels 7/8 (a draw at ``steps``) or 1/3 (``steps`` None: P is
+    the explicit operand)."""
     if impl == "ref":
+        if steps is None:
+            return reconstruct_plain(spec, P)
         return sample_reconstruct_plain(spec, P, steps, qbits)
-    from . import qz_reconstruct
+    from . import qz_reconstruct as qr
 
+    if steps is None:
+        if single:
+            return qr.qz_reconstruct_fwd(spec, P[0])[None]
+        return qr.qz_reconstruct_batched_fwd(spec, P)
     if single:
-        return qz_reconstruct.qz_sample_reconstruct_fwd(
-            spec, P[0], steps, qbits)[None]
-    return qz_reconstruct.qz_sample_reconstruct_batched_fwd(spec, P, steps,
-                                                            qbits)
+        return qr.qz_sample_reconstruct_fwd(spec, P[0], steps, qbits)[None]
+    return qr.qz_sample_reconstruct_batched_fwd(spec, P, steps, qbits)
 
 
-def _bwd_many(spec, G, impl):
+def _bwd_many(spec, G, impl, single):
+    """Kernel 6 (kernel 5 for one client)."""
     resolve_bwd_path()
     if impl == "ref":
         return plan_bwd_plain(spec, G)
-    from . import qz_reconstruct
+    from . import qz_reconstruct as qr
 
-    return qz_reconstruct.qz_reconstruct_batched_bwd_plan(spec, G)
+    if single:
+        return qr.qz_reconstruct_bwd_plan(spec, G[0])[None]
+    return qr.qz_reconstruct_batched_bwd_plan(spec, G)
 
 
-class _SampleReconstruct(torch.autograd.Function):
-    """W = Q Bern(P), straight-through: grad_P = Q^T grad_W."""
+class _Reconstruct(torch.autograd.Function):
+    """W = Q Z, or W = Q Bern(P) drawn at ``steps`` (straight-through);
+    either way grad = Q^T grad_W."""
 
     @staticmethod
     def forward(ctx, P, steps, spec, impl, single):
-        ctx.spec, ctx.impl = spec, impl
+        ctx.spec, ctx.impl, ctx.single = spec, impl, single
         return _fwd_many(spec, P, steps, impl, None, single)
 
     @staticmethod
     def backward(ctx, gW):
-        return (_bwd_many(ctx.spec, gW.contiguous(), ctx.impl), None, None,
-                None, None)
+        return (_bwd_many(ctx.spec, gW.contiguous(), ctx.impl, ctx.single),
+                None, None, None, None)
+
+
+def _check_batched(spec, P, what):
+    if P.ndim != 2 or P.shape[-1] != spec.n:
+        raise ValueError(f"{what} has shape {tuple(P.shape)}, spec "
+                         f"expects (K, {spec.n})")
 
 
 def _sample_reconstruct(spec, P, steps, qbits, impl, single):
-    if P.ndim != 2 or P.shape[-1] != spec.n:
-        raise ValueError(f"operand has shape {tuple(P.shape)}, spec "
-                         f"expects (K, {spec.n})")
+    _check_batched(spec, P, "operand")
     impl = resolve_impl(impl, P)
     steps = as_words(steps, P.device).reshape(-1)
     if qbits is not None:
         W = _fwd_many(spec, P.contiguous(), steps, impl, int(qbits), single)
     else:
-        W = _SampleReconstruct.apply(P.to(torch.float32).contiguous(), steps,
-                                     spec, impl, single)
+        W = _Reconstruct.apply(P.to(torch.float32).contiguous(), steps,
+                               spec, impl, single)
     return _unmove_batched(spec, W)
+
+
+def _reconstruct(spec, Z, impl, single):
+    _check_batched(spec, Z, "Z")
+    impl = resolve_impl(impl, Z)
+    W = _Reconstruct.apply(Z.to(torch.float32).contiguous(), None, spec,
+                           impl, single)
+    return _unmove_batched(spec, W)
+
+
+def reconstruct_batched(spec: QSpec, Z: torch.Tensor, *,
+                        impl: Optional[str] = None) -> torch.Tensor:
+    """W_k = Q z^(k) for K stacked clients: Z (K, n) -> (K, *spec.shape)
+    f32, differentiable in Z (grad = Q^T grad_W).  Kernel 3 forward,
+    kernel 6 backward."""
+    return _reconstruct(spec, Z, impl, False)
+
+
+def reconstruct(spec: QSpec, z: torch.Tensor, *,
+                impl: Optional[str] = None) -> torch.Tensor:
+    """w = Q z for one operand: (n,) -> spec.shape f32, differentiable
+    in z.  Kernel 1 forward, kernel 5 backward."""
+    if z.ndim != 1:
+        raise ValueError(f"z has shape {tuple(z.shape)}, spec expects "
+                         f"({spec.n},)")
+    return _reconstruct(spec, z[None], impl, True)[0]
 
 
 def sample_reconstruct_batched(spec: QSpec, P: torch.Tensor, steps, *,
@@ -187,8 +243,8 @@ def sample_reconstruct(spec: QSpec, p: torch.Tensor, step, *,
                        qbits: Optional[int] = None,
                        impl: Optional[str] = None) -> torch.Tensor:
     """Fused w = Q Bern(p) for one client: (n,) + a draw word ->
-    spec.shape f32.  Kernel 7 (the batched kernel at K=1) forward; the
-    backward is kernel 6 at K=1."""
+    spec.shape f32.  Kernel 7 (the batched kernel at K=1) forward,
+    kernel 5 backward."""
     return _sample_reconstruct(spec, p[None], step, qbits, impl, True)[0]
 
 

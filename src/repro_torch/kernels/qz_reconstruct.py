@@ -1,15 +1,22 @@
-"""The federated round's CUDA kernels for Hopper (sm_90a), and wrappers.
+"""The training CUDA kernels for Hopper (sm_90a), and wrappers.
 
-Replaces four Pallas kernels of the JAX package's
+Replaces seven Pallas kernels of the JAX package's
 ``kernels/qz_reconstruct.py``:
 
-- ``qz_sample_reconstruct_batched_fwd`` (the round's forward) and
-  ``qz_sample_reconstruct_fwd`` (its K=1 entry: ``evaluate`` off the u8
-  carry) — one CUDA kernel, ``sample_reconstruct_kernel``;
-- ``qz_reconstruct_batched_bwd_plan`` (the round's backward) —
+- ``qz_sample_reconstruct_batched_fwd`` (the fused round's forward) and
+  ``qz_sample_reconstruct_fwd`` (its K=1 entry: local sample-mode
+  training, ``evaluate`` off the u8 carry) — ``sample_reconstruct_kernel``;
+- ``qz_reconstruct_batched_fwd`` (the composed round's forward) and
+  ``qz_reconstruct_fwd`` (its K=1 entry: continuous-mode training, the
+  expected and discretized networks) — ``mask_reconstruct_kernel``, the
+  same row code reading an explicit operand in place of a draw;
+- ``qz_reconstruct_batched_bwd_plan`` (the round's backward) and
+  ``qz_reconstruct_bwd_plan`` (its K=1 entry: every local backward) —
   ``plan_bwd_kernel``;
 - ``qz_sample_pack_batched_fwd`` (the round's upload) —
   ``sample_pack_kernel``.
+
+Each K=1 form has its own C entry and its own launch counter.
 
 The source is ``csrc/qz_reconstruct.cu`` (design, bound and summation
 order are described there), built by ``kernels.nvcc`` at first use.
@@ -30,7 +37,6 @@ from ..core.qspec import QSpec, sigma_f32
 from ..core.transpose_plan import build_transpose_plan
 from .nvcc import KernelLibrary, raise_on
 
-MAX_D = 40  # a row's d edges sit in the CTA's shared memory
 MAX_K = 1024
 MAX_ROWS = 1 << 31  # row and coordinate arithmetic is uint32
 
@@ -39,6 +45,9 @@ LAUNCHES: Dict[str, int] = {
     "qz_sample_reconstruct_fwd": 0,
     "qz_reconstruct_batched_bwd_plan": 0,
     "qz_sample_pack_batched_fwd": 0,
+    "qz_reconstruct_batched_fwd": 0,
+    "qz_reconstruct_fwd": 0,
+    "qz_reconstruct_bwd_plan": 0,
 }
 
 _KIND = {None: 0, 8: 1, 16: 2}
@@ -56,8 +65,15 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.qz_sample_reconstruct.argtypes = [P, I, I, P, I, L, U, U, U, I, U,
                                           I, F, P, P]
     lib.qz_sample_reconstruct.restype = I
+    lib.qz_reconstruct_batched.argtypes = [P, I, L, U, U, U, I, U, I, F, P,
+                                           P]
+    lib.qz_reconstruct_batched.restype = I
+    lib.qz_reconstruct_one.argtypes = [P, L, U, U, U, I, U, I, F, P, P]
+    lib.qz_reconstruct_one.restype = I
     lib.qz_plan_bwd.argtypes = [P, P, P, I, U, U, I, I, U, P, P]
     lib.qz_plan_bwd.restype = I
+    lib.qz_plan_bwd_one.argtypes = [P, P, P, U, U, I, I, U, P, P]
+    lib.qz_plan_bwd_one.restype = I
     lib.qz_sample_pack.argtypes = [P, P, I, L, U, U, P, P]
     lib.qz_sample_pack.restype = I
 
@@ -113,8 +129,6 @@ def _launch_sample_reconstruct(spec: QSpec, P, steps, qbits):
         raise ValueError("the sample-reconstruct kernel takes CUDA tensors")
     _check_spec(spec)
     K = _check_operand(spec, P, qbits)
-    if not 1 <= spec.d <= MAX_D:
-        raise ValueError(f"d={spec.d} outside [1, {MAX_D}]")
     words = _step_words(steps, K, P.device)
     W = torch.empty((K, spec.m), dtype=torch.float32, device=P.device)
     rc = build().qz_sample_reconstruct(
@@ -153,13 +167,48 @@ def qz_sample_reconstruct_fwd(spec: QSpec, p: torch.Tensor, step: torch.Tensor,
     return w
 
 
-def qz_reconstruct_batched_bwd_plan(spec: QSpec, G: torch.Tensor):
-    """grad_Z (K, n) = Q^T G_k over the canonical transpose plan; ``G``
-    (K, m) f32 cotangents in moved flat order."""
-    if not G.is_cuda:
-        from .ops import plan_bwd_plain
+def _launch_reconstruct(spec: QSpec, Z: torch.Tensor, single: bool):
+    _check_spec(spec)
+    K = _check_operand(spec, Z, None)
+    W = torch.empty((K, spec.m), dtype=torch.float32, device=Z.device)
+    lib = build()
+    args = (spec.n, spec.m, spec.seed & 0xFFFFFFFF, spec.tensor_id,
+            spec.window, spec.rows_per_window, spec.d, sigma_f32(spec),
+            W.data_ptr(), _stream(Z))
+    if single:
+        rc = lib.qz_reconstruct_one(Z.data_ptr(), *args)
+    else:
+        rc = lib.qz_reconstruct_batched(Z.data_ptr(), K, *args)
+    raise_on(rc, "qz_reconstruct_one" if single else "qz_reconstruct_batched")
+    return W
 
-        return plan_bwd_plain(spec, G)
+
+def qz_reconstruct_batched_fwd(spec: QSpec, Z: torch.Tensor):
+    """W (K, m) moved flat order = Q Z_k; ``Z`` (K, n) f32 operands
+    (masks, or probabilities in continuous mode)."""
+    if not Z.is_cuda:
+        from .ops import reconstruct_plain
+
+        return reconstruct_plain(spec, Z)
+    W = _launch_reconstruct(spec, Z, False)
+    LAUNCHES["qz_reconstruct_batched_fwd"] += 1
+    return W
+
+
+def qz_reconstruct_fwd(spec: QSpec, z: torch.Tensor):
+    """w (m,) moved flat order = Q z for one operand z (n,) f32: the
+    batched kernel at K=1 through its own entry, so it equals a row of
+    ``qz_reconstruct_batched_fwd`` bit for bit."""
+    if not z.is_cuda:
+        from .ops import reconstruct_plain
+
+        return reconstruct_plain(spec, z[None])[0]
+    w = _launch_reconstruct(spec, z[None], True)[0]
+    LAUNCHES["qz_reconstruct_fwd"] += 1
+    return w
+
+
+def _launch_plan_bwd(spec: QSpec, G: torch.Tensor, single: bool):
     _check_spec(spec)
     if G.dtype != torch.float32 or G.ndim != 2 or G.shape[1] != spec.m:
         raise ValueError(f"G must be (K, {spec.m}) float32, got "
@@ -170,12 +219,43 @@ def qz_reconstruct_batched_bwd_plan(spec: QSpec, G: torch.Tensor):
     G = G.contiguous()
     plan = build_transpose_plan(spec, G.device)
     out = torch.empty((K, spec.n), dtype=torch.float32, device=G.device)
-    rc = build().qz_plan_bwd(
-        G.data_ptr(), plan.rows.data_ptr(), plan.vals.data_ptr(), K, spec.n,
-        spec.m, plan.deg, spec.window, spec.rows_per_window, out.data_ptr(),
-        _stream(G))
-    raise_on(rc, "qz_plan_bwd")
+    lib = build()
+    args = (spec.n, spec.m, plan.deg, spec.window, spec.rows_per_window,
+            out.data_ptr(), _stream(G))
+    if single:
+        rc = lib.qz_plan_bwd_one(G.data_ptr(), plan.rows.data_ptr(),
+                                 plan.vals.data_ptr(), *args)
+    else:
+        rc = lib.qz_plan_bwd(G.data_ptr(), plan.rows.data_ptr(),
+                             plan.vals.data_ptr(), K, *args)
+    raise_on(rc, "qz_plan_bwd_one" if single else "qz_plan_bwd")
+    return out
+
+
+def qz_reconstruct_batched_bwd_plan(spec: QSpec, G: torch.Tensor):
+    """grad_Z (K, n) = Q^T G_k over the canonical transpose plan; ``G``
+    (K, m) f32 cotangents in moved flat order."""
+    if not G.is_cuda:
+        from .ops import plan_bwd_plain
+
+        return plan_bwd_plain(spec, G)
+    out = _launch_plan_bwd(spec, G, False)
     LAUNCHES["qz_reconstruct_batched_bwd_plan"] += 1
+    return out
+
+
+def qz_reconstruct_bwd_plan(spec: QSpec, g: torch.Tensor):
+    """grad_z (n,) = Q^T g over the canonical transpose plan for one
+    cotangent g (m,) f32 in moved flat order: the batched kernel at K=1
+    through its own entry."""
+    if not g.is_cuda:
+        from .ops import plan_bwd_one_plain
+
+        return plan_bwd_one_plain(spec, g)
+    if g.ndim != 1:
+        raise ValueError(f"g must be ({spec.m},), got {tuple(g.shape)}")
+    out = _launch_plan_bwd(spec, g[None], True)[0]
+    LAUNCHES["qz_reconstruct_bwd_plan"] += 1
     return out
 
 

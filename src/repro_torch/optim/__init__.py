@@ -1,3 +1,5 @@
-from .optimizers import Optimizer, sgd
+from .optimizers import (AdamState, Optimizer, adam, apply_updates, chain,
+                         clip_by_global_norm, sgd)
 
-__all__ = ["Optimizer", "sgd"]
+__all__ = ["AdamState", "Optimizer", "adam", "apply_updates", "chain",
+           "clip_by_global_norm", "sgd"]

@@ -1,4 +1,6 @@
 from .fit import federated_fit
-from .local import evaluate
+from .local import (LocalTrainConfig, evaluate, train_local_zampling,
+                    train_step)
 
-__all__ = ["evaluate", "federated_fit"]
+__all__ = ["LocalTrainConfig", "evaluate", "federated_fit",
+           "train_local_zampling", "train_step"]

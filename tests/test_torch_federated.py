@@ -162,7 +162,8 @@ def test_config_fields_and_what_raises():
     t = {f.name: f.default for f in dataclasses.fields(tfed.FederatedConfig)}
     j = {f.name: f.default for f in dataclasses.fields(jfed.FederatedConfig)}
     assert t == j
-    for bad in (dict(mode="continuous"), dict(mask_path="composed"),
+    tfed.FederatedConfig(mask_path="composed")  # ported: kernels 3 and 6
+    for bad in (dict(mode="continuous"),
                 dict(stream_chunk=4), dict(downlink_schedule="cosine"),
                 dict(aggregate="allgather_packed"), dict(downlink="packed4")):
         with pytest.raises(NotImplementedError):

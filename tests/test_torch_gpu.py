@@ -10,8 +10,13 @@ engine's scheduler lanes must give a single request's tokens.  The
 training kernels (sample-reconstruct at K=3 and K=1, the plan backward,
 the sample-pack upload) must equal their plain versions bitwise, count
 one launch each, and the card-built plan's values must equal the
-kernels' regenerated Q; a local step through them must equal one on
-the plain path.
+kernels' regenerated Q; a federated round through them must equal one
+on the plain path.  The local-zampling kernels (the reconstruct forward
+from explicit operands at K=1 and K=3, the K=1 plan backward) and the
+sample-reconstruct forward must equal their plain versions at every d
+the paper runs, up to 256; a local training step through the kernels
+must equal one on the plain path in sample and continuous mode; the
+composed round must equal the fused round.
 """
 
 import numpy as np
@@ -21,14 +26,16 @@ import torch
 from repro_torch.comm.downlink import get_codec
 from repro_torch.configs import get_arch
 from repro_torch.core.qspec import make_qspec, row_indices
-from repro_torch.core.zampling import ZamplingConfig, build_specs
+from repro_torch.core.zampling import ZamplingConfig, build_specs, init_state
 from repro_torch.core.federated import FederatedConfig, encode_state
 from repro_torch.core.federated import federated_round
-from repro_torch.core.sampling import as_words, clip_probs
+from repro_torch.core.sampling import as_words, clip_probs, sample_mask_hash
 from repro_torch.core.transpose_plan import row_plan
 from repro_torch.kernels import ops, qz_decode, qz_reconstruct
 from repro_torch.models.mlp import SMALL_DIMS, mlp_loss, mlp_template
 from repro_torch.models.model import build_model, param_template
+from repro_torch.optim import adam
+from repro_torch.train import train_step
 from repro_torch.serve import (ServeConfig, ServeScheduler,
                                make_serve_state, serve_generate)
 
@@ -200,6 +207,103 @@ def test_round_through_kernels_equals_plain(cuda_train):
     assert qz_reconstruct.LAUNCHES["qz_sample_pack_batched_fwd"] == 3
     b, mb = federated_round(zspecs, st, mlp_loss, batch, 5, cfg, impl="ref",
                             device=cuda_train)
+    assert torch.equal(ma["loss"], mb["loss"])
+    for p in zspecs.specs:
+        assert torch.equal(a["scores"][p], b["scores"][p])
+    for p in zspecs.dense_paths:
+        assert torch.equal(a["dense"][p], b["dense"][p])
+
+
+@pytest.mark.parametrize("d", [1, 16, 41, 256])
+def test_local_kernels_equal_plain_at_every_d(cuda_train, d):
+    """Kernels 1, 3 and 5, and 7 and 8 past the 32 edges staged at once,
+    against their plain versions."""
+    spec = make_qspec(4, (96, 80), 96, compression=1, d=d, window=128,
+                      seed=0)
+    rng = np.random.RandomState(d)
+    P = clip_probs(torch.from_numpy(
+        rng.rand(3, spec.n).astype(np.float32) * 1.4 - 0.2).to(cuda_train))
+    steps = as_words(rng.randint(0, 2**32, 3, dtype=np.uint64), cuda_train)
+    W = _counted("qz_reconstruct_batched_fwd",
+                 lambda: qz_reconstruct.qz_reconstruct_batched_fwd(spec, P))
+    assert torch.equal(W, ops.reconstruct_plain(spec, P))
+    for k in range(3):
+        w = _counted("qz_reconstruct_fwd",
+                     lambda: qz_reconstruct.qz_reconstruct_fwd(spec, P[k]))
+        assert torch.equal(w, W[k])
+    g = torch.from_numpy(rng.randn(spec.m).astype(np.float32)).to(cuda_train)
+    gz = _counted("qz_reconstruct_bwd_plan",
+                  lambda: qz_reconstruct.qz_reconstruct_bwd_plan(spec, g))
+    assert torch.equal(gz, ops.plan_bwd_one_plain(spec, g))
+    assert torch.equal(gz, qz_reconstruct.qz_reconstruct_batched_bwd_plan(
+        spec, g[None])[0])
+    W8 = qz_reconstruct.qz_sample_reconstruct_batched_fwd(spec, P, steps)
+    assert torch.equal(W8, ops.sample_reconstruct_plain(spec, P, steps))
+    assert torch.equal(qz_reconstruct.qz_sample_reconstruct_fwd(
+        spec, P[1], steps[1:2]), W8[1])
+    Z = sample_mask_hash(P, spec.seed, spec.tensor_id, steps)
+    assert torch.equal(qz_reconstruct.qz_reconstruct_batched_fwd(spec, Z),
+                       W8)
+
+
+@pytest.mark.parametrize("mode", ["sample", "continuous"])
+def test_local_step_through_kernels_equals_plain(cuda_train, mode):
+    zs = build_specs(mlp_template(SMALL_DIMS), ZamplingConfig(
+        compression=4, d=5, window=128, min_size=128))
+    rng = np.random.RandomState(1)
+    st = init_state(zs, {p: rng.rand(s.n).astype(np.float32)
+                         for p, s in zs.specs.items()}, device=cuda_train)
+    batch = {"x": torch.from_numpy(rng.randn(16, 784).astype(np.float32)
+                                   ).to(cuda_train),
+             "y": torch.from_numpy(rng.randint(0, 10, 16)).to(cuda_train)}
+    opt = adam(1e-2)
+    out = []
+    for impl in (None, "ref"):
+        qz_reconstruct.reset_launches()
+        out.append(train_step(zs, st, opt.init({**st["scores"],
+                                                **st["dense"]}), batch, 9,
+                              mlp_loss, opt, mode=mode, impl=impl))
+        torch.cuda.synchronize()
+        fwd = ("qz_sample_reconstruct_fwd" if mode == "sample"
+               else "qz_reconstruct_fwd")
+        want = {fwd: 3, "qz_reconstruct_bwd_plan": 3} if impl is None else {}
+        assert {k: v for k, v in qz_reconstruct.LAUNCHES.items() if v} == want
+    (a, _, la, ga), (b, _, lb, gb) = out
+    assert torch.equal(la, lb)
+    for part in ("scores", "dense"):
+        for p in a[part]:
+            assert torch.equal(a[part][p], b[part][p])
+            assert torch.equal(ga[part][p], gb[part][p])
+
+
+def test_composed_round_equals_fused_round(cuda_train):
+    zspecs = build_specs(mlp_template(SMALL_DIMS), ZamplingConfig(
+        compression=8, d=10, window=128, min_size=128, seed=1))
+    rng = np.random.RandomState(2)
+    state = {"scores": {p: rng.rand(s.n).astype(np.float32)
+                        for p, s in zspecs.specs.items()},
+             "dense": {p: np.zeros(zspecs.template[p].shape, np.float32)
+                       for p in zspecs.dense_paths}}
+    batch = {"x": rng.randn(3, 2, 8, 784).astype(np.float32),
+             "y": rng.randint(0, 10, (3, 2, 8)).astype(np.int32)}
+    out = []
+    for path in ("fused", "composed"):
+        cfg = FederatedConfig(num_clients=3, local_steps=2, local_lr=0.5,
+                              aggregate="psum_u32", downlink="u8",
+                              mask_path=path)
+        st = encode_state(zspecs, cfg, state, device=cuda_train)
+        qz_reconstruct.reset_launches()
+        out.append(federated_round(zspecs, st, mlp_loss, batch, 5, cfg,
+                                   device=cuda_train))
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in qz_reconstruct.LAUNCHES.items() if v}
+        assert launched == ({"qz_sample_reconstruct_batched_fwd": 6,
+                             "qz_reconstruct_batched_bwd_plan": 6,
+                             "qz_sample_pack_batched_fwd": 3}
+                            if path == "fused" else
+                            {"qz_reconstruct_batched_fwd": 6,
+                             "qz_reconstruct_batched_bwd_plan": 6})
+    (a, ma), (b, mb) = out
     assert torch.equal(ma["loss"], mb["loss"])
     for p in zspecs.specs:
         assert torch.equal(a["scores"][p], b["scores"][p])
