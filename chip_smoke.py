@@ -48,7 +48,9 @@ Phases, one printed line or more each:
 9. the reconstruct forward (K=1 and K=10), the K=1 plan backward and the
    sample-reconstruct forward (K=1 and K=10) against their plain
    versions, bitwise, at Fig. 6's three leaves for d in {1, 16, 256},
-   and the card-built plans against the kernels' Q;
+   the card-built plans against the kernels' Q, and the K=10 reconstruct
+   forward at the composed round's own Fig. 4 leaves against its plain
+   version and against the sample-reconstruct kernel;
 10. local training: step 0 through the kernels against the plain path
    (loss, gradients, Adam-updated state, bitwise), 500 sample-mode
    steps (3 forward and 3 backward launches each), the loss trend,
@@ -680,6 +682,25 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
                 die(f"the card-built plan differs from the kernels' Q ({what})")
             del P, W, Z, gidx, vals, idx, kvals
         torch.cuda.empty_cache()
+    # kernel 3 at the shapes of its own path, the composed round: the
+    # Fig. 4 leaves of phase 7 at K=10, on masks drawn from the round's
+    # u8 words (phase 11 times it on these operands)
+    u8 = get_codec("u8")
+    zs4 = fed["zspecs"]
+    fig4_masks = {}
+    for path, spec in zs4.specs.items():
+        what = f"Fig. 4 {path} d={spec.d}"
+        P = u8.decode(spec, fed["state_r0"]["scores"][path]).expand(
+            FED_K, spec.n).contiguous()
+        steps = as_words(rng.randint(0, 2**32, FED_K, dtype=np.uint64), dev)
+        Z = sample_mask_hash(P, spec.seed, spec.tensor_id, steps)
+        W = qr.qz_reconstruct_batched_fwd(spec, Z)
+        check("qz_reconstruct_batched_fwd", W, ops.reconstruct_plain(spec, Z),
+              f"{what} K={FED_K}")
+        check("qz_reconstruct_batched_fwd", W,
+              qr.qz_sample_reconstruct_batched_fwd(spec, P, steps),
+              f"{what} K={FED_K} on the drawn masks against kernel 8")
+        fig4_masks[path] = Z
     for row in rows:
         if row["name"] in ("qz_sample_reconstruct_batched_fwd",
                            "qz_sample_reconstruct_fwd"):
@@ -812,6 +833,7 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
                  {"qz_reconstruct_fwd": 3 * CONT_STEPS,
                   "qz_reconstruct_bwd_plan": 3 * CONT_STEPS})
     show_losses("continuous", c_losses)
+    cont_state = state
     c_med = float(np.median(c_step_s[1:]))
     c_expected = counted_eval("continuous")
     c_discretized = counted_eval("discretize")
@@ -835,7 +857,6 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
                        "median_step_ms": 1e3 * c_med}}))
 
     # the composed federated round against the fused round 0 (phase 7)
-    zs4 = fed["zspecs"]
     ccfg = dataclasses.replace(fed["cfg"], mask_path="composed")
     qr.reset_launches()
     qz_decode.reset_launches()
@@ -894,7 +915,8 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
         return ops_n, K * (4 * spec.n + 4 * m)
 
     for path, spec in specs.items():
-        z = clip_probs(sample_state["scores"][path])  # continuous operand
+        # the continuous run's own operand: its final clipped probabilities
+        z = clip_probs(cont_state["scores"][path])
         Q = csr(spec, dev, False)
         zt = z[:, None].contiguous()
         add("qz_reconstruct_fwd", path,
@@ -910,12 +932,8 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
             lambda: ops.plan_bwd_one_plain(spec, g),
             lambda: torch.sparse.mm(QT, gt), OPS_PLAN * md,
             8 * md + 4 * (spec.m + spec.n))
-    u8 = get_codec("u8")
     for path, spec in zs4.specs.items():
-        P = u8.decode(spec, fed["state_r0"]["scores"][path]).expand(
-            FED_K, spec.n).contiguous()
-        steps = as_words(rng.randint(0, 2**32, FED_K, dtype=np.uint64), dev)
-        Z = sample_mask_hash(P, spec.seed, spec.tensor_id, steps)
+        Z = fig4_masks[path]
         Q = csr(spec, dev, False)
         Zt = Z.t().contiguous()
         add("qz_reconstruct_batched_fwd", path,

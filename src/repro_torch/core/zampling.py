@@ -436,17 +436,17 @@ def sample_masks(zspecs: ZamplingSpecs, state, key, *,
 
 
 def sample_weights(zspecs: ZamplingSpecs, state, key, *,
-                   mode: Optional[str] = None, fused: bool = True,
+                   mode: Optional[str] = None,
                    downlink: Optional[str] = None,
                    carried: Optional[str] = None,
                    impl: Optional[str] = None,
                    device="cuda") -> Dict[str, torch.Tensor]:
     """One network, {path: leaf}: sampled at the draw word ``key``, or
     the expected (``mode="continuous"``) or discretized network, which
-    draw nothing.  ``fused=False`` is the composed path.
+    draw nothing.
     ``state["scores"]`` holds f32 scores or a codec's wire words
     (``carried`` names the codec; without it the dtypes do); an
     explicit ``downlink`` must agree with what the state carries."""
     st = state_to(zspecs, state, resolve_device(device))
-    program = _program(zspecs, st, mode, fused, downlink, carried, impl)
+    program = _program(zspecs, st, mode, True, downlink, carried, impl)
     return program.weights_from_wire(st["scores"], st["dense"], as_word(key))

@@ -17,7 +17,7 @@
 //   - read from an explicit (K, n) f32 operand (masks, or the
 //     probabilities themselves in continuous mode):
 //     mask_reconstruct_kernel, replacing qz_reconstruct_batched_fwd and,
-//     at K = 1 through its own entry, qz_reconstruct_fwd.
+//     at K = 1, qz_reconstruct_fwd.
 // One thread owns one row.  It regenerates the row's edges (coordinates
 // and values) once, into shared memory that only it reads, then for each
 // of the K clients gathers that client's operand at each edge and sums.
@@ -37,8 +37,8 @@
 // (client, coordinate) (this kernel redraws per (client, edge)).
 // Against that, the K operand rows read and the K output rows written.
 //
-// plan_bwd_kernel replaces qz_reconstruct_batched_bwd_plan and, at K = 1
-// through its own entry, qz_reconstruct_bwd_plan.  It reads the global
+// plan_bwd_kernel replaces qz_reconstruct_batched_bwd_plan and, at K = 1,
+// qz_reconstruct_bwd_plan.  It reads the global
 // (num_windows, window, deg) transpose plan directly (no per-row-block
 // re-binning as the Pallas grid needs): one thread per (coordinate,
 // client) sums vals[c, e] * g_k[w*rpw + rows[c, e]] over e in ascending
@@ -226,26 +226,6 @@ size_t rows_smem(int nh, int d) {
   return sizeof(uint32_t) * (static_cast<size_t>(nh) + 2u * ch * THREADS);
 }
 
-int mask_reconstruct(const float* Z, int K, long long n, unsigned m,
-                     unsigned seed, unsigned tensor_id, int window,
-                     unsigned rows_per_window, int d, float sigma, float* W,
-                     void* stream) {
-  const qz::SpecArgs s = spec_args(seed, tensor_id, window, rows_per_window, d, sigma);
-  const dim3 grid((m + THREADS - 1) / THREADS);
-  mask_reconstruct_kernel<<<grid, THREADS, rows_smem(0, d), static_cast<cudaStream_t>(stream)>>>(
-      Z, K, n, m, s, W);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int plan_bwd(const float* G, const int* rows, const float* vals, int K,
-             unsigned n, unsigned m, int deg, int window,
-             unsigned rows_per_window, float* out, void* stream) {
-  const dim3 grid((n + THREADS - 1) / THREADS, K);
-  plan_bwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      G, rows, vals, n, m, deg, static_cast<uint32_t>(window), rows_per_window, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -281,33 +261,21 @@ int qz_reconstruct_batched(const float* Z, int K, long long n, unsigned m,
                            unsigned seed, unsigned tensor_id, int window,
                            unsigned rows_per_window, int d, float sigma,
                            float* W, void* stream) {
-  return mask_reconstruct(Z, K, n, m, seed, tensor_id, window,
-                          rows_per_window, d, sigma, W, stream);
-}
-
-// w (m,) = Q z for one operand z (n,).
-int qz_reconstruct_one(const float* z, long long n, unsigned m,
-                       unsigned seed, unsigned tensor_id, int window,
-                       unsigned rows_per_window, int d, float sigma, float* w,
-                       void* stream) {
-  return mask_reconstruct(z, 1, n, m, seed, tensor_id, window,
-                          rows_per_window, d, sigma, w, stream);
+  const qz::SpecArgs s = spec_args(seed, tensor_id, window, rows_per_window, d, sigma);
+  const dim3 grid((m + THREADS - 1) / THREADS);
+  mask_reconstruct_kernel<<<grid, THREADS, rows_smem(0, d), static_cast<cudaStream_t>(stream)>>>(
+      Z, K, n, m, s, W);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out (K, n) = Q^T G_k over the transpose plan; G (K, m) moved order.
 int qz_plan_bwd(const float* G, const int* rows, const float* vals, int K,
                 unsigned n, unsigned m, int deg, int window,
                 unsigned rows_per_window, float* out, void* stream) {
-  return plan_bwd(G, rows, vals, K, n, m, deg, window, rows_per_window, out,
-                  stream);
-}
-
-// out (n,) = Q^T g over the transpose plan for one cotangent g (m,).
-int qz_plan_bwd_one(const float* g, const int* rows, const float* vals,
-                    unsigned n, unsigned m, int deg, int window,
-                    unsigned rows_per_window, float* out, void* stream) {
-  return plan_bwd(g, rows, vals, 1, n, m, deg, window, rows_per_window, out,
-                  stream);
+  const dim3 grid((n + THREADS - 1) / THREADS, K);
+  plan_bwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      G, rows, vals, n, m, deg, static_cast<uint32_t>(window), rows_per_window, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out (K, ceil(n/32)) lanes of Bern(P_k), P (K, n) f32 probabilities.

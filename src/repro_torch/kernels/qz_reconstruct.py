@@ -16,7 +16,8 @@ Replaces seven Pallas kernels of the JAX package's
 - ``qz_sample_pack_batched_fwd`` (the round's upload) —
   ``sample_pack_kernel``.
 
-Each K=1 form has its own C entry and its own launch counter.
+Each K=1 form is the batched kernel at K=1 behind its own wrapper and
+its own launch counter.
 
 The source is ``csrc/qz_reconstruct.cu`` (design, bound and summation
 order are described there), built by ``kernels.nvcc`` at first use.
@@ -68,12 +69,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.qz_reconstruct_batched.argtypes = [P, I, L, U, U, U, I, U, I, F, P,
                                            P]
     lib.qz_reconstruct_batched.restype = I
-    lib.qz_reconstruct_one.argtypes = [P, L, U, U, U, I, U, I, F, P, P]
-    lib.qz_reconstruct_one.restype = I
     lib.qz_plan_bwd.argtypes = [P, P, P, I, U, U, I, I, U, P, P]
     lib.qz_plan_bwd.restype = I
-    lib.qz_plan_bwd_one.argtypes = [P, P, P, U, U, I, I, U, P, P]
-    lib.qz_plan_bwd_one.restype = I
     lib.qz_sample_pack.argtypes = [P, P, I, L, U, U, P, P]
     lib.qz_sample_pack.restype = I
 
@@ -167,19 +164,15 @@ def qz_sample_reconstruct_fwd(spec: QSpec, p: torch.Tensor, step: torch.Tensor,
     return w
 
 
-def _launch_reconstruct(spec: QSpec, Z: torch.Tensor, single: bool):
+def _launch_reconstruct(spec: QSpec, Z: torch.Tensor):
     _check_spec(spec)
     K = _check_operand(spec, Z, None)
     W = torch.empty((K, spec.m), dtype=torch.float32, device=Z.device)
-    lib = build()
-    args = (spec.n, spec.m, spec.seed & 0xFFFFFFFF, spec.tensor_id,
-            spec.window, spec.rows_per_window, spec.d, sigma_f32(spec),
-            W.data_ptr(), _stream(Z))
-    if single:
-        rc = lib.qz_reconstruct_one(Z.data_ptr(), *args)
-    else:
-        rc = lib.qz_reconstruct_batched(Z.data_ptr(), K, *args)
-    raise_on(rc, "qz_reconstruct_one" if single else "qz_reconstruct_batched")
+    rc = build().qz_reconstruct_batched(
+        Z.data_ptr(), K, spec.n, spec.m, spec.seed & 0xFFFFFFFF,
+        spec.tensor_id, spec.window, spec.rows_per_window, spec.d,
+        sigma_f32(spec), W.data_ptr(), _stream(Z))
+    raise_on(rc, "qz_reconstruct_batched")
     return W
 
 
@@ -190,25 +183,25 @@ def qz_reconstruct_batched_fwd(spec: QSpec, Z: torch.Tensor):
         from .ops import reconstruct_plain
 
         return reconstruct_plain(spec, Z)
-    W = _launch_reconstruct(spec, Z, False)
+    W = _launch_reconstruct(spec, Z)
     LAUNCHES["qz_reconstruct_batched_fwd"] += 1
     return W
 
 
 def qz_reconstruct_fwd(spec: QSpec, z: torch.Tensor):
     """w (m,) moved flat order = Q z for one operand z (n,) f32: the
-    batched kernel at K=1 through its own entry, so it equals a row of
+    batched kernel at K=1, so it equals a row of
     ``qz_reconstruct_batched_fwd`` bit for bit."""
     if not z.is_cuda:
         from .ops import reconstruct_plain
 
         return reconstruct_plain(spec, z[None])[0]
-    w = _launch_reconstruct(spec, z[None], True)[0]
+    w = _launch_reconstruct(spec, z[None])[0]
     LAUNCHES["qz_reconstruct_fwd"] += 1
     return w
 
 
-def _launch_plan_bwd(spec: QSpec, G: torch.Tensor, single: bool):
+def _launch_plan_bwd(spec: QSpec, G: torch.Tensor):
     _check_spec(spec)
     if G.dtype != torch.float32 or G.ndim != 2 or G.shape[1] != spec.m:
         raise ValueError(f"G must be (K, {spec.m}) float32, got "
@@ -219,16 +212,11 @@ def _launch_plan_bwd(spec: QSpec, G: torch.Tensor, single: bool):
     G = G.contiguous()
     plan = build_transpose_plan(spec, G.device)
     out = torch.empty((K, spec.n), dtype=torch.float32, device=G.device)
-    lib = build()
-    args = (spec.n, spec.m, plan.deg, spec.window, spec.rows_per_window,
-            out.data_ptr(), _stream(G))
-    if single:
-        rc = lib.qz_plan_bwd_one(G.data_ptr(), plan.rows.data_ptr(),
-                                 plan.vals.data_ptr(), *args)
-    else:
-        rc = lib.qz_plan_bwd(G.data_ptr(), plan.rows.data_ptr(),
-                             plan.vals.data_ptr(), K, *args)
-    raise_on(rc, "qz_plan_bwd_one" if single else "qz_plan_bwd")
+    rc = build().qz_plan_bwd(
+        G.data_ptr(), plan.rows.data_ptr(), plan.vals.data_ptr(), K, spec.n,
+        spec.m, plan.deg, spec.window, spec.rows_per_window, out.data_ptr(),
+        _stream(G))
+    raise_on(rc, "qz_plan_bwd")
     return out
 
 
@@ -239,22 +227,21 @@ def qz_reconstruct_batched_bwd_plan(spec: QSpec, G: torch.Tensor):
         from .ops import plan_bwd_plain
 
         return plan_bwd_plain(spec, G)
-    out = _launch_plan_bwd(spec, G, False)
+    out = _launch_plan_bwd(spec, G)
     LAUNCHES["qz_reconstruct_batched_bwd_plan"] += 1
     return out
 
 
 def qz_reconstruct_bwd_plan(spec: QSpec, g: torch.Tensor):
     """grad_z (n,) = Q^T g over the canonical transpose plan for one
-    cotangent g (m,) f32 in moved flat order: the batched kernel at K=1
-    through its own entry."""
+    cotangent g (m,) f32 in moved flat order: the batched kernel at K=1."""
     if not g.is_cuda:
         from .ops import plan_bwd_one_plain
 
         return plan_bwd_one_plain(spec, g)
     if g.ndim != 1:
         raise ValueError(f"g must be ({spec.m},), got {tuple(g.shape)}")
-    out = _launch_plan_bwd(spec, g[None], True)[0]
+    out = _launch_plan_bwd(spec, g[None])[0]
     LAUNCHES["qz_reconstruct_bwd_plan"] += 1
     return out
 

@@ -29,7 +29,8 @@ from ..optim import Optimizer, adam, apply_updates
 @dataclass(frozen=True)
 class LocalTrainConfig:
     """The JAX package's fields and defaults.  ``seed`` seeds the JAX
-    trainer's PRNG key; the port's trainer takes draw words instead."""
+    trainer's PRNG key; the port's trainer takes draw words instead, so
+    it keeps the field for parity and refuses any other value."""
 
     steps: int = 500
     lr: float = 1e-3
@@ -38,6 +39,13 @@ class LocalTrainConfig:
     patience: int = 10  # evaluations without improvement
     min_delta: float = 1e-4
     seed: int = 0
+
+    def __post_init__(self):
+        if self.seed != 0:
+            raise ValueError(
+                f"seed={self.seed}: the port draws each step's mask at the "
+                "draw word passed to train_local_zampling, not from a seed; "
+                "pass other words instead")
 
 
 def _flat(state) -> Dict[str, torch.Tensor]:

@@ -542,3 +542,6 @@ def test_local_train_config_fields_are_the_jax_packages():
     j = {f.name: f.default for f in dataclasses.fields(
         jlocal.LocalTrainConfig)}
     assert t == j
+    # the port draws at explicit words, so a seed it would ignore raises
+    with pytest.raises(ValueError, match="draw word"):
+        LocalTrainConfig(seed=5)
