@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
 
-Three paths at full width, every Pallas kernel they run replaced by a
+Four paths at full width, every Pallas kernel they run replaced by a
 hand-written CUDA kernel:
 
 - serving: qwen2-0.5b (24 layers, d_model 896, 14 heads with 2 KV heads,
@@ -15,9 +15,16 @@ hand-written CUDA kernel:
   the composed round (explicit masks on the reconstruct kernels) once;
 - local training: the paper's Fig. 6 zampling_d16 on MNISTFC at
   compression 1, d=16, Adam at lr 1e-2, batch 128, in sample mode (the
-  K=1 sample-reconstruct forward, the K=1 plan backward) and in
-  continuous mode (the K=1 reconstruct forward); the expected and
-  discretized networks on the reconstruct forward.
+  K=1 sample-reconstruct forward, the K=1 plan backward, or the K=1
+  scatter backward under REPRO_BWD_PLAN=scatter) and in continuous mode
+  (the K=1 reconstruct forward); the expected and discretized networks
+  on the reconstruct forward;
+- LM training: federated zampling of qwen2-0.5b through
+  repro_torch.launch.train (K=4 clients, E=2 local SGD steps at lr 0.05,
+  batch 4, sequence 128, compression 8, d=8, mean uploads, f32
+  downlink) under REPRO_BWD_PLAN=scatter, on the sample-reconstruct
+  forward and the scatter backward: at the entry point's default scale
+  0.25 (f32) and at full width (bf16).
 
 Phases, one printed line or more each:
 
@@ -32,7 +39,9 @@ Phases, one printed line or more each:
 4. serving: ServeScheduler with 4 lanes answers 4 ragged prompts for 8
    new tokens each, and the first request rerun alone (B=1) must give
    the same tokens; each engine step must launch the kernel 169 times;
-5. serve kernel times, bounds and plain times;
+5. serve kernel times, bounds and plain times, and the library
+   yardstick (torch.sparse.mm of the CSR Q against the drawn mask, then
+   X @ W) at B in {4, 1};
 6. federated-round kernels against their plain versions on the card,
    bitwise, at the three zampled MNISTFC leaves (sample-reconstruct at
    K=10 f32 and K=1 u8/f32, plan backward at K=10, sample-pack at
@@ -61,7 +70,37 @@ Phases, one printed line or more each:
 11. reconstruct-forward and K=1 plan-backward times, device times,
    bounds, plain times and torch.sparse.mm yardsticks, and the device
    busy share of a local step;
-12. one JSON line with every kernel's launches, times and bound, the
+12. the K=1 scatter backward against its plain version and the K=1 plan
+   backward at Fig. 6's leaves for d in {1, 16, 256} (bitwise, and a
+   second launch the same bits), the slot plan on the K=1 plan backward;
+   local training under REPRO_BWD_PLAN=scatter: step 0 through kernels
+   7 and 2 against kernels 7 and 5 (loss, gradients, updated state, Adam
+   moments, bitwise), 20 steps with 3 launches of each a step whose
+   losses equal phase 10's; the K=1 scatter backward's times, bounds,
+   plain times and torch.sparse.mm yardsticks;
+13. the K-client scatter backward against its plain version and the
+   K-client plan backward on the canonical plan, bitwise, at Fig. 4's
+   leaves (K=10) and full-width qwen2-0.5b's blocks/ln1, blocks/attn/wk
+   and blocks/attn/wq (K=4), a second launch the same bits, and the slot
+   plan on the plan backward against its plain version;
+14. LM training at launch/train.py's defaults (scale 0.25, f32): round 0
+   through the kernels against the plain path on the card, under
+   torch.use_deterministic_algorithms (score means, dense leaves and
+   loss bitwise; 12 E launches each of the forward and the scatter
+   backward);
+15. LM training at full width (scale 1.0, bf16 leaves), 3 rounds through
+   the kernels only: each round's loss (finite) and time, 12 E launches
+   of kernels 8 and 4 a round and none of any other, the time of one
+   local step, the device busy share of one more round by
+   torch.profiler, and the peak device memory beside the bytes the plan
+   path's plans would take (computed, never allocated);
+16. on the operands of one local step of the trained full-width state,
+   at all 12 zampled leaves: the K-client scatter backward against its
+   plain version (bitwise, and a second launch the same bits) and the
+   K-client sample-reconstruct forward against its plain version
+   (bitwise); the scatter backward's times, device times, bounds, plain
+   times and torch.sparse.mm yardsticks;
+17. one JSON line with every kernel's launches, times and bound, the
    card, the run's total seconds, and last {"ok": true, "device": ...}.
 
 Usage, from the repo root on a machine with a CUDA GPU:
@@ -73,6 +112,7 @@ sees no CUDA device or the port's sources are not beside it.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -117,6 +157,9 @@ LOCAL_D = 16
 LOCAL_DS = (1, 16, 256)  # phase 9: every d of the paper's local runs
 LOCAL_STEPS = 500
 CONT_STEPS = 100
+SCATTER_STEPS = 20  # phase 12: local steps under REPRO_BWD_PLAN=scatter
+LM_K = 4  # launch/train.py's clients
+LM_ROUNDS = 3  # phase 15: full-width rounds
 LOCAL_LR = 1e-2
 LOCAL_BATCH = 128
 LINEARS = ("blocks/attn/wq", "blocks/attn/wk", "blocks/attn/wv",
@@ -133,11 +176,13 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def event_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn()`` on the card, by CUDA events."""
+def event_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean milliseconds of ``fn()`` on the card, by CUDA events, after
+    one call to warm up (``warm``)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -157,9 +202,66 @@ def _bound_ms(ops_n: float, bytes_n: float):
                                        else "bytes")
 
 
-def profile_device_us(fn, tags):
+def scatter_work(spec, G):
+    """(ops, bytes) of grad_Z = Q^T G by the scatter for this run's
+    cotangents G (K, m): per row some client's cotangent is not 0 at, its
+    two row hashes, and per edge of it the index, the value's two hashes
+    and Box-Muller; a multiply and an add per (client, edge) whose
+    cotangent is not 0; G read once, grad_Z written once."""
+    K, m, d = G.shape[0], spec.m, spec.d
+    nz = G != 0
+    live = float(nz.any(0).sum())
+    ops_n = (live * (OPS_PER_WEIGHT + d * (OPS_ROW_EDGE + OPS_VALUE))
+             + float(nz.sum()) * d * OPS_MAC)
+    return ops_n, K * (4 * m + 4 * spec.n)
+
+
+def q_csr(spec, dev, transpose: bool):
+    """CSR of Q (m, n), or of Q^T (n, m), with int32 indices, built from
+    the kernels' own Q (``qz_edges``) a chunk of whole windows at a time:
+    Q^T's columns come out in ascending row order within each
+    coordinate.  For the library yardsticks only."""
+    import torch
+
+    from repro_torch.kernels import qz_decode
+
+    m, d, rpw, win = spec.m, spec.d, spec.rows_per_window, spec.window
+    p0 = torch.zeros(spec.n, device=dev)
+    per = max(1, (1 << 23) // (rpw * d))  # windows per chunk
+    col = torch.empty(m * d, dtype=torch.int32, device=dev)
+    val = torch.empty(m * d, dtype=torch.float32, device=dev)
+    counts = torch.zeros(spec.n, dtype=torch.int64, device=dev)
+    for w0 in range(0, spec.num_windows, per):
+        r0, r1 = w0 * rpw, min(m, (w0 + per) * rpw)
+        if r0 >= r1:
+            break
+        rows = torch.arange(r0, r1, device=dev)
+        idx, _, v, _ = qz_decode.qz_edges(spec, p0, 0, rows)
+        coord = (rows // rpw)[:, None] * win + idx.to(torch.int64)
+        if transpose:
+            key = coord.reshape(-1)
+            key, perm = torch.sort(key, stable=True)
+            col[r0 * d:r1 * d] = rows.repeat_interleave(d)[perm].to(torch.int32)
+            val[r0 * d:r1 * d] = v.reshape(-1)[perm]
+            counts += torch.bincount(key, minlength=spec.n)
+        else:
+            col[r0 * d:r1 * d] = coord.reshape(-1).to(torch.int32)
+            val[r0 * d:r1 * d] = v.reshape(-1)
+    if transpose:
+        crow = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+        shape = (spec.n, m)
+    else:
+        crow = torch.arange(m + 1, dtype=torch.int64, device=dev) * d
+        shape = (m, spec.n)
+    return torch.sparse_csr_tensor(crow.to(torch.int32), col, val, shape,
+                                   check_invariants=False)
+
+
+def profile_device_us(fn, tags, top: int = 0):
     """Run ``fn`` under torch.profiler: ({tag: (device us, launches)} of
-    the CUDA kernels whose name holds the tag, all kernels' device us)."""
+    the CUDA kernels whose name holds the tag, all kernels' device us),
+    and with ``top`` the ``top`` kernel names of most device time as a
+    third item, [(name, us, launches)]."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -169,17 +271,25 @@ def profile_device_us(fn, tags):
         fn()
         torch.cuda.synchronize()
     by_tag = {tag: [0.0, 0] for tag in tags}
+    by_name = {}
     total = 0.0
     for evt in prof.events():
         if evt.device_type != DeviceType.CUDA:
             continue
         us = evt.time_range.elapsed_us()
         total += us
+        acc = by_name.setdefault(evt.name, [0.0, 0])
+        acc[0] += us
+        acc[1] += 1
         for tag in tags:
             if tag in evt.name:
                 by_tag[tag][0] += us
                 by_tag[tag][1] += 1
-    return {t: tuple(v) for t, v in by_tag.items()}, total
+    out = ({t: tuple(v) for t, v in by_tag.items()}, total)
+    if top:
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+        out += ([(name, us, n) for name, (us, n) in ranked],)
+    return out
 
 
 class KernelTimes:
@@ -481,15 +591,8 @@ def training_phases(card: str, dev) -> list:
 
     for path, spec in specs.items():
         m, n, d = spec.m, spec.n, spec.d
-        gidx, vals = row_plan(spec, dev)
-        cols, qv = gidx[:m].reshape(-1), vals[:m].reshape(-1)
-        rows_q = torch.arange(m, device=dev).repeat_interleave(d)
-        Q = torch.sparse_coo_tensor(
-            torch.stack([rows_q, cols]), qv, (m, n),
-            check_invariants=False).coalesce().to_sparse_csr()
-        QT = torch.sparse_coo_tensor(
-            torch.stack([cols, rows_q]), qv, (n, m),
-            check_invariants=False).coalesce().to_sparse_csr()
+        gidx, _ = row_plan(spec, dev)
+        Q, QT = q_csr(spec, dev, False), q_csr(spec, dev, True)
         P = decoded[path].expand(FED_K, n).contiguous()
         steps = words_k(FED_K)
         Z = sample_mask_hash(P, spec.seed, spec.tensor_id, steps)
@@ -893,16 +996,6 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
         kt.add(name, path, kernel, event_ms(plain, 3), event_ms(library, 50),
                ops_n, bytes_n)
 
-    def csr(spec, dev, transpose):
-        gidx, vals = row_plan(spec, dev)
-        m, d = spec.m, spec.d
-        cols, qv = gidx[:m].reshape(-1), vals[:m].reshape(-1)
-        rq = torch.arange(m, device=dev).repeat_interleave(d)
-        ij, shape = ((torch.stack([cols, rq]), (spec.n, m)) if transpose
-                     else (torch.stack([rq, cols]), (m, spec.n)))
-        return torch.sparse_coo_tensor(
-            ij, qv, shape, check_invariants=False).coalesce().to_sparse_csr()
-
     def fwd_work(spec, Z):
         """(ops, bytes) of W = Q Z: per row, per edge, per edge some
         client's operand is not 0, per (client, edge) whose is not 0."""
@@ -917,14 +1010,14 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
     for path, spec in specs.items():
         # the continuous run's own operand: its final clipped probabilities
         z = clip_probs(cont_state["scores"][path])
-        Q = csr(spec, dev, False)
+        Q = q_csr(spec, dev, False)
         zt = z[:, None].contiguous()
         add("qz_reconstruct_fwd", path,
             lambda: qr.qz_reconstruct_fwd(spec, z),
             lambda: ops.reconstruct_plain(spec, z[None]),
             lambda: torch.sparse.mm(Q, zt), *fwd_work(spec, z[None]))
         g = torch.from_numpy(rng.randn(spec.m).astype(np.float32)).to(dev)
-        QT = csr(spec, dev, True)
+        QT = q_csr(spec, dev, True)
         gt = g[:, None].contiguous()
         md = spec.m * spec.d
         add("qz_reconstruct_bwd_plan", path,
@@ -934,7 +1027,7 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
             8 * md + 4 * (spec.m + spec.n))
     for path, spec in zs4.specs.items():
         Z = fig4_masks[path]
-        Q = csr(spec, dev, False)
+        Q = q_csr(spec, dev, False)
         Zt = Z.t().contiguous()
         add("qz_reconstruct_batched_fwd", path,
             lambda: qr.qz_reconstruct_batched_fwd(spec, Z),
@@ -987,7 +1080,409 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
                       f"launches)" for t, v in by_tag.items())
             + f" ({card})")
     say(f"phase 11 done in {time.perf_counter() - t0:.1f} s")
+
+    # --- 12. the K=1 scatter backward, and local training under it --------
+    t0 = time.perf_counter()
+    for d in LOCAL_DS:
+        for path, spec in fig6(d).specs.items():
+            what = f"Fig. 6 {path} d={d}"
+            g = torch.from_numpy(rng.randn(spec.m).astype(np.float32)).to(dev)
+            g[::3] = 0.0  # rows whose cotangent is 0
+            gz = qr.qz_reconstruct_bwd(spec, g)
+            check("qz_reconstruct_bwd", gz, ops.scatter_bwd_one_plain(spec, g),
+                  what)
+            check("qz_reconstruct_bwd", gz, qr.qz_reconstruct_bwd_plan(spec, g),
+                  f"{what} against kernel 5 on the canonical plan")
+            check("qz_reconstruct_bwd", qr.qz_reconstruct_bwd(spec, g), gz,
+                  f"{what} a second launch")
+            check("qz_reconstruct_bwd_plan",
+                  qr.qz_reconstruct_bwd_plan(spec, g, "slot"),
+                  ops.plan_bwd_one_plain(spec, g, "slot"),
+                  f"{what} slot plan")
+    os.environ["REPRO_BWD_PLAN"] = "scatter"
+    try:
+        qr.reset_launches()
+        qz_decode.reset_launches()
+        flat0 = {**state0["scores"], **state0["dense"]}
+        k_state, k_opt, k_loss, k_grads = train_step(
+            zs, state0, opt.init(flat0), batches[0], step_words[0], mlp_loss,
+            opt)
+        torch.cuda.synchronize()
+        launches_are("step 0 under scatter", {"qz_sample_reconstruct_fwd": 3,
+                                              "qz_reconstruct_bwd": 3})
+        os.environ["REPRO_BWD_PLAN"] = "plan"
+        qr.reset_launches()
+        p_state, p_opt, p_loss, p_grads = train_step(
+            zs, state0, opt.init(flat0), batches[0], step_words[0], mlp_loss,
+            opt)
+        torch.cuda.synchronize()
+        launches_are("step 0 on the plan", {"qz_sample_reconstruct_fwd": 3,
+                                            "qz_reconstruct_bwd_plan": 3})
+        same = {"loss": torch.equal(k_loss, p_loss),
+                "Adam step": torch.equal(k_opt.step, p_opt.step)}
+        for part in ("scores", "dense"):
+            same[f"{part} gradients"] = all(torch.equal(
+                k_grads[part][p], p_grads[part][p]) for p in k_grads[part])
+            same[f"updated {part}"] = all(torch.equal(
+                k_state[part][p], p_state[part][p]) for p in k_state[part])
+        same["Adam moments"] = all(
+            torch.equal(k_opt.mu[p], p_opt.mu[p])
+            and torch.equal(k_opt.nu[p], p_opt.nu[p]) for p in k_opt.mu)
+        say(f"local: step 0 through kernels 7 and 2 (scatter) against kernels "
+            f"7 and 5 (plan): {same}; loss {float(k_loss):.9f}")
+        if not all(same.values()):
+            die("local step 0 under scatter differs from the plan's")
+        os.environ["REPRO_BWD_PLAN"] = "scatter"
+        _, sc_losses, sc_step_s, scatter_launches = run(
+            LocalTrainConfig(steps=SCATTER_STEPS, lr=LOCAL_LR,
+                             eval_every=10**9), step_words, SCATTER_STEPS)
+        launches_are(f"{SCATTER_STEPS} sample steps under scatter",
+                     {"qz_sample_reconstruct_fwd": 3 * SCATTER_STEPS,
+                      "qz_reconstruct_bwd": 3 * SCATTER_STEPS})
+    finally:
+        os.environ.pop("REPRO_BWD_PLAN", None)
+    sc_med = float(np.median(sc_step_s[1:]))
+    same_losses = sc_losses == losses[:SCATTER_STEPS]
+    say(f"local: {SCATTER_STEPS} steps under scatter: losses {[round(v, 6) for v in sc_losses[:5]]}"
+        f"...{round(sc_losses[-1], 6)}, equal to phase 10's first "
+        f"{SCATTER_STEPS} in every bit = {same_losses}; median step "
+        f"{1e3 * sc_med:.4f} ms (plan: {1e3 * med:.4f} ms) on {card}")
+    if not same_losses:
+        die("local training under scatter differs from the plan's")
+    kt2 = KernelTimes(card, {"qz_reconstruct_bwd": "scatter_bwd_kernel"})
+    for path, spec in specs.items():
+        g = torch.from_numpy(rng.randn(spec.m).astype(np.float32)).to(dev)
+        QT = q_csr(spec, dev, True)
+        gt = g[:, None].contiguous()
+        kt2.add("qz_reconstruct_bwd", path,
+                lambda: qr.qz_reconstruct_bwd(spec, g),
+                event_ms(lambda: ops.scatter_bwd_one_plain(spec, g), 3),
+                event_ms(lambda: torch.sparse.mm(QT, gt), 50),
+                *scatter_work(spec, g[None]))
+    out.append(kt2.row(
+        "qz_reconstruct_bwd", "src/repro/kernels/qz_reconstruct.py:224",
+        scatter_launches["qz_reconstruct_bwd"], max_err["qz_reconstruct_bwd"],
+        1,
+        "one sample-mode local step under REPRO_BWD_PLAN=scatter: 1 launch "
+        "per zampled leaf", "torch.sparse.mm(Q^T_csr, g)"))
+    say(f"phase 12 done in {time.perf_counter() - t0:.1f} s")
     return out
+
+
+def lm_phases(card: str, dev, fed: dict, kernel_rows: list) -> list:
+    """Phases 13-16: kernel 4 against its plain version and kernel 6, and
+    federated zampling of qwen2-0.5b through launch/train.py (the
+    default scale 0.25 against the plain path, then full width under
+    REPRO_BWD_PLAN=scatter), with kernels 8 and 4 held against their
+    plain versions at every full-width leaf.  Updates kernel 8's
+    max_abs_err in ``kernel_rows``; returns kernel 4's row."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import federated as tfed
+    from repro_torch.core.sampling import fold_word
+    from repro_torch.core.transpose_plan import clear_caches
+    from repro_torch.core.zampling import ZamplingConfig, build_specs
+    from repro_torch.kernels import ops, qz_decode
+    from repro_torch.kernels import qz_reconstruct as qr
+    from repro_torch.launch import train as lm_train
+    from repro_torch.models.model import param_template
+
+    max_err = {name: 0.0 for name in qr.LAUNCHES}
+
+    def check(name, got, want, what):
+        check_bitwise(max_err, name, got, want, what)
+
+    def launched():
+        return {k: v for k, v in qr.LAUNCHES.items() if v}
+
+    # --- 13. kernel 4 against its plain version and kernel 6 ---------------
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED + 2)
+    full = build_specs(param_template(get_arch("qwen2-0.5b")), ZamplingConfig(
+        compression=8, d=8, min_size=4096))  # launch/train.py's at scale 1
+    cases = [(f"Fig. 4 {p}", s_, FED_K) for p, s_ in fed["zspecs"].specs.items()]
+    cases += [(f"qwen2-0.5b {p}", full.specs[p], LM_K)
+              for p in ("blocks/ln1", "blocks/attn/wk", "blocks/attn/wq")]
+    for what, spec, K in cases:
+        G = torch.from_numpy(rng.randn(K, spec.m).astype(np.float32)).to(dev)
+        G[:, ::3] = 0.0  # rows whose cotangent is 0 for every client
+        what = (f"{what} m={spec.m} n={spec.n} rpw={spec.rows_per_window} "
+                f"d={spec.d} K={K}")
+        out = qr.qz_reconstruct_batched_bwd(spec, G)
+        check("qz_reconstruct_batched_bwd", out, ops.scatter_bwd_plain(spec, G),
+              what)
+        check("qz_reconstruct_batched_bwd", out,
+              qr.qz_reconstruct_batched_bwd_plan(spec, G),
+              f"{what} against kernel 6 on the canonical plan")
+        check("qz_reconstruct_batched_bwd", qr.qz_reconstruct_batched_bwd(
+            spec, G), out, f"{what} a second launch")
+        check("qz_reconstruct_batched_bwd_plan",
+              qr.qz_reconstruct_batched_bwd_plan(spec, G, "slot"),
+              ops.plan_bwd_plain(spec, G, "slot"), f"{what} slot plan")
+        del G, out
+        clear_caches()
+        torch.cuda.empty_cache()
+    say(f"phase 13 done in {time.perf_counter() - t0:.1f} s; every "
+        "comparison bitwise")
+
+    os.environ["REPRO_BWD_PLAN"] = "scatter"
+    try:
+        # --- 14. launch/train.py's default configuration, kernels vs plain --
+        t0 = time.perf_counter()
+        args = lm_train.parser().parse_args(["--rounds", "1"])
+        run = lm_train.build(args)
+        say(lm_train.describe(run) + f"; K={args.clients} E="
+            f"{args.local_steps} B={args.batch} S={args.seq} "
+            f"{run.cfg.dtype}; REPRO_BWD_PLAN=scatter")
+        n_leaves = len(run.zspecs.specs)
+        batch = run.batch()
+        torch.use_deterministic_algorithms(True)
+        try:
+            res = {}
+            for impl in (None, "ref"):
+                qr.reset_launches()
+                qz_decode.reset_launches()
+                t1 = time.perf_counter()
+                res[impl] = tfed.federated_round(
+                    run.zspecs, run.state, run.loss, batch, run.words[0],
+                    run.fcfg, impl=impl, device=dev)
+                torch.cuda.synchronize()
+                say(f"lm: round 0 at scale {args.scale} through "
+                    f"{'the kernels' if impl is None else 'the plain path'}: "
+                    f"loss {float(res[impl][1]['loss']):.9f}, "
+                    f"{time.perf_counter() - t1:.2f} s, launches {launched()}")
+                want = ({"qz_sample_reconstruct_batched_fwd":
+                         n_leaves * args.local_steps,
+                         "qz_reconstruct_batched_bwd":
+                         n_leaves * args.local_steps} if impl is None else {})
+                if launched() != want or any(qz_decode.LAUNCHES.values()):
+                    die(f"round 0 launches {launched()}, expected {want}")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        (a, ma), (b, mb) = res[None], res["ref"]
+        same = (all(torch.equal(a["scores"][p], b["scores"][p])
+                    for p in run.zspecs.specs),
+                all(torch.equal(a["dense"][p], b["dense"][p])
+                    for p in run.zspecs.dense_paths),
+                torch.equal(ma["loss"], mb["loss"]))
+        say(f"lm: round 0 kernels against plain (deterministic algorithms): "
+            f"score means bitwise={same[0]}, dense bitwise={same[1]}, loss "
+            f"bitwise={same[2]}")
+        if not all(same):
+            die("LM round 0 through the kernels differs from the plain path")
+        del run, res, a, b
+        clear_caches()
+        torch.cuda.empty_cache()
+        say(f"phase 14 done in {time.perf_counter() - t0:.1f} s")
+
+        # --- 15. full width, through the kernels only ------------------------
+        t0 = time.perf_counter()
+        args = lm_train.parser().parse_args(
+            ["--scale", "1.0", "--rounds", str(LM_ROUNDS)])
+        run = lm_train.build(args)
+        E = args.local_steps
+        say(lm_train.describe(run) + f"; K={args.clients} E={E} "
+            f"B={args.batch} S={args.seq} {run.cfg.dtype}; "
+            "REPRO_BWD_PLAN=scatter; built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        n_leaves = len(run.zspecs.specs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        qr.reset_launches()
+        qz_decode.reset_launches()
+        per_round, round_s, snap = [], [], {}
+
+        def on_round(r, state, met, dt):
+            now = dict(qr.LAUNCHES)
+            per_round.append({k: v - snap.get(k, 0) for k, v in now.items()
+                              if v - snap.get(k, 0)})
+            snap.update(now)
+            round_s.append(dt)
+
+        history = lm_train.train(run, on_round=on_round)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        lm_launches = dict(qr.LAUNCHES)
+        want = {"qz_sample_reconstruct_batched_fwd": n_leaves * E,
+                "qz_reconstruct_batched_bwd": n_leaves * E}
+        say(f"lm: full width, {LM_ROUNDS} rounds: losses {history}; round "
+            f"times {[round(t, 4) for t in round_s]} s; launches per round "
+            f"{per_round}, expected {want} each")
+        if not all(np.isfinite(history)):
+            die(f"a full-width loss is not finite: {history}")
+        if (any(pr != want for pr in per_round)
+                or any(qz_decode.LAUNCHES.values())):
+            die("full-width launches differ from 12 E of kernels 8 and 4 a "
+                "round, none of the others")
+        # the bytes the plan path would hold: each leaf's row plan
+        # (int64 coordinate and f32 value per edge) and transpose plan
+        # (int32 row and f32 value per (coordinate, deg) entry, deg the
+        # exact largest in-degree, counted here), never allocated
+        plan_bytes = 0
+        for path, spec in run.zspecs.specs.items():
+            counts = torch.zeros(spec.n, dtype=torch.int64, device=dev)
+            p0 = torch.zeros(spec.n, device=dev)
+            step = max(1, (1 << 24) // spec.d)
+            for r0 in range(0, spec.m, step):
+                rows = torch.arange(r0, min(spec.m, r0 + step), device=dev)
+                idx, _, _, _ = qz_decode.qz_edges(spec, p0, 0, rows)
+                coord = ((rows // spec.rows_per_window)[:, None] * spec.window
+                         + idx.to(torch.int64))
+                counts += torch.bincount(coord.reshape(-1),
+                                         minlength=spec.n)
+            deg = int(counts.max())
+            plan_bytes += 12 * spec.m_pad * spec.d + 8 * spec.n * deg
+            if path in ("embed", "blocks/ln1"):
+                say(f"lm: {path}: m={spec.m} n={spec.n} window={spec.window} "
+                    f"rpw={spec.rows_per_window}, largest in-degree {deg}")
+            del counts
+        say(f"lm: peak device memory {peak / 2**30:.3f} GiB "
+            f"(torch.cuda.max_memory_allocated, {LM_ROUNDS} rounds); the plan "
+            f"path's row and transpose plans alone {plan_bytes / 2**30:.3f} GiB"
+            f" (computed, never allocated), on a card of "
+            f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}"
+            f" GiB ({card})")
+        # one local step's time: local_update at E and at E-1 steps
+        batch = {n: torch.from_numpy(v).to(dev)
+                 for n, v in run.batch().items()}
+        words = [fold_word(run.words[-1], 0, i) for i in range(args.clients)]
+        lu_s = {}
+        for e in (E, E - 1):
+            cfg_e = dataclasses.replace(run.fcfg, local_steps=e)
+            b_e = {n: v[:, :e].contiguous() for n, v in batch.items()}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tfed.local_update(run.zspecs, run.state, run.loss, b_e, words,
+                              cfg_e)
+            torch.cuda.synchronize()
+            lu_s[e] = time.perf_counter() - t1
+        step_s = lu_s[E] - lu_s[E - 1]
+        med = float(np.median(round_s))
+        # one more round (the next batch) under torch.profiler
+        by_tag, dev_us, top = profile_device_us(
+            lambda: tfed.federated_round(run.zspecs, run.state, run.loss,
+                                         run.batch(), run.words[-1],
+                                         run.fcfg, device=dev),
+            ("sample_reconstruct_kernel", "scatter_bwd_kernel"), top=12)
+        say(f"lm: median round {med:.4f} s; one local step "
+            f"{1e3 * step_s:.2f} ms (local_update at E={E} {lu_s[E]:.4f} s, "
+            f"at E={E - 1} {lu_s[E - 1]:.4f} s) ({card})")
+        if dev_us > 0:
+            say(f"profile: one full-width round: all kernels "
+                f"{1e-3 * dev_us:.3f} ms of device time, busy share over the "
+                f"median round {1e-3 * dev_us / (1e3 * med):.4f}"
+                + "".join(f"; {t} {1e-3 * v[0]:.3f} ms ({v[1]} launches)"
+                          for t, v in by_tag.items()) + f" ({card})")
+            for name, us, n_l in top:
+                say(f"profile: full-width round: {1e-3 * us:9.3f} ms in "
+                    f"{n_l:5d} launches of {name[:110]}")
+        else:
+            say("profile: torch.profiler showed no device time; busy share "
+                "not measured")
+        say(f"phase 15 done in {time.perf_counter() - t0:.1f} s")
+
+        # --- 16. kernels 8 and 4 on one local step's own operands ----------
+        t0 = time.perf_counter()
+        stash8, stash4 = {}, {}
+        launch8 = qr.qz_sample_reconstruct_batched_fwd
+        launch4 = qr.qz_reconstruct_batched_bwd
+
+        def stashing8(spec, P, steps, qbits=None):
+            stash8[spec] = (P.detach().clone(), steps.clone()
+                            if torch.is_tensor(steps) else steps, qbits)
+            return launch8(spec, P, steps, qbits)
+
+        def stashing4(spec, G):
+            out = launch4(spec, G)
+            stash4[spec] = (G.detach().clone(), out.clone())
+            return out
+
+        qr.qz_sample_reconstruct_batched_fwd = stashing8
+        qr.qz_reconstruct_batched_bwd = stashing4
+        try:
+            b1 = {n: v[:, :1].contiguous() for n, v in batch.items()}
+            tfed.local_update(run.zspecs, run.state, run.loss, b1, words,
+                              dataclasses.replace(run.fcfg, local_steps=1))
+        finally:
+            qr.qz_sample_reconstruct_batched_fwd = launch8
+            qr.qz_reconstruct_batched_bwd = launch4
+        del run, batch
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        leaves = set(full.specs.values())
+        if set(stash8) != leaves or set(stash4) != leaves:
+            die("one full-width local step did not reach kernels 8 and 4 at "
+                "every zampled leaf")
+        kt = KernelTimes(card, {"qz_reconstruct_batched_bwd":
+                                "scatter_bwd_kernel"})
+        for path, spec in full.specs.items():
+            what = (f"full-width {path} m={spec.m} n={spec.n} "
+                    f"rpw={spec.rows_per_window} d={spec.d} K={LM_K}")
+            G, got = stash4.pop(spec)
+            plain = {}
+
+            def plain4():
+                plain["out"] = ops.scatter_bwd_plain(spec, G)
+
+            t_plain = event_ms(plain4, 1, warm=False)
+            check("qz_reconstruct_batched_bwd", got, plain["out"],
+                  f"{what} (the local step's own cotangent)")
+            check("qz_reconstruct_batched_bwd", qr.qz_reconstruct_batched_bwd(
+                spec, G), got, f"{what} a second launch")
+            QT = q_csr(spec, dev, True)
+            Gt = G.t().contiguous()
+            lib_out = torch.sparse.mm(QT, Gt).t()
+            say(f"library: {path}: sparse.mm(Q^T, G^T) against kernel 4: max "
+                f"abs diff {(got - lib_out).abs().max().item():.3e} (of max "
+                f"{got.abs().max().item():.3e})")
+            del got, lib_out, plain
+            kt.add("qz_reconstruct_batched_bwd", path,
+                   lambda: qr.qz_reconstruct_batched_bwd(spec, G), t_plain,
+                   event_ms(lambda: torch.sparse.mm(QT, Gt), 5),
+                   *scatter_work(spec, G))
+            del G, QT, Gt
+            torch.cuda.empty_cache()
+            P, steps, qbits = stash8.pop(spec)
+            check("qz_sample_reconstruct_batched_fwd",
+                  qr.qz_sample_reconstruct_batched_fwd(spec, P, steps, qbits),
+                  ops.sample_reconstruct_plain(spec, P, steps, qbits),
+                  f"{what} (the local step's own probabilities and words)")
+            del P, steps
+            clear_caches()  # the plain forward's row plan
+            torch.cuda.empty_cache()
+        say(f"lm: kernels 8 and 4 bitwise their plain versions at all "
+            f"{len(full.specs)} full-width leaves on one local step's "
+            f"operands; peak device memory of the checks "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        for r in kernel_rows:
+            if r["name"] == "qz_sample_reconstruct_batched_fwd":
+                r["max_abs_err"] = max(
+                    r["max_abs_err"],
+                    max_err["qz_sample_reconstruct_batched_fwd"])
+        row = kt.row(
+            "qz_reconstruct_batched_bwd",
+            "src/repro/kernels/qz_reconstruct.py:296",
+            lm_launches["qz_reconstruct_batched_bwd"],
+            max_err["qz_reconstruct_batched_bwd"], 1,
+            "one full-width qwen2-0.5b local step under "
+            "REPRO_BWD_PLAN=scatter: 1 launch per zampled leaf, K=4",
+            "torch.sparse.mm(Q^T_csr, G^T)")
+        if dev_us > 0:
+            us, n_l = by_tag["scatter_bwd_kernel"]
+            row["device_ms_in_main_path"] = 1e-3 * us / E
+        row["lm"] = {"losses": history, "round_s": round_s,
+                     "local_step_ms": 1e3 * step_s, "peak_bytes": peak,
+                     "plan_path_bytes": plan_bytes,
+                     "busy_share": (1e-3 * dev_us / (1e3 * med)
+                                    if dev_us > 0 else None)}
+        say(f"phase 16 done in {time.perf_counter() - t0:.1f} s")
+    finally:
+        os.environ.pop("REPRO_BWD_PLAN", None)
+    return [row]
 
 
 def main() -> None:
@@ -998,6 +1493,10 @@ def main() -> None:
         die("torch sees no CUDA device")
     if not (ROOT / "src" / "repro_torch" / "csrc" / "qz_decode.cu").exists():
         die("src/repro_torch is not beside chip_smoke.py")
+    # phase 14 compares under torch.use_deterministic_algorithms, which
+    # needs this cuBLAS workspace setting from the first cuBLAS call on
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    os.environ.pop("REPRO_BWD_PLAN", None)  # the phases set the gate
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1251,15 +1750,53 @@ def main() -> None:
             total += max(ops_n / PEAK_OPS_PER_S, bytes_n / PEAK_BYTES_PER_S)
         return 1e3 * total
 
+    # the library yardstick of the same function without the in-kernel
+    # draw: torch.sparse.mm of the CSR Q against the drawn mask (all of a
+    # leaf's groups at once), then torch.matmul of X against that W
+    from repro_torch.core.sampling import sample_mask_qhash
+
+    t0 = time.perf_counter()
+    Xs = {(B, path): torch.from_numpy(rng.randn(
+              B, stats[path][1]).astype(np.float32)).to(dev)
+          for B in (LANES, 1) for path in LINEARS + ("lm_head",)}
+    lib = {}
+    for path in LINEARS + ("lm_head",):
+        spec = zspecs.specs[path]
+        groups, d_in, d_out = stats[path][:3]
+        Q = q_csr(spec, dev, False)
+        z = sample_mask_qhash(sstate.words[path], 8, spec.seed,
+                              spec.tensor_id, DRAW_WORD)[:, None].contiguous()
+        for B in (LANES, 1):
+            X = Xs[(B, path)]
+
+            def library():
+                return X @ torch.sparse.mm(Q, z).reshape(groups, d_in, d_out)
+
+            lib[(B, path)] = event_ms(library, 3)
+            if B == LANES:
+                p, qbits = operand(path, "u8")
+                yk = torch.stack([run_kernel(spec, p, X, g * d_in * d_out,
+                                             d_in, d_out, qbits)
+                                  for g in range(groups)])
+                yl = library()
+                say(f"library: {path}: sparse.mm + matmul against the kernel "
+                    f"at B={B}: max abs diff {(yk - yl).abs().max().item():.3e} "
+                    f"(of max {yk.abs().max().item():.3e})")
+                del yk, yl
+        del Q, z
+        torch.cuda.empty_cache()
+    say(f"library: CSR yardsticks built and timed in "
+        f"{time.perf_counter() - t0:.1f} s")
+
     rows = []
     for name, B in (("qz_sample_matmul", LANES), ("qz_sample_matvec", 1)):
-        ms = plain = yard = bound = 0.0
+        ms = plain = yard = bound = library_ms = 0.0
         shapes = {}
         for path in LINEARS + ("lm_head",):
             spec = zspecs.specs[path]
             groups, d_in, d_out = stats[path][:3]
             p, qbits = operand(path, "u8")
-            X = torch.from_numpy(rng.randn(B, d_in).astype(np.float32)).to(dev)
+            X = Xs[(B, path)]
             t_k = event_ms(lambda: run_kernel(spec, p, X, 0, d_in, d_out, qbits),
                            3 if path == "lm_head" else 10)
             t_p = event_ms(lambda: ops.serve_contract_plain(
@@ -1276,12 +1813,16 @@ def main() -> None:
             plain += groups * t_p
             yard += groups * t_y
             bound += b
+            library_ms += lib[(B, path)]
             shapes[path] = {"d_in": d_in, "d_out": d_out, "launches": groups,
                             "ms": t_k, "plain_ms": t_p,
-                            "bound_ms": b / groups}
+                            "bound_ms": b / groups,
+                            "library_ms_all_groups": lib[(B, path)]}
             say(f"time: {name} {path} {d_in}x{d_out} B={B}: kernel "
                 f"{t_k:.4f} ms, plain {t_p:.2f} ms, matmul of materialized "
-                f"weights {t_y:.4f} ms, bound {b / groups:.4f} ms ({card})")
+                f"weights {t_y:.4f} ms, sparse.mm + matmul of all {groups} "
+                f"groups {lib[(B, path)]:.4f} ms, bound {b / groups:.4f} ms "
+                f"({card})")
         rows.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/qz_decode.cu",
@@ -1290,14 +1831,16 @@ def main() -> None:
                          else "src/repro/kernels/qz_decode.py:207"),
             "launches": launches[name], "max_abs_err": max_err[name],
             "ms": ms, "plain_ms": plain, "bound_ms": bound,
-            "bound_by": "operations", "library_ms": None,
+            "bound_by": "operations", "library_ms": library_ms,
+            "library_call": "torch.sparse.mm(Q_csr, z) on the drawn mask, "
+                            "then X @ W",
             "batch": B, "per": "one engine step (169 launches)",
             "yardstick_matmul_materialized_ms": yard, "shapes": shapes,
         })
         say(f"time: {name} per engine step (B={B}): kernel {ms:.3f} ms, "
             f"bound {bound:.3f} ms ({bound / ms:.3f} of it), plain "
-            f"{plain:.1f} ms, matmul of materialized weights {yard:.3f} ms "
-            f"({card})")
+            f"{plain:.1f} ms, matmul of materialized weights {yard:.3f} ms, "
+            f"sparse.mm + matmul {library_ms:.3f} ms ({card})")
 
     med = float(np.median(step_ms))
     single_ms = 1e3 * t_single / single_steps
@@ -1311,6 +1854,9 @@ def main() -> None:
     train_rows, fed = training_phases(card, dev)
     rows += train_rows
     rows += local_phases(card, dev, fed, rows)
+    del fed["state_r0"], fed["state0"]
+    torch.cuda.empty_cache()
+    rows += lm_phases(card, dev, fed, rows)
     say(f"card: {card}")
     say(f"total: {time.perf_counter() - T_START:.1f} s for the whole run")
     say(json.dumps({"kernels": rows}))

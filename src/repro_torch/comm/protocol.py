@@ -11,7 +11,8 @@ That reciprocal is the JAX package's arithmetic as it runs: under
 ``1/K``, which differs from a true division by an ulp at some counts
 (K = 10: count 9; none at K = 3); ``jnp.mean`` multiplies by ``1/K``
 even outside ``jit``.  ``mean0`` is that mean for the dense leaves: a
-sequential sum over the client axis, then ``* (1/K)``.
+sequential sum over the client axis, then ``* (1/K)``, in float32 for
+the bf16 leaves of a full-width LM, as ``jnp.mean`` takes it.
 
 ``allgather_packed`` (and every collective form, for the sharded path)
 comes with a later slice.
@@ -34,11 +35,12 @@ def recip_f32(k: int) -> float:
 
 def mean0(x: torch.Tensor) -> torch.Tensor:
     """Mean over the leading (client) axis as ``jnp.mean(x, axis=0)``
-    computes it: ascending sum, then a multiply by ``1/K``."""
-    acc = x[0]
+    computes it: ascending sum, then a multiply by ``1/K``, in float32
+    for a bf16 or f16 ``x`` (``jnp.mean`` upcasts those), cast back."""
+    acc = x[0].to(torch.float32)
     for k in range(1, x.shape[0]):
         acc = acc + x[k]
-    return acc * recip_f32(x.shape[0])
+    return (acc * recip_f32(x.shape[0])).to(x.dtype)
 
 
 class Transport:

@@ -9,7 +9,10 @@ words}, "dense": {path: leaf}}`` becomes the same dict of tensors, and
 so does a local-training state, whose Adam state (``step``, ``mu``,
 ``nu`` over the same tree) becomes the port's ``AdamState`` over the
 flat {path: leaf} dict the port's optimizers see.  bf16
-leaves (``ml_dtypes`` arrays) widen to float32.  The port's spec set is
+leaves (``ml_dtypes`` arrays) widen to float32 on the way and land in
+their template's dtype: the LM round state of the JAX package's
+``launch/train.py`` (f32 scores, bf16 dense leaves at full width) comes
+across exactly.  The port's spec set is
 rebuilt from the JAX template's shapes and config, and every QSpec is
 checked field by field against the JAX one, so a mismatch in leaf order
 (and so in tensor ids) raises here rather than serving other weights.
@@ -68,7 +71,8 @@ def federated_state_from_arrays(zspecs: ZamplingSpecs, scores, dense, *,
                                 device="cuda"):
     """The port's round state from numpy ``scores`` (f32 scores or the
     codec's u8/u16 words, as ``encode_state`` carries them) and
-    ``dense`` dicts keyed by the JAX package's path strings."""
+    ``dense`` dicts keyed by the JAX package's path strings; each dense
+    leaf in its template's dtype (bf16 leaves of an LM through f32)."""
     return state_to(zspecs, {"scores": {p: np.asarray(scores[p])
                                         for p in zspecs.specs},
                              "dense": {p: np.asarray(dense[p])

@@ -7,18 +7,32 @@ with ``major_axis`` moved to the front (``_move``/``_unmove``,
 ``_select_valid``/``_insert_padding`` and their batched forms).
 
 Summation orders are explicit loops, each product and add its own
-rounded torch op: the forward sums a row's d edges in ascending k, the
-transpose sums a coordinate's plan edges in ascending e (the canonical
-order of ``core.transpose_plan``).  The kernels compute the same
-orders, which is what lets them equal these functions bit for bit.
+rounded torch op.  The forward sums a row's d edges in ascending k,
+starting at the first product.  The transpose sums a coordinate's
+incoming edges starting at +0, in the plan's order (``canonical``: by
+source row, then slot k; ``slot``: by k, then row; the plan's padding
+entries add 0 * g, a no-op after a +0 start for any finite g).  The
+scatter transpose (``grad_z_scatter_ref``) holds no plan: it
+regenerates a chunk of windows' rows at a time, on the tensor's device,
+bins their edges by coordinate and sums each coordinate's real edges
+from +0 in the canonical order, so it equals the canonical plan's
+transpose bit for bit (a +0 start never leaves a -0, so the two agree
+on signed zeros too; they part only where the cotangent holds an inf
+or a NaN, which the plan's padding entries multiply by 0).  The kernels
+compute the same orders, which is what lets them equal these functions
+bit for bit.  ``grad_z_ref``/``grad_z_batched_ref`` dispatch on the
+gate, ``core.transpose_plan.resolve_bwd_path``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .qspec import QSpec
-from .transpose_plan import build_transpose_plan, row_plan
+from .qspec import QSpec, padded_row_window, row_indices, row_values
+from .transpose_plan import build_transpose_plan, resolve_bwd_path, row_plan
+
+# edges the scatter transpose regenerates at once (bounds its temporaries)
+_SCATTER_CHUNK_EDGES = 1 << 22
 
 
 def _move(spec: QSpec, w: torch.Tensor) -> torch.Tensor:
@@ -70,10 +84,21 @@ def _insert_padding_batched(spec: QSpec, flat_moved: torch.Tensor):
 
 
 def _rows_sum(vals: torch.Tensor, zg: torch.Tensor) -> torch.Tensor:
-    """sum_k vals[..., k] * zg[..., k] in ascending k."""
+    """sum_k vals[..., k] * zg[..., k] in ascending k, from the first
+    product (the forward's order)."""
     acc = vals[..., 0] * zg[..., 0]
     for k in range(1, vals.shape[-1]):
         acc = acc + vals[..., k] * zg[..., k]
+    return acc
+
+
+def _edge_sum(vals: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """+0 + sum_e vals[..., e] * g[..., e] in ascending e (the
+    transpose's order)."""
+    acc = torch.zeros(torch.broadcast_shapes(vals.shape, g.shape)[:-1],
+                      dtype=torch.float32, device=g.device)
+    for e in range(vals.shape[-1]):
+        acc = acc + vals[..., e] * g[..., e]
     return acc
 
 
@@ -95,28 +120,97 @@ def reconstruct_ref(spec: QSpec, z: torch.Tensor) -> torch.Tensor:
     return reconstruct_batched_ref(spec, z[None])[0]
 
 
-def plan_apply_batched(spec: QSpec, g_pad: torch.Tensor) -> torch.Tensor:
-    """Q^T over the canonical plan for K cotangents in padded row space:
+def plan_apply_batched(spec: QSpec, g_pad: torch.Tensor,
+                       order: str = "canonical") -> torch.Tensor:
+    """Q^T over the ``order`` plan for K cotangents in padded row space:
     (K, m_pad) -> (K, n), each coordinate summing vals * g over its
-    plan edges in ascending e (padding entries add exact zeros)."""
-    plan = build_transpose_plan(spec, g_pad.device)
+    plan edges in ascending e from +0."""
+    plan = build_transpose_plan(spec, g_pad.device, order)
     k = g_pad.shape[0]
     row0 = torch.arange(spec.num_windows, device=g_pad.device)[:, None, None]
     rows = plan.rows.to(torch.int64) + row0 * spec.rows_per_window
     gath = g_pad[:, rows.reshape(-1)].reshape(k, spec.n, plan.deg)
-    return _rows_sum(plan.vals.reshape(spec.n, plan.deg), gath)
+    return _edge_sum(plan.vals.reshape(spec.n, plan.deg), gath)
 
 
-def grad_z_plan_batched_ref(spec: QSpec, grad_W: torch.Tensor):
+def scatter_apply_batched(spec: QSpec, g_pad: torch.Tensor) -> torch.Tensor:
+    """Q^T for K cotangents in padded row space by the scatter: (K,
+    m_pad) -> (K, n), holding no row plan and no transpose plan.
+
+    Window w's rows [w*rpw, (w+1)*rpw) write only into its coordinates,
+    so the windows go a chunk at a time: their rows' edges are
+    regenerated on g's device, stably sorted by coordinate (which keeps
+    each coordinate's edges in (row, k) order), laid out in a
+    degree-padded table whose padding entries read a zero, and summed
+    from +0 in ascending order.  Edges of padding rows multiply a zero
+    cotangent and add nothing."""
+    k, dev = g_pad.shape[0], g_pad.device
+    rpw, win, d = spec.rows_per_window, spec.window, spec.d
+    g_ext = torch.cat([g_pad.to(torch.float32),
+                       torch.zeros((k, 1), dtype=torch.float32, device=dev)],
+                      dim=1)  # column m_pad: the padding entries' zero
+    out = torch.empty((k, spec.n), dtype=torch.float32, device=dev)
+    per = max(1, _SCATTER_CHUNK_EDGES // (rpw * d))
+    for w0 in range(0, spec.num_windows, per):
+        w1 = min(spec.num_windows, w0 + per)
+        rp = torch.arange(w0 * rpw, w1 * rpw, dtype=torch.int64, device=dev)
+        local = padded_row_window(spec, rp) - w0
+        key = (local[:, None] * win + row_indices(spec, rp)).reshape(-1)
+        vals = row_values(spec, rp).reshape(-1)
+        src = rp.repeat_interleave(d)
+        ks, perm = torch.sort(key, stable=True)
+        cells = (w1 - w0) * win
+        counts = torch.bincount(key, minlength=cells)
+        deg = max(1, int(counts.max()))
+        starts = torch.cumsum(counts, 0) - counts
+        slot = ks * deg + (torch.arange(ks.numel(), device=dev) - starts[ks])
+        t_rows = torch.full((cells * deg,), spec.m_pad, dtype=torch.int64,
+                            device=dev)
+        t_vals = torch.zeros(cells * deg, dtype=torch.float32, device=dev)
+        t_rows[slot] = src[perm]
+        t_vals[slot] = vals[perm]
+        gath = g_ext[:, t_rows].reshape(k, cells, deg)
+        out[:, w0 * win:w1 * win] = _edge_sum(t_vals.reshape(cells, deg), gath)
+    return out
+
+
+def grad_z_plan_batched_ref(spec: QSpec, grad_W: torch.Tensor,
+                            order: str = "canonical"):
     """Per-client Q^T grad_w over the plan: (K, *shape) -> (K, n) f32."""
     g_pad = _insert_padding_batched(
         spec, _move_batched(spec, grad_W.to(torch.float32)))
-    return plan_apply_batched(spec, g_pad)
+    return plan_apply_batched(spec, g_pad, order)
 
 
-def grad_z_plan_ref(spec: QSpec, grad_w: torch.Tensor) -> torch.Tensor:
+def grad_z_plan_ref(spec: QSpec, grad_w: torch.Tensor,
+                    order: str = "canonical") -> torch.Tensor:
     """Q^T grad_w over the plan for one tensor: shape -> (n,) f32."""
-    return grad_z_plan_batched_ref(spec, grad_w[None])[0]
+    return grad_z_plan_batched_ref(spec, grad_w[None], order)[0]
+
+
+def grad_z_scatter_batched_ref(spec: QSpec, grad_W: torch.Tensor):
+    """Per-client Q^T grad_w by the scatter: (K, *shape) -> (K, n) f32."""
+    g_pad = _insert_padding_batched(
+        spec, _move_batched(spec, grad_W.to(torch.float32)))
+    return scatter_apply_batched(spec, g_pad)
+
+
+def grad_z_scatter_ref(spec: QSpec, grad_w: torch.Tensor) -> torch.Tensor:
+    """Q^T grad_w by the scatter for one tensor: shape -> (n,) f32."""
+    return grad_z_scatter_batched_ref(spec, grad_w[None])[0]
+
+
+def grad_z_batched_ref(spec: QSpec, grad_W: torch.Tensor) -> torch.Tensor:
+    """Q^T grad_w per client, plan or scatter as the gate says."""
+    kind, order = resolve_bwd_path()
+    if kind == "plan":
+        return grad_z_plan_batched_ref(spec, grad_W, order)
+    return grad_z_scatter_batched_ref(spec, grad_W)
+
+
+def grad_z_ref(spec: QSpec, grad_w: torch.Tensor) -> torch.Tensor:
+    """Q^T grad_w for one tensor, plan or scatter as the gate says."""
+    return grad_z_batched_ref(spec, grad_w[None])[0]
 
 
 def materialize_q(spec: QSpec, device="cpu") -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Per-spec caches of Q's generation plans: the rows, and the transpose.
+"""Per-spec caches of Q's generation plans, and the backward-path gate.
 
-The JAX package's ``core/transpose_plan.py``, canonical order only.
+The JAX package's ``core/transpose_plan.py``.
 
 ``row_plan(spec, device)`` is the forward row plan: ``(gidx (m_pad, d)
 global z coordinates, vals (m_pad, d) f32)`` for every padded row,
@@ -10,22 +10,28 @@ regenerate Q's values in their bodies with CUDA's ``logf``/``cosf``,
 which give torch's CUDA bits, so a plan built on the card holds exactly
 the kernels' Q, while one built on the CPU would differ by ulps.
 
-``build_transpose_plan(spec, device)`` inverts the row plan into
+``build_transpose_plan(spec, device, order)`` inverts the row plan into
 per-coordinate incoming-edge lists (``transpose_plan.py:15-52`` of the
 JAX package):
 
     rows (num_windows, window, deg) int32   window-local source rows
     vals (num_windows, window, deg) f32     0.0 on padding entries
 
-with ``deg`` the exact maximum in-degree.  Canonical order: each
-coordinate's edges sorted by (source row, slot k).  Padding entries
-point at row 0 with value 0; edges of padding rows are left out.  The
-counting sort runs on the host (numpy, on the index stream only); the
-values are placed by a pure gather on the device, so their bits are
-the device's.
+with ``deg`` the exact maximum in-degree.  ``order`` fixes the edge
+order inside each coordinate's list, and so the order of its sum:
+``canonical`` sorts by (source row, slot k), ``slot`` by (slot k,
+source row).  Padding entries point at row 0 with value 0; edges of
+padding rows are left out.  The counting sort runs on the host (numpy,
+on the index stream only); the values are placed by a pure gather on
+the device, so their bits are the device's.
 
-``REPRO_BWD_PLAN`` keeps its name and spelling; the port has the
-canonical plan only, so ``plan:slot`` and ``scatter`` raise.
+The gate: ``REPRO_BWD_PLAN`` overrides the process default
+(``set_default_bwd_path``, ``plan``), and ``resolve_bwd_path`` turns a
+path into ``(kind, order)``: ``("plan", "canonical" | "slot")``, or
+``("scatter", None)`` for the scatter transpose, which regenerates Q
+and holds no plan.  The backward reads the gate each time it runs, as
+the JAX package reads it at trace time.  The spellings and the error
+messages are the JAX package's.
 """
 
 from __future__ import annotations
@@ -40,24 +46,45 @@ import torch
 from .qspec import (QSpec, padded_row_valid, padded_row_window, row_indices,
                     row_values)
 
+ORDERS = ("canonical", "slot")
+# accepted spellings of the gate; "plan" is canonical-order
 _VALID_BWD_PATHS = ("plan", "plan:canonical", "plan:slot", "scatter")
-_LATER_BWD_PATHS = ("plan:slot", "scatter")
+_DEFAULT_BWD_PATH = "plan"
 
 
-def resolve_bwd_path(path: str | None = None) -> str:
-    """The plan order of a backward path (the argument, else
-    ``REPRO_BWD_PLAN``, else ``plan``).  Only the canonical plan is
-    ported; the slot order and the scatter transpose raise."""
-    path = path or os.environ.get("REPRO_BWD_PLAN") or "plan"
+def set_default_bwd_path(path: str) -> None:
+    """Set the process-wide default transpose path (plan | scatter)."""
+    global _DEFAULT_BWD_PATH
     if path not in _VALID_BWD_PATHS:
         raise ValueError(f"unknown bwd path {path!r}; valid paths: "
                          f"{', '.join(_VALID_BWD_PATHS)}")
-    if path in _LATER_BWD_PATHS:
-        raise NotImplementedError(
-            f"bwd path {path!r}: the port has the canonical transpose plan "
-            "only; the slot order and the scatter transpose (kernels "
-            "qz_reconstruct_bwd / _batched_bwd) come with a later slice")
-    return "canonical"
+    _DEFAULT_BWD_PATH = path
+
+
+def default_bwd_path() -> str:
+    """The effective transpose path: ``REPRO_BWD_PLAN`` overrides the
+    ``set_default_bwd_path`` process default."""
+    env = os.environ.get("REPRO_BWD_PLAN")
+    if env is None:
+        return _DEFAULT_BWD_PATH
+    if env not in _VALID_BWD_PATHS:
+        raise ValueError(f"REPRO_BWD_PLAN={env!r} is not a valid bwd path; "
+                         f"valid: {', '.join(_VALID_BWD_PATHS)}")
+    return env
+
+
+def resolve_bwd_path(path: str | None = None):
+    """``(kind, order)`` for a path string (default: the gated one):
+    kind ``plan`` or ``scatter``, order the plan's edge order
+    (``canonical`` | ``slot``, None for scatter)."""
+    path = path or default_bwd_path()
+    if path not in _VALID_BWD_PATHS:
+        raise ValueError(f"unknown bwd path {path!r}; valid paths: "
+                         f"{', '.join(_VALID_BWD_PATHS)}")
+    if path == "scatter":
+        return "scatter", None
+    _, _, order = path.partition(":")
+    return "plan", order or "canonical"
 
 
 def _device(device) -> torch.device:
@@ -90,6 +117,7 @@ class TransposePlan:
     (n,); ``deg`` its maximum (>= 1).  Window ``w``'s rows start at
     padded row ``w * rows_per_window``."""
 
+    order: str
     deg: int
     rows: torch.Tensor  # (num_windows, window, deg) int32
     vals: torch.Tensor  # (num_windows, window, deg) f32
@@ -100,23 +128,34 @@ class TransposePlan:
         return int(self.counts.sum())
 
 
-def build_transpose_plan(spec: QSpec, device="cpu") -> TransposePlan:
+def build_transpose_plan(spec: QSpec, device="cpu",
+                         order: str = "canonical") -> TransposePlan:
     """Invert the row plan into per-coordinate incoming-edge lists, in
-    canonical order."""
-    return _build_transpose_plan(spec, _device(device))
+    ``order``."""
+    if order not in ORDERS:
+        raise ValueError(f"unknown plan order {order!r}; valid: {ORDERS}")
+    return _build_transpose_plan(spec, _device(device), order)
 
 
 @functools.lru_cache(maxsize=32)
-def _build_transpose_plan(spec: QSpec, device: torch.device):
+def _build_transpose_plan(spec: QSpec, device: torch.device, order: str):
     gidx, vals = row_plan(spec, device)
     d = spec.d
     rp = np.arange(spec.m_pad, dtype=np.int64)
-    valid = np.repeat(padded_row_valid(spec, torch.from_numpy(rp)).numpy(), d)
-    # canonical: the row-major (row, k) enumeration, stably sorted by
-    # coordinate, keeps each coordinate's edges in (row, k) order
-    coord = gidx.cpu().numpy().reshape(-1)[valid]
-    src = np.arange(spec.m_pad * d, dtype=np.int64)[valid]
-    r_local = np.repeat(rp % spec.rows_per_window, d)[valid]
+    valid = padded_row_valid(spec, torch.from_numpy(rp)).numpy()
+    coord = gidx.cpu().numpy()  # (m_pad, d)
+    src = np.arange(spec.m_pad * d, dtype=np.int64).reshape(spec.m_pad, d)
+    r_local = np.broadcast_to((rp % spec.rows_per_window)[:, None],
+                              coord.shape)
+    valid = np.broadcast_to(valid[:, None], coord.shape)
+    if order == "slot":  # the k-major enumeration: (k, row) per coordinate
+        coord, src, r_local, valid = coord.T, src.T, r_local.T, valid.T
+    # canonical: the row-major (row, k) enumeration; a stable sort by
+    # coordinate keeps each coordinate's edges in enumeration order
+    valid = valid.reshape(-1)
+    coord = coord.reshape(-1)[valid]
+    src = src.reshape(-1)[valid]
+    r_local = r_local.reshape(-1)[valid]
     perm = np.argsort(coord, kind="stable")
     ks, rs, src = coord[perm], r_local[perm], src[perm]
     counts = np.bincount(ks, minlength=spec.n).astype(np.int64)
@@ -130,7 +169,14 @@ def _build_transpose_plan(spec: QSpec, device: torch.device):
         torch.from_numpy(src).to(device)]
     shape = (spec.num_windows, spec.window, deg)
     return TransposePlan(
-        deg=deg,
+        order=order, deg=deg,
         rows=torch.from_numpy(rows).to(device).reshape(shape),
         vals=flat_vals.reshape(shape),
         counts=torch.from_numpy(counts).to(device))
+
+
+def clear_caches() -> None:
+    """Drop every cached row plan and transpose plan (device memory held
+    for the plan backward; the scatter holds none)."""
+    _row_plan.cache_clear()
+    _build_transpose_plan.cache_clear()

@@ -20,7 +20,9 @@ combination is the composed path: the explicit straight-through mask
 Fused and composed give the same weights and gradients bit for bit.
 A score leaf of shape (n,) is one client with one draw word; (K, n) is
 K clients with K draw words, which is how the federated round calls it
-(the JAX package vmaps a single client).
+(the JAX package vmaps a single client).  Reconstructed leaves come out
+in their template dtype (``LeafSpec.dtype``), cast from the kernels'
+f32; dense leaves are carried in it.
 """
 
 from __future__ import annotations
@@ -45,6 +47,10 @@ class LeafSpec(NamedTuple):
 
     shape: tuple
     dtype: str = "float32"
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
 
 
 @dataclass(frozen=True)
@@ -166,11 +172,12 @@ def build_specs(template: dict, config: ZamplingConfig,
 
 def state_to(zspecs: ZamplingSpecs, state, device) -> Dict[str, Any]:
     """``{"scores": {path: (n,) scores or wire words}, "dense": {path:
-    f32 leaf}}`` from numpy arrays or tensors, on ``device``; any other
-    key of ``state`` is left out."""
+    leaf in its template dtype}}`` from numpy arrays or tensors, on
+    ``device``; any other key of ``state`` is left out."""
     return {"scores": {p: as_tensor(state["scores"][p], device)
                        for p in zspecs.specs},
-            "dense": {p: as_tensor(state["dense"][p], device, torch.float32)
+            "dense": {p: as_tensor(state["dense"][p], device,
+                                   zspecs.template[p].torch_dtype)
                       for p in zspecs.dense_paths}}
 
 
@@ -340,7 +347,8 @@ class MaskProgram:
             p = clip_probs(scores[path])
             op = (ops.sample_reconstruct_batched if p.ndim == 2
                   else ops.sample_reconstruct)
-            leaves[path] = op(spec, p, steps, impl=self.impl)
+            leaves[path] = _as_template(self.zspecs, path,
+                                        op(spec, p, steps, impl=self.impl))
         leaves.update({path: dense[path] for path in self.zspecs.dense_paths})
         return leaves
 
@@ -389,10 +397,17 @@ class MaskProgram:
             q = self._wire_words(wire_scores, path)
             op = (ops.sample_reconstruct_batched if q.ndim == 2
                   else ops.sample_reconstruct)
-            leaves[path] = op(spec, q, steps, qbits=codec.bits,
-                              impl=self.impl)
+            leaves[path] = _as_template(self.zspecs, path, op(
+                spec, q, steps, qbits=codec.bits, impl=self.impl))
         leaves.update({path: dense[path] for path in self.zspecs.dense_paths})
         return leaves
+
+
+def _as_template(zspecs: ZamplingSpecs, path: str, w: torch.Tensor):
+    """A reconstructed f32 leaf in its template dtype (bf16 at full
+    width), cast outside the reconstruct op as the JAX package casts
+    it, so the kernels see f32 cotangents."""
+    return w.to(zspecs.template[path].torch_dtype)
 
 
 def weights_from_masks(zspecs: ZamplingSpecs, masks, state, *,
@@ -406,7 +421,7 @@ def weights_from_masks(zspecs: ZamplingSpecs, masks, state, *,
     for path, spec in zspecs.specs.items():
         z = masks[path]
         op = ops.reconstruct_batched if z.ndim == 2 else ops.reconstruct
-        leaves[path] = op(spec, z, impl=impl)
+        leaves[path] = _as_template(zspecs, path, op(spec, z, impl=impl))
     leaves.update({path: state["dense"][path] for path in zspecs.dense_paths})
     return leaves
 

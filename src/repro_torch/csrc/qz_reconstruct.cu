@@ -1,6 +1,6 @@
 // The training kernels for Hopper: the reconstruct forward (from explicit
-// masks or drawn in the body), the transpose-plan backward and the
-// upload sample-pack.  Device functions (hash, Q-row regeneration, mask
+// masks or drawn in the body), the transpose-plan backward, the scatter
+// backward and the upload sample-pack.  Device functions (hash, Q-row regeneration, mask
 // draw, quantized threshold, Box-Muller) come from qz_common.cuh, the
 // code the serve kernel (qz_decode.cu) already holds bitwise against
 // torch.
@@ -42,9 +42,40 @@
 // (num_windows, window, deg) transpose plan directly (no per-row-block
 // re-binning as the Pallas grid needs): one thread per (coordinate,
 // client) sums vals[c, e] * g_k[w*rpw + rows[c, e]] over e in ascending
-// order, the canonical plan order, each multiply and add rounded on its
-// own.  Padding entries (value 0) add exact zeros.
+// order from +0, each multiply and add rounded on its own, in the order
+// of the plan it is given (canonical or slot).  Padding entries (value
+// 0) add zeros, which change nothing after a +0 start.
 // Bound: bytes (the plan's rows and values dominate).
+//
+// scatter_bwd_kernel replaces qz_reconstruct_batched_bwd and, at K = 1,
+// qz_reconstruct_bwd: grad_Z[k] = Q^T G[k] with Q regenerated in the
+// body, no plan read and none held.  Window w's rows [w*rpw, (w+1)*rpw)
+// write only into its coordinates [w*window, (w+1)*window), so one CTA
+// owns one window and nothing crosses CTAs.  It takes the window's valid
+// rows a chunk at a time, at most SC_EDGES edges, and per chunk
+//   1. regenerates each row's edges (a row whose cotangent is 0 for
+//      every client adds only zeros and is skipped), keeping each edge's
+//      value in shared memory by its edge id e = row * d + k, and counts
+//      the edges of each coordinate;
+//   2. turns the counts into bin offsets (a block-wide exclusive scan);
+//   3. places each edge id in its coordinate's bin, a round of rows at a
+//      time, and sorts each bin by edge id, so a coordinate's edges run
+//      in ascending (row, k), the canonical order (shared-memory atomics
+//      only hand out places in a bin; the sort makes their order fixed);
+//   4. sums, for every client, each coordinate's bin in that order, one
+//      thread per coordinate, from +0 on the first chunk and from the
+//      partial sum it wrote on a later one, each multiply and add
+//      rounded on its own.
+// So each coordinate's sum is the canonical plan's sequence of rounded
+// adds without its padding entries, and equals plan_bwd_kernel's on the
+// canonical plan bit for bit; no atomic touches a sum.  The Pallas
+// kernel forms the same sum as a one-hot MXU product per row block; a
+// product on the tensor cores would round to TF32, so this is a gather.
+// Bound: operations where the cotangent is dense (regenerating an edge,
+// its index, 2 value hashes and a Box-Muller, is ~60 operations; a row's
+// d = 8 edges ~480 against its 4 K = 16 bytes of cotangent at K = 4),
+// bytes where most rows carry none (an embedding's: G is read whole to
+// find the live rows, which alone are regenerated).
 //
 // sample_pack_kernel replaces qz_sample_pack_batched_fwd.  One thread
 // per (lane, client) draws the lane's 32 coordinates and ORs bit j into
@@ -64,6 +95,11 @@
 namespace {
 
 constexpr int THREADS = 128;
+
+// scatter_bwd_kernel: threads per CTA, and edges per chunk (an edge id
+// fits 16 bits; 6 bytes an edge, 96 KB, so two CTAs fit an SM)
+constexpr int SC_THREADS = 512;
+constexpr int SC_EDGES = 16384;
 
 // A row's edges staged in shared memory at once: 8 bytes per edge and
 // thread, 32 KB a CTA, plus 4 bytes per client (at most 4 KB), under the
@@ -182,10 +218,140 @@ plan_bwd_kernel(const float* __restrict__ G, const int* __restrict__ rows,
   for (int e = 0; e < deg; ++e) {
     const uint32_t row = row0 + static_cast<uint32_t>(rows[base + e]);
     const float gv = row < m ? g[row] : 0.0f;  // padding rows carry 0
-    const float prod = __fmul_rn(vals[base + e], gv);
-    acc = (e == 0) ? prod : __fadd_rn(acc, prod);
+    acc = __fadd_rn(acc, __fmul_rn(vals[base + e], gv));
   }
   out[static_cast<long long>(k) * n + c] = acc;
+}
+
+// Dynamic shared memory of scatter_bwd_kernel: per coordinate a bin start
+// and a cursor, the warps' scan totals, per edge its value and its place
+// in a bin.
+size_t scatter_smem(int window) {
+  return sizeof(uint32_t) * (2u * static_cast<size_t>(window) + SC_THREADS / 32)
+         + (sizeof(float) + sizeof(uint16_t)) * static_cast<size_t>(SC_EDGES);
+}
+
+// Exclusive scan of cnt[0, window) into beg and cnt (cnt becomes each
+// bin's cursor).  Each thread scans a contiguous run of bins.
+__device__ __forceinline__ void bin_offsets(uint32_t* cnt, uint32_t* beg,
+                                            uint32_t* warp_tot, int window) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int per = (window + SC_THREADS - 1) / SC_THREADS;
+  const int lo = min(t * per, window), hi = min(lo + per, window);
+  uint32_t own = 0;
+  for (int c = lo; c < hi; ++c) own += cnt[c];
+  uint32_t x = own;  // inclusive scan within the warp
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_tot[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    uint32_t v = lane < SC_THREADS / 32 ? warp_tot[lane] : 0u;
+    for (int o = 1; o < 32; o <<= 1) {
+      const uint32_t y = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += y;
+    }
+    if (lane < SC_THREADS / 32) warp_tot[lane] = v;
+  }
+  __syncthreads();
+  uint32_t at = (warp ? warp_tot[warp - 1] : 0u) + x - own;
+  for (int c = lo; c < hi; ++c) {
+    const uint32_t v = cnt[c];
+    beg[c] = at;
+    cnt[c] = at;
+    at += v;
+  }
+}
+
+__global__ void __launch_bounds__(SC_THREADS, 2)
+scatter_bwd_kernel(const float* __restrict__ G, int K, uint32_t m, uint32_t n,
+                   qz::SpecArgs s, float* __restrict__ out) {
+  extern __shared__ uint32_t smem[];
+  const int window = static_cast<int>(s.window);
+  uint32_t* beg = smem;
+  uint32_t* cur = beg + window;
+  uint32_t* warp_tot = cur + window;
+  float* sVal = reinterpret_cast<float*>(warp_tot + SC_THREADS / 32);
+  uint16_t* sId = reinterpret_cast<uint16_t*>(sVal + SC_EDGES);
+
+  const int t = threadIdx.x;
+  const uint32_t w = blockIdx.x;
+  const uint32_t c0 = w * s.window;
+  const uint32_t r_lo = w * s.rows_per_window;
+  const uint32_t r_hi = min(r_lo + s.rows_per_window, m);  // valid rows only
+  const uint32_t hq = qz::prefix2(s.seed, s.tensor_id);
+  const int d = s.d;
+  const uint32_t chunk = static_cast<uint32_t>(SC_EDGES / d);
+  for (int c = t; c < window; c += SC_THREADS) {  // a window with no row
+    for (int k = 0; k < K; ++k) out[static_cast<long long>(k) * n + c0 + c] = 0.0f;
+  }
+  for (uint32_t r0 = r_lo; r0 < r_hi; r0 += chunk) {
+    const uint32_t nrows = min(chunk, r_hi - r0);
+    for (int c = t; c < window; c += SC_THREADS) cur[c] = 0u;
+    __syncthreads();
+    // 1. the chunk's edges: values by edge id, counts by coordinate
+    for (uint32_t i = t; i < nrows; i += SC_THREADS) {
+      bool live = false;
+      for (int k = 0; k < K && !live; ++k) {
+        live = G[static_cast<long long>(k) * m + r0 + i] != 0.0f;
+      }
+      if (!live) continue;
+      const qz::RowEdges e = qz::row_edges(hq, r0 + i, s.window);
+      for (int j = 0; j < d; ++j) {
+        sVal[i * d + j] = e.value(j, s.sigma);
+        atomicAdd(&cur[e.index(j, s.window)], 1u);
+      }
+    }
+    __syncthreads();
+    // 2. bin offsets
+    bin_offsets(cur, beg, warp_tot, window);
+    __syncthreads();
+    // 3. edge ids into their bins, a round of SC_THREADS rows at a time,
+    // so a bin holds the rounds in ascending order before it is sorted
+    for (uint32_t i0 = 0; i0 < nrows; i0 += SC_THREADS) {
+      const uint32_t i = i0 + t;
+      bool live = false;
+      for (int k = 0; k < K && i < nrows && !live; ++k) {
+        live = G[static_cast<long long>(k) * m + r0 + i] != 0.0f;
+      }
+      if (live) {
+        const qz::RowEdges e = qz::row_edges(hq, r0 + i, s.window);
+        for (int j = 0; j < d; ++j) {
+          const uint32_t at = atomicAdd(&cur[e.index(j, s.window)], 1u);
+          sId[at] = static_cast<uint16_t>(i * d + j);
+        }
+      }
+      __syncthreads();
+    }
+    // 3b. each bin sorted by edge id: ascending (row, k)
+    for (int c = t; c < window; c += SC_THREADS) {
+      const uint32_t b0 = beg[c], b1 = cur[c];
+      for (uint32_t a = b0 + 1; a < b1; ++a) {
+        const uint16_t v = sId[a];
+        uint32_t b = a;
+        for (; b > b0 && sId[b - 1] > v; --b) sId[b] = sId[b - 1];
+        sId[b] = v;
+      }
+    }
+    __syncthreads();
+    // 4. every client's sum at each coordinate, in bin order
+    for (int c = t; c < window; c += SC_THREADS) {
+      const uint32_t b0 = beg[c], b1 = cur[c];
+      for (int k = 0; k < K; ++k) {
+        const float* g = G + static_cast<long long>(k) * m + r0;
+        float* o = out + static_cast<long long>(k) * n + c0 + c;
+        float acc = *o;  // +0 before the first chunk, else its partial sum
+        for (uint32_t a = b0; a < b1; ++a) {
+          const uint32_t id = sId[a];
+          acc = __fadd_rn(acc, __fmul_rn(sVal[id], g[id / static_cast<uint32_t>(d)]));
+        }
+        *o = acc;
+      }
+    }
+    __syncthreads();  // the next chunk reuses the shared memory
+  }
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -275,6 +441,27 @@ int qz_plan_bwd(const float* G, const int* rows, const float* vals, int K,
   const dim3 grid((n + THREADS - 1) / THREADS, K);
   plan_bwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       G, rows, vals, n, m, deg, static_cast<uint32_t>(window), rows_per_window, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (K, n) = Q^T G_k by the scatter, Q regenerated; G (K, m) moved order.
+int qz_scatter_bwd(const float* G, int K, unsigned n, unsigned m,
+                   unsigned seed, unsigned tensor_id, int window,
+                   unsigned rows_per_window, int num_windows, int d,
+                   float sigma, float* out, void* stream) {
+  if (d < 1 || d > SC_EDGES) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = scatter_smem(window);
+  static size_t opted_in = 0;  // above 48 KB a kernel must opt in
+  if (smem > opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        scatter_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in = smem;
+  }
+  const qz::SpecArgs s = spec_args(seed, tensor_id, window, rows_per_window, d, sigma);
+  scatter_bwd_kernel<<<num_windows, SC_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      G, K, m, n, s, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,10 +1,11 @@
 """Synthetic classification data, numpy only.
 
-A copy of the JAX package's ``data/synthetic.py`` (the part the
-federated round uses): the same code, so the same seed gives the same
-arrays bit for bit.  ``make_teacher_dataset`` builds an MNIST-shaped
-(784 -> 10) task from random class prototypes plus Gaussian jitter, in
-the role MNIST plays in the paper.
+A copy of the JAX package's ``data/synthetic.py``: the same code, so
+the same seed gives the same arrays bit for bit.
+``make_teacher_dataset`` builds an MNIST-shaped (784 -> 10) task from
+random class prototypes plus Gaussian jitter, in the role MNIST plays
+in the paper; ``lm_token_batches`` streams next-token batches of a
+Markov chain for the LM training entry point.
 """
 
 from __future__ import annotations
@@ -51,3 +52,20 @@ def make_teacher_dataset(
     x_tr, y_tr = sample(n_train)
     x_te, y_te = sample(n_test)
     return SyntheticClassification(x_tr, y_tr, x_te, y_te)
+
+
+def lm_token_batches(vocab: int, batch: int, seq: int, seed: int = 0
+                     ) -> Iterator[np.ndarray]:
+    """Markov-chain token stream (learnable bigram structure)."""
+    rng = np.random.RandomState(seed)
+    # sparse row-stochastic transition with a few preferred successors
+    succ = rng.randint(0, vocab, (vocab, 4))
+    while True:
+        out = np.empty((batch, seq), np.int32)
+        state = rng.randint(0, vocab, batch)
+        for t in range(seq):
+            out[:, t] = state
+            pick = succ[state, rng.randint(0, 4, batch)]
+            explore = rng.rand(batch) < 0.1
+            state = np.where(explore, rng.randint(0, vocab, batch), pick)
+        yield out

@@ -6,12 +6,16 @@ federated round and local training need).  ``sample_reconstruct_batched``
 is ``W_k = Q Bern(P_k)`` for K stacked clients as a
 ``torch.autograd.Function``: the forward draws the masks inside the op
 (CUDA kernel 8, ``qz_sample_reconstruct_batched_fwd``; kernel 7 at
-K=1), the backward is the straight-through ``grad_P = Q^T grad_W`` over
-the canonical transpose plan (kernel 6; kernel 5,
-``qz_reconstruct_bwd_plan``, at K=1), and the draw words get no
-gradient.  ``reconstruct_batched`` is ``W_k = Q Z_k`` from explicit
-operands (masks, or probabilities in continuous mode) with the same
-backward: kernel 3 forward (kernel 1, ``qz_reconstruct_fwd``, for the
+K=1), the backward is the straight-through ``grad_P = Q^T grad_W``, and
+the draw words get no gradient.  The transpose is the one the gate
+``REPRO_BWD_PLAN`` names when the backward runs: a transpose plan of
+either order (kernel 6; kernel 5, ``qz_reconstruct_bwd_plan``, at K=1),
+or the scatter, which regenerates Q and holds no plan (kernel 4,
+``qz_reconstruct_batched_bwd``; kernel 2, ``qz_reconstruct_bwd``, at
+K=1), the only one whose memory fits full-width LM training.
+``reconstruct_batched`` is ``W_k = Q Z_k`` from explicit operands
+(masks, or probabilities in continuous mode) with the same backward:
+kernel 3 forward (kernel 1, ``qz_reconstruct_fwd``, for the
 single-client ``reconstruct``).  With ``qbits`` the operand is the
 u8/u16 downlink words and the op has no gradient.
 ``sample_pack_batched`` draws the upload and emits wire lanes (kernel
@@ -61,7 +65,8 @@ from ..core.hashrng import bernoulli_u32
 from ..core.qspec import QSpec, row_indices, row_values
 from ..core.reconstruct import (_insert_padding_batched, _move_batched,
                                 _unmove_batched, plan_apply_batched,
-                                reconstruct_batched_ref)
+                                reconstruct_batched_ref,
+                                scatter_apply_batched)
 from ..core.sampling import (as_word, as_words, mask_u32,
                               quant_threshold_u24, sample_mask_hash,
                               sample_mask_qhash, word_values)
@@ -118,17 +123,32 @@ def sample_reconstruct_plain(spec: QSpec, P: torch.Tensor, steps,
     return reconstruct_plain(spec, _draw(spec, P, steps, qbits))
 
 
-def plan_bwd_plain(spec: QSpec, G: torch.Tensor) -> torch.Tensor:
+def plan_bwd_plain(spec: QSpec, G: torch.Tensor,
+                   order: str = "canonical") -> torch.Tensor:
     """The plain torch version of kernel 6: (K, m) cotangents in moved
-    flat order -> (K, n) over the canonical transpose plan."""
+    flat order -> (K, n) over the ``order`` transpose plan."""
     return plan_apply_batched(
+        spec, _insert_padding_batched(spec, G.to(torch.float32)), order)
+
+
+def plan_bwd_one_plain(spec: QSpec, g: torch.Tensor,
+                       order: str = "canonical") -> torch.Tensor:
+    """The plain torch version of kernel 5: one (m,) cotangent in moved
+    flat order -> (n,) over the ``order`` transpose plan."""
+    return plan_bwd_plain(spec, g[None], order)[0]
+
+
+def scatter_bwd_plain(spec: QSpec, G: torch.Tensor) -> torch.Tensor:
+    """The plain torch version of kernel 4: (K, m) cotangents in moved
+    flat order -> (K, n) by the scatter, a chunk of windows at a time,
+    no plan held (``core.reconstruct.scatter_apply_batched``)."""
+    return scatter_apply_batched(
         spec, _insert_padding_batched(spec, G.to(torch.float32)))
 
 
-def plan_bwd_one_plain(spec: QSpec, g: torch.Tensor) -> torch.Tensor:
-    """The plain torch version of kernel 5: one (m,) cotangent in moved
-    flat order -> (n,) over the canonical transpose plan."""
-    return plan_bwd_plain(spec, g[None])[0]
+def scatter_bwd_one_plain(spec: QSpec, g: torch.Tensor) -> torch.Tensor:
+    """The plain torch version of kernel 2: one (m,) cotangent -> (n,)."""
+    return scatter_bwd_plain(spec, g[None])[0]
 
 
 def sample_pack_plain(spec: QSpec, P: torch.Tensor, steps) -> torch.Tensor:
@@ -157,15 +177,23 @@ def _fwd_many(spec, P, steps, impl, qbits, single):
 
 
 def _bwd_many(spec, G, impl, single):
-    """Kernel 6 (kernel 5 for one client)."""
-    resolve_bwd_path()
+    """The transpose the gate names, read when the backward runs: the
+    plan of either order on kernel 6 (kernel 5 for one client), or the
+    scatter on kernel 4 (kernel 2 for one client)."""
+    kind, order = resolve_bwd_path()
     if impl == "ref":
-        return plan_bwd_plain(spec, G)
+        if kind == "plan":
+            return plan_bwd_plain(spec, G, order)
+        return scatter_bwd_plain(spec, G)
     from . import qz_reconstruct as qr
 
+    if kind == "plan":
+        if single:
+            return qr.qz_reconstruct_bwd_plan(spec, G[0], order)[None]
+        return qr.qz_reconstruct_batched_bwd_plan(spec, G, order)
     if single:
-        return qr.qz_reconstruct_bwd_plan(spec, G[0])[None]
-    return qr.qz_reconstruct_batched_bwd_plan(spec, G)
+        return qr.qz_reconstruct_bwd(spec, G[0])[None]
+    return qr.qz_reconstruct_batched_bwd(spec, G)
 
 
 class _Reconstruct(torch.autograd.Function):

@@ -1,6 +1,6 @@
 """The training CUDA kernels for Hopper (sm_90a), and wrappers.
 
-Replaces seven Pallas kernels of the JAX package's
+Replaces nine Pallas kernels of the JAX package's
 ``kernels/qz_reconstruct.py``:
 
 - ``qz_sample_reconstruct_batched_fwd`` (the fused round's forward) and
@@ -12,7 +12,12 @@ Replaces seven Pallas kernels of the JAX package's
   same row code reading an explicit operand in place of a draw;
 - ``qz_reconstruct_batched_bwd_plan`` (the round's backward) and
   ``qz_reconstruct_bwd_plan`` (its K=1 entry: every local backward) —
-  ``plan_bwd_kernel``;
+  ``plan_bwd_kernel``, on the plan of either order;
+- ``qz_reconstruct_batched_bwd`` (the scatter transpose, the round's
+  backward under ``REPRO_BWD_PLAN=scatter``) and ``qz_reconstruct_bwd``
+  (its K=1 entry: the local backward under scatter) —
+  ``scatter_bwd_kernel``, which regenerates Q and reads no plan, and
+  equals ``plan_bwd_kernel`` on the canonical plan bit for bit;
 - ``qz_sample_pack_batched_fwd`` (the round's upload) —
   ``sample_pack_kernel``.
 
@@ -49,6 +54,8 @@ LAUNCHES: Dict[str, int] = {
     "qz_reconstruct_batched_fwd": 0,
     "qz_reconstruct_fwd": 0,
     "qz_reconstruct_bwd_plan": 0,
+    "qz_reconstruct_batched_bwd": 0,
+    "qz_reconstruct_bwd": 0,
 }
 
 _KIND = {None: 0, 8: 1, 16: 2}
@@ -73,6 +80,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.qz_plan_bwd.restype = I
     lib.qz_sample_pack.argtypes = [P, P, I, L, U, U, P, P]
     lib.qz_sample_pack.restype = I
+    lib.qz_scatter_bwd.argtypes = [P, I, U, U, U, U, I, U, I, I, F, P, P]
+    lib.qz_scatter_bwd.restype = I
 
 
 LIBRARY = KernelLibrary("qz_reconstruct.cu", ("qz_common.cuh",), _bind)
@@ -201,16 +210,20 @@ def qz_reconstruct_fwd(spec: QSpec, z: torch.Tensor):
     return w
 
 
-def _launch_plan_bwd(spec: QSpec, G: torch.Tensor):
+def _check_cotangent(spec: QSpec, G: torch.Tensor) -> torch.Tensor:
     _check_spec(spec)
     if G.dtype != torch.float32 or G.ndim != 2 or G.shape[1] != spec.m:
         raise ValueError(f"G must be (K, {spec.m}) float32, got "
                          f"{tuple(G.shape)} {G.dtype}")
+    if not 1 <= G.shape[0] <= MAX_K:
+        raise ValueError(f"{G.shape[0]} clients outside [1, {MAX_K}]")
+    return G.contiguous()
+
+
+def _launch_plan_bwd(spec: QSpec, G: torch.Tensor, order: str):
+    G = _check_cotangent(spec, G)
     K = G.shape[0]
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"{K} clients outside [1, {MAX_K}]")
-    G = G.contiguous()
-    plan = build_transpose_plan(spec, G.device)
+    plan = build_transpose_plan(spec, G.device, order)
     out = torch.empty((K, spec.n), dtype=torch.float32, device=G.device)
     rc = build().qz_plan_bwd(
         G.data_ptr(), plan.rows.data_ptr(), plan.vals.data_ptr(), K, spec.n,
@@ -220,29 +233,71 @@ def _launch_plan_bwd(spec: QSpec, G: torch.Tensor):
     return out
 
 
-def qz_reconstruct_batched_bwd_plan(spec: QSpec, G: torch.Tensor):
-    """grad_Z (K, n) = Q^T G_k over the canonical transpose plan; ``G``
+def qz_reconstruct_batched_bwd_plan(spec: QSpec, G: torch.Tensor,
+                                    order: str = "canonical"):
+    """grad_Z (K, n) = Q^T G_k over the ``order`` transpose plan; ``G``
     (K, m) f32 cotangents in moved flat order."""
     if not G.is_cuda:
         from .ops import plan_bwd_plain
 
-        return plan_bwd_plain(spec, G)
-    out = _launch_plan_bwd(spec, G)
+        return plan_bwd_plain(spec, G, order)
+    out = _launch_plan_bwd(spec, G, order)
     LAUNCHES["qz_reconstruct_batched_bwd_plan"] += 1
     return out
 
 
-def qz_reconstruct_bwd_plan(spec: QSpec, g: torch.Tensor):
-    """grad_z (n,) = Q^T g over the canonical transpose plan for one
+def qz_reconstruct_bwd_plan(spec: QSpec, g: torch.Tensor,
+                            order: str = "canonical"):
+    """grad_z (n,) = Q^T g over the ``order`` transpose plan for one
     cotangent g (m,) f32 in moved flat order: the batched kernel at K=1."""
     if not g.is_cuda:
         from .ops import plan_bwd_one_plain
 
-        return plan_bwd_one_plain(spec, g)
+        return plan_bwd_one_plain(spec, g, order)
     if g.ndim != 1:
         raise ValueError(f"g must be ({spec.m},), got {tuple(g.shape)}")
-    out = _launch_plan_bwd(spec, g[None])[0]
+    out = _launch_plan_bwd(spec, g[None], order)[0]
     LAUNCHES["qz_reconstruct_bwd_plan"] += 1
+    return out
+
+
+def _launch_scatter_bwd(spec: QSpec, G: torch.Tensor):
+    G = _check_cotangent(spec, G)
+    K = G.shape[0]
+    out = torch.empty((K, spec.n), dtype=torch.float32, device=G.device)
+    rc = build().qz_scatter_bwd(
+        G.data_ptr(), K, spec.n, spec.m, spec.seed & 0xFFFFFFFF,
+        spec.tensor_id, spec.window, spec.rows_per_window, spec.num_windows,
+        spec.d, sigma_f32(spec), out.data_ptr(), _stream(G))
+    raise_on(rc, "qz_scatter_bwd")
+    return out
+
+
+def qz_reconstruct_batched_bwd(spec: QSpec, G: torch.Tensor):
+    """grad_Z (K, n) = Q^T G_k by the scatter, Q regenerated in the
+    kernel and no plan held; ``G`` (K, m) f32 cotangents in moved flat
+    order.  Equals ``qz_reconstruct_batched_bwd_plan`` on the canonical
+    plan bit for bit."""
+    if not G.is_cuda:
+        from .ops import scatter_bwd_plain
+
+        return scatter_bwd_plain(spec, G)
+    out = _launch_scatter_bwd(spec, G)
+    LAUNCHES["qz_reconstruct_batched_bwd"] += 1
+    return out
+
+
+def qz_reconstruct_bwd(spec: QSpec, g: torch.Tensor):
+    """grad_z (n,) = Q^T g by the scatter for one cotangent g (m,) f32
+    in moved flat order: the batched kernel at K=1."""
+    if not g.is_cuda:
+        from .ops import scatter_bwd_one_plain
+
+        return scatter_bwd_one_plain(spec, g)
+    if g.ndim != 1:
+        raise ValueError(f"g must be ({spec.m},), got {tuple(g.shape)}")
+    out = _launch_scatter_bwd(spec, g[None])[0]
+    LAUNCHES["qz_reconstruct_bwd"] += 1
     return out
 
 

@@ -1,12 +1,18 @@
-"""Grouped-query decode attention (the JAX package's
-``models/attention.py``, the parts the serving engine runs).
+"""Grouped-query attention (the JAX package's ``models/attention.py``):
+the training forward and the parts the serving engine runs.
 
-``finish_qkv`` is the bias / head-reshape / qk-norm / rope tail of the
-projections; ``decode_attend`` writes one token into the KV cache and
-attends; ``decode_attend_lanes`` does the same with a per-lane (B,)
-position and a live mask, for the continuous-batching scheduler.  The
-cache write is the one-hot blend ``k * (1 - oh) + oh * k_new``, as in
-JAX, so each lane's values equal the single-request path's.
+``self_attention`` is the full-sequence causal attention of training,
+K clients at once: each client's projections, then ``finish_qkv`` and
+``_sdpa_rows`` over the K*B rows, each with its own client's bias, in
+the plain einsum/softmax form the JAX package computes below its
+``FLASH_THRESHOLD`` (the blockwise path from 4096 tokens on is not
+ported).  ``finish_qkv`` is the bias / head-reshape / qk-norm / rope
+tail of the projections; ``decode_attend`` writes one token into the KV
+cache and attends; ``decode_attend_lanes`` does the same with a
+per-lane (B,) position and a live mask, for the continuous-batching
+scheduler.  The cache write is the one-hot blend
+``k * (1 - oh) + oh * k_new``, as in JAX, so each lane's values equal
+the single-request path's.
 """
 
 from __future__ import annotations
@@ -16,9 +22,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .common import rms_norm, rope
+from .common import linear, rms_norm, rope
 
 NEG_INF = -1e30
+FLASH_THRESHOLD = 4096  # the JAX package's blockwise attention from here
 
 
 @dataclass(frozen=True)
@@ -80,6 +87,34 @@ def _sdpa_rows(q, k, v, mask, n_rep: int):
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bgrqk,bkgh->bqgrh", probs, v)
     return out.reshape(B, Sq, H, hd)
+
+
+def self_attention(params, x, dims: AttnDims, positions):
+    """Full-sequence causal self-attention of K clients: ``x`` (K, B, S,
+    D), every leaf of ``params`` with a leading K axis, ``positions``
+    (B, S); returns (K, B, S, D)."""
+    K, B, S, _ = x.shape
+    if S >= FLASH_THRESHOLD:
+        raise NotImplementedError(
+            f"sequence length {S} >= {FLASH_THRESHOLD}: the blockwise "
+            "attention (models/flash.py) is not ported yet")
+    q, k, v = (linear(x, params[w]).reshape(K * B, S, -1)
+               for w in ("wq", "wk", "wv"))
+    # the K*B rows, each beside its client's bias and norm scales
+    rows = {name: params[name].repeat_interleave(B, 0)[:, None]
+            for name in ("bq", "bk", "bv") if name in params}
+    rows.update({name: params[name].repeat_interleave(B, 0)[:, None, None]
+                 for name in ("q_norm", "k_norm") if name in params})
+    pos = positions.repeat(K, 1)
+    q, k, v = finish_qkv(rows, q, k, v, dims, pos)
+    qi, ki = pos[:, None, :, None], pos[:, None, None, :]
+    mask = torch.zeros((K * B, 1, S, S), dtype=torch.float32, device=x.device)
+    if dims.causal:
+        mask = torch.where(ki > qi, NEG_INF, mask)
+    if dims.window is not None:
+        mask = torch.where(ki <= qi - dims.window, NEG_INF, mask)
+    out = _sdpa_rows(q, k, v, mask, dims.n_heads // dims.n_kv)
+    return linear(out.reshape(K, B, S, -1), params["wo"])
 
 
 def init_cache(batch: int, seq_len: int, dims: AttnDims, dtype,

@@ -31,7 +31,9 @@ def apply_updates(params, updates):
 
 
 def sgd(lr: float) -> Optimizer:
-    """updates = -lr * grads, leaf by leaf."""
+    """updates = -lr * grads, leaf by leaf, with -lr in each gradient's
+    dtype: JAX takes the Python float as weakly typed, so a bf16 leaf's
+    update is bf16(-lr) * g, rounded to bf16."""
 
     def init(params):
         del params
@@ -39,7 +41,8 @@ def sgd(lr: float) -> Optimizer:
 
     def update(grads, state, params=None):
         del params
-        return {k: -lr * g for k, g in grads.items()}, state
+        return {k: g * torch.tensor(-lr, dtype=g.dtype)
+                for k, g in grads.items()}, state
 
     return Optimizer(init, update)
 

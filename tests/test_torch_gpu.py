@@ -16,7 +16,13 @@ from explicit operands at K=1 and K=3, the K=1 plan backward) and the
 sample-reconstruct forward must equal their plain versions at every d
 the paper runs, up to 256; a local training step through the kernels
 must equal one on the plain path in sample and continuous mode; the
-composed round must equal the fused round.
+composed round must equal the fused round.  The scatter transpose
+kernels (kernel 4 at K in {4, 10}, kernel 2 at K=1) must equal their
+plain versions and the plan kernels on the canonical plan bitwise at d
+in {1, 8, 16, 256}, with rows per window that do not divide the rows
+and a ragged last window, give the same bits on a second launch, and an
+LM round under ``REPRO_BWD_PLAN=scatter`` through them must equal the
+plain path's.
 """
 
 import numpy as np
@@ -32,6 +38,7 @@ from repro_torch.core.federated import federated_round
 from repro_torch.core.sampling import as_words, clip_probs, sample_mask_hash
 from repro_torch.core.transpose_plan import row_plan
 from repro_torch.kernels import ops, qz_decode, qz_reconstruct
+from repro_torch.launch import train as lm_train
 from repro_torch.models.mlp import SMALL_DIMS, mlp_loss, mlp_template
 from repro_torch.models.model import build_model, param_template
 from repro_torch.optim import adam
@@ -309,3 +316,73 @@ def test_composed_round_equals_fused_round(cuda_train):
         assert torch.equal(a["scores"][p], b["scores"][p])
     for p in zspecs.dense_paths:
         assert torch.equal(a["dense"][p], b["dense"][p])
+
+
+# (shape, fan_in, compression, d, window): fewer rows per window than
+# compression x window (as qwen2-0.5b's bq/ln1/ln2), a ragged last
+# window, d=1, d=8 at qwen2-0.5b's window, d=256 at Fig. 6's compression
+SCATTER_SPECS = [((6, 112), 6, 8, 8, 16), ((7, 301), 7, 8, 10, 64),
+                 ((64, 48), 64, 4, 1, 64), ((48, 700), 48, 8, 8, 512),
+                 ((96, 80), 96, 1, 16, 128), ((24, 40), 24, 1, 256, 512)]
+
+
+@pytest.mark.parametrize("K", [1, 4, 10])
+@pytest.mark.parametrize("i", range(len(SCATTER_SPECS)))
+def test_scatter_kernels_equal_plain_and_plan(cuda_train, i, K):
+    shape, fan_in, c, d, window = SCATTER_SPECS[i]
+    spec = make_qspec(6, shape, fan_in, compression=c, d=d, window=window,
+                      seed=2)
+    rng = np.random.RandomState(10 * i + K)
+    G = rng.randn(K, spec.m).astype(np.float32)
+    G[:, ::3] = 0.0  # rows whose cotangent is 0 for every client
+    G = torch.from_numpy(G).to(cuda_train)
+    out = _counted("qz_reconstruct_batched_bwd",
+                   lambda: qz_reconstruct.qz_reconstruct_batched_bwd(spec, G))
+    assert torch.equal(out, ops.scatter_bwd_plain(spec, G))
+    assert torch.equal(out, qz_reconstruct.qz_reconstruct_batched_bwd_plan(
+        spec, G))
+    assert torch.equal(out, qz_reconstruct.qz_reconstruct_batched_bwd(
+        spec, G))  # a second launch, the same bits
+    for k in range(min(K, 2)):
+        one = _counted("qz_reconstruct_bwd",
+                       lambda: qz_reconstruct.qz_reconstruct_bwd(spec, G[k]))
+        assert torch.equal(one, out[k])
+        assert torch.equal(one, qz_reconstruct.qz_reconstruct_bwd_plan(
+            spec, G[k]))
+    # the slot plan on kernels 6 and 5, against its plain version
+    assert torch.equal(
+        qz_reconstruct.qz_reconstruct_batched_bwd_plan(spec, G, "slot"),
+        ops.plan_bwd_plain(spec, G, "slot"))
+    assert torch.equal(qz_reconstruct.qz_reconstruct_bwd_plan(spec, G[0],
+                                                              "slot"),
+                       ops.plan_bwd_one_plain(spec, G[0], "slot"))
+
+
+def test_lm_round_under_scatter_equals_plain(cuda_train, monkeypatch):
+    monkeypatch.setenv("REPRO_BWD_PLAN", "scatter")
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    args = lm_train.parser().parse_args(
+        ["--scale", "0.01", "--rounds", "1", "--clients", "2",
+         "--local-steps", "2", "--batch", "2", "--seq", "16"])
+    out = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for impl in (None, "ref"):
+            run = lm_train.build(args)
+            qz_reconstruct.reset_launches()
+            out.append(federated_round(run.zspecs, run.state, run.loss,
+                                       run.batch(), run.words[0], run.fcfg,
+                                       impl=impl, device=cuda_train))
+            torch.cuda.synchronize()
+            n = 2 * len(run.zspecs.specs)
+            want = ({"qz_sample_reconstruct_batched_fwd": n,
+                     "qz_reconstruct_batched_bwd": n} if impl is None else {})
+            assert {k: v for k, v in qz_reconstruct.LAUNCHES.items()
+                    if v} == want
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (a, ma), (b, mb) = out
+    assert torch.equal(ma["loss"], mb["loss"])
+    for part in ("scores", "dense"):
+        for p in a[part]:
+            assert torch.equal(a[part][p], b[part][p])

@@ -17,6 +17,7 @@ from repro_torch.core.federated import (FederatedConfig, encode_state,
                                         federated_round)
 from repro_torch.core.zampling import (ZamplingConfig, build_specs,
                                        sample_weights)
+from repro_torch.launch import train as lm_train
 from repro_torch.models.mlp import (SMALL_DIMS, mlp_accuracy, mlp_loss,
                                     mlp_template)
 from repro_torch.models.model import build_model, param_template
@@ -53,7 +54,8 @@ def test_every_module_and_chip_smoke_import_without_jax():
               "comm.bitpack", "comm.protocol", "comm.metering",
               "train.fit", "train.local", "data.synthetic",
               "data.federated_split", "models.mlp", "configs.mnistfc",
-              "optim.optimizers", "device"):
+              "optim.optimizers", "device", "launch.train",
+              "models.model", "models.common", "models.attention"):
         assert f"repro_torch.{m}" in mods
     code = _BLOCKED + "\n".join(
         ["import importlib", f"sys.path.insert(0, {str(ROOT)!r})"]
@@ -124,6 +126,8 @@ def test_training_entry_points_default_to_the_card():
                               {"x": x[None], "y": y[None]}, [1], cfg),
         lambda: evaluate(zspecs, state, lambda p: mlp_accuracy(p, test),
                          [1]),
+        lambda: lm_train.build(lm_train.parser().parse_args(
+            ["--scale", "0.01", "--rounds", "1"])),
     ]
     if torch.cuda.is_available():
         # with a card, the default is the card

@@ -332,15 +332,22 @@ def test_dispatch_and_bwd_path_gate(monkeypatch):
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         tops.sample_pack_batched(t, P, [1, 2])
     monkeypatch.delenv("REPRO_RECONSTRUCT_IMPL")
-    for path in ("plan", "plan:canonical"):
+    grads = {}
+    for path, want in (("plan", ("plan", "canonical")),
+                       ("plan:canonical", ("plan", "canonical")),
+                       ("plan:slot", ("plan", "slot")),
+                       ("scatter", ("scatter", None))):
         monkeypatch.setenv("REPRO_BWD_PLAN", path)
-        assert ttp.resolve_bwd_path() == "canonical"
-    for path in ("scatter", "plan:slot"):
-        monkeypatch.setenv("REPRO_BWD_PLAN", path)
+        assert ttp.resolve_bwd_path() == want
         x = P.clone().requires_grad_(True)
         W = tops.sample_reconstruct_batched(t, x, [1, 2])
-        with pytest.raises(NotImplementedError, match="later slice"):
-            W.sum().backward()
+        W.sum().backward()  # the gate is read when the backward runs
+        grads[path] = x.grad
+    # the scatter sums each coordinate in the canonical plan's order
+    assert torch.equal(grads["scatter"], grads["plan"])
+    assert torch.equal(grads["plan:canonical"], grads["plan"])
+    assert torch.allclose(grads["plan:slot"], grads["plan"], rtol=1e-5,
+                          atol=1e-6)
     monkeypatch.setenv("REPRO_BWD_PLAN", "bogus")
     with pytest.raises(ValueError, match="REPRO_BWD_PLAN|unknown bwd path"):
         ttp.resolve_bwd_path()
