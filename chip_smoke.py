@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (src/repro_torch) on one NVIDIA GPU.
 
-Four paths at full width, every Pallas kernel they run replaced by a
+Five paths at full width, every Pallas kernel they run replaced by a
 hand-written CUDA kernel:
 
 - serving: qwen2-0.5b (24 layers, d_model 896, 14 heads with 2 KV heads,
@@ -13,6 +13,9 @@ hand-written CUDA kernel:
   sample-reconstruct forward, the plan backward and the sample-pack
   upload kernels; evaluation draws sampled networks off the u8 carry;
   the composed round (explicit masks on the reconstruct kernels) once;
+- the sharded federated round: the same round with one client per rank
+  of a torch.distributed group, 10 ranks (processes) on the one card
+  over gloo, on the one-client forward, backward and upload kernels;
 - local training: the paper's Fig. 6 zampling_d16 on MNISTFC at
   compression 1, d=16, Adam at lr 1e-2, batch 128, in sample mode (the
   K=1 sample-reconstruct forward, the K=1 plan backward, or the K=1
@@ -100,7 +103,22 @@ Phases, one printed line or more each:
    K-client sample-reconstruct forward against its plain version
    (bitwise); the scatter backward's times, device times, bounds, plain
    times and torch.sparse.mm yardsticks;
-17. one JSON line with every kernel's launches, times and bound, the
+17. the sharded round: bmm against per-client mm at the three MNISTFC
+   layer shapes (counted, not gated); sharded_client_fit for 5 rounds on
+   10 ranks at phase 7's settings and inputs, a rank's client k trained
+   at the stacked round's words for client k (checked on its upload
+   words); on every rank, on the operands that the fit's own round 0
+   recorded, kernel 9 bitwise its plain version, kernel 10's row and
+   the round's lanes, and kernel 5 (at each leaf's first local
+   backward) bitwise its plain version, kernel 6's row and the round's
+   g_z; each
+   rank's launches (3 E a round of the one-client forward and backward,
+   3 of kernel 9, none of any other); every rank's state identical
+   after round 0 and the last round; round 0's collective u8 words
+   bitwise the stacked aggregate's of the same 10 uploads; round 0's u8
+   words differing from phase 7's at most 1e-3 of n_total; losses that
+   fall and stay within 1e-3 of phase 7's; kernel 9's times and bound;
+18. one JSON line with every kernel's launches, times and bound, the
    card, the run's total seconds, and last {"ok": true, "device": ...}.
 
 Usage, from the repo root on a machine with a CUDA GPU:
@@ -150,6 +168,17 @@ FED_ROUNDS = 5
 FED_K = 10
 FED_E = 100
 FED_BATCH = 64
+FED_ZAMPLING = dict(compression=8, d=10, window=128, min_size=128, seed=1)
+FED_CONFIG = dict(num_clients=FED_K, local_steps=FED_E, local_lr=0.5,
+                  aggregate="psum_u32", downlink="u8")
+FED_FLIP_SHARE = 1e-3  # differing round-0 u8 words, of n_total (phase 17)
+# phase 17's losses against phase 7's: the two drivers draw the same
+# bits, but their products round apart (bmm against mm) and a few upload
+# bits flip, so the trajectories part by rounding; the port and JAX, which
+# part the same way, agree to 4.5e-5 over these 5 rounds
+# (tests/test_torch_fit_reference.py)
+SHARDED_LOSS_RTOL = 1e-3
+RANK_TIMEOUT = 600.0  # seconds, phase 17's ranks and their collectives
 EVAL_NETS = 10
 # local zampling: the paper's Fig. 6 zampling_d16 (experiments/paper.py
 # :466-492 at quick=False), 500 of its 4000 steps
@@ -378,6 +407,23 @@ def check_bitwise(max_err, name, got, want, what):
         die(f"{name} differs from its plain version ({what})")
 
 
+def fed_data():
+    """Phase 7's data: the teacher dataset and its stream of round
+    batches, (K, E, B, ...) each."""
+    from repro_torch.data import (client_batch_stream, iid_client_split,
+                                  make_teacher_dataset)
+
+    ds = make_teacher_dataset(n_train=8000, n_test=1500, seed=0)
+    return ds, client_batch_stream(iid_client_split(ds, FED_K, seed=0),
+                                   FED_BATCH, FED_E, seed=0)
+
+
+def host_state(state) -> dict:
+    """A round state's tensors as numpy arrays."""
+    return {part: {p: v.cpu().numpy() for p, v in state[part].items()}
+            for part in ("scores", "dense")}
+
+
 def training_phases(card: str, dev) -> list:
     """Phases 6-8: the federated round's kernels at full MNISTFC width.
     Returns the four training kernels' rows of the kernels line."""
@@ -395,23 +441,20 @@ def training_phases(card: str, dev) -> list:
                                            sample_mask_qhash)
     from repro_torch.core.transpose_plan import build_transpose_plan, row_plan
     from repro_torch.core.zampling import ZamplingConfig, build_specs
-    from repro_torch.data import (client_batch_stream, iid_client_split,
-                                  make_teacher_dataset)
     from repro_torch.kernels import ops, qz_decode
     from repro_torch.kernels import qz_reconstruct as qr
     from repro_torch.models.mlp import mlp_accuracy, mlp_loss, mlp_template
     from repro_torch.train import evaluate
 
     # --- the configuration: experiments/paper.py Fig. 4 at quick=False
-    zspecs = build_specs(mlp_template(MNISTFC), ZamplingConfig(
-        compression=8, d=10, window=128, min_size=128, seed=1))
+    zspecs = build_specs(mlp_template(MNISTFC),
+                         ZamplingConfig(**FED_ZAMPLING))
     specs = zspecs.specs
     rng = np.random.RandomState(SEED)
     scores = {p: rng.rand(s.n).astype(np.float32) for p, s in specs.items()}
     dense = {p: np.zeros(zspecs.template[p].shape, np.float32)
              for p in zspecs.dense_paths}
-    cfg = FederatedConfig(num_clients=FED_K, local_steps=FED_E,
-                          local_lr=0.5, aggregate="psum_u32", downlink="u8")
+    cfg = FederatedConfig(**FED_CONFIG)
     round_words = [int(w) for w in rng.randint(0, 2**32, FED_ROUNDS,
                                                 dtype=np.uint64)]
     eval_words = [int(w) for w in rng.randint(0, 2**32, EVAL_NETS,
@@ -482,9 +525,7 @@ def training_phases(card: str, dev) -> list:
 
     # --- 7. federated training through the kernels ---------------------------
     t0 = time.perf_counter()
-    ds = make_teacher_dataset(n_train=8000, n_test=1500, seed=0)
-    stream = client_batch_stream(iid_client_split(ds, FED_K, seed=0),
-                                 FED_BATCH, FED_E, seed=0)
+    ds, stream = fed_data()
     batches = [dict(zip(("x", "y"), next(stream))) for _ in range(FED_ROUNDS)]
     test = {"x": torch.from_numpy(ds.x_test).to(dev),
             "y": torch.from_numpy(ds.y_test).to(dev)}
@@ -694,7 +735,10 @@ def training_phases(card: str, dev) -> list:
     say(f"phase 8 done in {time.perf_counter() - t0:.1f} s")
     fed = {"zspecs": zspecs, "cfg": cfg, "state0": state0,
            "batch0": batches[0], "word0": round_words[0],
-           "state_r0": state_r0, "loss_r0": loss_r0}
+           "state_r0": state_r0, "loss_r0": loss_r0,
+           "round_words": round_words, "losses": losses,
+           "host_state0": host_state(state0),
+           "host_state_r0": host_state(state_r0)}
     return rows, fed
 
 
@@ -1485,6 +1529,302 @@ def lm_phases(card: str, dev, fed: dict, kernel_rows: list) -> list:
     return [row]
 
 
+def sharded_rank(a: dict) -> dict:
+    """One rank of phase 17, in its own process (started by
+    ``comm.shardmap.run_ranks``): client k = the rank trains phase 7's
+    client k on the card, through ``sharded_client_fit``.  Round 0 of
+    that fit records its state, each upload's operands and lanes, and
+    each leaf's first backward; after the timed run, kernel 9 is held
+    against its plain version and kernel 10's row on those operands, and
+    kernel 5 against its plain version and kernel 6's row.  Returns host
+    arrays: the fit's launches, losses, time and final state, round 0's
+    state, upload words and lanes, and the checks."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch.train.fit as fit_mod
+    from repro_torch.comm.shardmap import axis_index
+    from repro_torch.configs.mnistfc import MNISTFC
+    from repro_torch.core.federated import FederatedConfig
+    from repro_torch.core.sampling import as_words
+    from repro_torch.core.zampling import ZamplingConfig, build_specs
+    from repro_torch.kernels import ops, qz_decode
+    from repro_torch.kernels import qz_reconstruct as qr
+    from repro_torch.models.mlp import mlp_loss, mlp_template
+
+    # a rank is a new process: main()'s switches are not inherited
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    rank = axis_index()
+    zspecs = build_specs(mlp_template(MNISTFC),
+                         ZamplingConfig(**FED_ZAMPLING))
+    cfg = FederatedConfig(**FED_CONFIG)
+    words = a["round_words"]
+    _, stream = fed_data()
+    mine = [next(stream) for _ in words]
+    batches = {n: torch.from_numpy(np.stack([b[i][rank] for b in mine])
+                                   ).to(dev)
+               for i, n in enumerate(("x", "y"))}  # (R, E, B, ...)
+    del mine
+    qr.build()
+    torch.cuda.synchronize()
+    # hooks on the fit's own round 0: each calls what it wraps, so the
+    # counts are the fit's; they copy on the device, and time each round
+    uploads, bwd, r0, round_s = [], {}, [], []
+    pack, plan_bwd = ops.sample_pack, qr.qz_reconstruct_bwd_plan
+    update = fit_mod.sharded_client_update
+
+    def recording_pack(spec, p, step, **kw):
+        lanes = pack(spec, p, step, **kw)
+        if not r0:
+            uploads.append((p.detach().clone(), step, lanes))
+        return lanes
+
+    def recording_bwd(spec, g, *args):
+        gz = plan_bwd(spec, g, *args)
+        if spec.tensor_id not in bwd:  # round 0's first local step
+            bwd[spec.tensor_id] = (g.clone(), args, gz.clone())
+        return gz
+
+    def recording_update(*args, **kw):
+        t = time.perf_counter()
+        st, met = update(*args, **kw)
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter() - t)
+        if not r0:
+            r0.append({part: {p: v.clone() for p, v in st[part].items()}
+                       for part in ("scores", "dense")})
+        return st, met
+
+    ops.sample_pack, qr.qz_reconstruct_bwd_plan = recording_pack, recording_bwd
+    fit_mod.sharded_client_update = recording_update
+    # the main path: every count at 0 just before it, read just after
+    dist.barrier()
+    qr.reset_launches()
+    qz_decode.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, mets = fit_mod.sharded_client_fit(
+        zspecs, a["state0"], mlp_loss, batches, words, cfg, device=dev)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(qr.LAUNCHES)
+    launches.update(qz_decode.LAUNCHES)
+    ops.sample_pack, qr.qz_reconstruct_bwd_plan = pack, plan_bwd
+    fit_mod.sharded_client_update = update
+    if len(uploads) != len(zspecs.specs) or len(bwd) != len(zspecs.specs):
+        raise RuntimeError(f"round 0 recorded {len(uploads)} uploads and "
+                           f"{len(bwd)} backwards of {len(zspecs.specs)} "
+                           "leaves")
+
+    def diff(x, y):
+        return float((x.double() - y.double()).abs().max().item())
+
+    checks, bwd_checks = [], []
+    for path, (p, step, lanes) in zip(zspecs.specs, uploads):
+        spec = zspecs.specs[path]
+        k9 = qr.qz_sample_pack_fwd(spec, p, step)
+        plain = ops.sample_pack_one_plain(spec, p, step)
+        k10 = qr.qz_sample_pack_batched_fwd(spec, p[None].contiguous(),
+                                            as_words([step], dev))[0]
+        torch.cuda.synchronize()
+        checks.append((path, bool(torch.equal(k9, plain)),
+                       bool(torch.equal(k9, k10)),
+                       bool(torch.equal(k9, lanes)), diff(k9, plain)))
+        g, args, gz = bwd[spec.tensor_id]
+        k5 = qr.qz_reconstruct_bwd_plan(spec, g, *args)
+        plain = ops.plan_bwd_one_plain(spec, g, *args)
+        k6 = qr.qz_reconstruct_batched_bwd_plan(spec, g[None].contiguous(),
+                                                *args)[0]
+        torch.cuda.synchronize()
+        bwd_checks.append((path, bool(torch.equal(k5, plain)),
+                           bool(torch.equal(k5, k6)),
+                           bool(torch.equal(k5, gz)), diff(k5, plain)))
+    return {"rank": rank, "launches": launches, "fit_s": fit_s,
+            "round_s": round_s,
+            "losses": mets["loss"].cpu().numpy(),
+            "uplink_bytes_per_client": float(
+                mets["uplink_bytes_per_client"][0]),
+            "cohort_size": float(mets["cohort_size"][0]),
+            "state": host_state(state), "state_r0": host_state(r0[0]),
+            "upload_words": [step for _, step, _ in uploads],
+            "lanes": [lanes.cpu() for _, _, lanes in uploads],
+            "operands": ([p.cpu() for p, _, _ in uploads] if rank == 0
+                         else None),
+            "checks": checks, "bwd_checks": bwd_checks}
+
+
+def sharded_phase(card: str, dev, fed: dict, rows: list) -> dict:
+    """Phase 17: the sharded client round, a client per rank, 10 ranks
+    on this one card over gloo, at phase 7's settings and inputs.
+    Folds kernel 5's checks on the ranks' operands into its row of
+    ``rows``; returns kernel 9's row of the kernels line."""
+    import numpy as np
+    import torch
+
+    from repro_torch.comm.bitpack import packed_len
+    from repro_torch.comm.protocol import resolve_transport
+    from repro_torch.comm.shardmap import run_ranks
+    from repro_torch.configs.mnistfc import MNISTFC
+    from repro_torch.core.federated import _encode_scores
+    from repro_torch.core.sampling import as_word, fold_word
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import qz_reconstruct as qr
+
+    t0 = time.perf_counter()
+    zspecs, cfg, words = fed["zspecs"], fed["cfg"], fed["round_words"]
+    specs = zspecs.specs
+    # the stacked round runs each layer as one bmm over the K clients, a
+    # rank as one mm: equal where the products are batch-invariant
+    rng = np.random.RandomState(SEED + 17)
+    for a, b in zip(MNISTFC[:-1], MNISTFC[1:]):
+        x = torch.from_numpy(rng.randn(FED_K, FED_BATCH, a).astype(
+            np.float32)).to(dev)
+        w = torch.from_numpy(rng.randn(FED_K, a, b).astype(np.float32)).to(dev)
+        y = torch.bmm(x, w)
+        ym = torch.stack([x[k] @ w[k] for k in range(FED_K)])
+        say(f"sharded: bmm against per-client mm at ({FED_K}, {FED_BATCH}, "
+            f"{a}) x ({a}, {b}): {int((y != ym).sum())} of {y.numel()} "
+            f"outputs differ, max {(y - ym).abs().max().item():.3e} ({card})")
+    torch.cuda.empty_cache()
+
+    # NCCL takes one rank per device; the 10 ranks share this card, so
+    # the group is gloo's, on CUDA tensors (the kernels run on the card)
+    t1 = time.perf_counter()
+    res = run_ranks(sharded_rank, FED_K, ({
+        "round_words": words, "state0": fed["host_state0"]},),
+        backend="gloo", timeout=RANK_TIMEOUT)
+    run_s = time.perf_counter() - t1
+    fit_s = [r["fit_s"] for r in res]
+    # a round ends when its last rank does
+    round_s = [max(r["round_s"][i] for r in res) for i in range(FED_ROUNDS)]
+    med = float(np.median(round_s[1:]))
+    say(f"sharded: {FED_K} ranks (processes) on one card over gloo: "
+        f"{run_s:.1f} s from start to the last result; sharded_client_fit "
+        f"of {FED_ROUNDS} rounds {max(fit_s):.3f} s (ranks "
+        f"{min(fit_s):.3f}-{max(fit_s):.3f}); round times "
+        f"{[round(t, 4) for t in round_s]} s; median round (rounds "
+        f"1-{FED_ROUNDS - 1}) {med:.4f} s, {1e3 * med / FED_E:.3f} ms a "
+        f"local step (phase 7's stacked round: K={FED_K} in one process) "
+        f"({card})")
+
+    # each rank trained client k at the stacked round's words
+    want_w = [fold_word(fold_word(as_word(words[0]), 0, k), FED_E)
+              for k in range(FED_K)]
+    got_w = [r["upload_words"] for r in res]
+    say(f"sharded: round 0 upload words of ranks 0-2 {got_w[:3]}; equal to "
+        f"the stacked round's clients' = "
+        f"{all(g == [w] * len(specs) for g, w in zip(got_w, want_w))}")
+    if [r["rank"] for r in res] != list(range(FED_K)) or not all(
+            g == [w] * len(specs) for g, w in zip(got_w, want_w)):
+        die("a rank's draw words are not the stacked round's client's")
+    # kernel 9 on each rank's own upload operands
+    max_err = 0.0
+    for r in res:
+        for path, plain, k10, run, err in r["checks"]:
+            max_err = max(max_err, err)
+            if not (plain and k10 and run):
+                die(f"kernel 9 differs on rank {r['rank']} {path}: plain "
+                    f"{plain}, kernel 10's row {k10}, the round's {run}")
+    say(f"train-kernel-vs-plain: qz_sample_pack_fwd on every rank's round-0 "
+        f"operands at {list(specs)}: bitwise its plain version, kernel 10's "
+        f"row and the round's lanes on all {FED_K} ranks")
+    # kernel 5 on each rank's first local backward of round 0
+    bwd_err = 0.0
+    for r in res:
+        for path, plain, k6, run, err in r["bwd_checks"]:
+            bwd_err = max(bwd_err, err)
+            if not (plain and k6 and run):
+                die(f"kernel 5 differs on rank {r['rank']} {path}: plain "
+                    f"{plain}, kernel 6's row {k6}, the round's {run}")
+    for row in rows:
+        if row["name"] == "qz_reconstruct_bwd_plan":
+            row["max_abs_err"] = max(row["max_abs_err"], bwd_err)
+    say(f"train-kernel-vs-plain: qz_reconstruct_bwd_plan on every rank's "
+        f"round-0 cotangents at {list(specs)}: bitwise its plain version, "
+        f"kernel 6's row and the round's g_z on all {FED_K} ranks "
+        f"(max_abs_err={bwd_err:.3e})")
+    # launches of one rank's fit: 3E forward and backward, 3 uploads a round
+    want = {name: 0 for name in res[0]["launches"]}
+    want.update({"qz_sample_reconstruct_fwd": 3 * FED_E * FED_ROUNDS,
+                 "qz_reconstruct_bwd_plan": 3 * FED_E * FED_ROUNDS,
+                 "qz_sample_pack_fwd": 3 * FED_ROUNDS})
+    for r in res:
+        say(f"sharded: rank {r['rank']} launches {r['launches']}")
+        if r["launches"] != want:
+            die(f"rank {r['rank']}'s launches differ from {want}")
+    # the replicated state
+    same = all(np.array_equal(r[k][part][p], res[0][k][part][p])
+               for r in res for k in ("state", "state_r0")
+               for part in ("scores", "dense") for p in res[0][k][part])
+    same_loss = all(np.array_equal(r["losses"], res[0]["losses"])
+                    for r in res)
+    say(f"sharded: every rank's state after round 0 and round "
+        f"{FED_ROUNDS - 1} identical = {same}, losses identical = "
+        f"{same_loss}; metrics count K = {res[0]['cohort_size']:.0f}, "
+        f"uplink {res[0]['uplink_bytes_per_client']:.0f} B/client")
+    if not (same and same_loss and res[0]["cohort_size"] == FED_K):
+        die("the ranks' replicated state or metrics differ")
+    # the collective aggregate against the stacked one of the same uploads
+    transport = resolve_transport(cfg.aggregate, cfg.mode)
+    agg = {}
+    for i, (path, spec) in enumerate(specs.items()):
+        lanes = torch.stack([r["lanes"][i] for r in res]).to(dev)
+        if lanes.shape != (FED_K, packed_len(spec.n)):
+            die(f"rank lanes of {path} have shape {tuple(lanes.shape)}")
+        agg[path] = transport.aggregate_stacked_packed(lanes, spec.n)
+    stacked = _encode_scores(zspecs, cfg, agg, words[0], 0)
+    ok_agg = all(np.array_equal(stacked[p].cpu().numpy(),
+                                res[0]["state_r0"]["scores"][p])
+                 for p in specs)
+    say(f"sharded: round 0's collective u8 words equal the stacked "
+        f"aggregate's of the same {FED_K} uploads = {ok_agg}")
+    if not ok_agg:
+        die("the collective aggregate differs from the stacked one")
+    # against phase 7's stacked round 0 and fit
+    flips = sum(int((res[0]["state_r0"]["scores"][p]
+                     != fed["host_state_r0"]["scores"][p]).sum())
+                for p in specs)
+    dense_d = max(float(np.abs(res[0]["state_r0"]["dense"][p]
+                               - fed["host_state_r0"]["dense"][p]).max())
+                  for p in zspecs.dense_paths)
+    losses, ref = [float(v) for v in res[0]["losses"]], fed["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    say(f"sharded: round 0 against phase 7's stacked round 0: {flips} of "
+        f"{zspecs.n_total} u8 words differ (limit "
+        f"{FED_FLIP_SHARE * zspecs.n_total:.0f}), dense leaves within "
+        f"{dense_d:.3e}")
+    say(f"sharded: losses {losses}; phase 7's {ref}; largest relative "
+        f"difference {rel:.3e} (limit {SHARDED_LOSS_RTOL})")
+    if flips > FED_FLIP_SHARE * zspecs.n_total:
+        die("too many round-0 u8 words differ from the stacked round's")
+    if not losses[-1] < losses[0]:
+        die(f"the sharded round's loss did not fall: {losses}")
+    if not rel <= SHARDED_LOSS_RTOL:
+        die("the sharded round's losses part from phase 7's")
+
+    # kernel 9's times on rank 0's round-0 operands
+    kt = KernelTimes(card, {"qz_sample_pack_fwd": "sample_pack_kernel"})
+    for i, (path, spec) in enumerate(specs.items()):
+        p = res[0]["operands"][i].to(dev)
+        w = res[0]["upload_words"][i]
+        kt.add("qz_sample_pack_fwd", path,
+               lambda: qr.qz_sample_pack_fwd(spec, p, w),
+               event_ms(lambda: ops.sample_pack_one_plain(spec, p, w), 3),
+               None, spec.n * (OPS_DRAW + OPS_PACK),
+               4 * spec.n + 4 * packed_len(spec.n) + 4)
+    row = kt.row("qz_sample_pack_fwd", "src/repro/kernels/qz_reconstruct.py:592",
+                 sum(r["launches"]["qz_sample_pack_fwd"] for r in res),
+                 max_err, 1, "one rank's round: 1 launch per zampled leaf",
+                 None)
+    row["ranks"] = FED_K
+    row["sharded_round_s"] = med  # median of rounds 1 to R-1
+    say(f"phase 17 done in {time.perf_counter() - t0:.1f} s")
+    return row
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1857,6 +2197,8 @@ def main() -> None:
     del fed["state_r0"], fed["state0"]
     torch.cuda.empty_cache()
     rows += lm_phases(card, dev, fed, rows)
+    torch.cuda.empty_cache()
+    rows.append(sharded_phase(card, dev, fed, rows))
     say(f"card: {card}")
     say(f"total: {time.perf_counter() - T_START:.1f} s for the whole run")
     say(json.dumps({"kernels": rows}))

@@ -14,8 +14,16 @@ even outside ``jit``.  ``mean0`` is that mean for the dense leaves: a
 sequential sum over the client axis, then ``* (1/K)``, in float32 for
 the bf16 leaves of a full-width LM, as ``jnp.mean`` takes it.
 
-``allgather_packed`` (and every collective form, for the sharded path)
-comes with a later slice.
+The collective forms serve the sharded round, one client per rank of
+a ``torch.distributed`` group (``comm.shardmap``): each rank holds its
+own upload and every rank gets the same mean.  ``mean_f32`` all-reduces
+the f32 masks; ``psum_u32`` unpacks its lanes to per-coordinate bits
+and all-reduces the int32 counts (the JAX package's operand; torch
+cannot reduce uint32).  The sums are exact integers in any reduction
+order, and both end in the same ``* (1/K)``, so a collective mean
+equals the stacked mean of the same K uploads bit for bit.
+
+``allgather_packed`` comes with a later slice.
 """
 
 from __future__ import annotations
@@ -24,8 +32,10 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .bitpack import packed_len, packed_popcount_sum
+from .bitpack import pack_mask, packed_len, packed_popcount_sum, unpack_mask
+from .shardmap import axis_size
 
 
 def recip_f32(k: int) -> float:
@@ -61,9 +71,29 @@ class Transport:
         raise NotImplementedError(
             f"transport {self.name!r} does not take packed lanes")
 
+    def aggregate_collective(self, z: torch.Tensor, group=None):
+        """This rank's (n,) f32 mask -> the (n,) f32 mean over the
+        group's ranks."""
+        raise NotImplementedError
+
+    def aggregate_collective_packed(self, lanes: torch.Tensor, n: int,
+                                    group=None):
+        """This rank's (L,) lanes -> the (n,) f32 mean over the group."""
+        raise NotImplementedError(
+            f"transport {self.name!r} does not take packed lanes")
+
 
 def _counts_mean(counts: torch.Tensor, k: int) -> torch.Tensor:
     return counts.to(torch.float32) * recip_f32(k)
+
+
+def pmean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``mean0``'s collective form, the mean of ``x`` over the group's
+    ranks as the JAX package's sharded round takes a dense leaf's: an
+    f32 all-reduce, then ``* (1/K)``, cast back to ``x``'s dtype."""
+    s = x.to(torch.float32).clone()
+    dist.all_reduce(s, group=group)
+    return (s * recip_f32(axis_size(group))).to(x.dtype)
 
 
 class MeanF32(Transport):
@@ -78,6 +108,9 @@ class MeanF32(Transport):
         # a sum of {0,1} values is exact in any order
         return _counts_mean(Z.to(torch.float32).sum(0), Z.shape[0])
 
+    def aggregate_collective(self, z, group=None):
+        return pmean(z.to(torch.float32), group)
+
 
 class PsumU32(Transport):
     """Bit-packed lanes; the server sums the per-coordinate bits."""
@@ -90,6 +123,15 @@ class PsumU32(Transport):
 
     def aggregate_stacked_packed(self, lanes, n):
         return _counts_mean(packed_popcount_sum(lanes, n), lanes.shape[0])
+
+    def aggregate_collective(self, z, group=None):
+        return self.aggregate_collective_packed(pack_mask(z), z.shape[-1],
+                                                group)
+
+    def aggregate_collective_packed(self, lanes, n, group=None):
+        counts = unpack_mask(lanes, n, dtype=torch.int32)  # a new tensor
+        dist.all_reduce(counts, group=group)
+        return _counts_mean(counts, axis_size(group))
 
 
 _REGISTRY: Dict[str, Transport] = {t.name: t for t in (MeanF32(), PsumU32())}

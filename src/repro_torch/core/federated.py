@@ -18,6 +18,14 @@ explicit leading axis: scores (K, n), dense leaves (K, ...), batches
 The backward runs on the SUM of the K losses, so each client's
 gradient is its own loss's (a mean would scale each by 1/K).
 
+``sharded_client_update`` is the JAX package's body under
+``shard_map``, one client per rank of a ``torch.distributed`` group
+(``comm.shardmap``): each rank runs ``local_update`` on its one client
+(no client axis: the K=1 kernels 7, 5 and 9), and the round's only
+communication is the transport's collective over the uploads, an f32
+all-reduce of the dense leaves and one of the loss.  Client k's words
+are ``federated_round``'s, so the two drivers draw the same bits.
+
 Draw words, as the JAX package derives them (``federated.py:891-893``,
 ``:398``, ``:413-414``, ``:513``): client k of round r trains at
 ``kw = fold_word(as_word(key), r, k)``, local step e draws at
@@ -28,9 +36,9 @@ server's encode dither is keyed by ``fold_word(as_word(key), r)``.
 straight-through masks on the reconstruct kernels (kernel 3 forward,
 kernel 6 backward) and the upload as ``pack_mask`` of the drawn mask;
 it gives the fused round's state and loss bit for bit.  Partial
-participation, streaming aggregation, the downlink schedules, the
-continuous and discretize modes and the sharded round raise
-``NotImplementedError``: they come with later slices.
+participation, streaming aggregation, the downlink schedules and the
+continuous and discretize modes raise ``NotImplementedError``: they
+come with later slices, as does the sharded round's model axis.
 """
 
 from __future__ import annotations
@@ -38,11 +46,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..comm.downlink import get_codec
 from ..comm.metering import round_wire_report
-from ..comm.protocol import mean0, resolve_transport
+from ..comm.protocol import mean0, pmean, resolve_transport
+from ..comm.shardmap import axis_index, axis_size
 from ..device import as_tensor, resolve_device
 from ..optim import Optimizer, sgd
 from .sampling import as_word, as_words, fold_word
@@ -160,27 +170,36 @@ def local_update(zspecs: ZamplingSpecs, state: Dict[str, Any],
                  loss_fn: LossFn, batches: Dict[str, torch.Tensor], words,
                  cfg: FederatedConfig, opt: Optional[Optimizer] = None, *,
                  impl: Optional[str] = None):
-    """K clients' local round at once: E score steps, then the upload.
+    """K clients' local round at once, or one client's: E score steps,
+    then the upload.
 
     ``state``: the encoded broadcast (tensors on one device);
-    ``batches``: {name: (K, E, B, ...)}; ``words``: the K clients'
-    draw words ``kw``.  Returns (uploads {path: (K, L) lanes, or (K, n)
-    f32 masks on an f32 transport}, dense {path: (K, ...)}, (K,) mean
-    losses over the E steps)."""
+    ``words``: the K clients' draw words ``kw`` with ``batches``
+    {name: (K, E, B, ...)}, or one client's word with {name: (E, B,
+    ...)}.  Returns (uploads {path: (K, L) lanes, or (K, n) f32 masks on
+    an f32 transport}, dense {path: (K, ...)}, (K,) mean losses over the
+    E steps), without the K axis for one client: the JAX package's
+    ``local_update`` as the sharded round runs it, on the K=1 kernels."""
     opt = opt or sgd(cfg.local_lr)
     program = mask_program(zspecs, cfg, impl)
-    k, steps = len(words), cfg.local_steps
+    one = np.ndim(words) == 0
+    kws = [words] if one else list(words)
+    steps = cfg.local_steps
+    lead = (steps,) if one else (len(kws), steps)
     for name, v in batches.items():
-        if tuple(v.shape[:2]) != (k, steps):
+        if tuple(v.shape[:len(lead)]) != lead:
             raise ValueError(f"batch {name!r} has leading shape "
-                             f"{tuple(v.shape[:2])}, expected ({k}, {steps})")
+                             f"{tuple(v.shape[:len(lead)])}, expected "
+                             f"{lead}")
     dev = next(iter(state["scores"].values())).device
-    step_words = as_words([[fold_word(kw, e) for kw in words]
+    step_words = as_words([[fold_word(kw, e) for kw in kws]
                            for e in range(steps + 1)], dev)  # (E+1, K)
     scores0 = program.decode_scores(state["scores"])
-    trainable = {p: s.expand(k, *s.shape).clone() for p, s in scores0.items()}
-    trainable.update({p: d.expand(k, *d.shape).clone()
-                      for p, d in state["dense"].items()})
+    if one:
+        step_words = step_words[:, 0]
+    axis = lead[:-1]  # (K,), or () for one client
+    trainable = {p: t.expand(*axis, *t.shape).clone()
+                 for p, t in {**scores0, **state["dense"]}.items()}
     opt_state = opt.init(trainable)
     losses = []
     for e in range(steps):
@@ -189,14 +208,17 @@ def local_update(zspecs: ZamplingSpecs, state: Dict[str, Any],
         params = program.weights(
             {p: leaves[p] for p in zspecs.specs},
             {p: leaves[p] for p in zspecs.dense_paths}, step_words[e])
-        loss_k = loss_fn(params, {n: v[:, e] for n, v in batches.items()})
+        loss_k = loss_fn(params, {n: v[e] if one else v[:, e]
+                                  for n, v in batches.items()})
         grads = torch.autograd.grad(loss_k.sum(), list(leaves.values()))
         updates, opt_state = opt.update(dict(zip(leaves, grads)), opt_state,
                                         leaves)
         trainable = {p: leaves[p].detach() + updates[p] for p in leaves}
         losses.append(loss_k.detach())
+    # one client's upload word goes to kernel 9 as a scalar
+    up_word = fold_word(kws[0], steps) if one else step_words[steps]
     uploads = program.upload({p: trainable[p] for p in zspecs.specs},
-                             step_words[steps])
+                             up_word)
     dense = {p: trainable[p] for p in zspecs.dense_paths}
     return uploads, dense, torch.stack(losses).mean(0)
 
@@ -252,4 +274,51 @@ def federated_round(zspecs: ZamplingSpecs, state: Dict[str, Any],
                **_full_participation_metrics(k)}
     new_state = {"scores": _encode_scores(zspecs, cfg, agg, kw, r),
                  "dense": {p: mean0(d) for p, d in dense_all.items()}}
+    return new_state, metrics
+
+
+def sharded_client_update(zspecs: ZamplingSpecs, state: Dict[str, Any],
+                          loss_fn: LossFn, batches, key,
+                          cfg: FederatedConfig,
+                          opt: Optional[Optimizer] = None, *, group=None,
+                          round_index=0, client_id=None, weight=None,
+                          faults=None, impl: Optional[str] = None,
+                          device="cuda"):
+    """One full-participation round on this rank's client: the JAX
+    package's ``sharded_client_update`` body, a client per rank of
+    ``group`` (the default group when None).
+
+    ``batches``: this client's {name: (E, B, ...)}; ``key``: the round's
+    uint32 word, the same on every rank.  Rank k trains at
+    ``fold_word(key, round_index, k)``, ``federated_round``'s client k.
+    The uploads meet in the transport's collective; every rank re-encodes
+    the mean at the replicated dither word and averages the dense leaves
+    and the loss by ``pmean``, so every rank returns the same (state',
+    metrics), K being the group's size."""
+    if client_id is not None or weight is not None or faults is not None:
+        raise _later("partial participation (client_id/weight/faults)")
+    dev = resolve_device(device)
+    st = state_to(zspecs, state, dev)
+    batch = {n: as_tensor(v, dev) for n, v in batches.items()}
+    transport = resolve_transport(cfg.aggregate, cfg.mode)
+    kw, r = as_word(key), as_word(round_index)
+    k = axis_size(group)
+    upload, dense, loss = local_update(
+        zspecs, st, loss_fn, batch, fold_word(kw, r, axis_index(group)), cfg,
+        opt, impl=impl)
+    if transport.packed_wire:
+        agg = {p: transport.aggregate_collective_packed(upload[p], spec.n,
+                                                        group)
+               for p, spec in zspecs.specs.items()}
+    else:
+        agg = {p: transport.aggregate_collective(upload[p], group)
+               for p in zspecs.specs}
+
+    rep = round_wire_report(zspecs, cfg.aggregate, k, mode=cfg.mode,
+                            downlink=cfg.downlink)
+    metrics = {"loss": pmean(loss, group),
+               **{name: rep[name] for name in WIRE_METRIC_KEYS},
+               **_full_participation_metrics(k)}
+    new_state = {"scores": _encode_scores(zspecs, cfg, agg, kw, r),
+                 "dense": {p: pmean(d, group) for p, d in dense.items()}}
     return new_state, metrics

@@ -77,14 +77,19 @@
 // bytes where most rows carry none (an embedding's: G is read whole to
 // find the live rows, which alone are regenerated).
 //
-// sample_pack_kernel replaces qz_sample_pack_batched_fwd.  One thread
-// per (lane, client) draws the lane's 32 coordinates and ORs bit j into
-// position j: comm.bitpack.pack_mask's layout.  Lanes are written as
-// int64 holding the uint32 value, the port's carrier for 32-bit words.
-// Bound: bytes (4 bytes of probability in per bit out).
+// sample_pack_kernel replaces qz_sample_pack_batched_fwd and, launched
+// at K = 1 with its draw word a scalar argument, qz_sample_pack_fwd (each
+// rank's upload in the sharded round).  One thread per (coordinate,
+// client): a warp draws 32 neighbouring coordinates (one coalesced
+// 128-byte read of p) and __ballot_sync puts thread j's bit at position
+// j, which is bit j of the warp's lane: comm.bitpack.pack_mask's layout.
+// The bits do not depend on the window, so any window packs.  Lanes are
+// written as int64 holding the uint32 value, the port's carrier for
+// 32-bit words.  Bound: bytes (4 bytes of probability in per bit out).
 //
 // Draw words arrive as the port carries them: int64 holding the uint32
-// value.  Every launch function returns the launch's cudaError_t.
+// value (qz_sample_pack_one's one word as a scalar).  Every launch
+// function returns the launch's cudaError_t.
 
 #include <cuda_runtime.h>
 
@@ -356,22 +361,21 @@ scatter_bwd_kernel(const float* __restrict__ G, int K, uint32_t m, uint32_t n,
 
 __global__ void __launch_bounds__(THREADS)
 sample_pack_kernel(const float* __restrict__ P,
-                   const long long* __restrict__ steps, long long n,
-                   uint32_t lanes, qz::SpecArgs s,
-                   long long* __restrict__ out) {
-  const uint32_t i = blockIdx.x * THREADS + threadIdx.x;
+                   const long long* __restrict__ steps, uint32_t word,
+                   uint32_t n, uint32_t lanes, uint32_t seed,
+                   uint32_t tensor_id, long long* __restrict__ out) {
+  const uint32_t coord = blockIdx.x * THREADS + threadIdx.x;
   const int k = blockIdx.y;
-  if (i >= lanes) return;
-  const uint32_t hm = qz::mask_prefix(s.seed, s.tensor_id, static_cast<uint32_t>(steps[k]));
-  const void* words = P + static_cast<long long>(k) * n;
-  uint32_t lane = 0u;
-  for (int j = 0; j < 32; ++j) {
-    const uint32_t coord = i * 32u + static_cast<uint32_t>(j);
-    if (coord < n && qz::mask_bit<qz::KIND_F32>(words, 0, hm, coord)) {
-      lane |= 1u << j;
-    }
+  // steps null: one client, drawn at the scalar word
+  const uint32_t step = steps ? static_cast<uint32_t>(steps[k]) : word;
+  const uint32_t hm = qz::mask_prefix(seed, tensor_id, step);
+  // every thread of the warp reaches the ballot; past n a bit is 0
+  const bool bit = coord < n && qz::mask_bit<qz::KIND_F32>(
+                                    P + static_cast<long long>(k) * n, 0, hm, coord);
+  const uint32_t lane = __ballot_sync(0xFFFFFFFFu, bit);
+  if ((threadIdx.x & 31u) == 0u && coord / 32u < lanes) {
+    out[static_cast<long long>(k) * lanes + coord / 32u] = static_cast<long long>(lane);
   }
-  out[static_cast<long long>(k) * lanes + i] = static_cast<long long>(lane);
 }
 
 qz::SpecArgs spec_args(unsigned seed, unsigned tensor_id, int window,
@@ -465,16 +469,34 @@ int qz_scatter_bwd(const float* G, int K, unsigned n, unsigned m,
   return static_cast<int>(cudaGetLastError());
 }
 
+static int launch_sample_pack(const float* P, const long long* steps,
+                              unsigned word, int K, long long n,
+                              unsigned seed, unsigned tensor_id,
+                              long long* out, void* stream) {
+  if (n <= 0 || n > 0xFFFFFFE0LL || K < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const uint32_t lanes = static_cast<uint32_t>((n + 31) / 32);
+  const dim3 grid((lanes * 32u + THREADS - 1) / THREADS, K);
+  sample_pack_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      P, steps, word, static_cast<uint32_t>(n), lanes, seed, tensor_id, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // out (K, ceil(n/32)) lanes of Bern(P_k), P (K, n) f32 probabilities.
 int qz_sample_pack(const float* P, const long long* steps, int K, long long n,
                    unsigned seed, unsigned tensor_id, long long* out,
                    void* stream) {
-  const qz::SpecArgs s = spec_args(seed, tensor_id, 1, 1, 0, 0.0f);
-  const uint32_t lanes = static_cast<uint32_t>((n + 31) / 32);
-  const dim3 grid((lanes + THREADS - 1) / THREADS, K);
-  sample_pack_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      P, steps, n, lanes, s, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_sample_pack(P, steps, 0u, K, n, seed, tensor_id, out, stream);
+}
+
+// out (ceil(n/32),) lanes of Bern(p), p (n,) f32 probabilities drawn at
+// the one draw word ``word``: sample_pack_kernel at K = 1.
+int qz_sample_pack_one(const float* p, unsigned word, unsigned n,
+                       unsigned seed, unsigned tensor_id, long long* out,
+                       void* stream) {
+  return launch_sample_pack(p, nullptr, word, 1, n, seed, tensor_id, out,
+                            stream);
 }
 
 }  // extern "C"

@@ -19,8 +19,10 @@ kernel 3 forward (kernel 1, ``qz_reconstruct_fwd``, for the
 single-client ``reconstruct``).  With ``qbits`` the operand is the
 u8/u16 downlink words and the op has no gradient.
 ``sample_pack_batched`` draws the upload and emits wire lanes (kernel
-10); a spec with ``window % 32 != 0`` takes the plain path, as the JAX
-package's does.  Impl dispatch: ``"cuda"`` (the kernels) or ``"ref"``
+10; a spec with ``window % 32 != 0`` takes the plain path, as the JAX
+package's does); ``sample_pack``, one client's upload, is kernel 9 at
+any window (the CUDA kernel packs by coordinate, whatever the window).
+Impl dispatch: ``"cuda"`` (the kernels) or ``"ref"``
 (the plain torch versions below), by the argument, else
 ``REPRO_RECONSTRUCT_IMPL``, else the tensor's device; ``"cuda"`` on a
 CPU tensor raises.  The round calls the batched ops directly: there are
@@ -156,6 +158,13 @@ def sample_pack_plain(spec: QSpec, P: torch.Tensor, steps) -> torch.Tensor:
     (K, ceil(n/32)) upload lanes."""
     steps = as_words(steps, P.device).reshape(-1)
     return pack_mask(sample_mask_hash(P, spec.seed, spec.tensor_id, steps))
+
+
+def sample_pack_one_plain(spec: QSpec, p: torch.Tensor, step) -> torch.Tensor:
+    """The plain torch version of kernel 9: (n,) probabilities and one
+    draw word -> (ceil(n/32),) upload lanes."""
+    return pack_mask(sample_mask_hash(p, spec.seed, spec.tensor_id,
+                                      as_word(step)))
 
 
 def _fwd_many(spec, P, steps, impl, qbits, single):
@@ -295,10 +304,21 @@ def sample_pack_batched(spec: QSpec, P: torch.Tensor, steps, *,
     return qz_reconstruct.qz_sample_pack_batched_fwd(spec, P, steps)
 
 
-def sample_pack(spec: QSpec, p: torch.Tensor, step, *,
+def sample_pack(spec: QSpec, p: torch.Tensor, step: int, *,
                 impl: Optional[str] = None) -> torch.Tensor:
-    """Fused upload draw for one client: (n,) -> (ceil(n/32),) lanes."""
-    return sample_pack_batched(spec, p[None], step, impl=impl)[0]
+    """Fused upload draw for one client: p (n,) + one draw word ->
+    (ceil(n/32),) lanes, equal to ``sample_pack_batched``'s row.  Kernel
+    9; no gradient."""
+    if p.ndim != 1 or p.shape[0] != spec.n:
+        raise ValueError(f"p has shape {tuple(p.shape)}, spec expects "
+                         f"({spec.n},)")
+    impl = resolve_impl(impl, p)
+    p = p.detach().to(torch.float32).contiguous()
+    if impl == "ref":
+        return sample_pack_one_plain(spec, p, step)
+    from . import qz_reconstruct
+
+    return qz_reconstruct.qz_sample_pack_fwd(spec, p, step)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The training CUDA kernels for Hopper (sm_90a), and wrappers.
 
-Replaces nine Pallas kernels of the JAX package's
+Replaces ten Pallas kernels of the JAX package's
 ``kernels/qz_reconstruct.py``:
 
 - ``qz_sample_reconstruct_batched_fwd`` (the fused round's forward) and
@@ -19,7 +19,9 @@ Replaces nine Pallas kernels of the JAX package's
   ``scatter_bwd_kernel``, which regenerates Q and reads no plan, and
   equals ``plan_bwd_kernel`` on the canonical plan bit for bit;
 - ``qz_sample_pack_batched_fwd`` (the round's upload) —
-  ``sample_pack_kernel``.
+  ``sample_pack_kernel``; and ``qz_sample_pack_fwd`` (its K=1 entry:
+  each rank's upload in the sharded round), its draw word a scalar
+  argument.
 
 Each K=1 form is the batched kernel at K=1 behind its own wrapper and
 its own launch counter.
@@ -40,6 +42,7 @@ from typing import Dict, Optional
 import torch
 
 from ..core.qspec import QSpec, sigma_f32
+from ..core.sampling import as_word
 from ..core.transpose_plan import build_transpose_plan
 from .nvcc import KernelLibrary, raise_on
 
@@ -56,6 +59,7 @@ LAUNCHES: Dict[str, int] = {
     "qz_reconstruct_bwd_plan": 0,
     "qz_reconstruct_batched_bwd": 0,
     "qz_reconstruct_bwd": 0,
+    "qz_sample_pack_fwd": 0,
 }
 
 _KIND = {None: 0, 8: 1, 16: 2}
@@ -82,6 +86,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.qz_sample_pack.restype = I
     lib.qz_scatter_bwd.argtypes = [P, I, U, U, U, U, I, U, I, I, F, P, P]
     lib.qz_scatter_bwd.restype = I
+    lib.qz_sample_pack_one.argtypes = [P, U, U, U, U, P, P]
+    lib.qz_sample_pack_one.restype = I
 
 
 LIBRARY = KernelLibrary("qz_reconstruct.cu", ("qz_common.cuh",), _bind)
@@ -319,4 +325,28 @@ def qz_sample_pack_batched_fwd(spec: QSpec, P: torch.Tensor,
         spec.tensor_id, out.data_ptr(), _stream(P))
     raise_on(rc, "qz_sample_pack")
     LAUNCHES["qz_sample_pack_batched_fwd"] += 1
+    return out
+
+
+def qz_sample_pack_fwd(spec: QSpec, p: torch.Tensor, step: int):
+    """Upload lanes (ceil(n/32),) int64 holding uint32 of Bern(p) for one
+    client, drawn at the scalar word ``step``; ``p`` (n,) contiguous f32
+    probabilities.  The bits of ``qz_sample_pack_batched_fwd``'s row at
+    the same probabilities and word."""
+    if not p.is_cuda:
+        from .ops import sample_pack_one_plain
+
+        return sample_pack_one_plain(spec, p, step)
+    _check_spec(spec)
+    if (p.dtype != torch.float32 or tuple(p.shape) != (spec.n,)
+            or not p.is_contiguous()):
+        raise ValueError(f"p must be contiguous ({spec.n},) float32, got "
+                         f"{tuple(p.shape)} {p.dtype}")
+    out = torch.empty(((spec.n + 31) // 32,), dtype=torch.int64,
+                      device=p.device)
+    rc = build().qz_sample_pack_one(
+        p.data_ptr(), as_word(step), spec.n, spec.seed & 0xFFFFFFFF,
+        spec.tensor_id, out.data_ptr(), _stream(p))
+    raise_on(rc, "qz_sample_pack_one")
+    LAUNCHES["qz_sample_pack_fwd"] += 1
     return out

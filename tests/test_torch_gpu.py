@@ -8,12 +8,14 @@ kernel must equal the plain version bitwise (f32, u8 and u16 words, B
 in {1, 4}, two groups), with Q indices and mask bits exact, and the
 engine's scheduler lanes must give a single request's tokens.  The
 training kernels (sample-reconstruct at K=3 and K=1, the plan backward,
-the sample-pack upload) must equal their plain versions bitwise, count
-one launch each, and the card-built plan's values must equal the
-kernels' regenerated Q; a federated round through them must equal one
-on the plain path.  The local-zampling kernels (the reconstruct forward
-from explicit operands at K=1 and K=3, the K=1 plan backward) and the
-sample-reconstruct forward must equal their plain versions at every d
+the sample-pack upload, and its one-client launch, which must also
+equal the batched kernel's row, at a window of 16 too) must equal
+their plain versions bitwise, count one launch each, and the
+card-built plan's values must equal the kernels' regenerated Q; a
+federated round through them must equal one on the plain path.  The
+local-zampling kernels (the reconstruct forward from explicit operands
+at K=1 and K=3, the K=1 plan backward) and the sample-reconstruct
+forward must equal their plain versions at every d
 the paper runs, up to 256; a local training step through the kernels
 must equal one on the plain path in sample and continuous mode; the
 composed round must equal the fused round.  The scatter transpose
@@ -191,6 +193,50 @@ def test_training_kernels_equal_plain(cuda_train, i):
     assert torch.equal(vals[:spec.m], kvals)
     assert torch.equal(gidx[:spec.m], (rows // spec.rows_per_window)[:, None]
                        * spec.window + idx.to(torch.int64))
+
+
+@pytest.mark.parametrize("i", range(len(TRAIN_SPECS)))
+def test_one_client_pack_equals_plain_and_the_batched_row(cuda_train, i):
+    spec = _train_spec(i)
+    rng = np.random.RandomState(40 + i)
+    P = clip_probs(torch.from_numpy(
+        rng.rand(3, spec.n).astype(np.float32) * 1.4 - 0.2).to(cuda_train))
+    words = [int(w) for w in rng.randint(0, 2**32, 3, dtype=np.uint64)]
+    rows = qz_reconstruct.qz_sample_pack_batched_fwd(
+        spec, P, as_words(words, cuda_train))
+    for k in range(3):
+        p = P[k].contiguous()
+        lanes = _counted("qz_sample_pack_fwd",
+                         lambda: qz_reconstruct.qz_sample_pack_fwd(
+                             spec, p, words[k]))
+        assert torch.equal(lanes, ops.sample_pack_one_plain(spec, p,
+                                                            words[k]))
+        assert torch.equal(lanes, rows[k])
+        assert torch.equal(_counted(
+            "qz_sample_pack_fwd",
+            lambda: ops.sample_pack(spec, p, words[k])), lanes)
+
+
+def test_one_client_pack_at_a_window_of_16(cuda_train):
+    """The pack kernel draws by coordinate, so a window that is not a
+    whole number of lanes packs too: ``ops.sample_pack`` launches kernel
+    9 there, equal to the plain version and to kernel 10's row."""
+    spec = make_qspec(5, (40, 100), 40, compression=8, d=4, window=16,
+                      seed=1)
+    assert spec.window % 32
+    rng = np.random.RandomState(50)
+    P = clip_probs(torch.from_numpy(
+        rng.rand(2, spec.n).astype(np.float32) * 1.4 - 0.2).to(cuda_train))
+    words = [int(w) for w in rng.randint(0, 2**32, 2, dtype=np.uint64)]
+    rows = qz_reconstruct.qz_sample_pack_batched_fwd(
+        spec, P, as_words(words, cuda_train))
+    for k in range(2):
+        p = P[k].contiguous()
+        lanes = _counted("qz_sample_pack_fwd",
+                         lambda: ops.sample_pack(spec, p, words[k]))
+        assert torch.equal(lanes, ops.sample_pack_one_plain(spec, p,
+                                                            words[k]))
+        assert torch.equal(lanes, rows[k])
 
 
 def test_round_through_kernels_equals_plain(cuda_train):
