@@ -36,15 +36,20 @@ Phases, one printed line or more each:
    checkout, one process each, started together, with what
    ``-Xptxas -v`` reports;
 3. serve kernel against its plain torch version on the card, bitwise, at
-   every linear shape of the model (groups 0 and 23, B in {1, 4}, u8
-   words, and f32 and u16 at one shape), and the lm_head also against a
-   float64 product of the plainly regenerated weights;
+   all 8 zampled linears of the model (groups 0 and 23 where there are
+   24, B in {1, 4}, u8 words, and f32 and u16 at one shape), and the
+   lm_head also against a float64 product of the plainly regenerated
+   weights; the kernels' logf, sqrtf and cosf (csrc/qz_common.cuh)
+   against the library's at every argument a draw can give;
 4. serving: ServeScheduler with 4 lanes answers 4 ragged prompts for 8
-   new tokens each, and the first request rerun alone (B=1) must give
-   the same tokens; each engine step must launch the kernel 169 times;
-5. serve kernel times, bounds and plain times, and the library
-   yardstick (torch.sparse.mm of the CSR Q against the drawn mask, then
-   X @ W) at B in {4, 1};
+   new tokens each, which must be the tokens these inputs have given
+   since the serve kernel was first checked (SERVE_TOKENS), and the
+   first request rerun alone (B=1) must give the same tokens; each
+   engine step must launch the kernel 169 times;
+5. serve kernel times (CUDA events and torch.profiler device time),
+   launch geometry (CTAs, shared memory a CTA), bounds and plain times,
+   and the library yardstick (torch.sparse.mm of the CSR Q against the
+   drawn mask, then X @ W) at B in {4, 1};
 6. federated-round kernels against their plain versions on the card,
    bitwise, at the three zampled MNISTFC leaves (sample-reconstruct at
    K=10 f32 and K=1 u8/f32, plan backward at K=10, sample-pack at
@@ -142,7 +147,16 @@ SEED = 0
 DRAW_WORD = 2
 PROMPTS = [[5, 17, 42, 7], [1, 2, 3], [9, 9, 1, 0, 3], [4, 4]]
 NEW_TOKENS = 8
+# phase 4's tokens for PROMPTS (every serve kernel since the first is
+# bitwise the plain path, so a redesign must give them again)
+SERVE_TOKENS = [[115217, 47379, 47379, 47379, 47379, 47379, 47379, 47379],
+                [10769, 129520, 139572, 22558, 139572, 129520, 83111, 129520],
+                [63951, 110966, 110966, 110966, 110966, 110966, 110966,
+                 110966],
+                [40323, 77280, 40323, 77280, 40323, 95010, 95010, 95010]]
 LANES = 4
+# the serving state's zampling: every linear of qwen2-0.5b, u8 words
+SERVE_ZAMPLING = dict(compression=8, d=8, min_size=65536)
 # H100 SXM, NVIDIA's data sheet: HBM rate, and the float32 (non-tensor)
 # rate that the hash and Box-Muller operations are counted against (the
 # data sheet lists no int32 rate; the card issues int32 at half of it, so
@@ -1879,7 +1893,7 @@ def main() -> None:
     cfg = get_arch("qwen2-0.5b")
     model = build_model(cfg)
     zspecs = build_specs(param_template(cfg),
-                         ZamplingConfig(compression=8, d=8, min_size=65536))
+                         ZamplingConfig(**SERVE_ZAMPLING))
     rng = np.random.RandomState(SEED)
     scores = {p: rng.rand(s.n).astype(np.float32)
               for p, s in zspecs.specs.items()}
@@ -1972,8 +1986,7 @@ def main() -> None:
         return X, yk
 
     t0 = time.perf_counter()
-    for path in ("blocks/attn/wq", "blocks/attn/wk", "blocks/mlp/gate",
-                 "blocks/mlp/down"):
+    for path in LINEARS:
         for group in (0, L - 1):
             for B in (1, 4):
                 compare(path, group, "u8", B)
@@ -1981,8 +1994,14 @@ def main() -> None:
         for B in (1, 4):
             compare("blocks/attn/wq", 0, codec, B)
     edge_check("blocks/attn/wq", "u8", 0)
+    gauss = qz_decode.gauss_check(dev)
+    say(f"box-muller: the kernels' logf, sqrtf, cosf and Box-Muller against "
+        f"the library's at all 2^24 uniforms: {gauss} arguments differ")
+    if any(gauss):
+        die("the kernels' Box-Muller differs from the library's")
     spec = zspecs.specs["lm_head"]
     _, d_in, d_out = ops.serve_group_dims(spec)
+    compare("lm_head", 0, "u8", 1)
     X, yk = compare("lm_head", 0, "u8", 4)
     p, _ = operand("lm_head", "u8")
     y64 = torch.zeros((4, d_out), dtype=torch.float64, device=dev)
@@ -2039,6 +2058,10 @@ def main() -> None:
     say(f"serve: single request (B=1) {PROMPTS[0]} -> {one}")
     if one != results[rids[0]].tolist():
         die("the single request's tokens differ from its scheduler lane's")
+    got = [results[rid].tolist() for rid in rids]
+    say(f"serve: tokens equal SERVE_TOKENS: {got == SERVE_TOKENS}")
+    if got != SERVE_TOKENS:
+        die("the scheduler's tokens differ from SERVE_TOKENS")
     for rid in rids:
         toks = results[rid]
         if len(toks) != NEW_TOKENS or toks.min() < 0 or toks.max() >= cfg.padded_vocab:
@@ -2130,15 +2153,24 @@ def main() -> None:
 
     rows = []
     for name, B in (("qz_sample_matmul", LANES), ("qz_sample_matvec", 1)):
-        ms = plain = yard = bound = library_ms = 0.0
+        ms = device = plain = yard = bound = library_ms = 0.0
         shapes = {}
         for path in LINEARS + ("lm_head",):
             spec = zspecs.specs[path]
             groups, d_in, d_out = stats[path][:3]
             p, qbits = operand(path, "u8")
             X = Xs[(B, path)]
+            reps = 3 if path == "lm_head" else 10
             t_k = event_ms(lambda: run_kernel(spec, p, X, 0, d_in, d_out, qbits),
-                           3 if path == "lm_head" else 10)
+                           reps)
+            by_tag, _ = profile_device_us(
+                lambda: [run_kernel(spec, p, X, 0, d_in, d_out, qbits)
+                         for _ in range(reps)], ("serve_matmul_kernel",))
+            us, n_l = by_tag["serve_matmul_kernel"]
+            t_d = 1e-3 * us / n_l if n_l else None  # no device trace: None
+            plan = qz_decode.serve_plan(d_in, d_out, B, spec.d,
+                                        spec.rows_per_window, ops.SERVE_BM)
+            ctas = qz_decode.launch_grid(spec, d_in, d_out, B, qbits)
             t_p = event_ms(lambda: ops.serve_contract_plain(
                 spec, p, DRAW_WORD, X, 0, d_in, d_out, qbits), 1)
             cols = torch.arange(d_out, device=dev)
@@ -2150,16 +2182,25 @@ def main() -> None:
             del W
             b = bound_ms(path, B)
             ms += groups * t_k
+            device = (device + groups * t_d if t_d is not None
+                      and device is not None else None)
             plain += groups * t_p
             yard += groups * t_y
             bound += b
             library_ms += lib[(B, path)]
             shapes[path] = {"d_in": d_in, "d_out": d_out, "launches": groups,
-                            "ms": t_k, "plain_ms": t_p,
+                            "ms": t_k, "device_ms": t_d, "plain_ms": t_p,
                             "bound_ms": b / groups,
-                            "library_ms_all_groups": lib[(B, path)]}
+                            "library_ms_all_groups": lib[(B, path)],
+                            "ctas": ctas,
+                            "tiles": plan.tiles, "tile_columns": plan.co,
+                            "smem": plan.smem}
             say(f"time: {name} {path} {d_in}x{d_out} B={B}: kernel "
-                f"{t_k:.4f} ms, plain {t_p:.2f} ms, matmul of materialized "
+                f"{t_k:.4f} ms (device "
+                f"{'not measured' if t_d is None else f'{t_d:.4f} ms'}; "
+                f"{ctas} CTAs, {plan.tiles} tiles "
+                f"of {plan.co} columns, {plan.smem} B of shared memory a "
+                f"CTA), plain {t_p:.2f} ms, matmul of materialized "
                 f"weights {t_y:.4f} ms, sparse.mm + matmul of all {groups} "
                 f"groups {lib[(B, path)]:.4f} ms, bound {b / groups:.4f} ms "
                 f"({card})")
@@ -2170,14 +2211,16 @@ def main() -> None:
                          if name == "qz_sample_matmul"
                          else "src/repro/kernels/qz_decode.py:207"),
             "launches": launches[name], "max_abs_err": max_err[name],
-            "ms": ms, "plain_ms": plain, "bound_ms": bound,
-            "bound_by": "operations", "library_ms": library_ms,
+            "ms": ms, "device_ms": device, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": "operations",
+            "library_ms": library_ms,
             "library_call": "torch.sparse.mm(Q_csr, z) on the drawn mask, "
                             "then X @ W",
             "batch": B, "per": "one engine step (169 launches)",
             "yardstick_matmul_materialized_ms": yard, "shapes": shapes,
         })
-        say(f"time: {name} per engine step (B={B}): kernel {ms:.3f} ms, "
+        say(f"time: {name} per engine step (B={B}): kernel {ms:.3f} ms "
+            f"(device {'not measured' if device is None else f'{device:.3f} ms'}), "
             f"bound {bound:.3f} ms ({bound / ms:.3f} of it), plain "
             f"{plain:.1f} ms, matmul of materialized weights {yard:.3f} ms, "
             f"sparse.mm + matmul {library_ms:.3f} ms ({card})")

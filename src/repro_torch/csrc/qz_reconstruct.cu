@@ -128,10 +128,9 @@ __device__ __forceinline__ const void* client_words(const void* P, int k,
 // Client k's operand at a global coordinate: its value, or its drawn bit.
 template <int KIND>
 __device__ __forceinline__ float edge_operand(const void* __restrict__ words,
-                                              int qbits, uint32_t hm,
-                                              uint32_t coord) {
+                                              uint32_t hm, uint32_t coord) {
   if (KIND == KIND_VALUES) return static_cast<const float*>(words)[coord];
-  return qz::mask_bit<KIND>(words, qbits, hm, coord) ? 1.0f : 0.0f;
+  return qz::mask_bit<KIND>(words, hm, coord) ? 1.0f : 0.0f;
 }
 
 // Dynamic shared memory: K mask prefixes (drawn kinds), then ch x THREADS
@@ -140,7 +139,6 @@ __device__ __forceinline__ float edge_operand(const void* __restrict__ words,
 // d the round and Fig. 6 run) has no chunk loop and no read-back.
 template <int KIND, bool MULTI>
 __device__ __forceinline__ void reconstruct_rows(const void* __restrict__ P,
-                                            int qbits,
                                             const long long* __restrict__ steps,
                                             int K, long long n, uint32_t m,
                                             const qz::SpecArgs& s,
@@ -177,7 +175,7 @@ __device__ __forceinline__ void reconstruct_rows(const void* __restrict__ P,
       // written for the last
       float acc = (MULTI && j0 > 0) ? *out : -0.0f;
       for (int jj = 0; jj < nj; ++jj) {
-        const float z = edge_operand<KIND>(words, qbits, hm, sCoord[jj * THREADS + t]);
+        const float z = edge_operand<KIND>(words, hm, sCoord[jj * THREADS + t]);
         acc = __fadd_rn(acc, __fmul_rn(sVal[jj * THREADS + t], z));
       }
       *out = acc;
@@ -187,14 +185,14 @@ __device__ __forceinline__ void reconstruct_rows(const void* __restrict__ P,
 
 template <int KIND>
 __global__ void __launch_bounds__(THREADS)
-sample_reconstruct_kernel(const void* __restrict__ P, int qbits,
+sample_reconstruct_kernel(const void* __restrict__ P,
                           const long long* __restrict__ steps, int K,
                           long long n, uint32_t m, qz::SpecArgs s,
                           float* __restrict__ W) {
   if (s.d > CHUNK) {
-    reconstruct_rows<KIND, true>(P, qbits, steps, K, n, m, s, W);
+    reconstruct_rows<KIND, true>(P, steps, K, n, m, s, W);
   } else {
-    reconstruct_rows<KIND, false>(P, qbits, steps, K, n, m, s, W);
+    reconstruct_rows<KIND, false>(P, steps, K, n, m, s, W);
   }
 }
 
@@ -202,9 +200,9 @@ __global__ void __launch_bounds__(THREADS)
 mask_reconstruct_kernel(const float* __restrict__ Z, int K, long long n,
                         uint32_t m, qz::SpecArgs s, float* __restrict__ W) {
   if (s.d > CHUNK) {
-    reconstruct_rows<KIND_VALUES, true>(Z, 0, nullptr, K, n, m, s, W);
+    reconstruct_rows<KIND_VALUES, true>(Z, nullptr, K, n, m, s, W);
   } else {
-    reconstruct_rows<KIND_VALUES, false>(Z, 0, nullptr, K, n, m, s, W);
+    reconstruct_rows<KIND_VALUES, false>(Z, nullptr, K, n, m, s, W);
   }
 }
 
@@ -371,7 +369,7 @@ sample_pack_kernel(const float* __restrict__ P,
   const uint32_t hm = qz::mask_prefix(seed, tensor_id, step);
   // every thread of the warp reaches the ballot; past n a bit is 0
   const bool bit = coord < n && qz::mask_bit<qz::KIND_F32>(
-                                    P + static_cast<long long>(k) * n, 0, hm, coord);
+                                    P + static_cast<long long>(k) * n, hm, coord);
   const uint32_t lane = __ballot_sync(0xFFFFFFFFu, bit);
   if ((threadIdx.x & 31u) == 0u && coord / 32u < lanes) {
     out[static_cast<long long>(k) * lanes + coord / 32u] = static_cast<long long>(lane);
@@ -401,7 +399,7 @@ size_t rows_smem(int nh, int d) {
 extern "C" {
 
 // W (K, m) = Q Bern(P_k) for the K clients' operands P (K, n).
-int qz_sample_reconstruct(const void* P, int kind, int qbits,
+int qz_sample_reconstruct(const void* P, int kind,
                           const long long* steps, int K, long long n,
                           unsigned m, unsigned seed, unsigned tensor_id,
                           int window, unsigned rows_per_window, int d,
@@ -412,13 +410,13 @@ int qz_sample_reconstruct(const void* P, int kind, int qbits,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kind) {
     case qz::KIND_F32:
-      sample_reconstruct_kernel<qz::KIND_F32><<<grid, THREADS, smem, st>>>(P, qbits, steps, K, n, m, s, W);
+      sample_reconstruct_kernel<qz::KIND_F32><<<grid, THREADS, smem, st>>>(P, steps, K, n, m, s, W);
       break;
     case qz::KIND_U8:
-      sample_reconstruct_kernel<qz::KIND_U8><<<grid, THREADS, smem, st>>>(P, qbits, steps, K, n, m, s, W);
+      sample_reconstruct_kernel<qz::KIND_U8><<<grid, THREADS, smem, st>>>(P, steps, K, n, m, s, W);
       break;
     case qz::KIND_U16:
-      sample_reconstruct_kernel<qz::KIND_U16><<<grid, THREADS, smem, st>>>(P, qbits, steps, K, n, m, s, W);
+      sample_reconstruct_kernel<qz::KIND_U16><<<grid, THREADS, smem, st>>>(P, steps, K, n, m, s, W);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

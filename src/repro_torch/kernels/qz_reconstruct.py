@@ -74,8 +74,8 @@ def reset_launches() -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     P, I, U, L, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                      ctypes.c_longlong, ctypes.c_float)
-    lib.qz_sample_reconstruct.argtypes = [P, I, I, P, I, L, U, U, U, I, U,
-                                          I, F, P, P]
+    lib.qz_sample_reconstruct.argtypes = [P, I, P, I, L, U, U, U, I, U, I,
+                                          F, P, P]
     lib.qz_sample_reconstruct.restype = I
     lib.qz_reconstruct_batched.argtypes = [P, I, L, U, U, U, I, U, I, F, P,
                                            P]
@@ -144,7 +144,7 @@ def _launch_sample_reconstruct(spec: QSpec, P, steps, qbits):
     words = _step_words(steps, K, P.device)
     W = torch.empty((K, spec.m), dtype=torch.float32, device=P.device)
     rc = build().qz_sample_reconstruct(
-        P.data_ptr(), _KIND[qbits], qbits or 0, words.data_ptr(), K, spec.n,
+        P.data_ptr(), _KIND[qbits], words.data_ptr(), K, spec.n,
         spec.m, spec.seed & 0xFFFFFFFF, spec.tensor_id, spec.window,
         spec.rows_per_window, spec.d, sigma_f32(spec), W.data_ptr(),
         _stream(P))

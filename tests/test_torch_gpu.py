@@ -5,7 +5,10 @@ the fixture).  On the card:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 This is chip_smoke.py's kernel phases at a small size.  The serve
 kernel must equal the plain version bitwise (f32, u8 and u16 words, B
-in {1, 4}, two groups), with Q indices and mask bits exact, and the
+in {1, 2, 3, 4, 5, 128}, every group, d in {1, 8, 16}, d_out below bm
+and ragged against the tile, rows per window no multiple of bm, groups
+starting inside a window), count one launch a call and give each batch
+row its B=1 result; Q indices and mask bits must be exact, and the
 engine's scheduler lanes must give a single request's tokens.  The
 training kernels (sample-reconstruct at K=3 and K=1, the plan backward,
 the sample-pack upload, and its one-client launch, which must also
@@ -67,29 +70,64 @@ def _operand(codec, spec, dev, seed=0):
     return ops.serve_operand(c.encode(spec, s, 3), qbits), qbits
 
 
+# (shape, d): every group of each spec at B in SERVE_BATCHES.  Wide: d_out
+# >= bm, every row flushes, rows_per_window 4096; d_out 16037 takes
+# 64-column tiles over a cluster of 5, each CTA walking 12-13 of a tile's
+# columns, the last tile ragged.  Ragged: d_out 1001 is
+# no multiple of a tile, rows_per_window 4086 no multiple of bm = 256,
+# and groups 1 and 2 start inside a window.  Narrow: d_out 128 < bm (rows
+# i and i+1 share a block), and d_out 100, where a block holds 2-3 rows
+# of a column and crosses a window edge (rows_per_window 3945), groups
+# starting inside a window.  d in {1, 16} take the run-time degree.
+SERVE_CASES = [((2, 640, 384), 8), ((3, 200, 1001), 8),
+               ((1, 300, 16037), 8), ((2, 96, 128), 8),
+               ((5, 71, 100), 8), ((3, 200, 1001), 1), ((3, 200, 1001), 16),
+               ((5, 71, 100), 16)]
+SERVE_BATCHES = (1, 2, 3, 4, 5, 128)
+
+
+def _serve_call(spec, p, X, off, d_in, d_out, qbits):
+    """The kernel at X's batch (matvec at B=1), checking one launch."""
+    name = "qz_sample_matvec" if X.shape[0] == 1 else "qz_sample_matmul"
+    before = qz_decode.LAUNCHES[name]
+    if X.shape[0] == 1:
+        y = qz_decode.qz_sample_matvec(spec, p, 5, X[0], row_offset=off,
+                                       d_in=d_in, d_out=d_out,
+                                       qbits=qbits)[None]
+    else:
+        y = qz_decode.qz_sample_matmul(spec, p, 5, X, row_offset=off,
+                                       d_in=d_in, d_out=d_out, qbits=qbits)
+    assert qz_decode.LAUNCHES[name] == before + 1
+    return y
+
+
 @pytest.mark.parametrize("codec", ["f32", "u8", "u16"])
-@pytest.mark.parametrize("B", [1, 4])
-def test_kernel_equals_plain(cuda, codec, B):
-    spec = make_qspec(7, (2, 640, 384), 640, compression=8, d=8)
+@pytest.mark.parametrize("shape,d", SERVE_CASES)
+def test_kernel_equals_plain(cuda, codec, shape, d):
+    spec = make_qspec(7, shape, shape[1], compression=8, d=d)
+    groups, d_in, d_out = ops.serve_group_dims(spec)
     p, qbits = _operand(codec, spec, cuda)
-    X = torch.from_numpy(np.random.RandomState(B).randn(B, 640)
-                         .astype(np.float32)).to(cuda)
-    for g in (0, 1):
-        off = g * 640 * 384
-        before = dict(qz_decode.LAUNCHES)
-        if B == 1:
-            yk = qz_decode.qz_sample_matvec(spec, p, 5, X[0], row_offset=off,
-                                            d_in=640, d_out=384,
-                                            qbits=qbits)[None]
-            name = "qz_sample_matvec"
-        else:
-            yk = qz_decode.qz_sample_matmul(spec, p, 5, X, row_offset=off,
-                                            d_in=640, d_out=384, qbits=qbits)
-            name = "qz_sample_matmul"
-        assert qz_decode.LAUNCHES[name] == before[name] + 1
-        yp = ops.serve_contract_plain(spec, p, 5, X, off, 640, 384, qbits)
-        torch.cuda.synchronize()
-        assert bool((yk == yp).all()), (yk - yp).abs().max().item()
+    rng = np.random.RandomState(d_out)
+    for B in SERVE_BATCHES:
+        X = torch.from_numpy(rng.randn(B, d_in).astype(np.float32)).to(cuda)
+        for g in range(groups):
+            off = g * d_in * d_out
+            yk = _serve_call(spec, p, X, off, d_in, d_out, qbits)
+            yp = ops.serve_contract_plain(spec, p, 5, X, off, d_in, d_out,
+                                          qbits)
+            torch.cuda.synchronize()
+            assert torch.equal(yk, yp), (B, g, (yk - yp).abs().max().item())
+            if B > 1:
+                rows = torch.cat([_serve_call(spec, p, X[b:b + 1], off, d_in,
+                                              d_out, qbits)
+                                  for b in range(B)])
+                assert torch.equal(yk, rows), (B, g)
+
+
+def test_box_muller_equals_library(cuda):
+    """logf, sqrtf, cosf and the Box-Muller of the kernels' header equal
+    the library's at all 2^24 uniforms a draw can give."""
+    assert qz_decode.gauss_check(cuda) == (0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("codec", ["f32", "u8"])
