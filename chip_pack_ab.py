@@ -1,5 +1,5 @@
-"""Times the upload-pack or the serve kernels of two or more source trees
-on one card.
+"""Times the upload-pack, the serve or the backward kernels, or the
+local step, of two or more source trees on one card.
 
 Pack mode (the default): kernel 10 (``qz_sample_pack_batched_fwd``,
 K=10 clients) and kernel 9 (``qz_sample_pack_fwd``, one client, where a
@@ -16,17 +16,40 @@ outputs must equal the first tree's, bit for bit.  A step's time sums
 each shape's time over its launches in an engine step (24 for a block
 linear, 1 for lm_head).
 
+Backward mode (``--bwd``): the one-client backward kernels, kernel 2
+(``qz_reconstruct_bwd``, the scatter) at Fig. 6's three leaves (MNISTFC
+at compression 1, d=16, window 128: chip_smoke's phase 12) and kernel 5
+(``qz_reconstruct_bwd_plan``, the canonical plan) at Fig. 6's leaves
+and at Fig. 4's (chip_smoke's federated specs, d=10: each rank's
+backward in the sharded round); and the K-client kernels 4
+(``qz_reconstruct_batched_bwd``) and 6
+(``qz_reconstruct_batched_bwd_plan``) at Fig. 4's leaves, K=10.  The
+same seeded cotangents for every tree; every tree's outputs must equal
+the first tree's, bit for bit.  A step's time sums a kernel's leaves
+(one launch each a local step, or a K=10 round's step).
+
+Step mode (``--step``): the local step the backward kernels serve,
+``train_local_zampling`` of Fig. 6 ``zampling_d16`` (chip_smoke's phase
+10 inputs: the same seeded scores, data and draw words), STEP_N steps on
+the plan and STEP_N under ``REPRO_BWD_PLAN=scatter``; every tree's
+losses must equal the first tree's, bit for bit.  A step's time is the
+host's wall clock between batches, its median over steps 1 to STEP_N-1
+(step 0 builds plans and layouts).
+
 Each tree is timed in the order given, all in one process: a tree named
 twice (A B B A) is timed twice, so drift shows.  Each tree's kernels are
 built from that tree's sources into its own ``build/``.  The timers are
 chip_smoke's: CUDA-event ms per launch over back-to-back launches (50
-for pack, 10 for serve, 3 at lm_head; host launch cost included) and
-device ms per launch by torch.profiler over 10 (3 at lm_head).
+for pack and backward, 10 for serve, 3 at lm_head; host launch cost
+included) and device ms per launch by torch.profiler over 10 (3 at
+lm_head).
 
 Usage, from the repo root on a machine with a CUDA GPU (``before/`` a
 copy of another revision, e.g. unpacked with ``git archive``):
     python3 chip_pack_ab.py before . . before
     python3 chip_pack_ab.py --serve before . . before
+    python3 chip_pack_ab.py --bwd before . . before
+    python3 chip_pack_ab.py --step before . . before before . . before
 It prints, per tree and kernel, the times, their sum for one round (or
 engine step), and last one JSON line with every number and the card's
 name and power limit.
@@ -34,9 +57,11 @@ name and power limit.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import chip_smoke as cs
@@ -44,9 +69,16 @@ import chip_smoke as cs
 LEAF_KERNEL = "sample_pack"  # the profiler tag of both trees' pack kernels
 SERVE_KERNEL = "serve_matmul_kernel"  # and of their serve kernels
 SERVE_PATHS = cs.LINEARS + ("lm_head",)
+# the backward kernels' profiler tags: each names both trees' kernels
+# (a timed window launches one kernel only)
+BWD_TAGS = {"qz_reconstruct_bwd": "scatter_bwd",
+            "qz_reconstruct_bwd_plan": "plan_bwd",
+            "qz_reconstruct_batched_bwd": "scatter_bwd",
+            "qz_reconstruct_batched_bwd_plan": "plan_bwd"}
+STEP_N = 200  # local steps a tree takes on each backward path
 
 
-def load_tree(tree: Path, serve: bool) -> dict:
+def load_tree(tree: Path, mode: str) -> dict:
     """Import ``tree``'s port and start its kernels' build; returns what
     the timing needs.  The modules are dropped from ``sys.modules`` so
     that the next tree imports its own."""
@@ -65,7 +97,34 @@ def load_tree(tree: Path, serve: bool) -> dict:
 
         if Path(qr.__file__).resolve().parents[3] != tree.resolve():
             raise RuntimeError(f"imported {qr.__file__}, not {tree}'s port")
-        if serve:
+        if mode == "step":
+            from repro_torch.core.zampling import init_state
+            from repro_torch.data import make_teacher_dataset
+            from repro_torch.models.mlp import mlp_loss
+            from repro_torch.train import (LocalTrainConfig,
+                                           train_local_zampling)
+
+            qr.LIBRARY.start()
+            zs = build_specs(mlp_template(MNISTFC), ZamplingConfig(
+                compression=1.0, d=cs.LOCAL_D, window=128, min_size=128,
+                seed=0))
+            # the step imports lazily: the tree's modules and path are
+            # put back while it runs (``active``)
+            return {"qr": qr, "zs": zs, "init_state": init_state,
+                    "src": src, "modules": {
+                        n: m for n, m in sys.modules.items()
+                        if n.split(".")[0] == "repro_torch"},
+                    "data": make_teacher_dataset, "loss": mlp_loss,
+                    "cfg": LocalTrainConfig, "train": train_local_zampling}
+        if mode == "bwd":
+            qr.LIBRARY.start()
+            fig6 = build_specs(mlp_template(MNISTFC), ZamplingConfig(
+                compression=1.0, d=cs.LOCAL_D, window=128, min_size=128,
+                seed=0)).specs
+            fig4 = build_specs(mlp_template(MNISTFC),
+                               ZamplingConfig(**cs.FED_ZAMPLING)).specs
+            return {"qr": qr, "fig6": fig6, "fig4": fig4}
+        if mode == "serve":
             qd.LIBRARY.start()
             specs = build_specs(param_template(get_arch("qwen2-0.5b")),
                                 ZamplingConfig(**cs.SERVE_ZAMPLING)).specs
@@ -136,6 +195,168 @@ def time_serve(t: dict, words, X, dev) -> dict:
     return out
 
 
+def time_bwd(t: dict, g6, g4, G4) -> dict:
+    """{kernel: {"leaves": {name: (ms, device ms)}, "out": {name: grad}}}
+    for kernels 2 and 5 (one client) and 4 and 6 (K=10)."""
+    qr = t["qr"]
+    calls = {
+        "qz_reconstruct_bwd": [
+            (f"Fig. 6 {p}", lambda s=s, p=p: qr.qz_reconstruct_bwd(s, g6[p]))
+            for p, s in t["fig6"].items()],
+        "qz_reconstruct_bwd_plan": [
+            (f"Fig. 6 {p}",
+             lambda s=s, p=p: qr.qz_reconstruct_bwd_plan(s, g6[p]))
+            for p, s in t["fig6"].items()] + [
+            (f"Fig. 4 {p}",
+             lambda s=s, p=p: qr.qz_reconstruct_bwd_plan(s, g4[p]))
+            for p, s in t["fig4"].items()],
+        "qz_reconstruct_batched_bwd": [
+            (f"Fig. 4 {p}",
+             lambda s=s, p=p: qr.qz_reconstruct_batched_bwd(s, G4[p]))
+            for p, s in t["fig4"].items()],
+        "qz_reconstruct_batched_bwd_plan": [
+            (f"Fig. 4 {p}",
+             lambda s=s, p=p: qr.qz_reconstruct_batched_bwd_plan(s, G4[p]))
+            for p, s in t["fig4"].items()]}
+    out = {}
+    for name, leaves in calls.items():
+        times, grads = {}, {}
+        for leaf, call in leaves:
+            grads[leaf] = call()
+            ms = cs.event_ms(call, 50)
+            tag = BWD_TAGS[name]
+            by_tag, _ = cs.profile_device_us(
+                lambda: [call() for _ in range(10)], (tag,))
+            us, n = by_tag[tag]
+            times[leaf] = (ms, 1e-3 * us / n if n else None)
+        out[name] = {"leaves": times, "out": grads}
+    return out
+
+
+def bwd_main(trees, loaded, card, dev) -> None:
+    import numpy as np
+    import torch
+
+    t0 = next(iter(loaded.values()))
+    rng = np.random.RandomState(cs.SEED)
+
+    def cot(shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+
+    g6 = {p: cot((s.m,)) for p, s in t0["fig6"].items()}
+    g4 = {p: cot((s.m,)) for p, s in t0["fig4"].items()}
+    G4 = {p: cot((cs.FED_K, s.m)) for p, s in t0["fig4"].items()}
+    runs, first = [], None
+    for tree in trees:
+        got = time_bwd(loaded[tree.resolve()], g6, g4, G4)
+        first = first or got
+        for name, r in got.items():
+            for leaf, v in r["out"].items():
+                if not torch.equal(v, first[name]["out"][leaf]):
+                    cs.die(f"{tree}'s {name} differs from {trees[0]}'s at "
+                           f"{leaf}")
+            steps = {}
+            for leaf, (ms, dms) in r["leaves"].items():
+                fig = leaf.split(" ")[1]
+                acc = steps.setdefault(fig, [0.0, 0.0])
+                acc[0] += ms
+                acc[1] = None if dms is None or acc[1] is None else acc[1] + dms
+            cs.say(f"ab: {tree} {name}: " + ", ".join(
+                f"{leaf} {v[0]:.4f} ms (device "
+                + ("not measured" if v[1] is None else f"{v[1]:.4f} ms")
+                + ")" for leaf, v in r["leaves"].items())
+                + "".join(
+                    f"; a Fig. {f} step {v[0]:.4f} ms (device "
+                    + ("not measured" if v[1] is None else f"{v[1]:.4f} ms")
+                    + ")" for f, v in steps.items())
+                + f" ({card})")
+            runs.append({"tree": str(tree), "kernel": name,
+                         "steps": {f"Fig. {f}": {"ms": v[0], "device_ms": v[1]}
+                                   for f, v in steps.items()},
+                         "leaves": {leaf: {"ms": v[0], "device_ms": v[1]}
+                                    for leaf, v in r["leaves"].items()}})
+    cs.say(f"ab: every tree's backward outputs equal the first tree's ({card})")
+    cs.say(json.dumps({"card": card, "runs": runs}))
+
+
+@contextlib.contextmanager
+def active(t: dict):
+    """The tree's port importable as ``repro_torch`` for a while."""
+    sys.path.insert(0, t["src"])
+    sys.modules.update(t["modules"])
+    try:
+        yield
+    finally:
+        sys.path.remove(t["src"])
+        for name in [n for n in sys.modules if n.split(".")[0]
+                     == "repro_torch"]:
+            t["modules"][name] = sys.modules.pop(name)
+
+
+def time_steps(t: dict, batches, scores, words, dev) -> dict:
+    """{path: (median step seconds, losses)} for the plan and scatter."""
+    import os
+
+    import numpy as np
+    import torch
+
+    zs = t["zs"]
+    dense = {p: np.zeros(zs.template[p].shape, np.float32)
+             for p in zs.dense_paths}
+    state0 = t["init_state"](zs, scores, dense, device=dev)
+    cfg = t["cfg"](steps=STEP_N, lr=cs.LOCAL_LR, eval_every=10**9)
+    out = {}
+    for path in ("plan", "scatter"):
+        marks = []
+
+        def timed():
+            for b in batches:
+                marks.append(time.perf_counter())
+                yield b
+
+        os.environ["REPRO_BWD_PLAN"] = path
+        try:
+            with active(t):
+                _, hist = t["train"](zs, state0, t["loss"], timed(), cfg,
+                                     words, device=dev)
+                torch.cuda.synchronize()
+        finally:
+            os.environ.pop("REPRO_BWD_PLAN", None)
+        marks.append(time.perf_counter())
+        out[path] = (float(np.median(np.diff(marks)[1:])),
+                     [float(v) for v in hist["loss"]])
+    return out
+
+
+def step_main(trees, loaded, card, dev) -> None:
+    import numpy as np
+    import torch
+
+    t0 = next(iter(loaded.values()))
+    rng = np.random.RandomState(cs.SEED)  # chip_smoke's phase 10 inputs
+    scores = {p: rng.rand(s.n).astype(np.float32)
+              for p, s in t0["zs"].specs.items()}
+    words = [int(w) for w in rng.randint(0, 2**32, STEP_N, dtype=np.uint64)]
+    ds = t0["data"](n_train=8000, n_test=1500, seed=0)
+    it = ds.batches(cs.LOCAL_BATCH, seed=0)
+    batches = [{"x": torch.from_numpy(x).to(dev),
+                "y": torch.from_numpy(y).to(dev)}
+               for x, y in (next(it) for _ in range(STEP_N))]
+    runs, first = [], None
+    for tree in trees:
+        got = time_steps(loaded[tree.resolve()], batches, scores, words, dev)
+        first = first or got
+        for path, (sec, losses) in got.items():
+            if losses != first[path][1]:
+                cs.die(f"{tree}'s losses on the {path} differ from "
+                       f"{trees[0]}'s")
+            cs.say(f"ab: {tree} local step on the {path}: median "
+                   f"{1e3 * sec:.4f} ms of steps 1-{STEP_N - 1} ({card})")
+            runs.append({"tree": str(tree), "path": path, "ms": 1e3 * sec})
+    cs.say(f"ab: every tree's local losses equal the first tree's ({card})")
+    cs.say(json.dumps({"card": card, "runs": runs}))
+
+
 def serve_main(trees, loaded, card, dev) -> None:
     import numpy as np
     import torch
@@ -183,25 +404,32 @@ def main() -> None:
     import torch
 
     args = sys.argv[1:]
-    serve = bool(args) and args[0] == "--serve"
-    args = args[1:] if serve else args
+    mode = {"--serve": "serve", "--bwd": "bwd", "--step": "step"}.get(
+        args[0] if args else "", "pack")
+    args = args[1:] if mode != "pack" else args
     if not torch.cuda.is_available() or len(args) < 2:
         cs.die("needs a CUDA device and two or more source trees")
     trees = [Path(a) for a in args]
     loaded = {}
     for tree in trees:
         if tree.resolve() not in loaded:
-            loaded[tree.resolve()] = load_tree(tree, serve)
+            loaded[tree.resolve()] = load_tree(tree, mode)
     for t in loaded.values():
-        (t["qd"] if serve else t["qr"]).build()
+        (t["qd"] if mode == "serve" else t["qr"]).build()
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip().splitlines()[0]
-    if serve:
+    if mode == "serve":
         serve_main(trees, loaded, card, dev)
+        return
+    if mode == "bwd":
+        bwd_main(trees, loaded, card, dev)
+        return
+    if mode == "step":
+        step_main(trees, loaded, card, dev)
         return
     specs = next(iter(loaded.values()))["specs"]
     rng = np.random.RandomState(cs.SEED)

@@ -76,7 +76,8 @@ Phases, one printed line or more each:
    composed federated round against phase 7's fused round 0 (bitwise
    words, dense leaves and loss; kernel 3 and kernel 6 launches only);
 11. reconstruct-forward and K=1 plan-backward times, device times,
-   bounds, plain times and torch.sparse.mm yardsticks, and the device
+   bounds, plain times and torch.sparse.mm yardsticks, the K=1 plan
+   backward's launch geometry and host cost a launch, and the device
    busy share of a local step;
 12. the K=1 scatter backward against its plain version and the K=1 plan
    backward at Fig. 6's leaves for d in {1, 16, 256} (bitwise, and a
@@ -85,7 +86,8 @@ Phases, one printed line or more each:
    7 and 2 against kernels 7 and 5 (loss, gradients, updated state, Adam
    moments, bitwise), 20 steps with 3 launches of each a step whose
    losses equal phase 10's; the K=1 scatter backward's times, bounds,
-   plain times and torch.sparse.mm yardsticks;
+   plain times, torch.sparse.mm yardsticks, launch geometry and host
+   cost a launch;
 13. the K-client scatter backward against its plain version and the
    K-client plan backward on the canonical plan, bitwise, at Fig. 4's
    leaves (K=10) and full-width qwen2-0.5b's blocks/ln1, blocks/attn/wk
@@ -170,10 +172,14 @@ OPS_PER_EDGE = 3 + 1 + 20 + 4  # index, coord, mask hash, threshold compare
 OPS_PER_DRAWN = 40 + 8 + 6 + 1  # 2 value hashes, 2 uniforms, Box-Muller, add
 # the training kernels' least work (see csrc/qz_reconstruct.cu): one
 # draw per (client, coordinate), however many edges read it; the
-# transpose plan's m*d real entries (4-byte row, 4-byte value); the
-# upload's 4-byte wire lanes
+# padded transpose plan's m*d real entries (4-byte row, 4-byte value;
+# the one-client kernel's compact layout narrows the row, and adds its
+# offsets); the upload's 4-byte wire lanes
 OPS_ROW_EDGE = 4  # an edge's in-window index and coordinate
 OPS_VALUE = 54  # an edge's value: 2 value hashes, 2 uniforms, Box-Muller
+# of a value hash, the mix fmix32(ctr + K1) of its counter: the same for
+# every row at a slot, so the scatter's least work mixes it once a slot
+OPS_SLOT_MIX = 9
 OPS_DRAW = 24  # one client's draw at one coordinate: mask hash + compare
 OPS_PACK = 2  # shift and OR of a drawn bit into its lane
 OPS_MAC = 2  # a multiply and an add per (client, edge) whose operand is not 0
@@ -249,12 +255,14 @@ def scatter_work(spec, G):
     """(ops, bytes) of grad_Z = Q^T G by the scatter for this run's
     cotangents G (K, m): per row some client's cotangent is not 0 at, its
     two row hashes, and per edge of it the index, the value's two hashes
-    and Box-Muller; a multiply and an add per (client, edge) whose
-    cotangent is not 0; G read once, grad_Z written once."""
+    (their counters' mixes made once a slot) and Box-Muller; a multiply
+    and an add per (client, edge) whose cotangent is not 0; G read once,
+    grad_Z written once."""
     K, m, d = G.shape[0], spec.m, spec.d
     nz = G != 0
     live = float(nz.any(0).sum())
-    ops_n = (live * (OPS_PER_WEIGHT + d * (OPS_ROW_EDGE + OPS_VALUE))
+    edge = OPS_ROW_EDGE + OPS_VALUE - 2 * OPS_SLOT_MIX
+    ops_n = (live * (OPS_PER_WEIGHT + d * edge) + 2 * d * OPS_SLOT_MIX
              + float(nz.sum()) * d * OPS_MAC)
     return ops_n, K * (4 * m + 4 * spec.n)
 
@@ -404,6 +412,37 @@ class KernelTimes:
             + (f", {lib} {r['library_ms']:.4f} ms" if lib else "")
             + f" ({self.card})")
         return r
+
+
+def host_us(fn, reps: int = 50) -> float:
+    """Host microseconds a call of ``fn`` takes to enqueue its work: the
+    wall clock of ``reps`` back-to-back calls with no synchronise, after
+    one call to warm up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return 1e6 * dt / reps
+
+
+def launch_report(card, kt, name, path, fn, geo) -> None:
+    """Kernels 2 and 5 at one leaf, after ``kt.add``: device and event
+    time, the launch geometry, and the host's cost of a launch (the one
+    measured, kept in the leaf's entry of the kernels line)."""
+    sh = kt.acc[name]["shapes"][path]
+    sh["host_us"] = host_us(fn)
+    dms = sh["device_ms"]
+    say(f"launch: {name} {path}: device "
+        + ("not measured" if dms is None else f"{1e3 * dms:.2f} us")
+        + f", events {1e3 * sh['ms']:.2f} us, host {sh['host_us']:.2f} us "
+        f"a launch (wall clock of 50 enqueues); {geo.ctas} CTAs of "
+        f"{geo.threads} threads, {geo.smem} B of shared memory a CTA, "
+        f"{geo.passes} pass(es) a window ({card})")
 
 
 def check_bitwise(max_err, name, got, want, what):
@@ -1048,7 +1087,7 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
     kt = KernelTimes(card, {
         "qz_reconstruct_fwd": "mask_reconstruct_kernel",
         "qz_reconstruct_batched_fwd": "mask_reconstruct_kernel",
-        "qz_reconstruct_bwd_plan": "plan_bwd_kernel"})
+        "qz_reconstruct_bwd_plan": "plan_bwd_one_kernel"})
 
     def add(name, path, kernel, plain, library, ops_n, bytes_n):
         kt.add(name, path, kernel, event_ms(plain, 3), event_ms(library, 50),
@@ -1078,11 +1117,21 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
         QT = q_csr(spec, dev, True)
         gt = g[:, None].contiguous()
         md = spec.m * spec.d
+        geo = qr.plan_one_geometry(spec, dev)
+        # the compact layout's entries (a value and a row of
+        # geo.row_bytes each) and offsets, g and the output
         add("qz_reconstruct_bwd_plan", path,
             lambda: qr.qz_reconstruct_bwd_plan(spec, g),
             lambda: ops.plan_bwd_one_plain(spec, g),
             lambda: torch.sparse.mm(QT, gt), OPS_PLAN * md,
-            8 * md + 4 * (spec.m + spec.n))
+            (4 + geo.row_bytes) * md + 4 * (spec.n + 1)
+            + 4 * (spec.m + spec.n))
+        launch_report(card, kt, "qz_reconstruct_bwd_plan", path,
+                      lambda: qr.qz_reconstruct_bwd_plan(spec, g), geo)
+    say("launch: qz_reconstruct_bwd_plan host cost a launch, as the events "
+        f"of {path}: "
+        f"{1e3 * kt.acc['qz_reconstruct_bwd_plan']['shapes'][path]['ms']:.2f}"
+        f" us ({card})")
     for path, spec in zs4.specs.items():
         Z = fig4_masks[path]
         Q = q_csr(spec, dev, False)
@@ -1122,9 +1171,10 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
             float(loss)
 
     for mode, m_ms, kernel_tags in (
-            ("sample", med, ("sample_reconstruct_kernel", "plan_bwd_kernel")),
+            ("sample", med, ("sample_reconstruct_kernel",
+                             "plan_bwd_one_kernel")),
             ("continuous", c_med, ("mask_reconstruct_kernel",
-                                   "plan_bwd_kernel"))):
+                                   "plan_bwd_one_kernel"))):
         by_tag, dev_us = profile_device_us(lambda: steps10(mode),
                                            kernel_tags)
         if dev_us <= 0:
@@ -1207,7 +1257,7 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
         f"{1e3 * sc_med:.4f} ms (plan: {1e3 * med:.4f} ms) on {card}")
     if not same_losses:
         die("local training under scatter differs from the plan's")
-    kt2 = KernelTimes(card, {"qz_reconstruct_bwd": "scatter_bwd_kernel"})
+    kt2 = KernelTimes(card, {"qz_reconstruct_bwd": "scatter_bwd_one_kernel"})
     for path, spec in specs.items():
         g = torch.from_numpy(rng.randn(spec.m).astype(np.float32)).to(dev)
         QT = q_csr(spec, dev, True)
@@ -1217,6 +1267,13 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
                 event_ms(lambda: ops.scatter_bwd_one_plain(spec, g), 3),
                 event_ms(lambda: torch.sparse.mm(QT, gt), 50),
                 *scatter_work(spec, g[None]))
+        launch_report(card, kt2, "qz_reconstruct_bwd", path,
+                      lambda: qr.qz_reconstruct_bwd(spec, g),
+                      qr.scatter_one_geometry(spec))
+    say("launch: qz_reconstruct_bwd host cost a launch, as the events of "
+        f"{path}: "
+        f"{1e3 * kt2.acc['qz_reconstruct_bwd']['shapes'][path]['ms']:.2f} us "
+        f"({card})")
     out.append(kt2.row(
         "qz_reconstruct_bwd", "src/repro/kernels/qz_reconstruct.py:224",
         scatter_launches["qz_reconstruct_bwd"], max_err["qz_reconstruct_bwd"],

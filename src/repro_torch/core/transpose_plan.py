@@ -25,6 +25,13 @@ padding rows are left out.  The counting sort runs on the host (numpy,
 on the index stream only); the values are placed by a pure gather on
 the device, so their bits are the device's.
 
+``build_plan_layout(spec, device, order)`` is the same plan without its
+padding, for the one-client plan kernel: the ``m*d`` real entries in the
+plan's order, coordinate ``c``'s at ``[starts[c], starts[c+1])``, so a
+window's entries are one contiguous slab.  It comes from the same host
+sort, so the card holds neither the padded plan nor the row plan for a
+one-client backward.
+
 The gate: ``REPRO_BWD_PLAN`` overrides the process default
 (``set_default_bwd_path``, ``plan``), and ``resolve_bwd_path`` turns a
 path into ``(kind, order)``: ``("plan", "canonical" | "slot")``, or
@@ -137,9 +144,11 @@ def build_transpose_plan(spec: QSpec, device="cpu",
     return _build_transpose_plan(spec, _device(device), order)
 
 
-@functools.lru_cache(maxsize=32)
-def _build_transpose_plan(spec: QSpec, device: torch.device, order: str):
-    gidx, vals = row_plan(spec, device)
+def _plan_entries(spec: QSpec, gidx: torch.Tensor, order: str):
+    """The plan's real entries in ``order``, by a counting sort on the
+    host of the row plan's coordinates ``gidx``: ``(coord, r_local, src,
+    counts)``, per entry its coordinate (ascending), window-local source
+    row and index into the flat row plan, and the in-degree (n,)."""
     d = spec.d
     rp = np.arange(spec.m_pad, dtype=np.int64)
     valid = padded_row_valid(spec, torch.from_numpy(rp)).numpy()
@@ -157,8 +166,14 @@ def _build_transpose_plan(spec: QSpec, device: torch.device, order: str):
     src = src.reshape(-1)[valid]
     r_local = r_local.reshape(-1)[valid]
     perm = np.argsort(coord, kind="stable")
-    ks, rs, src = coord[perm], r_local[perm], src[perm]
-    counts = np.bincount(ks, minlength=spec.n).astype(np.int64)
+    counts = np.bincount(coord, minlength=spec.n).astype(np.int64)
+    return coord[perm], r_local[perm], src[perm], counts
+
+
+@functools.lru_cache(maxsize=32)
+def _build_transpose_plan(spec: QSpec, device: torch.device, order: str):
+    gidx, vals = row_plan(spec, device)
+    ks, rs, src, counts = _plan_entries(spec, gidx, order)
     deg = int(max(1, counts.max() if counts.size else 1))
     starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
     slot = ks * deg + (np.arange(ks.size, dtype=np.int64) - starts[ks])
@@ -173,6 +188,52 @@ def _build_transpose_plan(spec: QSpec, device: torch.device, order: str):
         rows=torch.from_numpy(rows).to(device).reshape(shape),
         vals=flat_vals.reshape(shape),
         counts=torch.from_numpy(counts).to(device))
+
+
+@dataclass(frozen=True, eq=False)
+class PlanLayout:
+    """A transpose plan's real entries, in its order: coordinate ``c``'s
+    entries are ``[starts[c], starts[c+1])`` of ``rows`` (window-local
+    source rows; ``narrow``: uint16 bits in an int16 tensor, else int32)
+    and ``vals`` (f32).  ``max_slab`` is the most entries of one window."""
+
+    order: str
+    rows: torch.Tensor  # (E,) int16 (uint16 bits) or int32
+    vals: torch.Tensor  # (E,) f32
+    starts: torch.Tensor  # (n + 1,) int32
+    narrow: bool
+    max_slab: int
+
+    def local_rows(self) -> np.ndarray:
+        """The rows as int64 on the host."""
+        rows = self.rows.cpu().numpy()
+        return (rows.view(np.uint16) if self.narrow else rows).astype(np.int64)
+
+
+def build_plan_layout(spec: QSpec, device="cpu",
+                      order: str = "canonical") -> PlanLayout:
+    """The ``order`` transpose plan's compact layout, from the same
+    counting sort as the padded plan, which it neither builds nor reads;
+    the row plan it sorts is made for it and dropped.  Not cached here:
+    the one-client plan kernel's launch constants hold it."""
+    if order not in ORDERS:
+        raise ValueError(f"unknown plan order {order!r}; valid: {ORDERS}")
+    device = _device(device)
+    gidx, vals = _row_plan.__wrapped__(spec, device)
+    _, rows, src, counts = _plan_entries(spec, gidx, order)
+    starts = np.concatenate(([0], np.cumsum(counts)))
+    if starts[-1] >= 1 << 31:
+        raise ValueError(f"{starts[-1]} plan entries; the layout takes "
+                         "fewer than 2^31")
+    narrow = spec.rows_per_window <= 1 << 16
+    rows = rows.astype(np.uint16).view(np.int16) if narrow else rows.astype(
+        np.int32)
+    slabs = starts[spec.window::spec.window] - starts[:-1:spec.window]
+    return PlanLayout(
+        order=order, rows=torch.from_numpy(rows).to(device),
+        vals=vals.reshape(-1)[torch.from_numpy(src).to(device)],
+        starts=torch.from_numpy(starts.astype(np.int32)).to(device),
+        narrow=narrow, max_slab=int(slabs.max()))
 
 
 def clear_caches() -> None:

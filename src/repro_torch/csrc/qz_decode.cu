@@ -99,23 +99,13 @@ constexpr int LANE_EDGES = SLOTS * D8;       // bits of a lane's drawn mask
 constexpr int WARP_EDGES = 32 * LANE_EDGES;  // list entries of a warp pass
 constexpr int PASS = THREADS * SLOTS;        // weights of a CTA pass
 
-// floor(n / d) for every 32-bit n by a multiply and shifts; (m, s1, s2)
-// from serve_plan (Granlund and Montgomery 1994, fig. 4.1).
-struct Div {
-  uint32_t m, s1, s2;
-  __device__ __forceinline__ uint32_t operator()(uint32_t n) const {
-    const uint32_t t = __umulhi(n, m);
-    return (t + ((n - t) >> s1)) >> s2;
-  }
-};
-
 struct GroupArgs {
   uint32_t row_offset;  // first flat row of the group
   int d_in;
   int d_out;
   uint32_t bpw;       // canonical blocks per window
-  Div rpw;            // / rows_per_window
-  Div bm;             // / rows per canonical block
+  qz::Div rpw;        // / rows_per_window
+  qz::Div bm;         // / rows per canonical block
   uint32_t w0;        // first window of the group's rows
   uint32_t n_coords;  // coordinates of the group's windows
 };

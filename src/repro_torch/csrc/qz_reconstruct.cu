@@ -37,8 +37,8 @@
 // (client, coordinate) (this kernel redraws per (client, edge)).
 // Against that, the K operand rows read and the K output rows written.
 //
-// plan_bwd_kernel replaces qz_reconstruct_batched_bwd_plan and, at K = 1,
-// qz_reconstruct_bwd_plan.  It reads the global
+// plan_bwd_kernel replaces qz_reconstruct_batched_bwd_plan (K > 1; K = 1
+// has plan_bwd_one_kernel, below).  It reads the global
 // (num_windows, window, deg) transpose plan directly (no per-row-block
 // re-binning as the Pallas grid needs): one thread per (coordinate,
 // client) sums vals[c, e] * g_k[w*rpw + rows[c, e]] over e in ascending
@@ -47,8 +47,8 @@
 // 0) add zeros, which change nothing after a +0 start.
 // Bound: bytes (the plan's rows and values dominate).
 //
-// scatter_bwd_kernel replaces qz_reconstruct_batched_bwd and, at K = 1,
-// qz_reconstruct_bwd: grad_Z[k] = Q^T G[k] with Q regenerated in the
+// scatter_bwd_kernel replaces qz_reconstruct_batched_bwd (K > 1; K = 1 has
+// scatter_bwd_one_kernel, below): grad_Z[k] = Q^T G[k] with Q regenerated in the
 // body, no plan read and none held.  Window w's rows [w*rpw, (w+1)*rpw)
 // write only into its coordinates [w*window, (w+1)*window), so one CTA
 // owns one window and nothing crosses CTAs.  It takes the window's valid
@@ -76,6 +76,51 @@
 // d = 8 edges ~480 against its 4 K = 16 bytes of cotangent at K = 4),
 // bytes where most rows carry none (an embedding's: G is read whole to
 // find the live rows, which alone are regenerated).
+//
+// scatter_bwd_one_kernel replaces qz_reconstruct_bwd (K = 1; the local
+// backward under REPRO_BWD_PLAN=scatter): grad_z = Q^T g, the same sums
+// as scatter_bwd_kernel's row, sized for the windows it runs at (Fig. 6:
+// 128 rows of d = 16, 2,048 edges, 128 coordinates).  A CTA of
+// S1_THREADS owns a window and takes its valid rows a pass of chunk_rows
+// rows (at most S1_EDGES of kernels/qz_reconstruct.py's edges) at a
+// time; per pass
+//   0. a thread per row: its hash state, base, stride and the stride's
+//      inverse mod the window, and its cotangent, into shared memory;
+//   1. a thread per edge (e = i * d + j, neighbouring threads on
+//      neighbouring edges): the edge's coordinate; where the row's
+//      cotangent is not 0 (a row whose cotangent is 0 adds only zeros),
+//      the product value * g[row], rounded on its own, into shared
+//      memory at e, and the row's bit in the coordinate's row mask (an
+//      atomic OR: the mask does not depend on the order of the ORs);
+//   2. a thread per coordinate walks the set bits of its row mask in
+//      ascending row i; row i reaches coordinate c at one slot only,
+//      j = (c - base) * stride^-1 mod window, so it adds the product at
+//      i * d + j: ascending (row, j), the canonical order, by
+//      construction.  It sums from +0 on the first pass and from the
+//      partial sum it wrote on a later one (one pass holds a Fig. 6
+//      window, so each sum is written once).
+// No sort, no scan, 3 barriers a pass.  Shared memory is sized to the
+// pass: 12.9 KB a CTA at Fig. 6, so many CTAs share an SM.  Bound:
+// operations (the edge's index, two value hashes past their slot's
+// mixed counter, and a Box-Muller).
+//
+// plan_bwd_one_kernel replaces qz_reconstruct_bwd_plan (K = 1: every
+// local backward, and each rank's in the sharded round).  It reads the
+// plan's compact layout (core.transpose_plan.build_plan_layout): only
+// the m*d real entries, in the plan's order (canonical or slot), each
+// coordinate's list [starts[c], starts[c+1]), the window-local row as
+// uint16 where rows_per_window allows.  A window's entries are one
+// contiguous slab.  One CTA owns one window: it stages the window's
+// cotangents (where they fit) and a piece of the slab at a time with
+// coalesced loads into shared memory, then a thread per coordinate walks
+// its list from shared memory, from +0 (or the partial sum it wrote for
+// the previous piece), each multiply and add rounded on its own.  Its
+// sums are plan_bwd_kernel's without the padding entries.  A padding
+// entry adds 0 * g[the window's row 0], which is +-0 and changes no sum
+// begun at +0 while that cotangent is finite; where it is Inf or NaN the
+// padded walk gives NaN at every padded coordinate of the window and
+// this walk does not (as scatter_bwd_kernel does not).  Bound: bytes (6
+// bytes a real entry, the offsets, the cotangent and the output).
 //
 // sample_pack_kernel replaces qz_sample_pack_batched_fwd and, launched
 // at K = 1 with its draw word a scalar argument, qz_sample_pack_fwd (each
@@ -357,6 +402,171 @@ scatter_bwd_kernel(const float* __restrict__ G, int K, uint32_t m, uint32_t n,
   }
 }
 
+// scatter_bwd_one_kernel: threads (the launch geometry,
+// scatter_one_plan in kernels/qz_reconstruct.py, reads them from here)
+constexpr int S1_THREADS = 256;
+
+struct ScatterOneArgs {
+  qz::SpecArgs s;
+  uint32_t m;
+  uint32_t chunk_rows;    // rows a pass
+  uint32_t mask_stride;   // words a coordinate's row mask takes, odd
+  qz::Div div_d;          // / d
+};
+
+// Dynamic shared memory (uint32 words): the coordinates' row masks, per slot
+// j the mixed value counters, per row its hash state, base | stride <<
+// 16, the stride's inverse and the cotangent, per edge of a pass its
+// product.
+__host__ __device__ __forceinline__ size_t scatter_one_words(uint32_t window,
+                                                             uint32_t mask_stride,
+                                                             uint32_t chunk_rows,
+                                                             int d) {
+  return static_cast<size_t>(window) * mask_stride + 2u * static_cast<size_t>(d)
+         + 4u * static_cast<size_t>(chunk_rows)
+         + static_cast<size_t>(chunk_rows) * d;
+}
+
+// RowEdges::value with the edge's two counters already mixed:
+// hash_row_ctr(hr, ctr) = fmix32((hr ^ fmix32(ctr + K1)) * K2 + K1), and
+// fmix32(ctr + K1) depends on the slot j only.
+__device__ __forceinline__ float mixed_value(uint32_t hr, uint32_t ma,
+                                             uint32_t mb, float sigma) {
+  const uint32_t ua = qz::fmix32((hr ^ ma) * qz::K2 + qz::K1);
+  const uint32_t ub = qz::fmix32((hr ^ mb) * qz::K2 + qz::K1);
+  return __fmul_rn(qz::gaussian_from_u32(ua, ub), sigma);
+}
+
+__global__ void __launch_bounds__(S1_THREADS)
+scatter_bwd_one_kernel(const float* __restrict__ g, ScatterOneArgs a,
+                       float* __restrict__ out) {
+  extern __shared__ uint32_t smem[];
+  const uint32_t window = a.s.window, wmask = window - 1u;
+  const uint32_t d = static_cast<uint32_t>(a.s.d);
+  uint32_t* mask = smem;
+  uint32_t* sMa = mask + window * a.mask_stride;
+  uint32_t* sMb = sMa + d;
+  uint32_t* sHr = sMb + d;
+  uint32_t* sBS = sHr + a.chunk_rows;
+  uint32_t* sInv = sBS + a.chunk_rows;
+  float* sG = reinterpret_cast<float*>(sInv + a.chunk_rows);
+  float* sProd = sG + a.chunk_rows;
+
+  const uint32_t t = threadIdx.x;
+  const uint32_t r_lo = blockIdx.x * a.s.rows_per_window;
+  const uint32_t r_hi = r_lo < a.m ? min(r_lo + a.s.rows_per_window, a.m) : r_lo;
+  const uint32_t hq = qz::prefix2(a.s.seed, a.s.tensor_id);
+  for (uint32_t j = t; j < d; j += S1_THREADS) {
+    sMa[j] = qz::fmix32(qz::CTR_VAL + 2u * j + qz::K1);
+    sMb[j] = qz::fmix32(qz::CTR_VAL + 2u * j + 1u + qz::K1);
+  }
+  for (uint32_t r0 = r_lo;; r0 += a.chunk_rows) {  // a window with no row: one empty pass
+    const uint32_t nrows = r0 < r_hi ? min(a.chunk_rows, r_hi - r0) : 0u;
+    const uint32_t words = (nrows + 31u) / 32u;  // of each row mask this pass
+    // 0. the pass's rows; the masks to 0
+    for (uint32_t i = t; i < window * a.mask_stride; i += S1_THREADS) mask[i] = 0u;
+    for (uint32_t i = t; i < nrows; i += S1_THREADS) {
+      const qz::RowEdges e = qz::row_edges(hq, r0 + i, a.s.window);
+      uint32_t inv = e.stride;  // Newton: 3 -> 6 -> 12 -> 24 correct bits
+      for (int k = 0; k < 3; ++k) inv *= 2u - e.stride * inv;
+      sHr[i] = e.hr;
+      sBS[i] = e.base | (e.stride << 16);
+      sInv[i] = inv;
+      sG[i] = g[r0 + i];
+    }
+    __syncthreads();
+    // 1. the live edges: product at e, row bit in the coordinate's mask
+    for (uint32_t e = t; e < nrows * d; e += S1_THREADS) {
+      const uint32_t i = a.div_d(e), j = e - i * d;
+      const float gv = sG[i];
+      const uint32_t bs = sBS[i];
+      const uint32_t c = ((bs & 0xFFFFu) + (bs >> 16) * j) & wmask;
+      if (gv != 0.0f) {
+        sProd[e] = __fmul_rn(mixed_value(sHr[i], sMa[j], sMb[j], a.s.sigma), gv);
+        atomicOr(&mask[c * a.mask_stride + (i >> 5)], 1u << (i & 31u));
+      }
+    }
+    __syncthreads();
+    // 2. each coordinate's sum over its rows in ascending order
+    for (uint32_t c = t; c < window; c += S1_THREADS) {
+      float* o = out + blockIdx.x * window + c;
+      float acc = r0 == r_lo ? 0.0f : *o;
+      for (uint32_t k = 0; k < words; ++k) {
+        for (uint32_t bits = mask[c * a.mask_stride + k]; bits; bits &= bits - 1u) {
+          const uint32_t i = 32u * k + (__ffs(bits) - 1);
+          const uint32_t j = ((c - (sBS[i] & 0xFFFFu)) * sInv[i]) & wmask;
+          acc = __fadd_rn(acc, sProd[i * d + j]);
+        }
+      }
+      *o = acc;
+    }
+    if (r0 + a.chunk_rows >= r_hi) break;
+    __syncthreads();  // the next pass reuses the shared memory
+  }
+}
+
+// plan_bwd_one_kernel: threads per CTA (read by plan_one_plan)
+constexpr int P1_THREADS = 256;
+
+struct PlanOneArgs {
+  const void* rows;   // (E,) window-local rows, uint16 or uint32
+  const float* vals;  // (E,)
+  const int* starts;  // (n + 1,) coordinate c's entries [starts[c], starts[c+1])
+  uint32_t m;
+  uint32_t window;
+  uint32_t rows_per_window;
+  int piece;  // slab entries staged at once
+};
+
+// Dynamic shared memory: a piece's values and rows, then (STAGE_G) the
+// window's cotangents.
+__host__ __device__ __forceinline__ size_t plan_one_bytes(int piece, bool narrow,
+                                                          bool stage_g,
+                                                          uint32_t rows_per_window) {
+  return static_cast<size_t>(piece) * (sizeof(float) + (narrow ? 2u : 4u))
+         + (stage_g ? sizeof(float) * rows_per_window : 0u);
+}
+
+template <typename Row, bool STAGE_G>
+__global__ void __launch_bounds__(P1_THREADS)
+plan_bwd_one_kernel(const float* __restrict__ g, PlanOneArgs a,
+                    float* __restrict__ out) {
+  extern __shared__ uint32_t smem[];
+  float* sVal = reinterpret_cast<float*>(smem);
+  float* sG = sVal + a.piece;
+  Row* sRow = reinterpret_cast<Row*>(sG + (STAGE_G ? a.rows_per_window : 0u));
+  const Row* __restrict__ rows = static_cast<const Row*>(a.rows);
+  const int t = threadIdx.x;
+  const uint32_t c0 = blockIdx.x * a.window;
+  const int s0 = a.starts[c0], s1 = a.starts[c0 + a.window];
+  const uint32_t r0 = blockIdx.x * a.rows_per_window;
+  const float* __restrict__ gw = g + r0;
+  if (STAGE_G) {
+    const uint32_t nr = r0 < a.m ? min(a.rows_per_window, a.m - r0) : 0u;
+    for (uint32_t i = t; i < nr; i += P1_THREADS) sG[i] = gw[i];
+  }
+  for (int p0 = s0;; p0 += a.piece) {  // a window with no entry: one empty piece
+    const int np = min(a.piece, s1 - p0);
+    for (int i = t; i < np; i += P1_THREADS) {
+      sVal[i] = a.vals[p0 + i];
+      sRow[i] = rows[p0 + i];
+    }
+    __syncthreads();
+    for (uint32_t c = t; c < a.window; c += P1_THREADS) {
+      const int e1 = min(a.starts[c0 + c + 1], p0 + np);
+      float acc = p0 == s0 ? 0.0f : out[c0 + c];
+      for (int e = max(a.starts[c0 + c], p0); e < e1; ++e) {
+        const uint32_t row = sRow[e - p0];
+        const float gv = STAGE_G ? sG[row] : gw[row];
+        acc = __fadd_rn(acc, __fmul_rn(sVal[e - p0], gv));
+      }
+      out[c0 + c] = acc;
+    }
+    if (p0 + a.piece >= s1) break;
+    __syncthreads();  // the next piece reuses the shared memory
+  }
+}
+
 __global__ void __launch_bounds__(THREADS)
 sample_pack_kernel(const float* __restrict__ P,
                    const long long* __restrict__ steps, uint32_t word,
@@ -394,7 +604,40 @@ size_t rows_smem(int nh, int d) {
   return sizeof(uint32_t) * (static_cast<size_t>(nh) + 2u * ch * THREADS);
 }
 
+// Above 48 KB of dynamic shared memory a kernel must opt in, once per
+// size it grows to.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int smem, int& opted) {
+  if (smem <= 48 * 1024 || smem <= opted) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) opted = smem;
+  return err;
+}
+
 }  // namespace
+
+// A leaf's launch constants for kernel 2, made once by the wrapper
+// (kernels/qz_reconstruct.py, scatter_one_plan) and passed by pointer.
+struct ScatterOneConsts {
+  unsigned seed, tensor_id;
+  int window;
+  unsigned rows_per_window;
+  int d;
+  float sigma;
+  unsigned m, num_windows, chunk_rows, mask_stride, div_m, div_s1, div_s2;
+  int smem;
+};
+
+// A leaf's launch constants for kernel 5: its compact plan layout on the
+// card and the geometry (plan_one_plan).
+struct PlanOneConsts {
+  const void* rows;
+  const float* vals;
+  const int* starts;
+  unsigned m, window, rows_per_window, num_windows;
+  int piece, narrow, stage_g, smem;
+};
 
 extern "C" {
 
@@ -464,6 +707,62 @@ int qz_scatter_bwd(const float* G, int K, unsigned n, unsigned m,
   const qz::SpecArgs s = spec_args(seed, tensor_id, window, rows_per_window, d, sigma);
   scatter_bwd_kernel<<<num_windows, SC_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       G, K, m, n, s, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// grad_z (n,) = Q^T g by the scatter for one cotangent g (m,).
+int qz_scatter_bwd_one(const float* g, float* out, const ScatterOneConsts* c,
+                       void* stream) {
+  // the geometry is scatter_one_plan's; checked here is what the body
+  // needs: a power-of-two window whose base | stride << 16 packs into 32
+  // bits, a row mask of a pass's rows, shared memory of its layout
+  const int w = c->window;
+  if (w < 2 || w > 65536 || (w & (w - 1)) || c->d < 1 || c->chunk_rows < 1 ||
+      32 * c->mask_stride < c->chunk_rows ||
+      static_cast<size_t>(c->smem) !=
+          4 * scatter_one_words(w, c->mask_stride, c->chunk_rows, c->d)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static int opted = 0;
+  const cudaError_t err = allow_smem(scatter_bwd_one_kernel, c->smem, opted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ScatterOneArgs a;
+  a.s = spec_args(c->seed, c->tensor_id, w, c->rows_per_window, c->d, c->sigma);
+  a.m = c->m;
+  a.chunk_rows = c->chunk_rows;
+  a.mask_stride = c->mask_stride;
+  a.div_d = {c->div_m, c->div_s1, c->div_s2};
+  scatter_bwd_one_kernel<<<c->num_windows, S1_THREADS, c->smem,
+                           static_cast<cudaStream_t>(stream)>>>(g, a, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// grad_z (n,) = Q^T g over the compact plan layout for one cotangent g (m,).
+int qz_plan_bwd_one(const float* g, float* out, const PlanOneConsts* c,
+                    void* stream) {
+  if (c->piece < 1 || c->window < 1 ||
+      static_cast<size_t>(c->smem) !=
+          plan_one_bytes(c->piece, c->narrow, c->stage_g, c->rows_per_window)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PlanOneArgs a;
+  a.rows = c->rows;
+  a.vals = c->vals;
+  a.starts = c->starts;
+  a.m = c->m;
+  a.window = c->window;
+  a.rows_per_window = c->rows_per_window;
+  a.piece = c->piece;
+  static int opted[4] = {0, 0, 0, 0};
+  const int which = (c->narrow ? 2 : 0) + (c->stage_g ? 1 : 0);
+  auto kernel = c->narrow ? (c->stage_g ? plan_bwd_one_kernel<uint16_t, true>
+                                        : plan_bwd_one_kernel<uint16_t, false>)
+                          : (c->stage_g ? plan_bwd_one_kernel<uint32_t, true>
+                                        : plan_bwd_one_kernel<uint32_t, false>);
+  const cudaError_t err = allow_smem(kernel, c->smem, opted[which]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<c->num_windows, P1_THREADS, c->smem, static_cast<cudaStream_t>(stream)>>>(
+      g, a, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,10 +16,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -111,3 +112,26 @@ def raise_on(rc: int, what: str) -> None:
     """Raise if a launch returned a cudaError_t other than 0."""
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+
+
+def source_constant(source: str, name: str) -> int:
+    """The value of ``constexpr int <name> = <value>;`` in a ``csrc/``
+    source: the kernel's compile-time constants stay in one place, and
+    the launch geometry reads them from there."""
+    text = (CSRC / source).read_text()
+    found = re.findall(rf"constexpr\s+int\s+{name}\s*=\s*(\d+)\s*;", text)
+    if len(found) != 1:
+        raise RuntimeError(f"{source} defines {name} {len(found)} times")
+    return int(found[0])
+
+
+def magic_div(d: int) -> Tuple[int, int, int]:
+    """(m, s1, s2) such that, with t = (n * m) >> 32, floor(n / d) ==
+    (t + ((n - t) >> s1)) >> s2 for every 32-bit n (Granlund and
+    Montgomery 1994, fig. 4.1); ``qz::Div`` of ``csrc/qz_common.cuh``
+    takes them."""
+    if not 1 <= d < 1 << 32:
+        raise ValueError(f"divisor {d} outside [1, 2^32)")
+    ell = (d - 1).bit_length()  # ceil(log2 d)
+    m = ((1 << 32) * ((1 << ell) - d)) // d + 1
+    return m, min(ell, 1), max(ell - 1, 0)

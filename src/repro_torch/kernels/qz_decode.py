@@ -28,7 +28,7 @@ import torch
 
 from ..core.qspec import QSpec, sigma_f32
 from ..core.sampling import as_word
-from .nvcc import KernelLibrary, raise_on
+from .nvcc import KernelLibrary, magic_div, raise_on
 from .ops import SERVE_BM, serve_contract_plain
 
 MAX_BATCH = 128  # the walk keeps a sum per (batch row, column) in shared memory
@@ -59,17 +59,6 @@ _DTYPE = {None: torch.float32, 8: torch.uint8, 16: torch.uint16}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def magic_div(d: int) -> Tuple[int, int, int]:
-    """(m, s1, s2) such that, with t = (n * m) >> 32, floor(n / d) ==
-    (t + ((n - t) >> s1)) >> s2 for every 32-bit n (Granlund and
-    Montgomery 1994, fig. 4.1)."""
-    if not 1 <= d < 1 << 32:
-        raise ValueError(f"divisor {d} outside [1, 2^32)")
-    ell = (d - 1).bit_length()  # ceil(log2 d)
-    m = ((1 << 32) * ((1 << ell) - d)) // d + 1
-    return m, min(ell, 1), max(ell - 1, 0)
 
 
 class ServePlan(NamedTuple):

@@ -27,7 +27,12 @@ plain versions and the plan kernels on the canonical plan bitwise at d
 in {1, 8, 16, 256}, with rows per window that do not divide the rows
 and a ragged last window, give the same bits on a second launch, and an
 LM round under ``REPRO_BWD_PLAN=scatter`` through them must equal the
-plain path's.
+plain path's.  The one-client backward kernels (2 and 5) at the leaves
+they run at, Fig. 6's at d in {1, 16, 256} and Fig. 4's at d=10, on
+cotangents with zero rows, a window of zeros and -0 entries, must equal
+their plain versions, the K-client kernels' rows (4 and 6) and each
+other on the canonical plan bitwise, kernel 5 the slot plan's plain
+version too, and give the same bits on a second launch.
 """
 
 import numpy as np
@@ -36,6 +41,7 @@ import torch
 
 from repro_torch.comm.downlink import get_codec
 from repro_torch.configs import get_arch
+from repro_torch.configs.mnistfc import MNISTFC
 from repro_torch.core.qspec import make_qspec, row_indices
 from repro_torch.core.zampling import ZamplingConfig, build_specs, init_state
 from repro_torch.core.federated import FederatedConfig, encode_state
@@ -440,6 +446,59 @@ def test_scatter_kernels_equal_plain_and_plan(cuda_train, i, K):
     assert torch.equal(qz_reconstruct.qz_reconstruct_bwd_plan(spec, G[0],
                                                               "slot"),
                        ops.plan_bwd_one_plain(spec, G[0], "slot"))
+
+
+def _local_bwd_specs():
+    """The leaves kernels 2 and 5 run at: Fig. 6's at d in {1, 16, 256}
+    (the spec caps 256 at window/2 = 64) and Fig. 4's at d=10; and two
+    with more rows a window than kernel 5 stages cotangents for (16384
+    rows) or than uint16 holds (131072 rows: 32-bit plan rows), which
+    both kernels take in many passes."""
+    out = []
+    for d in (1, 16, 256):
+        zs = build_specs(mlp_template(MNISTFC), ZamplingConfig(
+            compression=1.0, d=d, window=128, min_size=128, seed=0))
+        out += [(f"Fig. 6 {p} d={d}", s) for p, s in zs.specs.items()]
+    zs = build_specs(mlp_template(MNISTFC), ZamplingConfig(
+        compression=8, d=10, window=128, min_size=128, seed=1))
+    out += [(f"Fig. 4 {p}", s) for p, s in zs.specs.items()]
+    return out + [(f"{shape} at compression {c}", make_qspec(
+        8, shape, shape[0], compression=c, d=8, window=512, seed=4))
+        for shape, c in (((128, 256), 32), ((256, 512), 256))]
+
+
+LOCAL_BWD_SPECS = _local_bwd_specs()
+
+
+@pytest.mark.parametrize("i", range(len(LOCAL_BWD_SPECS)))
+def test_one_client_backward_kernels_equal_plain_and_batched(cuda_train, i):
+    _, spec = LOCAL_BWD_SPECS[i]
+    g = np.random.RandomState(100 + i).randn(spec.m).astype(np.float32)
+    g[::3] = 0.0  # rows whose cotangent is 0
+    g[1::5] = -0.0
+    g[:spec.rows_per_window] = 0.0  # a whole window of zeros
+    g = torch.from_numpy(g).to(cuda_train)
+    G = g[None].contiguous()
+    k2 = _counted("qz_reconstruct_bwd",
+                  lambda: qz_reconstruct.qz_reconstruct_bwd(spec, g))
+    k5 = _counted("qz_reconstruct_bwd_plan",
+                  lambda: qz_reconstruct.qz_reconstruct_bwd_plan(spec, g))
+    assert torch.equal(k2, ops.scatter_bwd_one_plain(spec, g))
+    assert torch.equal(k5, ops.plan_bwd_one_plain(spec, g))
+    assert torch.equal(k2, k5)
+    assert torch.equal(k2, qz_reconstruct.qz_reconstruct_batched_bwd(
+        spec, G)[0])
+    assert torch.equal(k5, qz_reconstruct.qz_reconstruct_batched_bwd_plan(
+        spec, G)[0])
+    slot = _counted("qz_reconstruct_bwd_plan",
+                    lambda: qz_reconstruct.qz_reconstruct_bwd_plan(
+                        spec, g, "slot"))
+    assert torch.equal(slot, ops.plan_bwd_one_plain(spec, g, "slot"))
+    assert torch.equal(slot, qz_reconstruct.qz_reconstruct_batched_bwd_plan(
+        spec, G, "slot")[0])
+    # a second launch, the same bits
+    assert torch.equal(qz_reconstruct.qz_reconstruct_bwd(spec, g), k2)
+    assert torch.equal(qz_reconstruct.qz_reconstruct_bwd_plan(spec, g), k5)
 
 
 def test_lm_round_under_scatter_equals_plain(cuda_train, monkeypatch):
