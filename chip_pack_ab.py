@@ -21,12 +21,16 @@ Backward mode (``--bwd``): the one-client backward kernels, kernel 2
 at compression 1, d=16, window 128: chip_smoke's phase 12) and kernel 5
 (``qz_reconstruct_bwd_plan``, the canonical plan) at Fig. 6's leaves
 and at Fig. 4's (chip_smoke's federated specs, d=10: each rank's
-backward in the sharded round); and the K-client kernels 4
+backward in the sharded round); the K-client kernels 4
 (``qz_reconstruct_batched_bwd``) and 6
-(``qz_reconstruct_batched_bwd_plan``) at Fig. 4's leaves, K=10.  The
-same seeded cotangents for every tree; every tree's outputs must equal
-the first tree's, bit for bit.  A step's time sums a kernel's leaves
-(one launch each a local step, or a K=10 round's step).
+(``qz_reconstruct_batched_bwd_plan``) at Fig. 4's leaves, K=10; and
+kernel 4 at the 12 zampled leaves of full-width qwen2-0.5b (launch/
+train.py's specs: compression 8, d=8), K=4, on seeded normal cotangents
+except at ``embed``, whose rows are 0 but for LM_TOKENS seeded tokens'
+d_model rows, as a batch's embedding gradient is.  The same cotangents
+for every tree; every tree's outputs must equal the first tree's, bit
+for bit.  A step's time sums a kernel's leaves (one launch each a local
+step, or a K=10 round's step, or a K=4 LM step).
 
 Step mode (``--step``): the local step the backward kernels serve,
 ``train_local_zampling`` of Fig. 6 ``zampling_d16`` (chip_smoke's phase
@@ -40,9 +44,15 @@ Each tree is timed in the order given, all in one process: a tree named
 twice (A B B A) is timed twice, so drift shows.  Each tree's kernels are
 built from that tree's sources into its own ``build/``.  The timers are
 chip_smoke's: CUDA-event ms per launch over back-to-back launches (50
-for pack and backward, 10 for serve, 3 at lm_head; host launch cost
-included) and device ms per launch by torch.profiler over 10 (3 at
-lm_head).
+for pack and backward, 10 for serve and the LM's backward, 3 at
+lm_head's serve; host launch cost included) and device ms per launch by
+torch.profiler over 10 (3 at lm_head's serve).
+
+A tree may be given as ``TREE@NAME=VALUE,NAME=VALUE``: a copy of TREE's
+``src/`` under ``build/variants/`` with each named integer constant of
+the port's kernels set to VALUE, where it is defined (``constexpr int
+NAME = ...;`` in ``csrc/`` or ``NAME = ...`` at the top of a module of
+``kernels/``), so one call compares tuning constants of one revision.
 
 Usage, from the repo root on a machine with a CUDA GPU (``before/`` a
 copy of another revision, e.g. unpacked with ``git archive``):
@@ -50,6 +60,7 @@ copy of another revision, e.g. unpacked with ``git archive``):
     python3 chip_pack_ab.py --serve before . . before
     python3 chip_pack_ab.py --bwd before . . before
     python3 chip_pack_ab.py --step before . . before before . . before
+    python3 chip_pack_ab.py --bwd . .@EDGE_ILP=1 .@EDGE_ILP=1 .
 It prints, per tree and kernel, the times, their sum for one round (or
 engine step), and last one JSON line with every number and the card's
 name and power limit.
@@ -59,6 +70,8 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -76,6 +89,38 @@ BWD_TAGS = {"qz_reconstruct_bwd": "scatter_bwd",
             "qz_reconstruct_batched_bwd": "scatter_bwd",
             "qz_reconstruct_batched_bwd_plan": "plan_bwd"}
 STEP_N = 200  # local steps a tree takes on each backward path
+LM_TOKENS = 512  # embed's live tokens: chip_smoke's LM batch 4 x seq 128
+
+
+def variant_tree(arg: str) -> Path:
+    """The tree an argument names: ``TREE``, or ``TREE@NAME=VALUE,...``
+    copied with those constants set (see the module's docstring)."""
+    tree, _, sets = arg.partition("@")
+    if not sets:
+        return Path(tree)
+    root = Path(__file__).resolve().parent / "build" / "variants" / re.sub(
+        r"[^A-Za-z0-9_=.-]+", "_", arg)
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(Path(tree) / "src", root / "src",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    port = root / "src" / "repro_torch"
+    for item in sets.split(","):
+        name, value = item.split("=")
+        found = 0
+        for path in [*(port / "csrc").glob("*.cu"),
+                     *(port / "kernels").glob("*.py")]:
+            text = path.read_text()
+            text, n = re.subn(
+                rf"(^constexpr\s+int\s+{name}\s*=\s*)\d+;"
+                rf"|(^{name}\s*=\s*)\d+$",
+                lambda m: f"{m.group(1) or m.group(2)}{int(value)}"
+                + (";" if m.group(1) else ""), text, flags=re.M)
+            if n:
+                path.write_text(text)
+                found += n
+        if found != 1:
+            cs.die(f"{arg}: {name} is defined {found} times in {tree}")
+    return root
 
 
 def load_tree(tree: Path, mode: str) -> dict:
@@ -123,7 +168,10 @@ def load_tree(tree: Path, mode: str) -> dict:
                 seed=0)).specs
             fig4 = build_specs(mlp_template(MNISTFC),
                                ZamplingConfig(**cs.FED_ZAMPLING)).specs
-            return {"qr": qr, "fig6": fig6, "fig4": fig4}
+            lm = build_specs(param_template(get_arch("qwen2-0.5b")),
+                             ZamplingConfig(compression=8, d=8,
+                                            min_size=4096)).specs
+            return {"qr": qr, "fig6": fig6, "fig4": fig4, "lm": lm}
         if mode == "serve":
             qd.LIBRARY.start()
             specs = build_specs(param_template(get_arch("qwen2-0.5b")),
@@ -195,9 +243,10 @@ def time_serve(t: dict, words, X, dev) -> dict:
     return out
 
 
-def time_bwd(t: dict, g6, g4, G4) -> dict:
+def time_bwd(t: dict, g6, g4, G4, GL) -> dict:
     """{kernel: {"leaves": {name: (ms, device ms)}, "out": {name: grad}}}
-    for kernels 2 and 5 (one client) and 4 and 6 (K=10)."""
+    for kernels 2 and 5 (one client), 4 and 6 (K=10) and 4 (K=4, the
+    LM's leaves)."""
     qr = t["qr"]
     calls = {
         "qz_reconstruct_bwd": [
@@ -213,7 +262,10 @@ def time_bwd(t: dict, g6, g4, G4) -> dict:
         "qz_reconstruct_batched_bwd": [
             (f"Fig. 4 {p}",
              lambda s=s, p=p: qr.qz_reconstruct_batched_bwd(s, G4[p]))
-            for p, s in t["fig4"].items()],
+            for p, s in t["fig4"].items()] + [
+            (f"LM {p}",
+             lambda s=s, p=p: qr.qz_reconstruct_batched_bwd(s, GL[p]))
+            for p, s in t["lm"].items()],
         "qz_reconstruct_batched_bwd_plan": [
             (f"Fig. 4 {p}",
              lambda s=s, p=p: qr.qz_reconstruct_batched_bwd_plan(s, G4[p]))
@@ -223,7 +275,7 @@ def time_bwd(t: dict, g6, g4, G4) -> dict:
         times, grads = {}, {}
         for leaf, call in leaves:
             grads[leaf] = call()
-            ms = cs.event_ms(call, 50)
+            ms = cs.event_ms(call, 10 if leaf.startswith("LM") else 50)
             tag = BWD_TAGS[name]
             by_tag, _ = cs.profile_device_us(
                 lambda: [call() for _ in range(10)], (tag,))
@@ -246,9 +298,19 @@ def bwd_main(trees, loaded, card, dev) -> None:
     g6 = {p: cot((s.m,)) for p, s in t0["fig6"].items()}
     g4 = {p: cot((s.m,)) for p, s in t0["fig4"].items()}
     G4 = {p: cot((cs.FED_K, s.m)) for p, s in t0["fig4"].items()}
+    # the LM's cotangents, 10 GB in all, drawn on the card from a seed
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    GL = {p: torch.randn((cs.LM_K, s.m), generator=gen, device=dev)
+          for p, s in t0["lm"].items()}
+    emb = t0["lm"]["embed"]
+    live = torch.zeros(emb.shape[0], dtype=torch.bool, device=dev)
+    live[torch.randperm(emb.shape[0], generator=gen, device=dev)[
+        :LM_TOKENS]] = True  # the tokens' rows, in moved flat order
+    GL["embed"] *= live[:, None].expand(emb.shape).movedim(
+        emb.major_axis, 0).reshape(-1)
     runs, first = [], None
     for tree in trees:
-        got = time_bwd(loaded[tree.resolve()], g6, g4, G4)
+        got = time_bwd(loaded[tree.resolve()], g6, g4, G4, GL)
         first = first or got
         for name, r in got.items():
             for leaf, v in r["out"].items():
@@ -257,7 +319,7 @@ def bwd_main(trees, loaded, card, dev) -> None:
                            f"{leaf}")
             steps = {}
             for leaf, (ms, dms) in r["leaves"].items():
-                fig = leaf.split(" ")[1]
+                fig = leaf.rsplit(" ", 1)[0]  # "Fig. 6", "Fig. 4", "LM"
                 acc = steps.setdefault(fig, [0.0, 0.0])
                 acc[0] += ms
                 acc[1] = None if dms is None or acc[1] is None else acc[1] + dms
@@ -266,12 +328,12 @@ def bwd_main(trees, loaded, card, dev) -> None:
                 + ("not measured" if v[1] is None else f"{v[1]:.4f} ms")
                 + ")" for leaf, v in r["leaves"].items())
                 + "".join(
-                    f"; a Fig. {f} step {v[0]:.4f} ms (device "
+                    f"; a {f} step {v[0]:.4f} ms (device "
                     + ("not measured" if v[1] is None else f"{v[1]:.4f} ms")
                     + ")" for f, v in steps.items())
                 + f" ({card})")
             runs.append({"tree": str(tree), "kernel": name,
-                         "steps": {f"Fig. {f}": {"ms": v[0], "device_ms": v[1]}
+                         "steps": {f: {"ms": v[0], "device_ms": v[1]}
                                    for f, v in steps.items()},
                          "leaves": {leaf: {"ms": v[0], "device_ms": v[1]}
                                     for leaf, v in r["leaves"].items()}})
@@ -409,7 +471,7 @@ def main() -> None:
     args = args[1:] if mode != "pack" else args
     if not torch.cuda.is_available() or len(args) < 2:
         cs.die("needs a CUDA device and two or more source trees")
-    trees = [Path(a) for a in args]
+    trees = [variant_tree(a) for a in args]
     loaded = {}
     for tree in trees:
         if tree.resolve() not in loaded:

@@ -53,19 +53,24 @@ Phases, one printed line or more each:
 6. federated-round kernels against their plain versions on the card,
    bitwise, at the three zampled MNISTFC leaves (sample-reconstruct at
    K=10 f32 and K=1 u8/f32, plan backward at K=10, sample-pack at
-   K=10), and the transpose plan's values built on the card against the
-   kernels' own regenerated Q values;
-7. federated training: 5 rounds through the kernels, round 0 rerun on
+   K=10), and the row plan and the plan walk's compact layout built on
+   the card against the kernels' own regenerated Q (the layout against
+   Q^T's canonical CSR, bitwise);
+7. federated training: 5 rounds through the kernels (after them no
+   padded transpose plan is cached, and the bytes of plan state on the
+   card are printed), round 0 rerun on
    the plain path (bitwise the same words, dense leaves and loss),
    launch counts (3 E per round for the forward and backward kernels, 3
    for the upload, 3 per sampled network in evaluation), falling loss,
    rising sampled accuracy, metered wire bytes, round and step times;
 8. federated-round kernel times, bounds, plain times and
-   torch.sparse.mm yardsticks;
+   torch.sparse.mm yardsticks, and kernel 6's K-client geometry and host
+   cost a launch;
 9. the reconstruct forward (K=1 and K=10), the K=1 plan backward and the
    sample-reconstruct forward (K=1 and K=10) against their plain
    versions, bitwise, at Fig. 6's three leaves for d in {1, 16, 256},
-   the card-built plans against the kernels' Q, and the K=10 reconstruct
+   the card-built row plans and layouts against the kernels' Q, and the
+   K=10 reconstruct
    forward at the composed round's own Fig. 4 leaves against its plain
    version and against the sample-reconstruct kernel;
 10. local training: step 0 through the kernels against the plain path
@@ -92,7 +97,8 @@ Phases, one printed line or more each:
    K-client plan backward on the canonical plan, bitwise, at Fig. 4's
    leaves (K=10) and full-width qwen2-0.5b's blocks/ln1, blocks/attn/wk
    and blocks/attn/wq (K=4), a second launch the same bits, and the slot
-   plan on the plan backward against its plain version;
+   plan on the plan backward against its plain version; both kernels'
+   K-client geometry;
 14. LM training at launch/train.py's defaults (scale 0.25, f32): round 0
    through the kernels against the plain path on the card, under
    torch.use_deterministic_algorithms (score means, dense leaves and
@@ -109,7 +115,10 @@ Phases, one printed line or more each:
    plain version (bitwise, and a second launch the same bits) and the
    K-client sample-reconstruct forward against its plain version
    (bitwise); the scatter backward's times, device times, bounds, plain
-   times and torch.sparse.mm yardsticks;
+   times, torch.sparse.mm yardsticks, geometry and host cost a launch;
+   the sample-reconstruct forward's times, device times, bounds (this
+   step's draws), plain times and torch.sparse.mm yardsticks on the same
+   operands, beside its Fig. 4 round in the kernels line;
 17. the sharded round: bmm against per-client mm at the three MNISTFC
    layer shapes (counted, not gated); sharded_client_fit for 5 rounds on
    10 ranks at phase 7's settings and inputs, a rank's client k trained
@@ -171,10 +180,9 @@ OPS_PER_WEIGHT = 12 + 21 + 23 + 2  # row hash, base, stride, window base
 OPS_PER_EDGE = 3 + 1 + 20 + 4  # index, coord, mask hash, threshold compare
 OPS_PER_DRAWN = 40 + 8 + 6 + 1  # 2 value hashes, 2 uniforms, Box-Muller, add
 # the training kernels' least work (see csrc/qz_reconstruct.cu): one
-# draw per (client, coordinate), however many edges read it; the
-# padded transpose plan's m*d real entries (4-byte row, 4-byte value;
-# the one-client kernel's compact layout narrows the row, and adds its
-# offsets); the upload's 4-byte wire lanes
+# draw per (client, coordinate), however many edges read it; the plan's
+# compact layout read once (its m*d real entries, a 4-byte value and a
+# 2- or 4-byte row each, and its offsets); the upload's 4-byte wire lanes
 OPS_ROW_EDGE = 4  # an edge's in-window index and coordinate
 OPS_VALUE = 54  # an edge's value: 2 value hashes, 2 uniforms, Box-Muller
 # of a value hash, the mix fmix32(ctr + K1) of its counter: the same for
@@ -308,6 +316,54 @@ def q_csr(spec, dev, transpose: bool):
                                    check_invariants=False)
 
 
+def drawn_counts(spec, Z):
+    """(drawn, any_drawn) of masks Z (K, n) over Q's m*d edges: the
+    (client, edge) pairs whose bit is 1 and the edges some client's bit is
+    1 at, a chunk of rows at a time (``qz_edges`` gives each edge's
+    coordinate)."""
+    import torch
+
+    from repro_torch.kernels import qz_decode
+
+    p0 = torch.zeros(spec.n, device=Z.device)
+    drawn = any_drawn = 0
+    step = max(1, (1 << 22) // spec.d)
+    for r0 in range(0, spec.m, step):
+        rows = torch.arange(r0, min(spec.m, r0 + step), device=Z.device)
+        idx, _, _, _ = qz_decode.qz_edges(spec, p0, 0, rows)
+        coord = ((rows // spec.rows_per_window)[:, None] * spec.window
+                 + idx.to(torch.int64))
+        bits = Z[:, coord] > 0  # (K, rows, d)
+        drawn += int(bits.sum())
+        any_drawn += int(bits.any(0).sum())
+    return float(drawn), float(any_drawn)
+
+
+def layout_is_qt(spec, dev):
+    """(largest in-degree, entries, equal) of the plan walk's compact
+    layout, built on the card, against ``q_csr``'s Q^T of the kernels'
+    own Q: the same offsets, rows and values, bitwise, in canonical
+    order."""
+    import torch
+
+    from repro_torch.kernels import qz_reconstruct as qr
+
+    lay = qr.plan_layout(spec, dev)
+    QT = q_csr(spec, dev, True)
+    starts = lay.starts.to(torch.int64)
+    counts = starts[1:] - starts[:-1]
+    coord = torch.repeat_interleave(
+        torch.arange(spec.n, device=dev), counts)
+    local = lay.rows.to(torch.int64)
+    if lay.narrow:  # uint16 bits in an int16 tensor
+        local &= 0xFFFF
+    rows = (coord // spec.window) * spec.rows_per_window + local
+    ok = (torch.equal(starts, QT.crow_indices().to(torch.int64))
+          and torch.equal(lay.vals, QT.values())
+          and torch.equal(rows, QT.col_indices().to(torch.int64)))
+    return int(counts.max()), int(starts[-1]), ok
+
+
 def profile_device_us(fn, tags, top: int = 0):
     """Run ``fn`` under torch.profiler: ({tag: (device us, launches)} of
     the CUDA kernels whose name holds the tag, all kernels' device us),
@@ -430,8 +486,15 @@ def host_us(fn, reps: int = 50) -> float:
     return 1e6 * dt / reps
 
 
+def geometry_text(geo) -> str:
+    """A backward kernel's launch geometry (``qr.ScatterGeometry`` or
+    ``qr.PlanGeometry``), for a ``launch:`` line."""
+    return ", ".join(f"{k} {v}" for k, v in geo._asdict().items()
+                     if k != "div_d")
+
+
 def launch_report(card, kt, name, path, fn, geo) -> None:
-    """Kernels 2 and 5 at one leaf, after ``kt.add``: device and event
+    """A backward kernel at one leaf, after ``kt.add``: device and event
     time, the launch geometry, and the host's cost of a launch (the one
     measured, kept in the leaf's entry of the kernels line)."""
     sh = kt.acc[name]["shapes"][path]
@@ -440,9 +503,8 @@ def launch_report(card, kt, name, path, fn, geo) -> None:
     say(f"launch: {name} {path}: device "
         + ("not measured" if dms is None else f"{1e3 * dms:.2f} us")
         + f", events {1e3 * sh['ms']:.2f} us, host {sh['host_us']:.2f} us "
-        f"a launch (wall clock of 50 enqueues); {geo.ctas} CTAs of "
-        f"{geo.threads} threads, {geo.smem} B of shared memory a CTA, "
-        f"{geo.passes} pass(es) a window ({card})")
+        f"a launch (wall clock of 50 enqueues); {geometry_text(geo)} "
+        f"({card})")
 
 
 def check_bitwise(max_err, name, got, want, what):
@@ -492,7 +554,8 @@ def training_phases(card: str, dev) -> list:
     from repro_torch.core.sampling import (as_words, clip_probs,
                                            sample_mask_hash,
                                            sample_mask_qhash)
-    from repro_torch.core.transpose_plan import build_transpose_plan, row_plan
+    from repro_torch.core import transpose_plan as ttp
+    from repro_torch.core.transpose_plan import row_plan
     from repro_torch.core.zampling import ZamplingConfig, build_specs
     from repro_torch.kernels import ops, qz_decode
     from repro_torch.kernels import qz_reconstruct as qr
@@ -558,20 +621,21 @@ def training_phases(card: str, dev) -> list:
         check("qz_sample_pack_batched_fwd",
               qr.qz_sample_pack_batched_fwd(spec, P, steps),
               ops.sample_pack_plain(spec, P, steps), f"{path} K={FED_K}")
-        # the plan's values are a gather of row_plan's, built on the card;
-        # the kernels regenerate Q from the same device functions as
-        # qz_edges
+        # the row plan and the plan walk's layout, built on the card: the
+        # layout's values are a gather of the row plan's; the kernels
+        # regenerate Q from the same device functions as qz_edges
         gidx, vals = row_plan(spec, dev)
         rows = torch.arange(spec.m, device=dev)
         idx, _, kvals, _ = qz_decode.qz_edges(spec, P[0], 0, rows)
         win = (rows // spec.rows_per_window)[:, None] * spec.window
-        plan = build_transpose_plan(spec, dev)
         ok_idx = torch.equal(gidx[:spec.m], win + idx.to(torch.int64))
         ok_val = torch.equal(vals[:spec.m], kvals)
-        say(f"train-plan: {path}: deg {plan.deg}, {plan.n_edges} edges; "
-            f"row plan indices equal the kernels' = {ok_idx}, values "
-            f"bitwise = {ok_val}")
-        if not (ok_idx and ok_val):
+        deg, entries, ok_lay = layout_is_qt(spec, dev)
+        say(f"train-plan: {path}: largest in-degree {deg}, {entries} "
+            f"entries; row plan indices equal the kernels' = {ok_idx}, "
+            f"values bitwise = {ok_val}; the layout is Q^T's canonical CSR "
+            f"of the kernels' Q = {ok_lay}")
+        if not (ok_idx and ok_val and ok_lay):
             die(f"the card-built plan differs from the kernels' Q ({path})")
     say(f"phase 6 done in {time.perf_counter() - t0:.1f} s; every "
         "comparison bitwise")
@@ -594,6 +658,9 @@ def training_phases(card: str, dev) -> list:
         f"sampled accuracy before: {acc0:.4f} +- {std0:.4f} "
         f"({EVAL_NETS} networks)")
 
+    # the plain versions' padded plans and row plans of phase 6 go: the
+    # kernels' path must build none
+    ttp.clear_caches()
     qz_decode.reset_launches()
     qr.reset_launches()
     state, round_s, losses = state0, [], []
@@ -644,6 +711,14 @@ def training_phases(card: str, dev) -> list:
     if (eval_launches["qz_sample_reconstruct_fwd"] != 3 * EVAL_NETS
             or sum(eval_launches.values()) != 3 * EVAL_NETS):
         die("evaluation must launch the K=1 kernel 3 times per network")
+    padded = ttp._build_transpose_plan.cache_info().currsize
+    say(f"train-plan: after {FED_ROUNDS} rounds and an evaluation through "
+        f"the kernels: {padded} padded transpose plans cached (none on the "
+        f"card), {ttp._row_plan.cache_info().currsize} row plans; plan "
+        f"state on the card {qr.plan_state_bytes()} B, the plan walk's "
+        f"compact layouts of {list(specs)}")
+    if padded:
+        die("a padded transpose plan was built on the kernels' path")
     med = float(np.median(round_s[1:]))
     say(f"train: losses {losses}; round times {[round(t, 4) for t in round_s]}"
         f" s; median round (rounds 1-{FED_ROUNDS - 1}) {med:.4f} s, "
@@ -714,11 +789,17 @@ def training_phases(card: str, dev) -> list:
             n + 4 * m + 4)
         G = torch.from_numpy(rng.randn(FED_K, m).astype(np.float32)).to(dev)
         Gt = G.t().contiguous()
+        geo = qr.plan_bwd_geometry(spec, dev, K=FED_K)
+        # the compact layout read once (a value and a row of
+        # geo.row_bytes an entry, and the offsets), K cotangents, K outputs
         add("qz_reconstruct_batched_bwd_plan", path,
             lambda: qr.qz_reconstruct_batched_bwd_plan(spec, G),
             event_ms(lambda: ops.plan_bwd_plain(spec, G), 3),
             event_ms(lambda: torch.sparse.mm(QT, Gt), 50),
-            2.0 * FED_K * m * d, 8 * m * d + 4 * FED_K * (m + n))
+            OPS_PLAN * FED_K * m * d,
+            (4 + geo.row_bytes) * m * d + 4 * (n + 1) + 4 * FED_K * (m + n))
+        launch_report(card, kt, "qz_reconstruct_batched_bwd_plan", path,
+                      lambda: qr.qz_reconstruct_batched_bwd_plan(spec, G), geo)
         add("qz_sample_pack_batched_fwd", path,
             lambda: qr.qz_sample_pack_batched_fwd(spec, P, steps),
             event_ms(lambda: ops.sample_pack_plain(spec, P, steps), 3),
@@ -810,7 +891,7 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
     from repro_torch.configs.mnistfc import MNISTFC
     from repro_torch.core.federated import federated_round
     from repro_torch.core.sampling import as_words, clip_probs, sample_mask_hash
-    from repro_torch.core.transpose_plan import build_transpose_plan, row_plan
+    from repro_torch.core.transpose_plan import row_plan
     from repro_torch.core.zampling import (ZamplingConfig, build_specs,
                                            init_state, sample_weights)
     from repro_torch.data import make_teacher_dataset
@@ -876,9 +957,11 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
             ok = (torch.equal(vals[:spec.m], kvals) and torch.equal(
                 gidx[:spec.m], (r // spec.rows_per_window)[:, None]
                 * spec.window + idx.to(torch.int64)))
-            say(f"local-plan: {what}: deg {build_transpose_plan(spec, dev).deg}"
-                f"; row plan equals the kernels' Q = {ok}")
-            if not ok:
+            deg, entries, ok_lay = layout_is_qt(spec, dev)
+            say(f"local-plan: {what}: largest in-degree {deg}, {entries} "
+                f"entries; row plan equals the kernels' Q = {ok}; the "
+                f"layout is Q^T's canonical CSR of it = {ok_lay}")
+            if not (ok and ok_lay):
                 die(f"the card-built plan differs from the kernels' Q ({what})")
             del P, W, Z, gidx, vals, idx, kvals
         torch.cuda.empty_cache()
@@ -1087,7 +1170,7 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
     kt = KernelTimes(card, {
         "qz_reconstruct_fwd": "mask_reconstruct_kernel",
         "qz_reconstruct_batched_fwd": "mask_reconstruct_kernel",
-        "qz_reconstruct_bwd_plan": "plan_bwd_one_kernel"})
+        "qz_reconstruct_bwd_plan": "plan_bwd_kernel"})
 
     def add(name, path, kernel, plain, library, ops_n, bytes_n):
         kt.add(name, path, kernel, event_ms(plain, 3), event_ms(library, 50),
@@ -1117,7 +1200,7 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
         QT = q_csr(spec, dev, True)
         gt = g[:, None].contiguous()
         md = spec.m * spec.d
-        geo = qr.plan_one_geometry(spec, dev)
+        geo = qr.plan_bwd_geometry(spec, dev)
         # the compact layout's entries (a value and a row of
         # geo.row_bytes each) and offsets, g and the output
         add("qz_reconstruct_bwd_plan", path,
@@ -1172,9 +1255,9 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
 
     for mode, m_ms, kernel_tags in (
             ("sample", med, ("sample_reconstruct_kernel",
-                             "plan_bwd_one_kernel")),
+                             "plan_bwd_kernel")),
             ("continuous", c_med, ("mask_reconstruct_kernel",
-                                   "plan_bwd_one_kernel"))):
+                                   "plan_bwd_kernel"))):
         by_tag, dev_us = profile_device_us(lambda: steps10(mode),
                                            kernel_tags)
         if dev_us <= 0:
@@ -1257,7 +1340,7 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
         f"{1e3 * sc_med:.4f} ms (plan: {1e3 * med:.4f} ms) on {card}")
     if not same_losses:
         die("local training under scatter differs from the plan's")
-    kt2 = KernelTimes(card, {"qz_reconstruct_bwd": "scatter_bwd_one_kernel"})
+    kt2 = KernelTimes(card, {"qz_reconstruct_bwd": "scatter_bwd_kernel"})
     for path, spec in specs.items():
         g = torch.from_numpy(rng.randn(spec.m).astype(np.float32)).to(dev)
         QT = q_csr(spec, dev, True)
@@ -1269,7 +1352,7 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
                 *scatter_work(spec, g[None]))
         launch_report(card, kt2, "qz_reconstruct_bwd", path,
                       lambda: qr.qz_reconstruct_bwd(spec, g),
-                      qr.scatter_one_geometry(spec))
+                      qr.scatter_bwd_geometry(spec))
     say("launch: qz_reconstruct_bwd host cost a launch, as the events of "
         f"{path}: "
         f"{1e3 * kt2.acc['qz_reconstruct_bwd']['shapes'][path]['ms']:.2f} us "
@@ -1298,7 +1381,9 @@ def lm_phases(card: str, dev, fed: dict, kernel_rows: list) -> list:
 
     from repro_torch.configs import get_arch
     from repro_torch.core import federated as tfed
-    from repro_torch.core.sampling import fold_word
+    from repro_torch.core.sampling import (as_words, fold_word,
+                                           sample_mask_hash,
+                                           sample_mask_qhash)
     from repro_torch.core.transpose_plan import clear_caches
     from repro_torch.core.zampling import ZamplingConfig, build_specs
     from repro_torch.kernels import ops, qz_decode
@@ -1338,8 +1423,13 @@ def lm_phases(card: str, dev, fed: dict, kernel_rows: list) -> list:
         check("qz_reconstruct_batched_bwd_plan",
               qr.qz_reconstruct_batched_bwd_plan(spec, G, "slot"),
               ops.plan_bwd_plain(spec, G, "slot"), f"{what} slot plan")
+        say(f"launch: qz_reconstruct_batched_bwd {what}: "
+            f"{geometry_text(qr.scatter_bwd_geometry(spec, K))}")
+        say(f"launch: qz_reconstruct_batched_bwd_plan {what}: "
+            f"{geometry_text(qr.plan_bwd_geometry(spec, dev, K=K))}")
         del G, out
-        clear_caches()
+        clear_caches()  # the plain versions' plans
+        qr.clear_caches()  # the kernel's layouts
         torch.cuda.empty_cache()
     say(f"phase 13 done in {time.perf_counter() - t0:.1f} s; every "
         "comparison bitwise")
@@ -1534,6 +1624,8 @@ def lm_phases(card: str, dev, fed: dict, kernel_rows: list) -> list:
                 "every zampled leaf")
         kt = KernelTimes(card, {"qz_reconstruct_batched_bwd":
                                 "scatter_bwd_kernel"})
+        kt8 = KernelTimes(card, {"qz_sample_reconstruct_batched_fwd":
+                                 "sample_reconstruct_kernel"})
         for path, spec in full.specs.items():
             what = (f"full-width {path} m={spec.m} n={spec.n} "
                     f"rpw={spec.rows_per_window} d={spec.d} K={LM_K}")
@@ -1559,15 +1651,44 @@ def lm_phases(card: str, dev, fed: dict, kernel_rows: list) -> list:
                    lambda: qr.qz_reconstruct_batched_bwd(spec, G), t_plain,
                    event_ms(lambda: torch.sparse.mm(QT, Gt), 5),
                    *scatter_work(spec, G))
+            launch_report(card, kt, "qz_reconstruct_batched_bwd", path,
+                          lambda: qr.qz_reconstruct_batched_bwd(spec, G),
+                          qr.scatter_bwd_geometry(spec, LM_K))
             del G, QT, Gt
             torch.cuda.empty_cache()
             P, steps, qbits = stash8.pop(spec)
+            plain = {}
+
+            def plain8():
+                plain["out"] = ops.sample_reconstruct_plain(spec, P, steps,
+                                                            qbits)
+
+            t_plain = event_ms(plain8, 1, warm=False)
             check("qz_sample_reconstruct_batched_fwd",
                   qr.qz_sample_reconstruct_batched_fwd(spec, P, steps, qbits),
-                  ops.sample_reconstruct_plain(spec, P, steps, qbits),
+                  plain["out"],
                   f"{what} (the local step's own probabilities and words)")
-            del P, steps
+            del plain["out"]
             clear_caches()  # the plain forward's row plan
+            torch.cuda.empty_cache()
+            # kernel 8's times on the same operands: its bound counts this
+            # step's draws, its yardstick multiplies the drawn masks
+            words_k = as_words(steps, dev).reshape(-1)
+            Z = (sample_mask_hash(P, spec.seed, spec.tensor_id, words_k)
+                 if qbits is None else sample_mask_qhash(
+                     P, qbits, spec.seed, spec.tensor_id, words_k))
+            drawn, any_drawn = drawn_counts(spec, Z)
+            Q = q_csr(spec, dev, False)
+            Zt = Z.t().contiguous()
+            m, n, d = spec.m, spec.n, spec.d
+            kt8.add("qz_sample_reconstruct_batched_fwd", path,
+                    lambda: qr.qz_sample_reconstruct_batched_fwd(
+                        spec, P, steps, qbits), t_plain,
+                    event_ms(lambda: torch.sparse.mm(Q, Zt), 5),
+                    m * OPS_PER_WEIGHT + m * d * OPS_ROW_EDGE
+                    + any_drawn * OPS_VALUE + LM_K * n * OPS_DRAW + drawn,
+                    LM_K * (P.element_size() * n + 4 * m) + 4 * LM_K)
+            del P, steps, Z, Zt, Q
             torch.cuda.empty_cache()
         say(f"lm: kernels 8 and 4 bitwise their plain versions at all "
             f"{len(full.specs)} full-width leaves on one local step's "
@@ -1589,6 +1710,23 @@ def lm_phases(card: str, dev, fed: dict, kernel_rows: list) -> list:
         if dev_us > 0:
             us, n_l = by_tag["scatter_bwd_kernel"]
             row["device_ms_in_main_path"] = 1e-3 * us / E
+        row8 = kt8.row(
+            "qz_sample_reconstruct_batched_fwd",
+            "src/repro/kernels/qz_reconstruct.py:553",
+            lm_launches["qz_sample_reconstruct_batched_fwd"],
+            max_err["qz_sample_reconstruct_batched_fwd"], 1,
+            "one full-width qwen2-0.5b local step: 1 launch per zampled "
+            "leaf, K=4",
+            "torch.sparse.mm(Q_csr, Z^T) on the drawn masks (no draw)")
+        if dev_us > 0:
+            us, _ = by_tag["sample_reconstruct_kernel"]
+            row8["device_ms_in_main_path"] = 1e-3 * us / E
+        for r in kernel_rows:  # beside its Fig. 4 round
+            if r["name"] == "qz_sample_reconstruct_batched_fwd":
+                r["lm_step"] = {k: row8[k] for k in (
+                    "launches", "ms", "device_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "library_call", "per",
+                    "shapes", "device_ms_in_main_path") if k in row8}
         row["lm"] = {"losses": history, "round_s": round_s,
                      "local_step_ms": 1e3 * step_s, "peak_bytes": peak,
                      "plan_path_bytes": plan_bytes,

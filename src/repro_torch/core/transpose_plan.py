@@ -26,11 +26,12 @@ on the index stream only); the values are placed by a pure gather on
 the device, so their bits are the device's.
 
 ``build_plan_layout(spec, device, order)`` is the same plan without its
-padding, for the one-client plan kernel: the ``m*d`` real entries in the
-plan's order, coordinate ``c``'s at ``[starts[c], starts[c+1])``, so a
-window's entries are one contiguous slab.  It comes from the same host
-sort, so the card holds neither the padded plan nor the row plan for a
-one-client backward.
+padding, the one format the plan kernel reads at every K: the ``m*d``
+real entries in the plan's order, coordinate ``c``'s at ``[starts[c],
+starts[c+1])``, so a window's entries are one contiguous slab.  It comes
+from the same host sort, so the card holds neither the padded plan nor
+the row plan for a backward through the kernels; the padded plan serves
+the plain versions and the tests.
 
 The gate: ``REPRO_BWD_PLAN`` overrides the process default
 (``set_default_bwd_path``, ``plan``), and ``resolve_bwd_path`` turns a
@@ -215,7 +216,7 @@ def build_plan_layout(spec: QSpec, device="cpu",
     """The ``order`` transpose plan's compact layout, from the same
     counting sort as the padded plan, which it neither builds nor reads;
     the row plan it sorts is made for it and dropped.  Not cached here:
-    the one-client plan kernel's launch constants hold it."""
+    the plan kernel's launch constants hold it."""
     if order not in ORDERS:
         raise ValueError(f"unknown plan order {order!r}; valid: {ORDERS}")
     device = _device(device)
@@ -237,7 +238,7 @@ def build_plan_layout(spec: QSpec, device="cpu",
 
 
 def clear_caches() -> None:
-    """Drop every cached row plan and transpose plan (device memory held
-    for the plan backward; the scatter holds none)."""
+    """Drop every cached row plan and transpose plan (the plain versions'
+    memory; the kernels' layouts are ``kernels.qz_reconstruct``'s)."""
     _row_plan.cache_clear()
     _build_transpose_plan.cache_clear()

@@ -37,90 +37,74 @@
 // (client, coordinate) (this kernel redraws per (client, edge)).
 // Against that, the K operand rows read and the K output rows written.
 //
-// plan_bwd_kernel replaces qz_reconstruct_batched_bwd_plan (K > 1; K = 1
-// has plan_bwd_one_kernel, below).  It reads the global
-// (num_windows, window, deg) transpose plan directly (no per-row-block
-// re-binning as the Pallas grid needs): one thread per (coordinate,
-// client) sums vals[c, e] * g_k[w*rpw + rows[c, e]] over e in ascending
-// order from +0, each multiply and add rounded on its own, in the order
-// of the plan it is given (canonical or slot).  Padding entries (value
-// 0) add zeros, which change nothing after a +0 start.
-// Bound: bytes (the plan's rows and values dominate).
+// plan_bwd_kernel replaces qz_reconstruct_batched_bwd_plan and, launched
+// at K = 1, qz_reconstruct_bwd_plan (every local backward, and each
+// rank's in the sharded round): out[k] = Q^T G[k] over the plan's compact
+// layout (core.transpose_plan.build_plan_layout): only the m*d real
+// entries, in the plan's order (canonical or slot), coordinate c's list
+// [starts[c], starts[c+1]), the window-local row as uint16 where
+// rows_per_window allows.  A window's entries are one contiguous slab.
+// One CTA owns one window.  It stages a piece of the slab at a time,
+// once for all K clients, and beside it the window's cotangents of
+// `stage` clients at a time (where a client's fit; each client's rows at
+// an odd stride), all with cp.async, so a thread has every copy of a
+// stage in flight at once; stages loop inside the kernel, so any K up to
+// MAX_K takes one launch.  A thread takes a (coordinate, group of G
+// clients) pair, coordinate fastest: it reads each entry of the
+// coordinate's list once and adds it to G sums held in registers (G a
+// template argument, 1, 2, 4 or 8), G independent chains.  Each sum runs
+// over its list from +0 (or the partial sum it wrote for the previous
+// piece), each multiply and add rounded on its own.  The padded plan's
+// padding entries add 0 * g[the window's row 0], which is +-0 and changes
+// no sum begun at +0 while that cotangent is finite; where it is Inf or
+// NaN the padded walk (the plain version) gives NaN at every padded
+// coordinate of the window and this walk does not.  Bound: bytes (6 bytes a real entry with
+// uint16 rows, the offsets, K cotangents and K outputs).
 //
-// scatter_bwd_kernel replaces qz_reconstruct_batched_bwd (K > 1; K = 1 has
-// scatter_bwd_one_kernel, below): grad_Z[k] = Q^T G[k] with Q regenerated in the
-// body, no plan read and none held.  Window w's rows [w*rpw, (w+1)*rpw)
-// write only into its coordinates [w*window, (w+1)*window), so one CTA
-// owns one window and nothing crosses CTAs.  It takes the window's valid
-// rows a chunk at a time, at most SC_EDGES edges, and per chunk
-//   1. regenerates each row's edges (a row whose cotangent is 0 for
-//      every client adds only zeros and is skipped), keeping each edge's
-//      value in shared memory by its edge id e = row * d + k, and counts
-//      the edges of each coordinate;
-//   2. turns the counts into bin offsets (a block-wide exclusive scan);
-//   3. places each edge id in its coordinate's bin, a round of rows at a
-//      time, and sorts each bin by edge id, so a coordinate's edges run
-//      in ascending (row, k), the canonical order (shared-memory atomics
-//      only hand out places in a bin; the sort makes their order fixed);
-//   4. sums, for every client, each coordinate's bin in that order, one
-//      thread per coordinate, from +0 on the first chunk and from the
-//      partial sum it wrote on a later one, each multiply and add
-//      rounded on its own.
-// So each coordinate's sum is the canonical plan's sequence of rounded
-// adds without its padding entries, and equals plan_bwd_kernel's on the
-// canonical plan bit for bit; no atomic touches a sum.  The Pallas
-// kernel forms the same sum as a one-hot MXU product per row block; a
-// product on the tensor cores would round to TF32, so this is a gather.
-// Bound: operations where the cotangent is dense (regenerating an edge,
-// its index, 2 value hashes and a Box-Muller, is ~60 operations; a row's
-// d = 8 edges ~480 against its 4 K = 16 bytes of cotangent at K = 4),
-// bytes where most rows carry none (an embedding's: G is read whole to
-// find the live rows, which alone are regenerated).
-//
-// scatter_bwd_one_kernel replaces qz_reconstruct_bwd (K = 1; the local
-// backward under REPRO_BWD_PLAN=scatter): grad_z = Q^T g, the same sums
-// as scatter_bwd_kernel's row, sized for the windows it runs at (Fig. 6:
-// 128 rows of d = 16, 2,048 edges, 128 coordinates).  A CTA of
-// S1_THREADS owns a window and takes its valid rows a pass of chunk_rows
-// rows (at most S1_EDGES of kernels/qz_reconstruct.py's edges) at a
-// time; per pass
-//   0. a thread per row: its hash state, base, stride and the stride's
-//      inverse mod the window, and its cotangent, into shared memory;
-//   1. a thread per edge (e = i * d + j, neighbouring threads on
-//      neighbouring edges): the edge's coordinate; where the row's
-//      cotangent is not 0 (a row whose cotangent is 0 adds only zeros),
-//      the product value * g[row], rounded on its own, into shared
-//      memory at e, and the row's bit in the coordinate's row mask (an
-//      atomic OR: the mask does not depend on the order of the ORs);
-//   2. a thread per coordinate walks the set bits of its row mask in
-//      ascending row i; row i reaches coordinate c at one slot only,
-//      j = (c - base) * stride^-1 mod window, so it adds the product at
-//      i * d + j: ascending (row, j), the canonical order, by
-//      construction.  It sums from +0 on the first pass and from the
-//      partial sum it wrote on a later one (one pass holds a Fig. 6
-//      window, so each sum is written once).
-// No sort, no scan, 3 barriers a pass.  Shared memory is sized to the
-// pass: 12.9 KB a CTA at Fig. 6, so many CTAs share an SM.  Bound:
-// operations (the edge's index, two value hashes past their slot's
-// mixed counter, and a Box-Muller).
-//
-// plan_bwd_one_kernel replaces qz_reconstruct_bwd_plan (K = 1: every
-// local backward, and each rank's in the sharded round).  It reads the
-// plan's compact layout (core.transpose_plan.build_plan_layout): only
-// the m*d real entries, in the plan's order (canonical or slot), each
-// coordinate's list [starts[c], starts[c+1]), the window-local row as
-// uint16 where rows_per_window allows.  A window's entries are one
-// contiguous slab.  One CTA owns one window: it stages the window's
-// cotangents (where they fit) and a piece of the slab at a time with
-// coalesced loads into shared memory, then a thread per coordinate walks
-// its list from shared memory, from +0 (or the partial sum it wrote for
-// the previous piece), each multiply and add rounded on its own.  Its
-// sums are plan_bwd_kernel's without the padding entries.  A padding
-// entry adds 0 * g[the window's row 0], which is +-0 and changes no sum
-// begun at +0 while that cotangent is finite; where it is Inf or NaN the
-// padded walk gives NaN at every padded coordinate of the window and
-// this walk does not (as scatter_bwd_kernel does not).  Bound: bytes (6
-// bytes a real entry, the offsets, the cotangent and the output).
+// scatter_bwd_kernel replaces qz_reconstruct_batched_bwd (the scatter
+// transpose: the round's backward under REPRO_BWD_PLAN=scatter) and,
+// launched at K = 1, qz_reconstruct_bwd (the local backward under it):
+// out[k] = Q^T G[k] with Q regenerated in the body, no plan read and none
+// held.  Window w's rows write only into its coordinates, so a CTA owns
+// one window and nothing crosses CTAs.  It takes the window's valid rows
+// a pass of chunk_rows rows at a time (at most SCATTER_EDGES edges of
+// kernels/qz_reconstruct.py), for a sweep of `clients` clients at a time
+// (one sweep where their cotangents and partial sums fit; each further
+// sweep regenerates the window again); per pass
+//   0. a thread per row: the sweep's cotangents of the row, read once and
+//      coalesced per client, into shared memory (a row's clients
+//      contiguous, so the walk reads a group's with vector loads, with its
+//      base and inverse as one 8-byte pair); a row is live where some
+//      client's cotangent is not 0 (a row that is 0 for every client adds
+//      only zeros); a live row's hash state, base | stride << 16 and the
+//      stride's inverse mod the window, and its place in the pass's list
+//      of live rows (a warp's live rows take places by one atomic; their
+//      order there is free, the sums do not read it);
+//   1. a thread per edge of the live rows (e = i * d + j): the edge's
+//      value (its slot's counter mixes hoisted) into shared memory at e,
+//      and the row's bit in the coordinate's row mask (an atomic OR: the
+//      mask does not depend on the order of the ORs);
+//   2. a thread per (coordinate, client group of G) walks the set bits of
+//      the coordinate's mask in ascending row i; row i reaches coordinate
+//      c at one slot only, j = (c - base) * stride^-1 mod window, so each
+//      client k of the group adds value * g_k[i], the product rounded on
+//      its own, to its sum: ascending (row, j), the canonical order, by
+//      construction.  The G sums stay in registers (G a template
+//      argument, 1, 2, 4 or 8); between passes of a window they wait in
+//      shared memory, and the last pass writes them out.
+// A row that is live for one client and 0 for another adds value * +-0
+// to the second's sum, which changes no bit of a sum begun at +0 (such a
+// sum is never -0).  So each sum is the canonical plan's sequence of
+// rounded adds without its padding entries and equals plan_bwd_kernel's
+// on the canonical plan bit for bit.  No sort, no scan, no atomic touches
+// a sum.  A
+// pass with no live row only reads its cotangents.  The Pallas kernel
+// forms the same sum as a one-hot MXU product per row block; a product
+// on the tensor cores would round to TF32, so this is a gather.
+// Bound: operations where the cotangent is dense (an edge's index, two
+// value hashes past their slot's mixed counter, and a Box-Muller), bytes
+// where most rows carry none (an embedding's: G is read whole to find the
+// live rows, which alone are regenerated).
 //
 // sample_pack_kernel replaces qz_sample_pack_batched_fwd and, launched
 // at K = 1 with its draw word a scalar argument, qz_sample_pack_fwd (each
@@ -145,11 +129,6 @@
 namespace {
 
 constexpr int THREADS = 128;
-
-// scatter_bwd_kernel: threads per CTA, and edges per chunk (an edge id
-// fits 16 bits; 6 bytes an edge, 96 KB, so two CTAs fit an SM)
-constexpr int SC_THREADS = 512;
-constexpr int SC_EDGES = 16384;
 
 // A row's edges staged in shared memory at once: 8 bytes per edge and
 // thread, 32 KB a CTA, plus 4 bytes per client (at most 4 KB), under the
@@ -251,180 +230,177 @@ mask_reconstruct_kernel(const float* __restrict__ Z, int K, long long n,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-plan_bwd_kernel(const float* __restrict__ G, const int* __restrict__ rows,
-                const float* __restrict__ vals, uint32_t n, uint32_t m,
-                int deg, uint32_t window, uint32_t rows_per_window,
-                float* __restrict__ out) {
-  const uint32_t c = blockIdx.x * THREADS + threadIdx.x;
-  const int k = blockIdx.y;
-  if (c >= n) return;
-  const long long base = static_cast<long long>(c) * deg;
-  const uint32_t row0 = (c / window) * rows_per_window;
-  const float* g = G + static_cast<long long>(k) * m;
-  float acc = 0.0f;
-  for (int e = 0; e < deg; ++e) {
-    const uint32_t row = row0 + static_cast<uint32_t>(rows[base + e]);
-    const float gv = row < m ? g[row] : 0.0f;  // padding rows carry 0
-    acc = __fadd_rn(acc, __fmul_rn(vals[base + e], gv));
-  }
-  out[static_cast<long long>(k) * n + c] = acc;
-}
+// plan_bwd_kernel: threads per CTA (read by plan_geometry in
+// kernels/qz_reconstruct.py)
+constexpr int PLAN_THREADS = 256;
 
-// Dynamic shared memory of scatter_bwd_kernel: per coordinate a bin start
-// and a cursor, the warps' scan totals, per edge its value and its place
-// in a bin.
-size_t scatter_smem(int window) {
-  return sizeof(uint32_t) * (2u * static_cast<size_t>(window) + SC_THREADS / 32)
-         + (sizeof(float) + sizeof(uint16_t)) * static_cast<size_t>(SC_EDGES);
-}
-
-// Exclusive scan of cnt[0, window) into beg and cnt (cnt becomes each
-// bin's cursor).  Each thread scans a contiguous run of bins.
-__device__ __forceinline__ void bin_offsets(uint32_t* cnt, uint32_t* beg,
-                                            uint32_t* warp_tot, int window) {
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int per = (window + SC_THREADS - 1) / SC_THREADS;
-  const int lo = min(t * per, window), hi = min(lo + per, window);
-  uint32_t own = 0;
-  for (int c = lo; c < hi; ++c) own += cnt[c];
-  uint32_t x = own;  // inclusive scan within the warp
-  for (int o = 1; o < 32; o <<= 1) {
-    const uint32_t y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) warp_tot[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    uint32_t v = lane < SC_THREADS / 32 ? warp_tot[lane] : 0u;
-    for (int o = 1; o < 32; o <<= 1) {
-      const uint32_t y = __shfl_up_sync(0xffffffffu, v, o);
-      if (lane >= o) v += y;
-    }
-    if (lane < SC_THREADS / 32) warp_tot[lane] = v;
-  }
-  __syncthreads();
-  uint32_t at = (warp ? warp_tot[warp - 1] : 0u) + x - own;
-  for (int c = lo; c < hi; ++c) {
-    const uint32_t v = cnt[c];
-    beg[c] = at;
-    cnt[c] = at;
-    at += v;
-  }
-}
-
-__global__ void __launch_bounds__(SC_THREADS, 2)
-scatter_bwd_kernel(const float* __restrict__ G, int K, uint32_t m, uint32_t n,
-                   qz::SpecArgs s, float* __restrict__ out) {
-  extern __shared__ uint32_t smem[];
-  const int window = static_cast<int>(s.window);
-  uint32_t* beg = smem;
-  uint32_t* cur = beg + window;
-  uint32_t* warp_tot = cur + window;
-  float* sVal = reinterpret_cast<float*>(warp_tot + SC_THREADS / 32);
-  uint16_t* sId = reinterpret_cast<uint16_t*>(sVal + SC_EDGES);
-
-  const int t = threadIdx.x;
-  const uint32_t w = blockIdx.x;
-  const uint32_t c0 = w * s.window;
-  const uint32_t r_lo = w * s.rows_per_window;
-  const uint32_t r_hi = min(r_lo + s.rows_per_window, m);  // valid rows only
-  const uint32_t hq = qz::prefix2(s.seed, s.tensor_id);
-  const int d = s.d;
-  const uint32_t chunk = static_cast<uint32_t>(SC_EDGES / d);
-  for (int c = t; c < window; c += SC_THREADS) {  // a window with no row
-    for (int k = 0; k < K; ++k) out[static_cast<long long>(k) * n + c0 + c] = 0.0f;
-  }
-  for (uint32_t r0 = r_lo; r0 < r_hi; r0 += chunk) {
-    const uint32_t nrows = min(chunk, r_hi - r0);
-    for (int c = t; c < window; c += SC_THREADS) cur[c] = 0u;
-    __syncthreads();
-    // 1. the chunk's edges: values by edge id, counts by coordinate
-    for (uint32_t i = t; i < nrows; i += SC_THREADS) {
-      bool live = false;
-      for (int k = 0; k < K && !live; ++k) {
-        live = G[static_cast<long long>(k) * m + r0 + i] != 0.0f;
-      }
-      if (!live) continue;
-      const qz::RowEdges e = qz::row_edges(hq, r0 + i, s.window);
-      for (int j = 0; j < d; ++j) {
-        sVal[i * d + j] = e.value(j, s.sigma);
-        atomicAdd(&cur[e.index(j, s.window)], 1u);
-      }
-    }
-    __syncthreads();
-    // 2. bin offsets
-    bin_offsets(cur, beg, warp_tot, window);
-    __syncthreads();
-    // 3. edge ids into their bins, a round of SC_THREADS rows at a time,
-    // so a bin holds the rounds in ascending order before it is sorted
-    for (uint32_t i0 = 0; i0 < nrows; i0 += SC_THREADS) {
-      const uint32_t i = i0 + t;
-      bool live = false;
-      for (int k = 0; k < K && i < nrows && !live; ++k) {
-        live = G[static_cast<long long>(k) * m + r0 + i] != 0.0f;
-      }
-      if (live) {
-        const qz::RowEdges e = qz::row_edges(hq, r0 + i, s.window);
-        for (int j = 0; j < d; ++j) {
-          const uint32_t at = atomicAdd(&cur[e.index(j, s.window)], 1u);
-          sId[at] = static_cast<uint16_t>(i * d + j);
-        }
-      }
-      __syncthreads();
-    }
-    // 3b. each bin sorted by edge id: ascending (row, k)
-    for (int c = t; c < window; c += SC_THREADS) {
-      const uint32_t b0 = beg[c], b1 = cur[c];
-      for (uint32_t a = b0 + 1; a < b1; ++a) {
-        const uint16_t v = sId[a];
-        uint32_t b = a;
-        for (; b > b0 && sId[b - 1] > v; --b) sId[b] = sId[b - 1];
-        sId[b] = v;
-      }
-    }
-    __syncthreads();
-    // 4. every client's sum at each coordinate, in bin order
-    for (int c = t; c < window; c += SC_THREADS) {
-      const uint32_t b0 = beg[c], b1 = cur[c];
-      for (int k = 0; k < K; ++k) {
-        const float* g = G + static_cast<long long>(k) * m + r0;
-        float* o = out + static_cast<long long>(k) * n + c0 + c;
-        float acc = *o;  // +0 before the first chunk, else its partial sum
-        for (uint32_t a = b0; a < b1; ++a) {
-          const uint32_t id = sId[a];
-          acc = __fadd_rn(acc, __fmul_rn(sVal[id], g[id / static_cast<uint32_t>(d)]));
-        }
-        *o = acc;
-      }
-    }
-    __syncthreads();  // the next chunk reuses the shared memory
-  }
-}
-
-// scatter_bwd_one_kernel: threads (the launch geometry,
-// scatter_one_plan in kernels/qz_reconstruct.py, reads them from here)
-constexpr int S1_THREADS = 256;
-
-struct ScatterOneArgs {
-  qz::SpecArgs s;
-  uint32_t m;
-  uint32_t chunk_rows;    // rows a pass
-  uint32_t mask_stride;   // words a coordinate's row mask takes, odd
-  qz::Div div_d;          // / d
+struct PlanArgs {
+  const void* rows;   // (E,) window-local rows, uint16 or uint32
+  const float* vals;  // (E,)
+  const int* starts;  // (n + 1,) coordinate c's entries [starts[c], starts[c+1])
+  uint32_t m, n;
+  uint32_t window;
+  uint32_t rows_per_window;
+  int piece;  // slab entries staged at once
+  int K;
+  int stage;  // clients whose cotangents are staged at once
 };
 
-// Dynamic shared memory (uint32 words): the coordinates' row masks, per slot
-// j the mixed value counters, per row its hash state, base | stride <<
-// 16, the stride's inverse and the cotangent, per edge of a pass its
-// product.
-__host__ __device__ __forceinline__ size_t scatter_one_words(uint32_t window,
-                                                             uint32_t mask_stride,
-                                                             uint32_t chunk_rows,
-                                                             int d) {
-  return static_cast<size_t>(window) * mask_stride + 2u * static_cast<size_t>(d)
-         + 4u * static_cast<size_t>(chunk_rows)
-         + static_cast<size_t>(chunk_rows) * d;
+// 4 bytes from device to shared memory, asynchronously (cp.async): a
+// thread issues all its copies of a stage before it waits for any.
+__device__ __forceinline__ void copy_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// A client's staged cotangent rows: rows_per_window at an odd stride.
+__host__ __device__ __forceinline__ uint32_t plan_g_stride(uint32_t rows_per_window) {
+  return rows_per_window | 1u;
+}
+
+// Dynamic shared memory: a piece's values, (STAGE_G) the staged clients'
+// cotangents, the piece's rows (and one more 2-byte row, so uint16 rows
+// copy as the 4-byte words that hold them).
+__host__ __device__ __forceinline__ size_t plan_bytes(int piece, bool narrow,
+                                                      bool stage_g, int stage,
+                                                      uint32_t rows_per_window) {
+  return static_cast<size_t>(piece) * (sizeof(float) + (narrow ? 2u : 4u)) + 4u
+         + (stage_g ? sizeof(float) * static_cast<size_t>(stage)
+                          * plan_g_stride(rows_per_window)
+                    : 0u);
+}
+
+template <typename Row, bool STAGE_G, int G>
+__global__ void __launch_bounds__(PLAN_THREADS)
+plan_bwd_kernel(const float* __restrict__ Gm, PlanArgs a,
+                float* __restrict__ out) {
+  extern __shared__ uint32_t smem[];
+  const uint32_t gs = plan_g_stride(a.rows_per_window);
+  const uint32_t wmask = a.window - 1u, wshift = __ffs(a.window) - 1;
+  float* sVal = reinterpret_cast<float*>(smem);
+  float* sG = sVal + a.piece;
+  Row* sRow = reinterpret_cast<Row*>(sG + (STAGE_G ? a.stage * gs : 0u));
+  const Row* __restrict__ rows = static_cast<const Row*>(a.rows);
+  const int t = threadIdx.x;
+  const uint32_t c0 = blockIdx.x * a.window;
+  const int s0 = a.starts[c0], s1 = a.starts[c0 + a.window];
+  const uint32_t r0 = blockIdx.x * a.rows_per_window;
+  const uint32_t nr = r0 < a.m ? min(a.rows_per_window, a.m - r0) : 0u;
+  const float* __restrict__ gw = Gm + r0;
+  for (int p0 = s0;; p0 += a.piece) {  // a window with no entry: one empty piece
+    const int np = min(a.piece, s1 - p0);
+    // the piece's values and rows; uint16 rows as the words that hold
+    // them, so row e lies at sRow[off + e - p0]
+    for (int i = t; i < np; i += PLAN_THREADS) copy_async4(sVal + i, a.vals + p0 + i);
+    int off = 0;
+    if (sizeof(Row) == 4) {
+      for (int i = t; i < np; i += PLAN_THREADS) copy_async4(sRow + i, rows + p0 + i);
+    } else {
+      off = p0 & 1;
+      const int w0 = p0 >> 1, w1 = (p0 + np) >> 1;  // words wholly before p0 + np
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(rows);
+      uint32_t* dst = reinterpret_cast<uint32_t*>(sRow);
+      for (int q = t; q < w1 - w0; q += PLAN_THREADS) copy_async4(dst + q, src + w0 + q);
+      if (t == 0 && np > 0 && ((p0 + np) & 1)) sRow[off + np - 1] = rows[p0 + np - 1];
+    }
+    for (int k0 = 0; k0 < a.K; k0 += a.stage) {  // staged client groups
+      const int kn = min(a.stage, a.K - k0);
+      if (STAGE_G && (p0 == s0 || a.stage < a.K)) {  // else staged already
+        for (int k = 0; k < kn; ++k) {
+          const float* gk = gw + static_cast<size_t>(k0 + k) * a.m;
+          for (uint32_t i = t; i < nr; i += PLAN_THREADS) copy_async4(sG + k * gs + i, gk + i);
+        }
+      }
+      copy_async_wait();
+      __syncthreads();
+      // (coordinate, G clients) pairs, coordinate fastest
+      const uint32_t pairs = a.window * ((kn + G - 1) / G);
+      for (uint32_t q = t; q < pairs; q += PLAN_THREADS) {
+        const uint32_t c = q & wmask;
+        const int k1 = static_cast<int>(q >> wshift) * G;
+        float* o = out + static_cast<size_t>(k0 + k1) * a.n + c0 + c;
+        const int e1 = min(a.starts[c0 + c + 1], p0 + np);
+        float acc[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          acc[g] = p0 == s0 || k1 + g >= kn ? 0.0f : o[static_cast<size_t>(g) * a.n];
+        }
+        for (int e = max(a.starts[c0 + c], p0); e < e1; ++e) {
+          const uint32_t row = sRow[off + e - p0];
+          const float v = sVal[e - p0];
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            if (k1 + g < kn) {
+              const float gv = STAGE_G ? sG[(k1 + g) * gs + row]
+                                       : gw[static_cast<size_t>(k0 + k1 + g) * a.m + row];
+              acc[g] = __fadd_rn(acc[g], __fmul_rn(v, gv));
+            }
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (k1 + g < kn) o[static_cast<size_t>(g) * a.n] = acc[g];
+        }
+      }
+      __syncthreads();  // the next group or piece reuses the shared memory
+    }
+    if (p0 + a.piece >= s1) break;
+  }
+}
+
+// scatter_bwd_kernel: threads per CTA (read by scatter_geometry)
+constexpr int SCATTER_THREADS = 256;
+
+struct ScatterArgs {
+  qz::SpecArgs s;
+  uint32_t m, n;
+  uint32_t K;
+  uint32_t clients;      // clients a sweep
+  uint32_t chunk_rows;   // rows a pass
+  uint32_t mask_stride;  // words a coordinate's row mask takes, odd
+  qz::Div div_d;         // / d
+};
+
+// Dynamic shared memory, in uint32 words from the start, each region's
+// start a multiple of 4 words (16 bytes): per row of a pass the sweep's
+// cotangents (the clients of a row contiguous, cl_pad of them, so a
+// walking thread reads its G with vector loads) and base | stride << 16
+// with the stride's inverse; where a window takes more than one pass the
+// sweep's partial sums; per row its hash state and the live list; per
+// edge its value; per slot j the mixed value counters; the coordinates'
+// row masks; the live count.
+struct ScatterLayout {
+  size_t g, rs, acc, hr, list, val, ma, mb, mask, count, words;
+};
+
+__host__ __device__ __forceinline__ size_t up4(size_t x) { return (x + 3u) & ~size_t{3}; }
+
+__host__ __device__ __forceinline__ uint32_t client_pad(uint32_t clients, int group) {
+  return (clients + group - 1u) / group * group;
+}
+
+__host__ __device__ __forceinline__ ScatterLayout scatter_layout(
+    uint32_t window, uint32_t rows_per_window, uint32_t mask_stride,
+    uint32_t chunk_rows, int d, uint32_t clients, int group) {
+  ScatterLayout L;
+  const size_t cr = chunk_rows;
+  L.g = 0;
+  L.rs = L.g + up4(cr * client_pad(clients, group));
+  L.acc = L.rs + up4(2u * cr);
+  L.hr = L.acc + (rows_per_window > chunk_rows ? up4(size_t{clients} * window) : 0u);
+  L.list = L.hr + up4(cr);
+  L.val = L.list + up4(cr);
+  L.ma = L.val + up4(cr * d);
+  L.mb = L.ma + up4(d);
+  L.mask = L.mb + up4(d);
+  L.count = L.mask + up4(size_t{window} * mask_stride);
+  L.words = L.count + 1u;
+  return L;
 }
 
 // RowEdges::value with the edge's two counters already mixed:
@@ -437,133 +413,143 @@ __device__ __forceinline__ float mixed_value(uint32_t hr, uint32_t ma,
   return __fmul_rn(qz::gaussian_from_u32(ua, ub), sigma);
 }
 
-__global__ void __launch_bounds__(S1_THREADS)
-scatter_bwd_one_kernel(const float* __restrict__ g, ScatterOneArgs a,
-                       float* __restrict__ out) {
-  extern __shared__ uint32_t smem[];
-  const uint32_t window = a.s.window, wmask = window - 1u;
-  const uint32_t d = static_cast<uint32_t>(a.s.d);
-  uint32_t* mask = smem;
-  uint32_t* sMa = mask + window * a.mask_stride;
-  uint32_t* sMb = sMa + d;
-  uint32_t* sHr = sMb + d;
-  uint32_t* sBS = sHr + a.chunk_rows;
-  uint32_t* sInv = sBS + a.chunk_rows;
-  float* sG = reinterpret_cast<float*>(sInv + a.chunk_rows);
-  float* sProd = sG + a.chunk_rows;
+// G cotangents of one row, contiguous and aligned to G floats.
+template <int G>
+__device__ __forceinline__ void load_g(const float* p, float (&g)[G]) {
+  if (G % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < G; h += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + h);
+      g[h] = v.x; g[h + 1] = v.y; g[h + 2] = v.z; g[h + 3] = v.w;
+    }
+  } else if (G == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    g[0] = v.x; g[G - 1] = v.y;
+  } else {
+    g[0] = p[0];
+  }
+}
 
-  const uint32_t t = threadIdx.x;
+template <int G>
+__global__ void __launch_bounds__(SCATTER_THREADS)
+scatter_bwd_kernel(const float* __restrict__ Gm, ScatterArgs a,
+                   float* __restrict__ out) {
+  extern __shared__ uint32_t smem[];  // 16-byte aligned
+  const uint32_t window = a.s.window, wmask = window - 1u;
+  const uint32_t wshift = __ffs(window) - 1;
+  const uint32_t d = static_cast<uint32_t>(a.s.d);
+  const uint32_t cr = a.chunk_rows;
+  const uint32_t cl = client_pad(a.clients, G);
+  const ScatterLayout L = scatter_layout(window, a.s.rows_per_window, a.mask_stride,
+                                         cr, a.s.d, a.clients, G);
+  float* sG = reinterpret_cast<float*>(smem + L.g);
+  uint2* sRS = reinterpret_cast<uint2*>(smem + L.rs);  // base | stride << 16, inverse
+  float* sAcc = reinterpret_cast<float*>(smem + L.acc);
+  uint32_t* sHr = smem + L.hr;
+  uint32_t* sList = smem + L.list;
+  float* sVal = reinterpret_cast<float*>(smem + L.val);
+  uint32_t* sMa = smem + L.ma;
+  uint32_t* sMb = smem + L.mb;
+  uint32_t* mask = smem + L.mask;
+  uint32_t* sCount = smem + L.count;
+
+  const uint32_t t = threadIdx.x, lane = t & 31u;
   const uint32_t r_lo = blockIdx.x * a.s.rows_per_window;
   const uint32_t r_hi = r_lo < a.m ? min(r_lo + a.s.rows_per_window, a.m) : r_lo;
   const uint32_t hq = qz::prefix2(a.s.seed, a.s.tensor_id);
-  for (uint32_t j = t; j < d; j += S1_THREADS) {
+  for (uint32_t j = t; j < d; j += SCATTER_THREADS) {
     sMa[j] = qz::fmix32(qz::CTR_VAL + 2u * j + qz::K1);
     sMb[j] = qz::fmix32(qz::CTR_VAL + 2u * j + 1u + qz::K1);
   }
-  for (uint32_t r0 = r_lo;; r0 += a.chunk_rows) {  // a window with no row: one empty pass
-    const uint32_t nrows = r0 < r_hi ? min(a.chunk_rows, r_hi - r0) : 0u;
-    const uint32_t words = (nrows + 31u) / 32u;  // of each row mask this pass
-    // 0. the pass's rows; the masks to 0
-    for (uint32_t i = t; i < window * a.mask_stride; i += S1_THREADS) mask[i] = 0u;
-    for (uint32_t i = t; i < nrows; i += S1_THREADS) {
-      const qz::RowEdges e = qz::row_edges(hq, r0 + i, a.s.window);
-      uint32_t inv = e.stride;  // Newton: 3 -> 6 -> 12 -> 24 correct bits
-      for (int k = 0; k < 3; ++k) inv *= 2u - e.stride * inv;
-      sHr[i] = e.hr;
-      sBS[i] = e.base | (e.stride << 16);
-      sInv[i] = inv;
-      sG[i] = g[r0 + i];
-    }
-    __syncthreads();
-    // 1. the live edges: product at e, row bit in the coordinate's mask
-    for (uint32_t e = t; e < nrows * d; e += S1_THREADS) {
-      const uint32_t i = a.div_d(e), j = e - i * d;
-      const float gv = sG[i];
-      const uint32_t bs = sBS[i];
-      const uint32_t c = ((bs & 0xFFFFu) + (bs >> 16) * j) & wmask;
-      if (gv != 0.0f) {
-        sProd[e] = __fmul_rn(mixed_value(sHr[i], sMa[j], sMb[j], a.s.sigma), gv);
-        atomicOr(&mask[c * a.mask_stride + (i >> 5)], 1u << (i & 31u));
+  for (uint32_t k0 = 0; k0 < a.K; k0 += a.clients) {  // sweeps
+    const uint32_t kn = min(a.clients, a.K - k0);
+    const uint32_t pairs = window * ((kn + G - 1u) / G);
+    bool fresh = true;  // no pass has summed yet: the sums start at +0
+    bool dirty = true;  // the masks may hold bits
+    for (uint32_t r0 = r_lo;; r0 += cr) {  // a window with no row: one empty pass
+      const uint32_t nrows = r0 < r_hi ? min(cr, r_hi - r0) : 0u;
+      const bool last = r0 + cr >= r_hi;
+      if (dirty) {
+        for (uint32_t i = t; i < window * a.mask_stride; i += SCATTER_THREADS) mask[i] = 0u;
       }
-    }
-    __syncthreads();
-    // 2. each coordinate's sum over its rows in ascending order
-    for (uint32_t c = t; c < window; c += S1_THREADS) {
-      float* o = out + blockIdx.x * window + c;
-      float acc = r0 == r_lo ? 0.0f : *o;
-      for (uint32_t k = 0; k < words; ++k) {
-        for (uint32_t bits = mask[c * a.mask_stride + k]; bits; bits &= bits - 1u) {
-          const uint32_t i = 32u * k + (__ffs(bits) - 1);
-          const uint32_t j = ((c - (sBS[i] & 0xFFFFu)) * sInv[i]) & wmask;
-          acc = __fadd_rn(acc, sProd[i * d + j]);
+      if (t == 0) *sCount = 0u;
+      __syncthreads();
+      // 0. the pass's rows: cotangents, and the live rows' streams, listed
+      for (uint32_t i0 = 0; i0 < nrows; i0 += SCATTER_THREADS) {
+        const uint32_t i = i0 + t;
+        bool live = false;
+        if (i < nrows) {
+          for (uint32_t k = 0; k < cl; ++k) {  // the padding clients read 0
+            const float g = k < kn ? Gm[static_cast<size_t>(k0 + k) * a.m + r0 + i] : 0.0f;
+            sG[i * cl + k] = g;
+            live |= g != 0.0f;
+          }
+        }
+        const uint32_t ballot = __ballot_sync(0xFFFFFFFFu, live);
+        uint32_t at = 0u;
+        if (lane == 0u && ballot) at = atomicAdd(sCount, __popc(ballot));
+        at = __shfl_sync(0xFFFFFFFFu, at, 0);
+        if (live) {
+          const qz::RowEdges e = qz::row_edges(hq, r0 + i, window);
+          uint32_t inv = e.stride;  // Newton: 3 -> 6 -> 12 -> 24 correct bits
+          for (int it = 0; it < 3; ++it) inv *= 2u - e.stride * inv;
+          sHr[i] = e.hr;
+          sRS[i] = make_uint2(e.base | (e.stride << 16), inv);
+          sList[at + __popc(ballot & ((1u << lane) - 1u))] = i;
         }
       }
-      *o = acc;
-    }
-    if (r0 + a.chunk_rows >= r_hi) break;
-    __syncthreads();  // the next pass reuses the shared memory
-  }
-}
-
-// plan_bwd_one_kernel: threads per CTA (read by plan_one_plan)
-constexpr int P1_THREADS = 256;
-
-struct PlanOneArgs {
-  const void* rows;   // (E,) window-local rows, uint16 or uint32
-  const float* vals;  // (E,)
-  const int* starts;  // (n + 1,) coordinate c's entries [starts[c], starts[c+1])
-  uint32_t m;
-  uint32_t window;
-  uint32_t rows_per_window;
-  int piece;  // slab entries staged at once
-};
-
-// Dynamic shared memory: a piece's values and rows, then (STAGE_G) the
-// window's cotangents.
-__host__ __device__ __forceinline__ size_t plan_one_bytes(int piece, bool narrow,
-                                                          bool stage_g,
-                                                          uint32_t rows_per_window) {
-  return static_cast<size_t>(piece) * (sizeof(float) + (narrow ? 2u : 4u))
-         + (stage_g ? sizeof(float) * rows_per_window : 0u);
-}
-
-template <typename Row, bool STAGE_G>
-__global__ void __launch_bounds__(P1_THREADS)
-plan_bwd_one_kernel(const float* __restrict__ g, PlanOneArgs a,
-                    float* __restrict__ out) {
-  extern __shared__ uint32_t smem[];
-  float* sVal = reinterpret_cast<float*>(smem);
-  float* sG = sVal + a.piece;
-  Row* sRow = reinterpret_cast<Row*>(sG + (STAGE_G ? a.rows_per_window : 0u));
-  const Row* __restrict__ rows = static_cast<const Row*>(a.rows);
-  const int t = threadIdx.x;
-  const uint32_t c0 = blockIdx.x * a.window;
-  const int s0 = a.starts[c0], s1 = a.starts[c0 + a.window];
-  const uint32_t r0 = blockIdx.x * a.rows_per_window;
-  const float* __restrict__ gw = g + r0;
-  if (STAGE_G) {
-    const uint32_t nr = r0 < a.m ? min(a.rows_per_window, a.m - r0) : 0u;
-    for (uint32_t i = t; i < nr; i += P1_THREADS) sG[i] = gw[i];
-  }
-  for (int p0 = s0;; p0 += a.piece) {  // a window with no entry: one empty piece
-    const int np = min(a.piece, s1 - p0);
-    for (int i = t; i < np; i += P1_THREADS) {
-      sVal[i] = a.vals[p0 + i];
-      sRow[i] = rows[p0 + i];
-    }
-    __syncthreads();
-    for (uint32_t c = t; c < a.window; c += P1_THREADS) {
-      const int e1 = min(a.starts[c0 + c + 1], p0 + np);
-      float acc = p0 == s0 ? 0.0f : out[c0 + c];
-      for (int e = max(a.starts[c0 + c], p0); e < e1; ++e) {
-        const uint32_t row = sRow[e - p0];
-        const float gv = STAGE_G ? sG[row] : gw[row];
-        acc = __fadd_rn(acc, __fmul_rn(sVal[e - p0], gv));
+      __syncthreads();
+      const uint32_t nlive = *sCount;
+      if (nlive == 0u && !last) {  // nothing to add: the masks stay 0
+        dirty = false;
+        continue;  // sCount stays 0, so its reset cannot race this read
       }
-      out[c0 + c] = acc;
+      // 1. the live rows' edges: value at e, row bit in the coordinate's mask
+      for (uint32_t e = t; e < nlive * d; e += SCATTER_THREADS) {
+        const uint32_t li = a.div_d(e), j = e - li * d;
+        const uint32_t i = sList[li];
+        const uint32_t bs = sRS[i].x;
+        const uint32_t c = ((bs & 0xFFFFu) + (bs >> 16) * j) & wmask;
+        sVal[i * d + j] = mixed_value(sHr[i], sMa[j], sMb[j], a.s.sigma);
+        atomicOr(&mask[c * a.mask_stride + (i >> 5)], 1u << (i & 31u));
+      }
+      __syncthreads();
+      // 2. each (coordinate, client group): its rows in ascending order
+      const uint32_t words = (nrows + 31u) / 32u;
+      for (uint32_t p = t; p < pairs; p += SCATTER_THREADS) {
+        const uint32_t c = p & wmask, k1 = (p >> wshift) * G;
+        float acc[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          acc[g] = fresh || k1 + g >= kn ? 0.0f : sAcc[(k1 + g) * window + c];
+        }
+        for (uint32_t w = 0; w < words; ++w) {
+          for (uint32_t bits = mask[c * a.mask_stride + w]; bits; bits &= bits - 1u) {
+            const uint32_t i = 32u * w + (__ffs(bits) - 1);
+            const uint2 rs = sRS[i];
+            const uint32_t j = ((c - (rs.x & 0xFFFFu)) * rs.y) & wmask;
+            const float v = sVal[i * d + j];
+            float g[G];
+            load_g<G>(sG + i * cl + k1, g);
+#pragma unroll
+            for (int h = 0; h < G; ++h) acc[h] = __fadd_rn(acc[h], __fmul_rn(v, g[h]));
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (k1 + g >= kn) continue;
+          if (last) {
+            out[static_cast<size_t>(k0 + k1 + g) * a.n + blockIdx.x * window + c] = acc[g];
+          } else {
+            sAcc[(k1 + g) * window + c] = acc[g];
+          }
+        }
+      }
+      fresh = false;
+      dirty = true;
+      __syncthreads();  // the next pass or sweep reuses the shared memory
+      if (last) break;
     }
-    if (p0 + a.piece >= s1) break;
-    __syncthreads();  // the next piece reuses the shared memory
   }
 }
 
@@ -604,6 +590,13 @@ size_t rows_smem(int nh, int d) {
   return sizeof(uint32_t) * (static_cast<size_t>(nh) + 2u * ch * THREADS);
 }
 
+// plan_bwd_kernel for client group 1, 2, 4 or 8 (g = 0..3).
+template <typename Row, bool STAGE_G>
+void (*plan_kernel(int g))(const float*, PlanArgs, float*) {
+  return g == 0 ? plan_bwd_kernel<Row, STAGE_G, 1> : g == 1 ? plan_bwd_kernel<Row, STAGE_G, 2>
+       : g == 2 ? plan_bwd_kernel<Row, STAGE_G, 4> : plan_bwd_kernel<Row, STAGE_G, 8>;
+}
+
 // Above 48 KB of dynamic shared memory a kernel must opt in, once per
 // size it grows to.
 template <typename Kernel>
@@ -617,26 +610,29 @@ cudaError_t allow_smem(Kernel kernel, int smem, int& opted) {
 
 }  // namespace
 
-// A leaf's launch constants for kernel 2, made once by the wrapper
-// (kernels/qz_reconstruct.py, scatter_one_plan) and passed by pointer.
-struct ScatterOneConsts {
+// A leaf's launch constants for scatter_bwd_kernel at K clients, made
+// once by the wrapper (kernels/qz_reconstruct.py, scatter_geometry) and
+// passed by pointer.
+struct ScatterConsts {
   unsigned seed, tensor_id;
   int window;
   unsigned rows_per_window;
   int d;
   float sigma;
-  unsigned m, num_windows, chunk_rows, mask_stride, div_m, div_s1, div_s2;
+  unsigned m, n, num_windows, K, clients, group, chunk_rows, mask_stride,
+      div_m, div_s1, div_s2;
   int smem;
 };
 
-// A leaf's launch constants for kernel 5: its compact plan layout on the
-// card and the geometry (plan_one_plan).
-struct PlanOneConsts {
+// A leaf's launch constants for plan_bwd_kernel on one card: its compact
+// plan layout there and the geometry that does not depend on K
+// (plan_geometry).
+struct PlanConsts {
   const void* rows;
   const float* vals;
   const int* starts;
-  unsigned m, window, rows_per_window, num_windows;
-  int piece, narrow, stage_g, smem;
+  unsigned m, n, window, rows_per_window, num_windows;
+  int piece, narrow, stage_g;
 };
 
 extern "C" {
@@ -679,90 +675,80 @@ int qz_reconstruct_batched(const float* Z, int K, long long n, unsigned m,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out (K, n) = Q^T G_k over the transpose plan; G (K, m) moved order.
-int qz_plan_bwd(const float* G, const int* rows, const float* vals, int K,
-                unsigned n, unsigned m, int deg, int window,
-                unsigned rows_per_window, float* out, void* stream) {
-  const dim3 grid((n + THREADS - 1) / THREADS, K);
-  plan_bwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      G, rows, vals, n, m, deg, static_cast<uint32_t>(window), rows_per_window, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// out (K, n) = Q^T G_k by the scatter, Q regenerated; G (K, m) moved order.
-int qz_scatter_bwd(const float* G, int K, unsigned n, unsigned m,
-                   unsigned seed, unsigned tensor_id, int window,
-                   unsigned rows_per_window, int num_windows, int d,
-                   float sigma, float* out, void* stream) {
-  if (d < 1 || d > SC_EDGES) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = scatter_smem(window);
-  static size_t opted_in = 0;  // above 48 KB a kernel must opt in
-  if (smem > opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        scatter_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = smem;
-  }
-  const qz::SpecArgs s = spec_args(seed, tensor_id, window, rows_per_window, d, sigma);
-  scatter_bwd_kernel<<<num_windows, SC_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      G, K, m, n, s, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// grad_z (n,) = Q^T g by the scatter for one cotangent g (m,).
-int qz_scatter_bwd_one(const float* g, float* out, const ScatterOneConsts* c,
-                       void* stream) {
-  // the geometry is scatter_one_plan's; checked here is what the body
-  // needs: a power-of-two window whose base | stride << 16 packs into 32
-  // bits, a row mask of a pass's rows, shared memory of its layout
-  const int w = c->window;
-  if (w < 2 || w > 65536 || (w & (w - 1)) || c->d < 1 || c->chunk_rows < 1 ||
-      32 * c->mask_stride < c->chunk_rows ||
-      static_cast<size_t>(c->smem) !=
-          4 * scatter_one_words(w, c->mask_stride, c->chunk_rows, c->d)) {
+// out (K, n) = Q^T G_k over the compact plan layout; G (K, m) moved
+// order, K clients staged `stage` at a time and summed `group` (1, 2, 4
+// or 8) a thread (plan_geometry's, with its shared memory, for this K).
+int qz_plan_bwd(const float* G, float* out, int K, int stage, int group,
+                int smem, const PlanConsts* c, void* stream) {
+  const uint32_t w = c->window;
+  if (c->piece < 1 || w < 2 || (w & (w - 1)) || K < 1 || stage < 1 ||
+      stage > K || (!c->stage_g && stage != K) ||
+      static_cast<size_t>(smem) !=
+          plan_bytes(c->piece, c->narrow, c->stage_g, stage, c->rows_per_window)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static int opted = 0;
-  const cudaError_t err = allow_smem(scatter_bwd_one_kernel, c->smem, opted);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ScatterOneArgs a;
-  a.s = spec_args(c->seed, c->tensor_id, w, c->rows_per_window, c->d, c->sigma);
-  a.m = c->m;
-  a.chunk_rows = c->chunk_rows;
-  a.mask_stride = c->mask_stride;
-  a.div_d = {c->div_m, c->div_s1, c->div_s2};
-  scatter_bwd_one_kernel<<<c->num_windows, S1_THREADS, c->smem,
-                           static_cast<cudaStream_t>(stream)>>>(g, a, out);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// grad_z (n,) = Q^T g over the compact plan layout for one cotangent g (m,).
-int qz_plan_bwd_one(const float* g, float* out, const PlanOneConsts* c,
-                    void* stream) {
-  if (c->piece < 1 || c->window < 1 ||
-      static_cast<size_t>(c->smem) !=
-          plan_one_bytes(c->piece, c->narrow, c->stage_g, c->rows_per_window)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  PlanOneArgs a;
+  PlanArgs a;
   a.rows = c->rows;
   a.vals = c->vals;
   a.starts = c->starts;
   a.m = c->m;
+  a.n = c->n;
   a.window = c->window;
   a.rows_per_window = c->rows_per_window;
   a.piece = c->piece;
-  static int opted[4] = {0, 0, 0, 0};
-  const int which = (c->narrow ? 2 : 0) + (c->stage_g ? 1 : 0);
-  auto kernel = c->narrow ? (c->stage_g ? plan_bwd_one_kernel<uint16_t, true>
-                                        : plan_bwd_one_kernel<uint16_t, false>)
-                          : (c->stage_g ? plan_bwd_one_kernel<uint32_t, true>
-                                        : plan_bwd_one_kernel<uint32_t, false>);
+  a.K = K;
+  a.stage = stage;
+  const int g = group == 1 ? 0 : group == 2 ? 1 : group == 4 ? 2 : group == 8 ? 3 : -1;
+  if (g < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int which = (c->narrow ? 8 : 0) + (c->stage_g ? 4 : 0) + g;
+  auto kernel = c->narrow ? (c->stage_g ? plan_kernel<uint16_t, true>(g)
+                                        : plan_kernel<uint16_t, false>(g))
+                          : (c->stage_g ? plan_kernel<uint32_t, true>(g)
+                                        : plan_kernel<uint32_t, false>(g));
+  static int opted[16] = {};
+  const cudaError_t err = allow_smem(kernel, smem, opted[which]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<c->num_windows, PLAN_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      G, a, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (K, n) = Q^T G_k by the scatter, Q regenerated; G (K, m) moved order.
+int qz_scatter_bwd(const float* G, float* out, const ScatterConsts* c,
+                   void* stream) {
+  // the geometry is scatter_geometry's; checked here is what the body
+  // needs: a power-of-two window whose base | stride << 16 packs into 32
+  // bits, a row mask of a pass's rows, a sweep of at most K clients, a
+  // client group the body is built for, shared memory of its layout
+  const int w = c->window;
+  if (w < 2 || w > 65536 || (w & (w - 1)) || c->d < 1 || c->chunk_rows < 1 ||
+      32 * c->mask_stride < c->chunk_rows || c->K < 1 || c->clients < 1 ||
+      c->clients > c->K || c->group < 1 ||
+      static_cast<size_t>(c->smem) !=
+          4 * scatter_layout(w, c->rows_per_window, c->mask_stride,
+                             c->chunk_rows, c->d, c->clients,
+                             static_cast<int>(c->group)).words) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  ScatterArgs a;
+  a.s = spec_args(c->seed, c->tensor_id, w, c->rows_per_window, c->d, c->sigma);
+  a.m = c->m;
+  a.n = c->n;
+  a.K = c->K;
+  a.clients = c->clients;
+  a.chunk_rows = c->chunk_rows;
+  a.mask_stride = c->mask_stride;
+  a.div_d = {c->div_m, c->div_s1, c->div_s2};
+  const unsigned g = c->group;
+  const int which = g == 1 ? 0 : g == 2 ? 1 : g == 4 ? 2 : g == 8 ? 3 : -1;
+  if (which < 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = which == 0 ? scatter_bwd_kernel<1> : which == 1 ? scatter_bwd_kernel<2>
+              : which == 2 ? scatter_bwd_kernel<4> : scatter_bwd_kernel<8>;
+  static int opted[4] = {};
   const cudaError_t err = allow_smem(kernel, c->smem, opted[which]);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<c->num_windows, P1_THREADS, c->smem, static_cast<cudaStream_t>(stream)>>>(
-      g, a, out);
+  kernel<<<c->num_windows, SCATTER_THREADS, c->smem,
+           static_cast<cudaStream_t>(stream)>>>(G, a, out);
   return static_cast<int>(cudaGetLastError());
 }
 

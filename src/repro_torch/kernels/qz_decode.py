@@ -28,7 +28,7 @@ import torch
 
 from ..core.qspec import QSpec, sigma_f32
 from ..core.sampling import as_word
-from .nvcc import KernelLibrary, magic_div, raise_on
+from .nvcc import SMEM_MAX, KernelLibrary, magic_div, raise_on
 from .ops import SERVE_BM, serve_contract_plain
 
 MAX_BATCH = 128  # the walk keeps a sum per (batch row, column) in shared memory
@@ -42,7 +42,6 @@ D_DEALT = 8
 REGEN_BYTES = 4 * (THREADS // 32) * (32 * 2 * D_DEALT + 64)
 SMS = 132  # H100 SXM
 SMEM_SM = 233_472  # shared memory of an SM (228 KB), 1 KB of it a CTA's
-SMEM_MAX = 232_448  # shared memory a CTA may have on sm_90
 CTAS_SM = 4  # CTAs an SM holds at 64 registers a thread (the launch asks the card)
 TILE_MAX = 8192  # weights of a tile: 32 KB, so 4 CTAs fit an SM
 CO_MAX = 8  # tile columns

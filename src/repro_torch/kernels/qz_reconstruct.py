@@ -10,28 +10,27 @@ Replaces ten Pallas kernels of the JAX package's
   ``qz_reconstruct_fwd`` (its K=1 entry: continuous-mode training, the
   expected and discretized networks) — ``mask_reconstruct_kernel``, the
   same row code reading an explicit operand in place of a draw;
-- ``qz_reconstruct_batched_bwd_plan`` (the round's backward) —
-  ``plan_bwd_kernel``, on the plan of either order; and
+- ``qz_reconstruct_batched_bwd_plan`` (the round's backward) and
   ``qz_reconstruct_bwd_plan`` (its K=1 entry: every local backward) —
-  ``plan_bwd_one_kernel``, on the plan's compact layout
-  (``core.transpose_plan.build_plan_layout``);
+  ``plan_bwd_kernel``, on the plan's compact layout
+  (``core.transpose_plan.build_plan_layout``) of either order;
 - ``qz_reconstruct_batched_bwd`` (the scatter transpose, the round's
-  backward under ``REPRO_BWD_PLAN=scatter``) — ``scatter_bwd_kernel``,
-  which regenerates Q and reads no plan, and equals ``plan_bwd_kernel``
-  on the canonical plan bit for bit; and ``qz_reconstruct_bwd`` (its K=1
-  entry: the local backward under scatter) — ``scatter_bwd_one_kernel``,
-  the same sums sized for one client's windows;
+  backward under ``REPRO_BWD_PLAN=scatter``) and ``qz_reconstruct_bwd``
+  (its K=1 entry: the local backward under scatter) —
+  ``scatter_bwd_kernel``, which regenerates Q and reads no plan, and
+  equals ``plan_bwd_kernel`` on the canonical plan bit for bit;
 - ``qz_sample_pack_batched_fwd`` (the round's upload) —
   ``sample_pack_kernel``; and ``qz_sample_pack_fwd`` (its K=1 entry:
   each rank's upload in the sharded round), its draw word a scalar
   argument.
 
-The other K=1 forms are the batched kernel at K=1 behind their own
-wrapper and launch counter.  The two one-client backward kernels take a
-leaf's launch constants by pointer, made once per (spec, device, order)
-from ``scatter_one_plan`` / ``plan_one_plan`` (their launch geometry);
-kernel 5's hold the compact plan layout it reads, so the card keeps no
-padded plan for a one-client backward (``clear_caches`` drops them).
+Every K=1 form is its batched kernel launched at K=1 behind its own
+wrapper and launch counter.  The backward kernels take a leaf's launch
+constants by pointer: the scatter's made once per (spec, K) from
+``scatter_geometry``, the plan walk's once per (spec, device, order),
+holding the compact plan layout it reads, with ``plan_geometry``'s
+client group for each K.  So the card keeps no padded plan for either
+backward (``clear_caches`` drops the layouts).
 
 The source is ``csrc/qz_reconstruct.cu`` (design, bound and summation
 order are described there), built by ``kernels.nvcc`` at first use.
@@ -51,24 +50,30 @@ import torch
 
 from ..core.qspec import QSpec, sigma_f32
 from ..core.sampling import as_word
-from ..core.transpose_plan import (PlanLayout, build_plan_layout,
-                                   build_transpose_plan)
-from .nvcc import KernelLibrary, magic_div, raise_on, source_constant
+from ..core.transpose_plan import PlanLayout, build_plan_layout
+from .nvcc import (SMEM_MAX, KernelLibrary, magic_div, raise_on,
+                   source_constant)
 
 MAX_K = 1024
 MAX_ROWS = 1 << 31  # row and coordinate arithmetic is uint32
 
-# The one-client backward kernels' geometry: the scatter's threads (the
-# kernel's own constant), the edges of a pass and the words its
+# The backward kernels' geometry.  The scatter: its threads (the
+# kernel's own constant), the edges a pass regenerates, the words its
 # coordinates' row masks may take (so a window holds at most
-# S1_MASK_WORDS coordinates); the plan walk's threads, the slab entries a
-# CTA stages at once, and the most cotangent rows it stages.
-S1_THREADS = source_constant("qz_reconstruct.cu", "S1_THREADS")
-S1_EDGES = 2048
-S1_MASK_WORDS = 8192
-P1_THREADS = source_constant("qz_reconstruct.cu", "P1_THREADS")
-P1_PIECE_MAX = 16384
-P1_STAGE_G_MAX = 8192
+# SCATTER_MASK_WORDS coordinates), the floats of a sweep's cotangents and
+# partial sums, and the client-group sizes its walk is built for.  The
+# plan walk: its threads, the slab entries a CTA stages at once, the most
+# rows a window for which it stages cotangents, and the cotangent floats
+# it stages at once.
+SCATTER_THREADS = source_constant("qz_reconstruct.cu", "SCATTER_THREADS")
+SCATTER_EDGES = 2048
+SCATTER_MASK_WORDS = 8192
+SCATTER_STAGE_FLOATS = 8192
+SCATTER_GROUPS = (1, 2, 4, 8)
+PLAN_THREADS = source_constant("qz_reconstruct.cu", "PLAN_THREADS")
+PLAN_PIECE_MAX = 16384
+PLAN_STAGE_G_MAX = 8192
+PLAN_STAGE_FLOATS = 16384
 
 LAUNCHES: Dict[str, int] = {
     "qz_sample_reconstruct_batched_fwd": 0,
@@ -101,18 +106,14 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.qz_reconstruct_batched.argtypes = [P, I, L, U, U, U, I, U, I, F, P,
                                            P]
     lib.qz_reconstruct_batched.restype = I
-    lib.qz_plan_bwd.argtypes = [P, P, P, I, U, U, I, I, U, P, P]
+    lib.qz_plan_bwd.argtypes = [P, P, I, I, I, I, P, P]
     lib.qz_plan_bwd.restype = I
     lib.qz_sample_pack.argtypes = [P, P, I, L, U, U, P, P]
     lib.qz_sample_pack.restype = I
-    lib.qz_scatter_bwd.argtypes = [P, I, U, U, U, U, I, U, I, I, F, P, P]
+    lib.qz_scatter_bwd.argtypes = [P, P, P, P]
     lib.qz_scatter_bwd.restype = I
     lib.qz_sample_pack_one.argtypes = [P, U, U, U, U, P, P]
     lib.qz_sample_pack_one.restype = I
-    lib.qz_scatter_bwd_one.argtypes = [P, P, P, P]
-    lib.qz_scatter_bwd_one.restype = I
-    lib.qz_plan_bwd_one.argtypes = [P, P, P, P]
-    lib.qz_plan_bwd_one.restype = I
 
 
 LIBRARY = KernelLibrary("qz_reconstruct.cu", ("qz_common.cuh",), _bind)
@@ -127,155 +128,233 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-class ScatterOnePlan(NamedTuple):
-    """Launch geometry of kernel 2 at one leaf."""
+class ScatterGeometry(NamedTuple):
+    """Launch geometry of ``scatter_bwd_kernel`` at one leaf and K."""
 
     ctas: int  # one a window
     threads: int
-    chunk_rows: int  # a window's rows a pass: chunk_rows * d <= S1_EDGES
+    chunk_rows: int  # a window's rows a pass: chunk_rows * d <= SCATTER_EDGES
     mask_stride: int  # words of a coordinate's row mask, odd, >= rows / 32
     passes: int  # passes of a full window
+    clients: int  # clients a sweep: their cotangents (and sums) in smem
+    group: int  # clients a walking thread sums, in registers (G)
+    sweeps: int  # of the window, each regenerating its edges
     smem: int  # dynamic shared memory of a CTA, bytes
     div_d: Tuple[int, int, int]  # magic_div(d)
 
 
+def client_group(K: int) -> int:
+    """The clients a walking thread of either backward sums in registers:
+    the least of SCATTER_GROUPS that holds K, at most the largest."""
+    return next(g for g in SCATTER_GROUPS if g >= min(K, SCATTER_GROUPS[-1]))
+
+
+def scatter_words(window: int, rows_per_window: int, mask_stride: int,
+                  chunk_rows: int, d: int, clients: int, group: int) -> int:
+    """``scatter_layout(...).words`` of csrc/qz_reconstruct.cu: its
+    regions, each from a multiple of 4 words."""
+    def up4(x):
+        return -(-x // 4) * 4
+
+    cl = -(-clients // group) * group
+    multi = rows_per_window > chunk_rows
+    return (up4(chunk_rows * cl) + up4(2 * chunk_rows)
+            + (up4(clients * window) if multi else 0) + 2 * up4(chunk_rows)
+            + up4(chunk_rows * d) + 2 * up4(d) + up4(window * mask_stride)
+            + 1)
+
+
 @functools.lru_cache(maxsize=None)
-def scatter_one_plan(window: int, rows_per_window: int, d: int,
-                     num_windows: int) -> ScatterOnePlan:
-    """Kernel 2's geometry: a CTA a window, regenerating its edges in
-    passes of ``chunk_rows`` rows; shared memory holds the coordinates'
-    row masks (an odd stride of words, so neighbouring coordinates' masks
-    lie in different banks), the slots' mixed counters and the pass's
-    rows and edge products."""
-    if not (2 <= window <= S1_MASK_WORDS and window & (window - 1) == 0
-            and 1 <= d <= S1_EDGES and rows_per_window >= 1
-            and num_windows >= 1):
-        raise ValueError(f"the one-client scatter takes a power-of-two "
-                         f"window in [2, {S1_MASK_WORDS}] and d <= "
-                         f"{S1_EDGES}; got window={window}, d={d}, "
-                         f"rows_per_window={rows_per_window}")
-    most = S1_MASK_WORDS // window - (S1_MASK_WORDS // window + 1) % 2  # odd
-    chunk_rows = min(S1_EDGES // d, rows_per_window, 32 * most)
+def scatter_geometry(window: int, rows_per_window: int, d: int,
+                     num_windows: int, K: int = 1) -> ScatterGeometry:
+    """The scatter's geometry: a CTA a window, regenerating its edges in
+    passes of ``chunk_rows`` rows, for a sweep of ``clients`` clients at
+    a time; shared memory holds the coordinates' row masks (an odd stride
+    of words, so neighbouring coordinates' masks lie in different banks),
+    the slots' mixed counters, the pass's rows, the sweep's cotangents of
+    them and the edges' values, and where a window takes several passes
+    the sweep's partial sums."""
+    if not (2 <= window <= SCATTER_MASK_WORDS and window & (window - 1) == 0
+            and 1 <= d <= SCATTER_EDGES and rows_per_window >= 1
+            and num_windows >= 1 and 1 <= K <= MAX_K):
+        raise ValueError(f"the scatter takes a power-of-two window in [2, "
+                         f"{SCATTER_MASK_WORDS}], d <= {SCATTER_EDGES} and "
+                         f"K <= {MAX_K}; got window={window}, d={d}, "
+                         f"rows_per_window={rows_per_window}, K={K}")
+    most = (SCATTER_MASK_WORDS // window
+            - (SCATTER_MASK_WORDS // window + 1) % 2)  # odd
+    chunk_rows = min(SCATTER_EDGES // d, rows_per_window, 32 * most)
     stride = -(-chunk_rows // 32) | 1
-    words = window * stride + 2 * d + 4 * chunk_rows + chunk_rows * d
-    return ScatterOnePlan(num_windows, S1_THREADS, chunk_rows, stride,
-                          -(-rows_per_window // chunk_rows), 4 * words,
-                          magic_div(d))
+    group = client_group(K)
+    multi = rows_per_window > chunk_rows
+    per_client = chunk_rows + (window if multi else 0)
+    clients = K
+    if K * per_client > SCATTER_STAGE_FLOATS:
+        clients = max(group, SCATTER_STAGE_FLOATS // per_client // group
+                      * group)
+    words = scatter_words(window, rows_per_window, stride, chunk_rows, d,
+                          clients, group)
+    if 4 * words > SMEM_MAX:
+        raise ValueError(f"the scatter at window={window}, d={d}, K={K} "
+                         f"needs {4 * words} B of shared memory a CTA")
+    return ScatterGeometry(num_windows, SCATTER_THREADS, chunk_rows, stride,
+                           -(-rows_per_window // chunk_rows), clients, group,
+                           -(-K // clients), 4 * words, magic_div(d))
 
 
-class PlanOnePlan(NamedTuple):
-    """Launch geometry of kernel 5 at one leaf."""
+class PlanGeometry(NamedTuple):
+    """Launch geometry of ``plan_bwd_kernel`` at one leaf and K."""
 
     ctas: int  # one a window
     threads: int
     piece: int  # slab entries staged at once
     passes: int  # pieces of the largest window's slab
     stage_g: bool  # the window's cotangents staged in shared memory
+    stage: int  # clients staged at once (K where none are)
+    stages: int  # staged client groups a piece
+    group: int  # clients a walking thread sums, in registers (G)
     smem: int  # dynamic shared memory of a CTA, bytes
     row_bytes: int  # of a layout entry's row: 2 (narrow) or 4
 
 
 @functools.lru_cache(maxsize=None)
-def plan_one_plan(rows_per_window: int, num_windows: int, max_slab: int,
-                  narrow: bool) -> PlanOnePlan:
-    """Kernel 5's geometry: a CTA a window, its slab staged a piece of
-    at most ``P1_PIECE_MAX`` entries at a time (6 bytes an entry with
-    narrow rows, else 8), the window's cotangents beside it where they
-    fit."""
-    piece = max(1, min(max_slab, P1_PIECE_MAX))
-    stage_g = rows_per_window <= P1_STAGE_G_MAX
+def plan_geometry(rows_per_window: int, num_windows: int, max_slab: int,
+                  narrow: bool, K: int = 1) -> PlanGeometry:
+    """The plan walk's geometry: a CTA a window, its slab staged a piece
+    of at most ``PLAN_PIECE_MAX`` entries at a time (6 bytes an entry
+    with narrow rows, else 8), once for all K clients; beside it, where a
+    client's fit, the window's cotangents of ``stage`` clients at a time,
+    each client's rows at an odd stride; a thread a (coordinate, group of
+    G clients) pair."""
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"{K} clients outside [1, {MAX_K}]")
+    piece = max(1, min(max_slab, PLAN_PIECE_MAX))
+    stage_g = rows_per_window <= PLAN_STAGE_G_MAX
     row_bytes = 2 if narrow else 4
-    smem = piece * (4 + row_bytes) + (4 * rows_per_window if stage_g else 0)
-    return PlanOnePlan(num_windows, P1_THREADS, piece,
-                       max(1, -(-max_slab // piece)), stage_g, smem,
-                       row_bytes)
+    g_stride = rows_per_window | 1
+    group = client_group(K)
+    stage = min(K, PLAN_STAGE_FLOATS // g_stride) if stage_g else K
+    if group <= stage < K:  # whole walking groups a stage
+        stage = stage // group * group
+    smem = (piece * (4 + row_bytes) + 4
+            + (4 * stage * g_stride if stage_g else 0))
+    return PlanGeometry(num_windows, PLAN_THREADS, piece,
+                        max(1, -(-max_slab // piece)), stage_g, stage,
+                        -(-K // stage), group, smem, row_bytes)
 
 
-class _ScatterOneConsts(ctypes.Structure):
-    """ScatterOneConsts of csrc/qz_reconstruct.cu."""
+class _ScatterConsts(ctypes.Structure):
+    """ScatterConsts of csrc/qz_reconstruct.cu."""
 
     _fields_ = [("seed", ctypes.c_uint), ("tensor_id", ctypes.c_uint),
                 ("window", ctypes.c_int), ("rows_per_window", ctypes.c_uint),
                 ("d", ctypes.c_int), ("sigma", ctypes.c_float)] + [
         (name, ctypes.c_uint) for name in (
-            "m", "num_windows", "chunk_rows", "mask_stride", "div_m",
-            "div_s1", "div_s2")] + [("smem", ctypes.c_int)]
+            "m", "n", "num_windows", "K", "clients", "group", "chunk_rows",
+            "mask_stride", "div_m", "div_s1", "div_s2")] + [
+        ("smem", ctypes.c_int)]
 
 
-class _PlanOneConsts(ctypes.Structure):
-    """PlanOneConsts of csrc/qz_reconstruct.cu."""
+class _PlanConsts(ctypes.Structure):
+    """PlanConsts of csrc/qz_reconstruct.cu."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "rows", "vals", "starts")] + [(name, ctypes.c_uint) for name in (
-            "m", "window", "rows_per_window", "num_windows")] + [
-        (name, ctypes.c_int) for name in (
-            "piece", "narrow", "stage_g", "smem")]
+            "m", "n", "window", "rows_per_window", "num_windows")] + [
+        (name, ctypes.c_int) for name in ("piece", "narrow", "stage_g")]
 
 
-def scatter_one_geometry(spec: QSpec) -> ScatterOnePlan:
-    return scatter_one_plan(spec.window, spec.rows_per_window, spec.d,
-                            spec.num_windows)
+def scatter_bwd_geometry(spec: QSpec, K: int = 1) -> ScatterGeometry:
+    """The scatter's geometry at a leaf for K clients."""
+    return scatter_geometry(spec.window, spec.rows_per_window, spec.d,
+                            spec.num_windows, K)
 
 
 @functools.lru_cache(maxsize=64)
-def _scatter_one(spec: QSpec) -> tuple:
-    """Kernel 2's launch constants at a leaf: (struct, its address)."""
+def _scatter_consts(spec: QSpec, K: int) -> tuple:
+    """The scatter's launch constants at a leaf for K clients: (struct,
+    its address)."""
     _check_spec(spec)
-    plan = scatter_one_geometry(spec)
-    c = _ScatterOneConsts(spec.seed & 0xFFFFFFFF, spec.tensor_id,
-                          spec.window, spec.rows_per_window, spec.d,
-                          sigma_f32(spec), spec.m, spec.num_windows,
-                          plan.chunk_rows, plan.mask_stride, *plan.div_d,
-                          plan.smem)
+    geo = scatter_bwd_geometry(spec, K)
+    c = _ScatterConsts(spec.seed & 0xFFFFFFFF, spec.tensor_id, spec.window,
+                       spec.rows_per_window, spec.d, sigma_f32(spec), spec.m,
+                       spec.n, spec.num_windows, K, geo.clients, geo.group,
+                       geo.chunk_rows, geo.mask_stride, *geo.div_d, geo.smem)
     return c, ctypes.addressof(c)
 
 
-class _PlanOne(NamedTuple):
-    """Kernel 5's launch constants at a leaf on one card, holding the
+class _PlanEntry(NamedTuple):
+    """The plan walk's launch constants at a leaf on one card, holding the
     compact plan layout that ``consts`` points into."""
 
     layout: PlanLayout
-    geometry: PlanOnePlan
-    consts: _PlanOneConsts
+    consts: _PlanConsts
     address: int
 
 
-@functools.lru_cache(maxsize=64)
-def _plan_one(spec: QSpec, device: int, order: str) -> _PlanOne:
+_PLAN_ENTRIES: Dict[tuple, _PlanEntry] = {}  # by (spec, device, order)
+_PLAN_ENTRIES_MAX = 64
+
+
+def _plan_entry(spec: QSpec, device: int, order: str) -> _PlanEntry:
+    key = (spec, device, order)
+    entry = _PLAN_ENTRIES.get(key)
+    if entry is not None:
+        return entry
     _check_spec(spec)
     layout = build_plan_layout(spec, torch.device("cuda", device), order)
-    plan = plan_one_plan(spec.rows_per_window, spec.num_windows,
-                         layout.max_slab, layout.narrow)
-    c = _PlanOneConsts(layout.rows.data_ptr(), layout.vals.data_ptr(),
-                       layout.starts.data_ptr(), spec.m, spec.window,
-                       spec.rows_per_window, spec.num_windows, plan.piece,
-                       int(layout.narrow), int(plan.stage_g), plan.smem)
-    return _PlanOne(layout, plan, c, ctypes.addressof(c))
+    geo = plan_geometry(spec.rows_per_window, spec.num_windows,
+                        layout.max_slab, layout.narrow)
+    c = _PlanConsts(layout.rows.data_ptr(), layout.vals.data_ptr(),
+                    layout.starts.data_ptr(), spec.m, spec.n, spec.window,
+                    spec.rows_per_window, spec.num_windows, geo.piece,
+                    int(layout.narrow), int(geo.stage_g))
+    if len(_PLAN_ENTRIES) >= _PLAN_ENTRIES_MAX:  # the oldest goes
+        del _PLAN_ENTRIES[next(iter(_PLAN_ENTRIES))]
+    entry = _PLAN_ENTRIES[key] = _PlanEntry(layout, c, ctypes.addressof(c))
+    return entry
 
 
-def plan_one_geometry(spec: QSpec, device,
-                      order: str = "canonical") -> PlanOnePlan:
-    """Kernel 5's geometry at a leaf on a card (builds its layout there)."""
+def _device_index(device) -> int:
     dev = torch.device(device)
-    index = torch.cuda.current_device() if dev.index is None else dev.index
-    return _plan_one(spec, index, order).geometry
+    return torch.cuda.current_device() if dev.index is None else dev.index
+
+
+def plan_layout(spec: QSpec, device, order: str = "canonical") -> PlanLayout:
+    """The compact plan layout the plan walk reads at a leaf on a card
+    (built there at first use, and held for later launches)."""
+    return _plan_entry(spec, _device_index(device), order).layout
+
+
+def plan_bwd_geometry(spec: QSpec, device, order: str = "canonical",
+                      K: int = 1) -> PlanGeometry:
+    """The plan walk's geometry at a leaf on a card for K clients (builds
+    its layout there)."""
+    lay = plan_layout(spec, device, order)
+    return plan_geometry(spec.rows_per_window, spec.num_windows,
+                         lay.max_slab, lay.narrow, K)
+
+
+def plan_state_bytes() -> int:
+    """Bytes of the compact plan layouts held for the plan walk."""
+    return sum(t.numel() * t.element_size()
+               for e in _PLAN_ENTRIES.values() for t in (
+                   e.layout.rows, e.layout.vals, e.layout.starts))
 
 
 def clear_caches() -> None:
-    """Drop the one-client backward kernels' launch constants, and with
-    them the compact plan layouts kernel 5 reads."""
-    _scatter_one.cache_clear()
-    _plan_one.cache_clear()
+    """Drop the backward kernels' launch constants, and with them the
+    compact plan layouts the plan walk reads."""
+    _scatter_consts.cache_clear()
+    _PLAN_ENTRIES.clear()
 
 
-def _one_cotangent(spec: QSpec, g: torch.Tensor) -> torch.Tensor:
-    """The (n,) output of a one-client backward, once g is a contiguous
-    (m,) float32 tensor (the kernel reads m floats from its pointer)."""
+def _check_one_cotangent(spec: QSpec, g: torch.Tensor) -> None:
+    """A one-client backward reads m floats from g's pointer."""
     if (g.dtype != torch.float32 or g.shape != (spec.m,)
             or not g.is_contiguous()):
         raise ValueError(f"g must be contiguous ({spec.m},) float32, got "
                          f"{tuple(g.shape)} {g.dtype}")
-    return g.new_empty(spec.n)
 
 
 def _step_words(steps: torch.Tensor, K: int, device) -> torch.Tensor:
@@ -402,16 +481,32 @@ def _check_cotangent(spec: QSpec, G: torch.Tensor) -> torch.Tensor:
     return G.contiguous()
 
 
-def _launch_plan_bwd(spec: QSpec, G: torch.Tensor, order: str):
-    G = _check_cotangent(spec, G)
-    K = G.shape[0]
-    plan = build_transpose_plan(spec, G.device, order)
-    out = torch.empty((K, spec.n), dtype=torch.float32, device=G.device)
-    rc = build().qz_plan_bwd(
-        G.data_ptr(), plan.rows.data_ptr(), plan.vals.data_ptr(), K, spec.n,
-        spec.m, plan.deg, spec.window, spec.rows_per_window, out.data_ptr(),
-        _stream(G))
-    raise_on(rc, "qz_plan_bwd")
+def _launch_plan_bwd(spec: QSpec, G: torch.Tensor, K: int, out_shape,
+                     order: str) -> torch.Tensor:
+    """``plan_bwd_kernel`` on K contiguous (m,) f32 cotangents at G's
+    pointer, into a new tensor of ``out_shape`` (K * n floats)."""
+    dev = G.get_device()
+    entry = _plan_entry(spec, dev, order)
+    geo = plan_geometry(spec.rows_per_window, spec.num_windows,
+                        entry.layout.max_slab, entry.layout.narrow, K)
+    out = G.new_empty(out_shape)
+    raise_on(build().qz_plan_bwd(
+        G.data_ptr(), out.data_ptr(), K, geo.stage, geo.group, geo.smem,
+        entry.address, torch._C._cuda_getCurrentRawStream(dev)),
+        "qz_plan_bwd")
+    return out
+
+
+def _launch_scatter_bwd(spec: QSpec, G: torch.Tensor, K: int,
+                        out_shape) -> torch.Tensor:
+    """``scatter_bwd_kernel`` on K contiguous (m,) f32 cotangents at G's
+    pointer, into a new tensor of ``out_shape`` (K * n floats)."""
+    address = _scatter_consts(spec, K)[1]
+    out = G.new_empty(out_shape)
+    raise_on(build().qz_scatter_bwd(
+        G.data_ptr(), out.data_ptr(), address,
+        torch._C._cuda_getCurrentRawStream(G.get_device())),
+        "qz_scatter_bwd")
     return out
 
 
@@ -423,7 +518,9 @@ def qz_reconstruct_batched_bwd_plan(spec: QSpec, G: torch.Tensor,
         from .ops import plan_bwd_plain
 
         return plan_bwd_plain(spec, G, order)
-    out = _launch_plan_bwd(spec, G, order)
+    G = _check_cotangent(spec, G)
+    K = G.shape[0]
+    out = _launch_plan_bwd(spec, G, K, (K, spec.n), order)
     LAUNCHES["qz_reconstruct_batched_bwd_plan"] += 1
     return out
 
@@ -431,31 +528,16 @@ def qz_reconstruct_batched_bwd_plan(spec: QSpec, G: torch.Tensor,
 def qz_reconstruct_bwd_plan(spec: QSpec, g: torch.Tensor,
                             order: str = "canonical"):
     """grad_z (n,) = Q^T g over the ``order`` transpose plan for one
-    cotangent g (m,) f32 in moved flat order; equals a row of
-    ``qz_reconstruct_batched_bwd_plan`` bit for bit."""
+    cotangent g (m,) f32 in moved flat order: the batched kernel at K=1,
+    so it equals a row of ``qz_reconstruct_batched_bwd_plan`` bit for
+    bit."""
     if not g.is_cuda:
         from .ops import plan_bwd_one_plain
 
         return plan_bwd_one_plain(spec, g, order)
-    dev = g.get_device()
-    address = _plan_one(spec, dev, order).address
-    out = _one_cotangent(spec, g)
-    raise_on(build().qz_plan_bwd_one(
-        g.data_ptr(), out.data_ptr(), address,
-        torch._C._cuda_getCurrentRawStream(dev)), "qz_plan_bwd_one")
+    _check_one_cotangent(spec, g)
+    out = _launch_plan_bwd(spec, g, 1, (spec.n,), order)
     LAUNCHES["qz_reconstruct_bwd_plan"] += 1
-    return out
-
-
-def _launch_scatter_bwd(spec: QSpec, G: torch.Tensor):
-    G = _check_cotangent(spec, G)
-    K = G.shape[0]
-    out = torch.empty((K, spec.n), dtype=torch.float32, device=G.device)
-    rc = build().qz_scatter_bwd(
-        G.data_ptr(), K, spec.n, spec.m, spec.seed & 0xFFFFFFFF,
-        spec.tensor_id, spec.window, spec.rows_per_window, spec.num_windows,
-        spec.d, sigma_f32(spec), out.data_ptr(), _stream(G))
-    raise_on(rc, "qz_scatter_bwd")
     return out
 
 
@@ -468,25 +550,23 @@ def qz_reconstruct_batched_bwd(spec: QSpec, G: torch.Tensor):
         from .ops import scatter_bwd_plain
 
         return scatter_bwd_plain(spec, G)
-    out = _launch_scatter_bwd(spec, G)
+    G = _check_cotangent(spec, G)
+    K = G.shape[0]
+    out = _launch_scatter_bwd(spec, G, K, (K, spec.n))
     LAUNCHES["qz_reconstruct_batched_bwd"] += 1
     return out
 
 
 def qz_reconstruct_bwd(spec: QSpec, g: torch.Tensor):
     """grad_z (n,) = Q^T g by the scatter for one cotangent g (m,) f32
-    in moved flat order; equals a row of ``qz_reconstruct_batched_bwd``
-    bit for bit."""
+    in moved flat order: the batched kernel at K=1, so it equals a row of
+    ``qz_reconstruct_batched_bwd`` bit for bit."""
     if not g.is_cuda:
         from .ops import scatter_bwd_one_plain
 
         return scatter_bwd_one_plain(spec, g)
-    address = _scatter_one(spec)[1]
-    out = _one_cotangent(spec, g)
-    raise_on(build().qz_scatter_bwd_one(
-        g.data_ptr(), out.data_ptr(), address,
-        torch._C._cuda_getCurrentRawStream(g.get_device())),
-        "qz_scatter_bwd_one")
+    _check_one_cotangent(spec, g)
+    out = _launch_scatter_bwd(spec, g, 1, (spec.n,))
     LAUNCHES["qz_reconstruct_bwd"] += 1
     return out
 

@@ -1,10 +1,11 @@
 """The one-client backward kernels' host-side pieces, on the CPU.
 
-Kernel 2 (``qz_reconstruct_bwd``, ``scatter_bwd_one_kernel``) and kernel
-5 (``qz_reconstruct_bwd_plan``, ``plan_bwd_one_kernel``) run only on the
-card.  What surrounds them is checked here:
+Kernel 2 (``qz_reconstruct_bwd``, ``scatter_bwd_kernel`` at K=1) and
+kernel 5 (``qz_reconstruct_bwd_plan``, ``plan_bwd_kernel`` at K=1) run
+only on the card.  What surrounds them is checked here (their K-client
+forms in ``tests/test_torch_bwd_batched.py``):
 
-- their launch geometry (``scatter_one_plan``, ``plan_one_plan``): at
+- their launch geometry (``scatter_geometry``, ``plan_geometry``): at
   every shape ``chip_smoke.py`` gives them (Fig. 6's leaves at d in {1,
   16, 256}, Fig. 4's at d=10) and at the ``gpu`` tests' scatter specs,
   every row, edge and coordinate of a window is taken exactly once by
@@ -42,12 +43,14 @@ from repro_torch.core.transpose_plan import (build_plan_layout,
                                              build_transpose_plan)
 from repro_torch.core.zampling import ZamplingConfig, build_specs
 from repro_torch.kernels import ops
-from repro_torch.kernels.nvcc import CSRC, magic_div, source_constant
-from repro_torch.kernels.qz_decode import SMEM_MAX
-from repro_torch.kernels.qz_reconstruct import (P1_PIECE_MAX, P1_THREADS,
-                                                S1_EDGES, S1_MASK_WORDS,
-                                                S1_THREADS, plan_one_plan,
-                                                scatter_one_plan)
+from repro_torch.kernels.nvcc import (CSRC, SMEM_MAX, magic_div,
+                                      source_constant)
+from repro_torch.kernels.qz_reconstruct import (PLAN_PIECE_MAX,
+                                                PLAN_THREADS, SCATTER_EDGES,
+                                                SCATTER_MASK_WORDS,
+                                                SCATTER_THREADS,
+                                                plan_geometry,
+                                                scatter_geometry)
 from repro_torch.models.mlp import mlp_template
 
 BOX_MULLER_ATOL = 4.5e-5  # tests/test_torch_train_ops.py's tolerance
@@ -116,16 +119,16 @@ def _row_streams(spec, rows):
 @pytest.mark.parametrize("name", list(SHAPES))
 def test_scatter_geometry_takes_each_row_edge_and_coordinate_once(name):
     spec = SHAPES[name]
-    plan = scatter_one_plan(spec.window, spec.rows_per_window, spec.d,
+    plan = scatter_geometry(spec.window, spec.rows_per_window, spec.d,
                             spec.num_windows)
     d, win = spec.d, spec.window
     assert plan.ctas == spec.num_windows
-    assert plan.threads == S1_THREADS and plan.smem <= SMEM_MAX
-    assert plan.chunk_rows * d <= S1_EDGES
+    assert plan.threads == SCATTER_THREADS and plan.smem <= SMEM_MAX
+    assert plan.chunk_rows * d <= SCATTER_EDGES
     # a coordinate's row mask holds a pass's rows; its stride is odd
     assert plan.mask_stride % 2 == 1
     assert 32 * plan.mask_stride >= plan.chunk_rows
-    assert win * plan.mask_stride <= S1_MASK_WORDS
+    assert win * plan.mask_stride <= SCATTER_MASK_WORDS
     m_, s1, s2 = (np.uint64(v) for v in plan.div_d)
     for w in _windows(spec):
         r_lo, r_hi = _window_rows(spec, w)
@@ -133,7 +136,8 @@ def test_scatter_geometry_takes_each_row_edge_and_coordinate_once(name):
         r0, passes = r_lo, 0
         while True:  # the kernel's pass loop
             nrows = min(plan.chunk_rows, r_hi - r0) if r0 < r_hi else 0
-            # a thread per edge e = t + k * threads, i = e / d by magic
+            # a thread per edge e = t + k * threads of the pass's live
+            # rows (here all), the row's place in the list e / d by magic
             e = np.arange(nrows * d, dtype=np.uint64)
             t = (e * m_) >> np.uint64(32)
             i = ((t + ((e - t) >> s1)) >> s2).astype(np.int64)
@@ -165,10 +169,10 @@ def test_plan_geometry_takes_each_entry_once(name):
     slabs = [np.subtract(*_window_rows(spec, w)[::-1]) * spec.d
              for w in range(spec.num_windows)]
     narrow = spec.rows_per_window <= 1 << 16
-    plan = plan_one_plan(spec.rows_per_window, spec.num_windows,
+    plan = plan_geometry(spec.rows_per_window, spec.num_windows,
                          max(slabs), narrow)
     assert plan.ctas == spec.num_windows and plan.smem <= SMEM_MAX
-    assert plan.piece <= P1_PIECE_MAX
+    assert plan.piece <= PLAN_PIECE_MAX
     for w in _windows(spec):
         s0 = 0
         s1 = slabs[w]
@@ -184,8 +188,8 @@ def test_plan_geometry_takes_each_entry_once(name):
         assert pieces <= plan.passes and (seen[:s1] == 1).all()
 
 
-@pytest.mark.parametrize("name,value", [("S1_THREADS", S1_THREADS),
-                                        ("P1_THREADS", P1_THREADS)])
+@pytest.mark.parametrize("name,value", [("SCATTER_THREADS", SCATTER_THREADS),
+                                        ("PLAN_THREADS", PLAN_THREADS)])
 def test_thread_counts_are_the_kernels_own(name, value):
     text = (CSRC / "qz_reconstruct.cu").read_text()
     assert f"constexpr int {name} = {value};" in text
@@ -195,7 +199,7 @@ def test_thread_counts_are_the_kernels_own(name, value):
 
 
 def test_magic_div_of_every_fig6_degree():
-    e = np.arange(S1_EDGES, dtype=np.uint64)
+    e = np.arange(SCATTER_EDGES, dtype=np.uint64)
     for d in (1, 10, 16, 64, 256):
         m_, s1, s2 = (np.uint64(v) for v in magic_div(d))
         t = (e * m_) >> np.uint64(32)
@@ -253,7 +257,7 @@ def test_layout_is_the_padded_plans_real_entries_in_order(i, order):
 
 
 def _walk(spec, lay, g):
-    """The layout walked as plan_bwd_one_kernel walks it: each
+    """The layout walked as plan_bwd_kernel walks it at K=1: each
     coordinate's entries in order, from +0, each multiply and add
     rounded to float32 on its own (numpy float32 arrays do not fuse)."""
     ends = lay.starts.numpy().astype(np.int64)

@@ -416,36 +416,44 @@ SCATTER_SPECS = [((6, 112), 6, 8, 8, 16), ((7, 301), 7, 8, 10, 64),
                  ((96, 80), 96, 1, 16, 128), ((24, 40), 24, 1, 256, 512)]
 
 
-@pytest.mark.parametrize("K", [1, 4, 10])
+@pytest.mark.parametrize("K", [1, 2, 4, 10, 33])
 @pytest.mark.parametrize("i", range(len(SCATTER_SPECS)))
 def test_scatter_kernels_equal_plain_and_plan(cuda_train, i, K):
+    """Kernels 4 and 6 (K=33 crosses the scatter's client groups of 8 and,
+    at the wider windows, its sweeps and the plan walk's cotangent
+    groups) against their plain versions, each other and a second
+    launch; kernels 2 and 5 against their rows."""
     shape, fan_in, c, d, window = SCATTER_SPECS[i]
     spec = make_qspec(6, shape, fan_in, compression=c, d=d, window=window,
                       seed=2)
     rng = np.random.RandomState(10 * i + K)
     G = rng.randn(K, spec.m).astype(np.float32)
     G[:, ::3] = 0.0  # rows whose cotangent is 0 for every client
+    G[rng.rand(K, spec.m) < 0.2] = 0.0  # and for some
     G = torch.from_numpy(G).to(cuda_train)
     out = _counted("qz_reconstruct_batched_bwd",
                    lambda: qz_reconstruct.qz_reconstruct_batched_bwd(spec, G))
     assert torch.equal(out, ops.scatter_bwd_plain(spec, G))
-    assert torch.equal(out, qz_reconstruct.qz_reconstruct_batched_bwd_plan(
-        spec, G))
     assert torch.equal(out, qz_reconstruct.qz_reconstruct_batched_bwd(
         spec, G))  # a second launch, the same bits
-    for k in range(min(K, 2)):
+    plan = {}
+    for order in ("canonical", "slot"):
+        plan[order] = _counted(
+            "qz_reconstruct_batched_bwd_plan",
+            lambda: qz_reconstruct.qz_reconstruct_batched_bwd_plan(
+                spec, G, order))
+        assert torch.equal(plan[order], ops.plan_bwd_plain(spec, G, order))
+        assert torch.equal(plan[order],
+                           qz_reconstruct.qz_reconstruct_batched_bwd_plan(
+                               spec, G, order))
+    assert torch.equal(out, plan["canonical"])
+    for k in sorted({0, K // 2, K - 1}):
         one = _counted("qz_reconstruct_bwd",
                        lambda: qz_reconstruct.qz_reconstruct_bwd(spec, G[k]))
         assert torch.equal(one, out[k])
-        assert torch.equal(one, qz_reconstruct.qz_reconstruct_bwd_plan(
-            spec, G[k]))
-    # the slot plan on kernels 6 and 5, against its plain version
-    assert torch.equal(
-        qz_reconstruct.qz_reconstruct_batched_bwd_plan(spec, G, "slot"),
-        ops.plan_bwd_plain(spec, G, "slot"))
-    assert torch.equal(qz_reconstruct.qz_reconstruct_bwd_plan(spec, G[0],
-                                                              "slot"),
-                       ops.plan_bwd_one_plain(spec, G[0], "slot"))
+        for order in ("canonical", "slot"):
+            assert torch.equal(qz_reconstruct.qz_reconstruct_bwd_plan(
+                spec, G[k], order), plan[order][k])
 
 
 def _local_bwd_specs():
