@@ -32,6 +32,20 @@ for every tree; every tree's outputs must equal the first tree's, bit
 for bit.  A step's time sums a kernel's leaves (one launch each a local
 step, or a K=10 round's step, or a K=4 LM step).
 
+Forward mode (``--fwd``): the forward kernels, kernel 8
+(``qz_sample_reconstruct_batched_fwd``, K=10) at Fig. 4's leaves on
+seeded f32 probabilities and on seeded u8 words, kernel 3
+(``qz_reconstruct_batched_fwd``, K=10) at Fig. 4's leaves on the masks
+drawn from those probabilities (the composed round's operand), kernels
+7 (``qz_sample_reconstruct_fwd``) and 1 (``qz_reconstruct_fwd``) at
+Fig. 6's leaves (K=1, f32 probabilities), and kernel 8 at the 12 zampled
+leaves of full-width qwen2-0.5b, K=4, on seeded f32 probabilities drawn
+on the card (the LM's mean uploads and f32 downlink).  The same operands
+and draw words for every tree; every tree's outputs must equal the
+first tree's, bit for bit (through an int32 view).  A unit's time sums
+a kernel's leaves (one launch each a Fig. 4 or Fig. 6 step, or a K=4 LM
+step).
+
 Step mode (``--step``): the local step the backward kernels serve,
 ``train_local_zampling`` of Fig. 6 ``zampling_d16`` (chip_smoke's phase
 10 inputs: the same seeded scores, data and draw words), STEP_N steps on
@@ -59,6 +73,7 @@ copy of another revision, e.g. unpacked with ``git archive``):
     python3 chip_pack_ab.py before . . before
     python3 chip_pack_ab.py --serve before . . before
     python3 chip_pack_ab.py --bwd before . . before
+    python3 chip_pack_ab.py --fwd before . . before
     python3 chip_pack_ab.py --step before . . before before . . before
     python3 chip_pack_ab.py --bwd . .@EDGE_ILP=1 .@EDGE_ILP=1 .
 It prints, per tree and kernel, the times, their sum for one round (or
@@ -88,6 +103,13 @@ BWD_TAGS = {"qz_reconstruct_bwd": "scatter_bwd",
             "qz_reconstruct_bwd_plan": "plan_bwd",
             "qz_reconstruct_batched_bwd": "scatter_bwd",
             "qz_reconstruct_batched_bwd_plan": "plan_bwd"}
+# the forward kernels' profiler tags: each names both the old and the
+# new trees' kernels (sample_reconstruct_kernel and its successor
+# sample_reconstruct_window_kernel; likewise mask_)
+FWD_TAGS = {"qz_sample_reconstruct_batched_fwd": "sample_reconstruct",
+            "qz_sample_reconstruct_fwd": "sample_reconstruct",
+            "qz_reconstruct_batched_fwd": "mask_reconstruct",
+            "qz_reconstruct_fwd": "mask_reconstruct"}
 STEP_N = 200  # local steps a tree takes on each backward path
 LM_TOKENS = 512  # embed's live tokens: chip_smoke's LM batch 4 x seq 128
 
@@ -132,7 +154,7 @@ def load_tree(tree: Path, mode: str) -> dict:
     try:
         from repro_torch.configs import get_arch
         from repro_torch.configs.mnistfc import MNISTFC
-        from repro_torch.core.sampling import as_words
+        from repro_torch.core.sampling import as_words, sample_mask_hash
         from repro_torch.core.zampling import ZamplingConfig, build_specs
         from repro_torch.kernels import ops
         from repro_torch.kernels import qz_decode as qd
@@ -161,7 +183,7 @@ def load_tree(tree: Path, mode: str) -> dict:
                         if n.split(".")[0] == "repro_torch"},
                     "data": make_teacher_dataset, "loss": mlp_loss,
                     "cfg": LocalTrainConfig, "train": train_local_zampling}
-        if mode == "bwd":
+        if mode in ("bwd", "fwd"):
             qr.LIBRARY.start()
             fig6 = build_specs(mlp_template(MNISTFC), ZamplingConfig(
                 compression=1.0, d=cs.LOCAL_D, window=128, min_size=128,
@@ -171,7 +193,9 @@ def load_tree(tree: Path, mode: str) -> dict:
             lm = build_specs(param_template(get_arch("qwen2-0.5b")),
                              ZamplingConfig(compression=8, d=8,
                                             min_size=4096)).specs
-            return {"qr": qr, "fig6": fig6, "fig4": fig4, "lm": lm}
+            return {"qr": qr, "fig6": fig6, "fig4": fig4, "lm": lm,
+                    "as_words": as_words,
+                    "sample_mask_hash": sample_mask_hash}
         if mode == "serve":
             qd.LIBRARY.start()
             specs = build_specs(param_template(get_arch("qwen2-0.5b")),
@@ -283,6 +307,118 @@ def time_bwd(t: dict, g6, g4, G4, GL) -> dict:
             times[leaf] = (ms, 1e-3 * us / n if n else None)
         out[name] = {"leaves": times, "out": grads}
     return out
+
+
+def time_fwd(t: dict, ops: dict) -> dict:
+    """{kernel: {"leaves": {name: (ms, device ms)}, "out": {name: W}}}
+    for kernels 8 and 3 (K=10, Fig. 4; 8 also K=4, the LM's leaves) and
+    7 and 1 (one client, Fig. 6)."""
+    qr = t["qr"]
+    s10, s1, sL = (t["as_words"](ops[k], ops["dev"])
+                   for k in ("words10", "words1", "wordsL"))
+    calls = {
+        "qz_sample_reconstruct_batched_fwd": [
+            (f"Fig. 4 f32 {p}", lambda s=s, p=p:
+             qr.qz_sample_reconstruct_batched_fwd(s, ops["P4"][p], s10))
+            for p, s in t["fig4"].items()] + [
+            (f"Fig. 4 u8 {p}", lambda s=s, p=p:
+             qr.qz_sample_reconstruct_batched_fwd(s, ops["Q4"][p], s10, 8))
+            for p, s in t["fig4"].items()] + [
+            (f"LM {p}", lambda s=s, p=p:
+             qr.qz_sample_reconstruct_batched_fwd(s, ops["PL"][p], sL))
+            for p, s in t["lm"].items()],
+        "qz_reconstruct_batched_fwd": [
+            (f"Fig. 4 masks {p}", lambda s=s, p=p:
+             qr.qz_reconstruct_batched_fwd(s, ops["Z4"][p]))
+            for p, s in t["fig4"].items()],
+        "qz_sample_reconstruct_fwd": [
+            (f"Fig. 6 f32 {p}", lambda s=s, p=p:
+             qr.qz_sample_reconstruct_fwd(s, ops["p6"][p], s1))
+            for p, s in t["fig6"].items()],
+        "qz_reconstruct_fwd": [
+            (f"Fig. 6 f32 {p}", lambda s=s, p=p:
+             qr.qz_reconstruct_fwd(s, ops["p6"][p]))
+            for p, s in t["fig6"].items()]}
+    out = {}
+    for name, leaves in calls.items():
+        times, ws = {}, {}
+        for leaf, call in leaves:
+            ws[leaf] = call()
+            lm = leaf.startswith("LM")
+            ms = cs.event_ms(call, 10 if lm else 50)
+            tag = FWD_TAGS[name]
+            by_tag, _ = cs.profile_device_us(
+                lambda: [call() for _ in range(10)], (tag,))
+            us, n = by_tag[tag]
+            times[leaf] = (ms, 1e-3 * us / n if n else None)
+        out[name] = {"leaves": times, "out": ws}
+    return out
+
+
+def fwd_main(trees, loaded, card, dev) -> None:
+    import numpy as np
+    import torch
+
+    t0 = next(iter(loaded.values()))
+    rng = np.random.RandomState(cs.SEED)
+
+    def probs(k, n):
+        return torch.from_numpy(np.clip(
+            rng.rand(k, n) * 1.2 - 0.1, 0, 1).astype(np.float32)).to(dev)
+
+    ops = {"dev": dev,
+           "words10": rng.randint(0, 2**32, cs.FED_K, dtype=np.uint64),
+           "words1": rng.randint(0, 2**32, 1, dtype=np.uint64),
+           "wordsL": rng.randint(0, 2**32, cs.LM_K, dtype=np.uint64)}
+    ops["P4"] = {p: probs(cs.FED_K, s.n) for p, s in t0["fig4"].items()}
+    ops["Q4"] = {p: torch.from_numpy(rng.randint(
+        0, 256, (cs.FED_K, s.n)).astype(np.uint8)).to(dev)
+        for p, s in t0["fig4"].items()}
+    # the composed round's operand: the masks drawn from P4 at words10
+    w10 = t0["as_words"](ops["words10"], dev)
+    ops["Z4"] = {p: t0["sample_mask_hash"](ops["P4"][p], s.seed, s.tensor_id,
+                                           w10)
+                 for p, s in t0["fig4"].items()}
+    ops["p6"] = {p: probs(1, s.n)[0] for p, s in t0["fig6"].items()}
+    # the LM's probabilities, 1.3 GB in all, drawn on the card from a seed
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    ops["PL"] = {p: torch.rand((cs.LM_K, s.n), generator=gen, device=dev)
+                 for p, s in t0["lm"].items()}
+    runs, first = [], None
+    for tree in trees:
+        got = time_fwd(loaded[tree.resolve()], ops)
+        if first is None:
+            first = got
+        for name, r in got.items():
+            for leaf, v in r["out"].items():
+                if not cs.same_bits(v, first[name]["out"][leaf]):
+                    cs.die(f"{tree}'s {name} differs from {trees[0]}'s at "
+                           f"{leaf}")
+            units = {}
+            for leaf, (ms, dms) in r["leaves"].items():
+                unit = " ".join(leaf.split(" ")[:-1])  # "Fig. 4 f32", "LM"
+                acc = units.setdefault(unit, [0.0, 0.0])
+                acc[0] += ms
+                acc[1] = None if dms is None or acc[1] is None else acc[1] + dms
+            cs.say(f"ab: {tree} {name}: " + ", ".join(
+                f"{leaf} {v[0]:.4f} ms (device "
+                + ("not measured" if v[1] is None else f"{v[1]:.4f} ms")
+                + ")" for leaf, v in r["leaves"].items())
+                + "".join(
+                    f"; {u} step {v[0]:.4f} ms (device "
+                    + ("not measured" if v[1] is None else f"{v[1]:.4f} ms")
+                    + ")" for u, v in units.items())
+                + f" ({card})")
+            runs.append({"tree": str(tree), "kernel": name,
+                         "steps": {u: {"ms": v[0], "device_ms": v[1]}
+                                   for u, v in units.items()},
+                         "leaves": {leaf: {"ms": v[0], "device_ms": v[1]}
+                                    for leaf, v in r["leaves"].items()}})
+        del got
+        torch.cuda.empty_cache()
+    cs.say(f"ab: every tree's forward outputs equal the first tree's by bits "
+           f"({card})")
+    cs.say(json.dumps({"card": card, "runs": runs}))
 
 
 def bwd_main(trees, loaded, card, dev) -> None:
@@ -466,7 +602,8 @@ def main() -> None:
     import torch
 
     args = sys.argv[1:]
-    mode = {"--serve": "serve", "--bwd": "bwd", "--step": "step"}.get(
+    mode = {"--serve": "serve", "--bwd": "bwd", "--step": "step",
+            "--fwd": "fwd"}.get(
         args[0] if args else "", "pack")
     args = args[1:] if mode != "pack" else args
     if not torch.cuda.is_available() or len(args) < 2:
@@ -489,6 +626,9 @@ def main() -> None:
         return
     if mode == "bwd":
         bwd_main(trees, loaded, card, dev)
+        return
+    if mode == "fwd":
+        fwd_main(trees, loaded, card, dev)
         return
     if mode == "step":
         step_main(trees, loaded, card, dev)

@@ -51,7 +51,8 @@ Phases, one printed line or more each:
    and the library yardstick (torch.sparse.mm of the CSR Q against the
    drawn mask, then X @ W) at B in {4, 1};
 6. federated-round kernels against their plain versions on the card,
-   bitwise, at the three zampled MNISTFC leaves (sample-reconstruct at
+   bitwise (every training-kernel check compares bits: -0 is not +0), at
+   the three zampled MNISTFC leaves (sample-reconstruct at
    K=10 f32 and K=1 u8/f32, plan backward at K=10, sample-pack at
    K=10), and the row plan and the plan walk's compact layout built on
    the card against the kernels' own regenerated Q (the layout against
@@ -64,11 +65,13 @@ Phases, one printed line or more each:
    for the upload, 3 per sampled network in evaluation), falling loss,
    rising sampled accuracy, metered wire bytes, round and step times;
 8. federated-round kernel times, bounds, plain times and
-   torch.sparse.mm yardsticks, and kernel 6's K-client geometry and host
-   cost a launch;
+   torch.sparse.mm yardsticks, and kernels 8, 7 and 6's geometry and
+   host cost a launch;
 9. the reconstruct forward (K=1 and K=10), the K=1 plan backward and the
    sample-reconstruct forward (K=1 and K=10) against their plain
-   versions, bitwise, at Fig. 6's three leaves for d in {1, 16, 256},
+   versions, bitwise, at Fig. 6's three leaves for d in {1, 16, 256}
+   (a client at p = 0 over a window; the reconstruct forward also on
+   operands holding -0 and negatives),
    the card-built row plans and layouts against the kernels' Q, and the
    K=10 reconstruct
    forward at the composed round's own Fig. 4 leaves against its plain
@@ -81,9 +84,9 @@ Phases, one printed line or more each:
    composed federated round against phase 7's fused round 0 (bitwise
    words, dense leaves and loss; kernel 3 and kernel 6 launches only);
 11. reconstruct-forward and K=1 plan-backward times, device times,
-   bounds, plain times and torch.sparse.mm yardsticks, the K=1 plan
-   backward's launch geometry and host cost a launch, and the device
-   busy share of a local step;
+   bounds, plain times and torch.sparse.mm yardsticks, kernels 1, 3 and
+   the K=1 plan backward's launch geometry and host cost a launch, and
+   the device busy share of a local step;
 12. the K=1 scatter backward against its plain version and the K=1 plan
    backward at Fig. 6's leaves for d in {1, 16, 256} (bitwise, and a
    second launch the same bits), the slot plan on the K=1 plan backward;
@@ -117,8 +120,9 @@ Phases, one printed line or more each:
    (bitwise); the scatter backward's times, device times, bounds, plain
    times, torch.sparse.mm yardsticks, geometry and host cost a launch;
    the sample-reconstruct forward's times, device times, bounds (this
-   step's draws), plain times and torch.sparse.mm yardsticks on the same
-   operands, beside its Fig. 4 round in the kernels line;
+   step's draws), plain times, torch.sparse.mm yardsticks, geometry and
+   host cost a launch on the same operands, beside its Fig. 4 round in
+   the kernels line;
 17. the sharded round: bmm against per-client mm at the three MNISTFC
    layer shapes (counted, not gated); sharded_client_fit for 5 rounds on
    10 ranks at phase 7's settings and inputs, a rank's client k trained
@@ -487,14 +491,15 @@ def host_us(fn, reps: int = 50) -> float:
 
 
 def geometry_text(geo) -> str:
-    """A backward kernel's launch geometry (``qr.ScatterGeometry`` or
-    ``qr.PlanGeometry``), for a ``launch:`` line."""
+    """A training kernel's launch geometry (``qr.FwdGeometry``,
+    ``qr.ScatterGeometry`` or ``qr.PlanGeometry``), for a ``launch:``
+    line."""
     return ", ".join(f"{k} {v}" for k, v in geo._asdict().items()
                      if k != "div_d")
 
 
 def launch_report(card, kt, name, path, fn, geo) -> None:
-    """A backward kernel at one leaf, after ``kt.add``: device and event
+    """A training kernel at one leaf, after ``kt.add``: device and event
     time, the launch geometry, and the host's cost of a launch (the one
     measured, kept in the leaf's entry of the kernels line)."""
     sh = kt.acc[name]["shapes"][path]
@@ -507,13 +512,25 @@ def launch_report(card, kt, name, path, fn, geo) -> None:
         f"({card})")
 
 
+def same_bits(got, want) -> bool:
+    """Equal shapes and equal bits: floats compared through an int32 view,
+    so -0 and +0 differ (``torch.equal`` counts them equal)."""
+    import torch
+
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    return bool(torch.equal(got, want))
+
+
 def check_bitwise(max_err, name, got, want, what):
     """Die unless a kernel's output equals its plain version's, bit for
-    bit; record the largest difference."""
+    bit (the sign of zero too); record the largest difference."""
     import torch
 
     torch.cuda.synchronize()
-    same = bool(torch.equal(got, want))
+    same = same_bits(got, want)
     diff = (got.double() - want.double()).abs().max().item()
     max_err[name] = max(max_err[name], diff)
     say(f"train-kernel-vs-plain: {name} {what}: bitwise={same} "
@@ -752,8 +769,8 @@ def training_phases(card: str, dev) -> list:
     t0 = time.perf_counter()
     decoded = {p: u8.decode(s, state["scores"][p]) for p, s in specs.items()}
     kt = KernelTimes(card, {
-        "qz_sample_reconstruct_batched_fwd": "sample_reconstruct_kernel",
-        "qz_sample_reconstruct_fwd": "sample_reconstruct_kernel",
+        "qz_sample_reconstruct_batched_fwd": "sample_reconstruct_window_kernel",
+        "qz_sample_reconstruct_fwd": "sample_reconstruct_window_kernel",
         "qz_reconstruct_batched_bwd_plan": "plan_bwd_kernel",
         "qz_sample_pack_batched_fwd": "sample_pack_kernel"})
     add = kt.add
@@ -775,6 +792,9 @@ def training_phases(card: str, dev) -> list:
             event_ms(lambda: torch.sparse.mm(Q, Zt), 50),
             row_ops + any_drawn * OPS_VALUE + FED_K * n * OPS_DRAW + drawn,
             FED_K * (4 * n + 4 * m) + 4 * FED_K)
+        launch_report(card, kt, "qz_sample_reconstruct_batched_fwd", path,
+                      lambda: qr.qz_sample_reconstruct_batched_fwd(
+                          spec, P, steps), qr.fwd_geometry(spec, FED_K))
         q = state["scores"][path]
         s1 = steps[:1]
         z1 = sample_mask_qhash(q[None], 8, spec.seed, spec.tensor_id, s1)
@@ -787,6 +807,9 @@ def training_phases(card: str, dev) -> list:
             event_ms(lambda: torch.sparse.mm(Q, z1t), 50),
             row_ops + float(b1.sum()) * (OPS_VALUE + 1) + n * OPS_DRAW,
             n + 4 * m + 4)
+        launch_report(card, kt, "qz_sample_reconstruct_fwd", path,
+                      lambda: qr.qz_sample_reconstruct_fwd(spec, q, s1, 8),
+                      qr.fwd_geometry(spec, 1))
         G = torch.from_numpy(rng.randn(FED_K, m).astype(np.float32)).to(dev)
         Gt = G.t().contiguous()
         geo = qr.plan_bwd_geometry(spec, dev, K=FED_K)
@@ -835,7 +858,8 @@ def training_phases(card: str, dev) -> list:
     # device time by kernel, by torch.profiler over one more round and
     # one evaluation; CUDA-event times above include the host's launch
     # cost between back-to-back calls
-    tags = {"qz_sample_reconstruct_batched_fwd": "sample_reconstruct_kernel",
+    tags = {"qz_sample_reconstruct_batched_fwd":
+            "sample_reconstruct_window_kernel",
             "qz_reconstruct_batched_bwd_plan": "plan_bwd_kernel",
             "qz_sample_pack_batched_fwd": "sample_pack_kernel"}
     by_tag, dev_us = profile_device_us(
@@ -845,14 +869,14 @@ def training_phases(card: str, dev) -> list:
         tuple(tags.values()))
     ev_tag, ev_us = profile_device_us(
         lambda: evaluate(zspecs, state, acc_fn, eval_words, carried="u8",
-                         device=dev), ("sample_reconstruct_kernel",))
+                         device=dev), ("sample_reconstruct_window_kernel",))
     if dev_us <= 0:
         say("profile: torch.profiler showed no device time; device times "
             "not measured")
     else:
         for row in rows:
             if row["name"] == "qz_sample_reconstruct_fwd":
-                us, n_l = ev_tag["sample_reconstruct_kernel"]
+                us, n_l = ev_tag["sample_reconstruct_window_kernel"]
                 us /= EVAL_NETS
             else:
                 us, n_l = by_tag[tags[row["name"]]]
@@ -928,10 +952,21 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
                 rng.rand(FED_K, spec.n).astype(np.float32) * 1.2 - 0.1).to(dev))
             steps = as_words(rng.randint(0, 2**32, FED_K, dtype=np.uint64),
                              dev)
+            P[1, :spec.window] = 0.0  # a client at p = 0 over window 0
             g = torch.from_numpy(rng.randn(spec.m).astype(np.float32)).to(dev)
             W = qr.qz_reconstruct_batched_fwd(spec, P)
             check("qz_reconstruct_batched_fwd", W,
                   ops.reconstruct_plain(spec, P), f"{what} K={FED_K}")
+            Zs = P.clone()  # explicit operands holding -0 and negatives
+            Zs[:, 1::3] = -0.0
+            Zs[2] = -Zs[2]
+            check("qz_reconstruct_batched_fwd",
+                  qr.qz_reconstruct_batched_fwd(spec, Zs),
+                  ops.reconstruct_plain(spec, Zs),
+                  f"{what} K={FED_K} operands with -0 and negatives")
+            check("qz_reconstruct_fwd", qr.qz_reconstruct_fwd(spec, Zs[2]),
+                  ops.reconstruct_plain(spec, Zs[2:3])[0],
+                  f"{what} K=1 operand with -0 and negatives")
             w = qr.qz_reconstruct_fwd(spec, P[3])
             check("qz_reconstruct_fwd", w,
                   ops.reconstruct_plain(spec, P[3:4])[0], f"{what} K=1")
@@ -963,7 +998,7 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
                 f"layout is Q^T's canonical CSR of it = {ok_lay}")
             if not (ok and ok_lay):
                 die(f"the card-built plan differs from the kernels' Q ({what})")
-            del P, W, Z, gidx, vals, idx, kvals
+            del P, W, Z, Zs, gidx, vals, idx, kvals
         torch.cuda.empty_cache()
     # kernel 3 at the shapes of its own path, the composed round: the
     # Fig. 4 leaves of phase 7 at K=10, on masks drawn from the round's
@@ -1168,8 +1203,8 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
     # --- 11. times of kernels 1, 3 and 5 --------------------------------------
     t0 = time.perf_counter()
     kt = KernelTimes(card, {
-        "qz_reconstruct_fwd": "mask_reconstruct_kernel",
-        "qz_reconstruct_batched_fwd": "mask_reconstruct_kernel",
+        "qz_reconstruct_fwd": "mask_reconstruct_window_kernel",
+        "qz_reconstruct_batched_fwd": "mask_reconstruct_window_kernel",
         "qz_reconstruct_bwd_plan": "plan_bwd_kernel"})
 
     def add(name, path, kernel, plain, library, ops_n, bytes_n):
@@ -1196,6 +1231,9 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
             lambda: qr.qz_reconstruct_fwd(spec, z),
             lambda: ops.reconstruct_plain(spec, z[None]),
             lambda: torch.sparse.mm(Q, zt), *fwd_work(spec, z[None]))
+        launch_report(card, kt, "qz_reconstruct_fwd", path,
+                      lambda: qr.qz_reconstruct_fwd(spec, z),
+                      qr.fwd_geometry(spec, 1, True))
         g = torch.from_numpy(rng.randn(spec.m).astype(np.float32)).to(dev)
         QT = q_csr(spec, dev, True)
         gt = g[:, None].contiguous()
@@ -1223,6 +1261,9 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
             lambda: qr.qz_reconstruct_batched_fwd(spec, Z),
             lambda: ops.reconstruct_plain(spec, Z),
             lambda: torch.sparse.mm(Q, Zt), *fwd_work(spec, Z))
+        launch_report(card, kt, "qz_reconstruct_batched_fwd", path,
+                      lambda: qr.qz_reconstruct_batched_fwd(spec, Z),
+                      qr.fwd_geometry(spec, FED_K, True))
 
     meta = {
         "qz_reconstruct_fwd": (
@@ -1254,9 +1295,9 @@ def local_phases(card: str, dev, fed: dict, rows: list) -> list:
             float(loss)
 
     for mode, m_ms, kernel_tags in (
-            ("sample", med, ("sample_reconstruct_kernel",
+            ("sample", med, ("sample_reconstruct_window_kernel",
                              "plan_bwd_kernel")),
-            ("continuous", c_med, ("mask_reconstruct_kernel",
+            ("continuous", c_med, ("mask_reconstruct_window_kernel",
                                    "plan_bwd_kernel"))):
         by_tag, dev_us = profile_device_us(lambda: steps10(mode),
                                            kernel_tags)
@@ -1572,7 +1613,7 @@ def lm_phases(card: str, dev, fed: dict, kernel_rows: list) -> list:
             lambda: tfed.federated_round(run.zspecs, run.state, run.loss,
                                          run.batch(), run.words[-1],
                                          run.fcfg, device=dev),
-            ("sample_reconstruct_kernel", "scatter_bwd_kernel"), top=12)
+            ("sample_reconstruct_window_kernel", "scatter_bwd_kernel"), top=12)
         say(f"lm: median round {med:.4f} s; one local step "
             f"{1e3 * step_s:.2f} ms (local_update at E={E} {lu_s[E]:.4f} s, "
             f"at E={E - 1} {lu_s[E - 1]:.4f} s) ({card})")
@@ -1625,7 +1666,7 @@ def lm_phases(card: str, dev, fed: dict, kernel_rows: list) -> list:
         kt = KernelTimes(card, {"qz_reconstruct_batched_bwd":
                                 "scatter_bwd_kernel"})
         kt8 = KernelTimes(card, {"qz_sample_reconstruct_batched_fwd":
-                                 "sample_reconstruct_kernel"})
+                                 "sample_reconstruct_window_kernel"})
         for path, spec in full.specs.items():
             what = (f"full-width {path} m={spec.m} n={spec.n} "
                     f"rpw={spec.rows_per_window} d={spec.d} K={LM_K}")
@@ -1688,6 +1729,10 @@ def lm_phases(card: str, dev, fed: dict, kernel_rows: list) -> list:
                     m * OPS_PER_WEIGHT + m * d * OPS_ROW_EDGE
                     + any_drawn * OPS_VALUE + LM_K * n * OPS_DRAW + drawn,
                     LM_K * (P.element_size() * n + 4 * m) + 4 * LM_K)
+            launch_report(card, kt8, "qz_sample_reconstruct_batched_fwd",
+                          path, lambda: qr.qz_sample_reconstruct_batched_fwd(
+                              spec, P, steps, qbits),
+                          qr.fwd_geometry(spec, LM_K))
             del P, steps, Z, Zt, Q
             torch.cuda.empty_cache()
         say(f"lm: kernels 8 and 4 bitwise their plain versions at all "
@@ -1719,7 +1764,7 @@ def lm_phases(card: str, dev, fed: dict, kernel_rows: list) -> list:
             "leaf, K=4",
             "torch.sparse.mm(Q_csr, Z^T) on the drawn masks (no draw)")
         if dev_us > 0:
-            us, _ = by_tag["sample_reconstruct_kernel"]
+            us, _ = by_tag["sample_reconstruct_window_kernel"]
             row8["device_ms_in_main_path"] = 1e-3 * us / E
         for r in kernel_rows:  # beside its Fig. 4 round
             if r["name"] == "qz_sample_reconstruct_batched_fwd":

@@ -5,37 +5,57 @@
 // code the serve kernel (qz_decode.cu) already holds bitwise against
 // torch.
 //
-// reconstruct_rows is the forward of four Pallas kernels of
+// reconstruct_window is the forward of four Pallas kernels of
 // src/repro/kernels/qz_reconstruct.py.  W[k, r] = sum_j vals[r, j] *
 // z_k[idx[r, j]] in ascending j, each multiply and add rounded on its
 // own, with z_k either
 //   - drawn in the body, z_k ~ Bern(p_k) from the hash stream at the
-//     edge's coordinate (f32 probabilities, or the u8/u16 threshold
-//     compare): sample_reconstruct_kernel, replacing
+//     coordinate (f32 probabilities, or the u8/u16 threshold compare):
+//     sample_reconstruct_window_kernel, replacing
 //     qz_sample_reconstruct_batched_fwd and, at K = 1,
 //     qz_sample_reconstruct_fwd;
 //   - read from an explicit (K, n) f32 operand (masks, or the
 //     probabilities themselves in continuous mode):
-//     mask_reconstruct_kernel, replacing qz_reconstruct_batched_fwd and,
-//     at K = 1, qz_reconstruct_fwd.
-// One thread owns one row.  It regenerates the row's edges (coordinates
-// and values) once, into shared memory that only it reads, then for each
-// of the K clients gathers that client's operand at each edge and sums.
-// A row's d edges are staged CHUNK at a time, so any d fits (the paper
-// runs d up to 256); a later chunk picks the client's partial sum back
-// up from W, which holds exactly the float the thread wrote, so the sum
-// is the same ascending-j sequence of rounded adds as with one chunk.
-// The Pallas kernels gather through a one-hot MXU product; here it is a
-// plain gather.  Only the valid rows [0, m) of the single-block layout
-// are computed (the padding rows the JAX wrapper slices off are never
-// formed).
-// Bound: at MNISTFC width, bytes for the drawn forward at K = 10 and
-// operations for K = 1.  The least work is per row 2 row hashes, per
-// edge its index and, where some client's operand is not 0, 2 value
-// hashes and a Box-Muller; per (client, edge) a multiply-add where the
-// operand is not 0; for a drawn operand one mask hash and a compare per
-// (client, coordinate) (this kernel redraws per (client, edge)).
-// Against that, the K operand rows read and the K output rows written.
+//     mask_reconstruct_window_kernel, replacing qz_reconstruct_batched_fwd
+//     and, at K = 1, qz_reconstruct_fwd.
+// Window w's rows read only its `window` coordinates, so a CTA owns one
+// window, or a slice of its rows where the leaf has too few windows to
+// fill the card (each slice stages the window again); the geometry is
+// reconstruct_geometry of kernels/qz_reconstruct.py.  For a sweep of
+// `clients` clients at a time (one sweep wherever they fit):
+//   1. a thread per (coordinate, word of 32 clients), coordinate fastest,
+//      so each client's reads are coalesced: per client of the word the
+//      bit (drawn once per (client, coordinate) with qz::mask_bit, so the
+//      bits are kernel 10's and the plain _draw's), or the operand staged
+//      in shared memory and its bit set where it is not +-0; the word goes
+//      to shared memory;
+//   2. a thread per (row, group of G clients), row fastest so the writes
+//      of W are coalesced: the row's edges in batches of FWD_EDGE_ILP
+//      (then one at a time), per edge its in-window index and the group's
+//      bits there; a batch with none set is skipped, else its values (two
+//      hashes past the slot's mixed counters, and Box-Muller) are
+//      regenerated together, as independent chains, and added in
+//      ascending j to the sums, in registers (G a template argument, 1,
+//      4, 8, 16 or 32), of the clients whose bit is set (a drawn operand,
+//      or an explicit one whose staged window holds only +0 and 1, found
+//      by a CTA-wide vote, since value * 1 == value), or times the operand
+//      to every live client's sum (any other explicit operand).  Every
+//      edge is regenerated once per group, so once wherever K <= 32.
+// Skipped edges are zero products, and a zero product changes no sum
+// once a product that is not 0 has been added (x + -0 = x, and a sum
+// that cancels to +0 stays +0), nor before it (-0 + x = x).  So each sum
+// is the plain sum's bit for bit, except where every product of the
+// (row, client) is +-0: then the plain sum is -0 exactly when every
+// product is -0, and the thread recomputes the row's values until one
+// product's sign is + (a product's sign is the value's sign XOR the
+// operand's; a drawn operand is +0 or 1, so there one positive value
+// already regenerated settles it).
+// Bound: the larger of the operations (per row its two row hashes, per
+// edge its index and, where some client's operand is not 0, its value;
+// per (client, coordinate) one mask hash and compare; per (client, edge)
+// whose operand is not 0 an add) and the bytes (the K operand rows read,
+// the K output rows written): bytes at Fig. 4's leaves with K = 10,
+// operations at K = 1 and at the full-width LM with K = 4.
 //
 // plan_bwd_kernel replaces qz_reconstruct_batched_bwd_plan and, launched
 // at K = 1, qz_reconstruct_bwd_plan (every local backward, and each
@@ -128,106 +148,21 @@
 
 namespace {
 
+// sample_pack_kernel: threads per CTA
 constexpr int THREADS = 128;
 
-// A row's edges staged in shared memory at once: 8 bytes per edge and
-// thread, 32 KB a CTA, plus 4 bytes per client (at most 4 KB), under the
-// 48 KB a launch gets without opting in to more.
-constexpr int CHUNK = 32;
-
-// The explicit f32 operand of mask_reconstruct_kernel: no draw.
+// The explicit f32 operand of mask_reconstruct_window_kernel: no draw.
 constexpr int KIND_VALUES = 3;
 
 template <int KIND>
-__device__ __forceinline__ const void* client_words(const void* P, int k,
-                                                    long long n) {
-  const long long off = static_cast<long long>(k) * n;
+__device__ __forceinline__ const void* client_words(const void* P, uint32_t k,
+                                                    uint32_t n) {
+  const size_t off = static_cast<size_t>(k) * n;
   if (KIND == qz::KIND_F32 || KIND == KIND_VALUES) {
     return static_cast<const float*>(P) + off;
   }
   if (KIND == qz::KIND_U8) return static_cast<const uint8_t*>(P) + off;
   return static_cast<const uint16_t*>(P) + off;
-}
-
-// Client k's operand at a global coordinate: its value, or its drawn bit.
-template <int KIND>
-__device__ __forceinline__ float edge_operand(const void* __restrict__ words,
-                                              uint32_t hm, uint32_t coord) {
-  if (KIND == KIND_VALUES) return static_cast<const float*>(words)[coord];
-  return qz::mask_bit<KIND>(words, hm, coord) ? 1.0f : 0.0f;
-}
-
-// Dynamic shared memory: K mask prefixes (drawn kinds), then ch x THREADS
-// coordinates and ch x THREADS values, ch = min(d, CHUNK).  MULTI is
-// d > CHUNK, fixed at compile time so that the one-chunk instance (every
-// d the round and Fig. 6 run) has no chunk loop and no read-back.
-template <int KIND, bool MULTI>
-__device__ __forceinline__ void reconstruct_rows(const void* __restrict__ P,
-                                            const long long* __restrict__ steps,
-                                            int K, long long n, uint32_t m,
-                                            const qz::SpecArgs& s,
-                                            float* __restrict__ W) {
-  extern __shared__ uint32_t smem[];
-  const int ch = s.d < CHUNK ? s.d : CHUNK;
-  const int nh = KIND == KIND_VALUES ? 0 : K;
-  uint32_t* sHm = smem;
-  uint32_t* sCoord = sHm + nh;
-  float* sVal = reinterpret_cast<float*>(sCoord + ch * THREADS);
-
-  const int t = threadIdx.x;
-  for (int k = t; k < nh; k += THREADS) {
-    sHm[k] = qz::mask_prefix(s.seed, s.tensor_id, static_cast<uint32_t>(steps[k]));
-  }
-  __syncthreads();  // the only data threads share: the mask prefixes
-  const uint32_t r = blockIdx.x * THREADS + t;
-  if (r >= m) return;
-  const uint32_t hq = qz::prefix2(s.seed, s.tensor_id);
-  const qz::RowEdges e = qz::row_edges(hq, r, s.window);
-  const uint32_t wbase = (r / s.rows_per_window) * s.window;
-  for (int j0 = 0; j0 < (MULTI ? s.d : ch); j0 += ch) {
-    const int nj = s.d - j0 < ch ? s.d - j0 : ch;
-    for (int jj = 0; jj < nj; ++jj) {
-      sCoord[jj * THREADS + t] = wbase + e.index(j0 + jj, s.window);
-      sVal[jj * THREADS + t] = e.value(j0 + jj, s.sigma);
-    }
-    for (int k = 0; k < K; ++k) {
-      const void* words = client_words<KIND>(P, k, n);
-      const uint32_t hm = nh ? sHm[k] : 0u;
-      float* out = W + static_cast<long long>(k) * m + r;
-      // -0 + x == x for every x, so a sum started at -0 is the sum started
-      // at the first product; a later chunk resumes from the partial sum
-      // written for the last
-      float acc = (MULTI && j0 > 0) ? *out : -0.0f;
-      for (int jj = 0; jj < nj; ++jj) {
-        const float z = edge_operand<KIND>(words, hm, sCoord[jj * THREADS + t]);
-        acc = __fadd_rn(acc, __fmul_rn(sVal[jj * THREADS + t], z));
-      }
-      *out = acc;
-    }
-  }
-}
-
-template <int KIND>
-__global__ void __launch_bounds__(THREADS)
-sample_reconstruct_kernel(const void* __restrict__ P,
-                          const long long* __restrict__ steps, int K,
-                          long long n, uint32_t m, qz::SpecArgs s,
-                          float* __restrict__ W) {
-  if (s.d > CHUNK) {
-    reconstruct_rows<KIND, true>(P, steps, K, n, m, s, W);
-  } else {
-    reconstruct_rows<KIND, false>(P, steps, K, n, m, s, W);
-  }
-}
-
-__global__ void __launch_bounds__(THREADS)
-mask_reconstruct_kernel(const float* __restrict__ Z, int K, long long n,
-                        uint32_t m, qz::SpecArgs s, float* __restrict__ W) {
-  if (s.d > CHUNK) {
-    reconstruct_rows<KIND_VALUES, true>(Z, nullptr, K, n, m, s, W);
-  } else {
-    reconstruct_rows<KIND_VALUES, false>(Z, nullptr, K, n, m, s, W);
-  }
 }
 
 // plan_bwd_kernel: threads per CTA (read by plan_geometry in
@@ -553,6 +488,252 @@ scatter_bwd_kernel(const float* __restrict__ Gm, ScatterArgs a,
   }
 }
 
+// reconstruct_window: threads per CTA (read by reconstruct_geometry in
+// kernels/qz_reconstruct.py), and the edges of a row whose values a
+// thread regenerates together (independent chains in flight)
+constexpr int FWD_THREADS = 256;
+constexpr int FWD_EDGE_ILP = 4;
+
+struct FwdArgs {
+  qz::SpecArgs s;
+  uint32_t m, n;
+  uint32_t K;
+  uint32_t slices;   // CTAs a window
+  uint32_t rows;     // a window's rows a CTA (the last slice may hold fewer)
+  uint32_t clients;  // clients a sweep
+};
+
+// Dynamic shared memory, in 4-byte words: per slot j the mixed value
+// counters (2 d); the sweep's mask prefixes (drawn kinds); per (client
+// word, coordinate) the word of bits; the sweep's operands, a client's
+// window at a time (explicit operand).
+__host__ __device__ __forceinline__ size_t fwd_words(int d, uint32_t window,
+                                                     uint32_t clients,
+                                                     bool values) {
+  const size_t cw = (clients + 31u) / 32u;
+  return 2u * static_cast<size_t>(d) + (values ? 0u : clients) + cw * window
+         + (values ? static_cast<size_t>(clients) * window : 0u);
+}
+
+// Phase 2's work on one row for a group of G clients (nlive of them
+// below the sweep's end): its edges U at a time from j0, each edge's
+// in-window index and the group's bits there (a drawn bit, or an operand
+// that is not +-0).  A batch with no bit set adds only zero products and
+// is skipped; else its values are regenerated together, as independent
+// chains, and added in ascending j.  BITS: the operands are the bits
+// themselves (drawn, or explicit and all +0 or 1, where value * 1 ==
+// value): a value goes to the sums of the clients whose bit is set, and
+// `neg` keeps whether every value regenerated so far is negative.  Else
+// value * operand goes to every live client's sum, the operands loaded
+// together (a +-0 product changes no sum).
+template <bool BITS, int G, int U>
+__device__ __forceinline__ void window_edges(const qz::RowEdges& e, int j0,
+                                             const uint32_t* __restrict__ bw, uint32_t sh,
+                                             int nlive, const float* __restrict__ sZg,
+                                             const uint32_t* __restrict__ sMa,
+                                             const uint32_t* __restrict__ sMb,
+                                             uint32_t window, float sigma,
+                                             float (&acc)[G], uint32_t& neg) {
+  constexpr uint32_t GMASK = G == 32 ? 0xFFFFFFFFu : (1u << G) - 1u;
+  uint32_t c[U], bits[U], any = 0u;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    c[u] = e.index(j0 + u, window);
+    bits[u] = (bw[c[u]] >> sh) & GMASK;  // G divides 32: one word
+    any |= bits[u];
+  }
+  if (any == 0u) return;
+  float v[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) v[u] = mixed_value(e.hr, sMa[j0 + u], sMb[j0 + u], sigma);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (BITS) {
+      neg &= __float_as_uint(v[u]) >> 31;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if ((bits[u] >> g) & 1u) acc[g] = __fadd_rn(acc[g], v[u]);
+      }
+    } else {
+      float z[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) z[g] = g < nlive ? sZg[g * window + c[u]] : 0.0f;
+#pragma unroll
+      for (int g = 0; g < G; ++g) acc[g] = __fadd_rn(acc[g], __fmul_rn(v[u], z[g]));
+    }
+  }
+}
+
+// Phase 2 for one group of G clients: a thread a row of the CTA's slice,
+// row fastest, each client's sum from -0 in ascending j (window_edges);
+// where every product of a (row, client) is +-0, the sign rule.  Wg: the
+// group's first client's row of W.
+template <bool BITS, int G>
+__device__ __forceinline__ void window_rows(const FwdArgs& a, uint32_t hq, uint32_t r_lo,
+                                            uint32_t nrows, const uint32_t* __restrict__ bw,
+                                            uint32_t sh, int nlive,
+                                            const float* __restrict__ sZg,
+                                            const uint32_t* __restrict__ sMa,
+                                            const uint32_t* __restrict__ sMb,
+                                            float* __restrict__ Wg) {
+  const uint32_t window = a.s.window;
+  const int d = a.s.d;
+  const uint32_t live = nlive >= G ? 0xFFFFFFFFu : (1u << nlive) - 1u;
+  for (uint32_t i = threadIdx.x; i < nrows; i += FWD_THREADS) {
+    const uint32_t r = r_lo + i;
+    const qz::RowEdges e = qz::row_edges(hq, r, window);
+    float acc[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[g] = -0.0f;  // -0 + x == x for every x
+    uint32_t neg = 1u;
+    int j0 = 0;
+    for (; j0 + FWD_EDGE_ILP <= d; j0 += FWD_EDGE_ILP) {
+      window_edges<BITS, G, FWD_EDGE_ILP>(e, j0, bw, sh, nlive, sZg, sMa, sMb, window,
+                                          a.s.sigma, acc, neg);
+    }
+    for (; j0 < d; ++j0) {
+      window_edges<BITS, G, 1>(e, j0, bw, sh, nlive, sZg, sMa, sMb, window, a.s.sigma, acc,
+                               neg);
+    }
+    // a (row, client) whose products were all +-0: -0 iff all are -0.  A
+    // product's sign is the value's XOR the operand's; with BITS the
+    // value's, so one positive value regenerated above decides (+0).
+    uint32_t need = 0u;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if (((live >> g) & 1u) && acc[g] == 0.0f) need |= 1u << g;
+    }
+    if (BITS && neg == 0u) need = 0u;
+    for (int j = 0; need != 0u && j < d; ++j) {
+      const uint32_t c = e.index(j, window);
+      const uint32_t sv = __float_as_uint(mixed_value(e.hr, sMa[j], sMb[j], a.s.sigma)) >> 31;
+      if (BITS) {
+        if (sv == 0u) need = 0u;
+      } else {
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          if (((need >> g) & 1u) && (__float_as_uint(sZg[g * window + c]) >> 31) == sv) {
+            need &= ~(1u << g);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if ((live >> g) & 1u) {
+        Wg[static_cast<size_t>(g) * a.m + r] =
+            ((need >> g) & 1u) ? -0.0f : acc[g] == 0.0f ? 0.0f : acc[g];
+      }
+    }
+  }
+}
+
+template <int KIND, int G>
+__device__ __forceinline__ void reconstruct_window(const void* __restrict__ P,
+                                                   const long long* __restrict__ steps,
+                                                   const FwdArgs& a,
+                                                   float* __restrict__ W) {
+  constexpr bool DRAWN = KIND != KIND_VALUES;
+  extern __shared__ uint32_t smem[];
+  const uint32_t window = a.s.window, wshift = __ffs(window) - 1;
+  const int d = a.s.d;
+  const uint32_t cw = (a.clients + 31u) / 32u;
+  uint32_t* sMa = smem;
+  uint32_t* sMb = sMa + d;
+  uint32_t* sHm = sMb + d;
+  uint32_t* sBits = sHm + (DRAWN ? a.clients : 0u);
+  float* sZ = reinterpret_cast<float*>(sBits + cw * window);
+
+  const uint32_t w = blockIdx.x / a.slices;
+  const uint32_t r_win = w * a.s.rows_per_window;
+  const uint32_t r_lo = r_win + (blockIdx.x - w * a.slices) * a.rows;
+  const uint32_t r_end = min(r_win + a.s.rows_per_window, a.m);
+  if (r_lo >= r_end) return;  // an empty slice (a ragged or empty last window)
+  const uint32_t nrows = min(a.rows, r_end - r_lo);
+  const uint32_t wbase = w * window;
+  const uint32_t t = threadIdx.x;
+  const uint32_t hq = qz::prefix2(a.s.seed, a.s.tensor_id);
+  for (int j = t; j < d; j += FWD_THREADS) {
+    sMa[j] = qz::fmix32(qz::CTR_VAL + 2u * j + qz::K1);
+    sMb[j] = qz::fmix32(qz::CTR_VAL + 2u * j + 1u + qz::K1);
+  }
+  for (uint32_t k0 = 0; k0 < a.K; k0 += a.clients) {  // sweeps
+    const uint32_t kn = min(a.clients, a.K - k0);
+    if (DRAWN) {
+      for (uint32_t k = t; k < kn; k += FWD_THREADS) {
+        sHm[k] = qz::mask_prefix(a.s.seed, a.s.tensor_id,
+                                 static_cast<uint32_t>(steps[k0 + k]));
+      }
+      __syncthreads();
+    }
+    // 1. each (coordinate, client word): the clients' bits, drawn or read
+    const uint32_t words = (kn + 31u) / 32u;
+    bool binary = true;  // every operand this thread staged is +0 or 1
+    for (uint32_t q = t; q < words * window; q += FWD_THREADS) {
+      const uint32_t c = q & (window - 1u), wi = q >> wshift;
+      const uint32_t kb = 32u * wi, ke = min(kb + 32u, kn);
+      uint32_t word = 0u;
+      for (uint32_t k1 = kb; k1 < ke; k1 += G) {  // G clients' loads in flight
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const uint32_t k = k1 + g;
+          if (k < ke) {
+            const void* pk = client_words<KIND>(P, k0 + k, a.n);
+            bool bit;
+            if (DRAWN) {
+              bit = qz::mask_bit<DRAWN ? KIND : qz::KIND_F32>(pk, sHm[k], wbase + c);
+            } else {
+              const float z = static_cast<const float*>(pk)[wbase + c];
+              sZ[k * window + c] = z;
+              bit = z != 0.0f;
+              binary &= __float_as_uint(z) == 0u || z == 1.0f;
+            }
+            word |= static_cast<uint32_t>(bit) << (k - kb);
+          }
+        }
+      }
+      sBits[wi * window + c] = word;
+    }
+    // an explicit operand of masks (all +0 or 1) takes the bits' path
+    bool masks = true;
+    if (DRAWN) {
+      __syncthreads();
+    } else {
+      masks = __syncthreads_and(binary) != 0;
+    }
+    // 2. each group of G clients
+    for (uint32_t kg = 0; kg < kn; kg += G) {
+      const uint32_t* bw = sBits + (kg >> 5) * window;
+      const int nlive = kn - kg >= G ? G : static_cast<int>(kn - kg);
+      float* Wg = W + static_cast<size_t>(k0 + kg) * a.m;
+      const float* sZg = sZ + kg * window;
+      if constexpr (DRAWN) {
+        window_rows<true, G>(a, hq, r_lo, nrows, bw, kg & 31u, nlive, sZg, sMa, sMb, Wg);
+      } else if (masks) {
+        window_rows<true, G>(a, hq, r_lo, nrows, bw, kg & 31u, nlive, sZg, sMa, sMb, Wg);
+      } else {
+        window_rows<false, G>(a, hq, r_lo, nrows, bw, kg & 31u, nlive, sZg, sMa, sMb, Wg);
+      }
+    }
+    __syncthreads();  // the next sweep restages the shared memory
+  }
+}
+
+template <int KIND, int G>
+__global__ void __launch_bounds__(FWD_THREADS)
+sample_reconstruct_window_kernel(const void* __restrict__ P,
+                                 const long long* __restrict__ steps, FwdArgs a,
+                                 float* __restrict__ W) {
+  reconstruct_window<KIND, G>(P, steps, a, W);
+}
+
+template <int G>
+__global__ void __launch_bounds__(FWD_THREADS)
+mask_reconstruct_window_kernel(const float* __restrict__ Z, FwdArgs a,
+                               float* __restrict__ W) {
+  reconstruct_window<KIND_VALUES, G>(Z, nullptr, a, W);
+}
+
 __global__ void __launch_bounds__(THREADS)
 sample_pack_kernel(const float* __restrict__ P,
                    const long long* __restrict__ steps, uint32_t word,
@@ -584,10 +765,20 @@ qz::SpecArgs spec_args(unsigned seed, unsigned tensor_id, int window,
   return s;
 }
 
-// Dynamic shared memory of reconstruct_rows for nh mask prefixes and degree d.
-size_t rows_smem(int nh, int d) {
-  const int ch = d < CHUNK ? d : CHUNK;
-  return sizeof(uint32_t) * (static_cast<size_t>(nh) + 2u * ch * THREADS);
+// The forward's kernels for client group 1, 4, 8, 16 or 32 (g = 0..4).
+template <int KIND>
+void (*sample_fwd_kernel(int g))(const void*, const long long*, FwdArgs, float*) {
+  return g == 0 ? sample_reconstruct_window_kernel<KIND, 1>
+       : g == 1 ? sample_reconstruct_window_kernel<KIND, 4>
+       : g == 2 ? sample_reconstruct_window_kernel<KIND, 8>
+       : g == 3 ? sample_reconstruct_window_kernel<KIND, 16>
+                : sample_reconstruct_window_kernel<KIND, 32>;
+}
+
+void (*mask_fwd_kernel(int g))(const float*, FwdArgs, float*) {
+  return g == 0 ? mask_reconstruct_window_kernel<1> : g == 1 ? mask_reconstruct_window_kernel<4>
+       : g == 2 ? mask_reconstruct_window_kernel<8> : g == 3 ? mask_reconstruct_window_kernel<16>
+                : mask_reconstruct_window_kernel<32>;
 }
 
 // plan_bwd_kernel for client group 1, 2, 4 or 8 (g = 0..3).
@@ -635,43 +826,86 @@ struct PlanConsts {
   int piece, narrow, stage_g;
 };
 
+// A leaf's launch constants for reconstruct_window at K clients, made
+// once by the wrapper (kernels/qz_reconstruct.py, reconstruct_geometry)
+// and passed by pointer.
+struct FwdConsts {
+  unsigned seed, tensor_id;
+  int window;
+  unsigned rows_per_window;
+  int d;
+  float sigma;
+  unsigned m, n, num_windows, K, slices, rows, clients, group;
+  int values, smem;
+};
+
+namespace {
+
+// The forward's arguments from its launch constants, checked for what
+// the body needs: a power-of-two window, slices that cover a window's
+// rows, a sweep of at most K clients, a group the body is built for
+// (its index g), the shared memory of its layout, a grid that launches.
+int fwd_args(const FwdConsts* c, bool values, FwdArgs& a, int& g) {
+  const uint32_t w = static_cast<uint32_t>(c->window);
+  const unsigned G = c->group;
+  g = G == 1 ? 0 : G == 4 ? 1 : G == 8 ? 2 : G == 16 ? 3 : G == 32 ? 4 : -1;
+  if (c->window < 2 || (w & (w - 1)) || c->d < 1 || c->K < 1 || c->clients < 1 ||
+      c->clients > c->K || g < 0 || c->rows < 1 || c->slices < 1 ||
+      static_cast<uint64_t>(c->slices) * c->rows < c->rows_per_window ||
+      static_cast<uint64_t>(c->slices) * c->num_windows >= (1ull << 31) ||
+      c->values != static_cast<int>(values) ||
+      static_cast<size_t>(c->smem) != 4 * fwd_words(c->d, w, c->clients, values)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.s = spec_args(c->seed, c->tensor_id, c->window, c->rows_per_window, c->d, c->sigma);
+  a.m = c->m;
+  a.n = c->n;
+  a.K = c->K;
+  a.slices = c->slices;
+  a.rows = c->rows;
+  a.clients = c->clients;
+  return 0;
+}
+
+}  // namespace
+
 extern "C" {
 
-// W (K, m) = Q Bern(P_k) for the K clients' operands P (K, n).
-int qz_sample_reconstruct(const void* P, int kind,
-                          const long long* steps, int K, long long n,
-                          unsigned m, unsigned seed, unsigned tensor_id,
-                          int window, unsigned rows_per_window, int d,
-                          float sigma, float* W, void* stream) {
-  const qz::SpecArgs s = spec_args(seed, tensor_id, window, rows_per_window, d, sigma);
-  const dim3 grid((m + THREADS - 1) / THREADS);
-  const size_t smem = rows_smem(K, d);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (kind) {
-    case qz::KIND_F32:
-      sample_reconstruct_kernel<qz::KIND_F32><<<grid, THREADS, smem, st>>>(P, steps, K, n, m, s, W);
-      break;
-    case qz::KIND_U8:
-      sample_reconstruct_kernel<qz::KIND_U8><<<grid, THREADS, smem, st>>>(P, steps, K, n, m, s, W);
-      break;
-    case qz::KIND_U16:
-      sample_reconstruct_kernel<qz::KIND_U16><<<grid, THREADS, smem, st>>>(P, steps, K, n, m, s, W);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+// W (K, m) = Q Bern(P_k) for the K clients' operands P (K, n) of kind
+// `kind` (f32, u8 or u16), drawn at words `steps` (K,).
+int qz_sample_reconstruct(const void* P, int kind, const long long* steps,
+                          float* W, const FwdConsts* c, void* stream) {
+  FwdArgs a;
+  int g;
+  const int rc = fwd_args(c, false, a, g);
+  if (rc != 0) return rc;
+  if (kind < qz::KIND_F32 || kind > qz::KIND_U16) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  auto kernel = kind == qz::KIND_F32 ? sample_fwd_kernel<qz::KIND_F32>(g)
+              : kind == qz::KIND_U8  ? sample_fwd_kernel<qz::KIND_U8>(g)
+                                     : sample_fwd_kernel<qz::KIND_U16>(g);
+  static int opted[3][5] = {};
+  const cudaError_t err = allow_smem(kernel, c->smem, opted[kind][g]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<c->num_windows * c->slices, FWD_THREADS, c->smem,
+           static_cast<cudaStream_t>(stream)>>>(P, steps, a, W);
   return static_cast<int>(cudaGetLastError());
 }
 
 // W (K, m) = Q Z_k for the K clients' explicit operands Z (K, n).
-int qz_reconstruct_batched(const float* Z, int K, long long n, unsigned m,
-                           unsigned seed, unsigned tensor_id, int window,
-                           unsigned rows_per_window, int d, float sigma,
-                           float* W, void* stream) {
-  const qz::SpecArgs s = spec_args(seed, tensor_id, window, rows_per_window, d, sigma);
-  const dim3 grid((m + THREADS - 1) / THREADS);
-  mask_reconstruct_kernel<<<grid, THREADS, rows_smem(0, d), static_cast<cudaStream_t>(stream)>>>(
-      Z, K, n, m, s, W);
+int qz_reconstruct_batched(const float* Z, float* W, const FwdConsts* c,
+                           void* stream) {
+  FwdArgs a;
+  int g;
+  const int rc = fwd_args(c, true, a, g);
+  if (rc != 0) return rc;
+  auto kernel = mask_fwd_kernel(g);
+  static int opted[5] = {};
+  const cudaError_t err = allow_smem(kernel, c->smem, opted[g]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<c->num_windows * c->slices, FWD_THREADS, c->smem,
+           static_cast<cudaStream_t>(stream)>>>(Z, a, W);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,11 +5,13 @@ Replaces ten Pallas kernels of the JAX package's
 
 - ``qz_sample_reconstruct_batched_fwd`` (the fused round's forward) and
   ``qz_sample_reconstruct_fwd`` (its K=1 entry: local sample-mode
-  training, ``evaluate`` off the u8 carry) — ``sample_reconstruct_kernel``;
+  training, ``evaluate`` off the u8 carry) —
+  ``sample_reconstruct_window_kernel``;
 - ``qz_reconstruct_batched_fwd`` (the composed round's forward) and
   ``qz_reconstruct_fwd`` (its K=1 entry: continuous-mode training, the
-  expected and discretized networks) — ``mask_reconstruct_kernel``, the
-  same row code reading an explicit operand in place of a draw;
+  expected and discretized networks) — ``mask_reconstruct_window_kernel``,
+  the same body (``reconstruct_window``) staging an explicit operand in
+  place of a draw;
 - ``qz_reconstruct_batched_bwd_plan`` (the round's backward) and
   ``qz_reconstruct_bwd_plan`` (its K=1 entry: every local backward) —
   ``plan_bwd_kernel``, on the plan's compact layout
@@ -25,9 +27,11 @@ Replaces ten Pallas kernels of the JAX package's
   argument.
 
 Every K=1 form is its batched kernel launched at K=1 behind its own
-wrapper and launch counter.  The backward kernels take a leaf's launch
-constants by pointer: the scatter's made once per (spec, K) from
-``scatter_geometry``, the plan walk's once per (spec, device, order),
+wrapper and launch counter.  The forward and backward kernels take a
+leaf's launch constants by pointer: the forward's made once per (spec,
+K, operand) from ``reconstruct_geometry``, the scatter's once per
+(spec, K) from ``scatter_geometry``, the plan walk's once per (spec,
+device, order),
 holding the compact plan layout it reads, with ``plan_geometry``'s
 client group for each K.  So the card keeps no padded plan for either
 backward (``clear_caches`` drops the layouts).
@@ -74,6 +78,16 @@ PLAN_THREADS = source_constant("qz_reconstruct.cu", "PLAN_THREADS")
 PLAN_PIECE_MAX = 16384
 PLAN_STAGE_G_MAX = 8192
 PLAN_STAGE_FLOATS = 16384
+# The forward's geometry: its threads (the kernel's own constant), the
+# client groups it is built for, the shared-memory words a sweep stages
+# (a client's window of operands, or a word of 32 clients' bits, per
+# coordinate), the CTAs it slices windows into at least where the leaf
+# has too few windows, and the fewest rows a slice takes.
+FWD_THREADS = source_constant("qz_reconstruct.cu", "FWD_THREADS")
+FWD_GROUPS = (1, 4, 8, 16, 32)
+FWD_STAGE_WORDS = 16384
+FWD_TARGET_CTAS = 264
+FWD_ROWS_MIN = 32
 
 LAUNCHES: Dict[str, int] = {
     "qz_sample_reconstruct_batched_fwd": 0,
@@ -98,13 +112,11 @@ def reset_launches() -> None:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    P, I, U, L, F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
-                     ctypes.c_longlong, ctypes.c_float)
-    lib.qz_sample_reconstruct.argtypes = [P, I, P, I, L, U, U, U, I, U, I,
-                                          F, P, P]
+    P, I, U, L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                  ctypes.c_longlong)
+    lib.qz_sample_reconstruct.argtypes = [P, I, P, P, P, P]
     lib.qz_sample_reconstruct.restype = I
-    lib.qz_reconstruct_batched.argtypes = [P, I, L, U, U, U, I, U, I, F, P,
-                                           P]
+    lib.qz_reconstruct_batched.argtypes = [P, P, P, P]
     lib.qz_reconstruct_batched.restype = I
     lib.qz_plan_bwd.argtypes = [P, P, I, I, I, I, P, P]
     lib.qz_plan_bwd.restype = I
@@ -126,6 +138,75 @@ def build() -> ctypes.CDLL:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+class FwdGeometry(NamedTuple):
+    """Launch geometry of ``reconstruct_window`` at one leaf and K."""
+
+    ctas: int  # num_windows x slices
+    threads: int
+    slices: int  # CTAs a window, each staging it
+    rows: int  # a window's rows a CTA (the last slice may hold fewer)
+    clients: int  # clients a sweep: their bits (and operands) staged
+    group: int  # clients a row's thread sums, in registers (G)
+    words: int  # client words a coordinate's bits take in a sweep
+    sweeps: int  # of the window, each regenerating its rows
+    smem: int  # dynamic shared memory of a CTA, bytes
+
+
+def fwd_group(K: int) -> int:
+    """The clients a row's thread of the forward sums in registers: the
+    least of FWD_GROUPS that holds K, at most 32 (one client word)."""
+    return next(g for g in FWD_GROUPS if g >= min(K, FWD_GROUPS[-1]))
+
+
+def fwd_words(d: int, window: int, clients: int, values: bool) -> int:
+    """``fwd_words(...)`` of csrc/qz_reconstruct.cu: the slots' mixed
+    counters, the sweep's mask prefixes (drawn operands), its bit words
+    and (explicit operands) its operands."""
+    cw = -(-clients // 32)
+    return (2 * d + (0 if values else clients) + cw * window
+            + (clients * window if values else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def reconstruct_geometry(window: int, rows_per_window: int, d: int,
+                         num_windows: int, K: int = 1,
+                         values: bool = False) -> FwdGeometry:
+    """The forward's geometry: a CTA a slice of a window's rows, the
+    window cut into ``slices`` where the leaf has fewer than
+    FWD_TARGET_CTAS windows (no slice under FWD_ROWS_MIN rows); per sweep
+    of ``clients`` clients (all K where a sweep's staging fits
+    FWD_STAGE_WORDS words) the window's bits, a word of 32 clients per
+    coordinate, drawn (or, with ``values``, the explicit operands staged
+    and their bits where not +-0); a thread a (row, group of G clients)
+    pair."""
+    if not (2 <= window and window & (window - 1) == 0 and 1 <= d < window
+            and rows_per_window >= 1 and num_windows >= 1
+            and 1 <= K <= MAX_K):
+        raise ValueError(f"the forward takes a power-of-two window >= 2, "
+                         f"1 <= d < window and K <= {MAX_K}; got "
+                         f"window={window}, d={d}, "
+                         f"rows_per_window={rows_per_window}, K={K}")
+    slices = max(1, min(-(-FWD_TARGET_CTAS // num_windows),
+                        -(-rows_per_window // FWD_ROWS_MIN)))
+    rows = -(-rows_per_window // slices)
+    slices = -(-rows_per_window // rows)
+    group = fwd_group(K)
+    if values:  # a client's window of operands, and its share of a word
+        clients = K
+        while (clients > group and fwd_words(d, window, clients, True)
+               - 2 * d > FWD_STAGE_WORDS):
+            clients = (clients - 1) // group * group
+    else:  # whole words of 32 clients' bits
+        clients = min(K, 32 * max(1, FWD_STAGE_WORDS // window))
+    smem = 4 * fwd_words(d, window, clients, values)
+    if smem > SMEM_MAX:
+        raise ValueError(f"the forward at window={window}, d={d}, K={K} "
+                         f"needs {smem} B of shared memory a CTA")
+    return FwdGeometry(num_windows * slices, FWD_THREADS, slices, rows,
+                       clients, group, -(-clients // 32), -(-K // clients),
+                       smem)
 
 
 class ScatterGeometry(NamedTuple):
@@ -255,6 +336,17 @@ class _ScatterConsts(ctypes.Structure):
         ("smem", ctypes.c_int)]
 
 
+class _FwdConsts(ctypes.Structure):
+    """FwdConsts of csrc/qz_reconstruct.cu."""
+
+    _fields_ = [("seed", ctypes.c_uint), ("tensor_id", ctypes.c_uint),
+                ("window", ctypes.c_int), ("rows_per_window", ctypes.c_uint),
+                ("d", ctypes.c_int), ("sigma", ctypes.c_float)] + [
+        (name, ctypes.c_uint) for name in (
+            "m", "n", "num_windows", "K", "slices", "rows", "clients",
+            "group")] + [("values", ctypes.c_int), ("smem", ctypes.c_int)]
+
+
 class _PlanConsts(ctypes.Structure):
     """PlanConsts of csrc/qz_reconstruct.cu."""
 
@@ -262,6 +354,27 @@ class _PlanConsts(ctypes.Structure):
         "rows", "vals", "starts")] + [(name, ctypes.c_uint) for name in (
             "m", "n", "window", "rows_per_window", "num_windows")] + [
         (name, ctypes.c_int) for name in ("piece", "narrow", "stage_g")]
+
+
+def fwd_geometry(spec: QSpec, K: int = 1,
+                 values: bool = False) -> FwdGeometry:
+    """The forward's geometry at a leaf for K clients (``values``: an
+    explicit operand, kernels 3 and 1; else drawn, kernels 8 and 7)."""
+    return reconstruct_geometry(spec.window, spec.rows_per_window, spec.d,
+                                spec.num_windows, K, values)
+
+
+@functools.lru_cache(maxsize=64)
+def _fwd_consts(spec: QSpec, K: int, values: bool) -> tuple:
+    """The forward's launch constants at a leaf for K clients: (struct,
+    its address)."""
+    _check_spec(spec)
+    geo = fwd_geometry(spec, K, values)
+    c = _FwdConsts(spec.seed & 0xFFFFFFFF, spec.tensor_id, spec.window,
+                   spec.rows_per_window, spec.d, sigma_f32(spec), spec.m,
+                   spec.n, spec.num_windows, K, geo.slices, geo.rows,
+                   geo.clients, geo.group, int(values), geo.smem)
+    return c, ctypes.addressof(c)
 
 
 def scatter_bwd_geometry(spec: QSpec, K: int = 1) -> ScatterGeometry:
@@ -343,8 +456,9 @@ def plan_state_bytes() -> int:
 
 
 def clear_caches() -> None:
-    """Drop the backward kernels' launch constants, and with them the
-    compact plan layouts the plan walk reads."""
+    """Drop the kernels' launch constants, and with them the compact plan
+    layouts the plan walk reads."""
+    _fwd_consts.cache_clear()
     _scatter_consts.cache_clear()
     _PLAN_ENTRIES.clear()
 
@@ -397,11 +511,10 @@ def _launch_sample_reconstruct(spec: QSpec, P, steps, qbits):
     _check_spec(spec)
     K = _check_operand(spec, P, qbits)
     words = _step_words(steps, K, P.device)
+    address = _fwd_consts(spec, K, False)[1]
     W = torch.empty((K, spec.m), dtype=torch.float32, device=P.device)
     rc = build().qz_sample_reconstruct(
-        P.data_ptr(), _KIND[qbits], words.data_ptr(), K, spec.n,
-        spec.m, spec.seed & 0xFFFFFFFF, spec.tensor_id, spec.window,
-        spec.rows_per_window, spec.d, sigma_f32(spec), W.data_ptr(),
+        P.data_ptr(), _KIND[qbits], words.data_ptr(), W.data_ptr(), address,
         _stream(P))
     raise_on(rc, "qz_sample_reconstruct")
     return W
@@ -437,11 +550,10 @@ def qz_sample_reconstruct_fwd(spec: QSpec, p: torch.Tensor, step: torch.Tensor,
 def _launch_reconstruct(spec: QSpec, Z: torch.Tensor):
     _check_spec(spec)
     K = _check_operand(spec, Z, None)
+    address = _fwd_consts(spec, K, True)[1]
     W = torch.empty((K, spec.m), dtype=torch.float32, device=Z.device)
-    rc = build().qz_reconstruct_batched(
-        Z.data_ptr(), K, spec.n, spec.m, spec.seed & 0xFFFFFFFF,
-        spec.tensor_id, spec.window, spec.rows_per_window, spec.d,
-        sigma_f32(spec), W.data_ptr(), _stream(Z))
+    rc = build().qz_reconstruct_batched(Z.data_ptr(), W.data_ptr(), address,
+                                        _stream(Z))
     raise_on(rc, "qz_reconstruct_batched")
     return W
 

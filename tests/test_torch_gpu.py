@@ -32,7 +32,11 @@ they run at, Fig. 6's at d in {1, 16, 256} and Fig. 4's at d=10, on
 cotangents with zero rows, a window of zeros and -0 entries, must equal
 their plain versions, the K-client kernels' rows (4 and 6) and each
 other on the canonical plan bitwise, kernel 5 the slot plan's plain
-version too, and give the same bits on a second launch.
+version too, and give the same bits on a second launch.  The forward
+kernels (8 on f32, u8 and u16 operands, 3, and their K=1 launches 7 and
+1) at those specs and at Fig. 4's leaves, K in {1, 3, 10, 33}, must
+equal their plain versions by bits (-0 is not +0), with a client at p =
+0 over a window and explicit operands holding -0 and negatives.
 """
 
 import numpy as np
@@ -454,6 +458,77 @@ def test_scatter_kernels_equal_plain_and_plan(cuda_train, i, K):
         for order in ("canonical", "slot"):
             assert torch.equal(qz_reconstruct.qz_reconstruct_bwd_plan(
                 spec, G[k], order), plan[order][k])
+
+
+def _same_bits(a, b):
+    """Equal bits: -0 and +0 differ (``torch.equal`` counts them equal)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+# The forward's specs: SCATTER_SPECS (each with fewer windows than the
+# card has SMs, so every window is split over CTAs; a ragged last
+# window; d in {1, 8, 10, 16, 256}) and Fig. 4's three leaves
+FWD_SPECS = [("gpu spec %d" % i, make_qspec(6, shape, fan_in, compression=c,
+                                             d=d, window=window, seed=2))
+             for i, (shape, fan_in, c, d, window) in enumerate(SCATTER_SPECS)]
+FWD_SPECS += [(f"Fig. 4 {p}", s) for p, s in build_specs(
+    mlp_template(MNISTFC), ZamplingConfig(
+        compression=8, d=10, window=128, min_size=128, seed=1)).specs.items()]
+
+
+@pytest.mark.parametrize("K", [1, 3, 10, 33])
+@pytest.mark.parametrize("i", range(len(FWD_SPECS)))
+def test_forward_kernels_equal_plain_by_bits(cuda_train, i, K):
+    """Kernels 8 (f32, u8 and u16 operands) and 3 against their plain
+    versions by bits, kernels 7 and 1 against their rows, kernel 3 on 8's
+    masks against 8, with client 0 at p = 0 over window 0 (every product
+    of its rows there is +-0) and explicit operands holding -0 and
+    negatives; K=33 takes two client words and two groups."""
+    _, spec = FWD_SPECS[i]
+    rng = np.random.RandomState(20 * i + K)
+    P = np.clip(rng.rand(K, spec.n) * 1.4 - 0.2, 0, 1).astype(np.float32)
+    P[0, :spec.window] = 0.0
+    P = torch.from_numpy(P).to(cuda_train)
+    steps = as_words(rng.randint(0, 2**32, K, dtype=np.uint64), cuda_train)
+    W = _counted("qz_sample_reconstruct_batched_fwd",
+                 lambda: qz_reconstruct.qz_sample_reconstruct_batched_fwd(
+                     spec, P, steps))
+    assert _same_bits(W, ops.sample_reconstruct_plain(spec, P, steps))
+    for k in sorted({0, K // 2, K - 1}):
+        assert _same_bits(_counted(
+            "qz_sample_reconstruct_fwd",
+            lambda: qz_reconstruct.qz_sample_reconstruct_fwd(
+                spec, P[k], steps[k:k + 1])), W[k])
+    for qbits, dtype in ((8, np.uint8), (16, np.uint16)):
+        q = rng.randint(0, 1 << qbits, (K, spec.n))
+        q[0, :spec.window] = 0
+        q = torch.from_numpy(q.astype(dtype)).to(cuda_train)
+        Wq = qz_reconstruct.qz_sample_reconstruct_batched_fwd(spec, q, steps,
+                                                             qbits)
+        assert _same_bits(Wq, ops.sample_reconstruct_plain(spec, q, steps,
+                                                           qbits))
+        assert _same_bits(qz_reconstruct.qz_sample_reconstruct_fwd(
+            spec, q[K - 1], steps[K - 1:], qbits), Wq[K - 1])
+    Z = sample_mask_hash(P, spec.seed, spec.tensor_id, steps)
+    assert _same_bits(_counted(
+        "qz_reconstruct_batched_fwd",
+        lambda: qz_reconstruct.qz_reconstruct_batched_fwd(spec, Z)), W)
+    Zs = torch.from_numpy(rng.randn(K, spec.n).astype(np.float32)).to(
+        cuda_train)
+    Zs[:, ::3] = 0.0
+    Zs[:, 1::5] = -0.0
+    Zs[0, :spec.window] = -0.0
+    W3 = qz_reconstruct.qz_reconstruct_batched_fwd(spec, Zs)
+    assert _same_bits(W3, ops.reconstruct_plain(spec, Zs))
+    for k in sorted({0, K - 1}):
+        assert _same_bits(_counted(
+            "qz_reconstruct_fwd",
+            lambda: qz_reconstruct.qz_reconstruct_fwd(spec, Zs[k])), W3[k])
+    # a second launch, the same bits
+    assert _same_bits(qz_reconstruct.qz_sample_reconstruct_batched_fwd(
+        spec, P, steps), W)
+    assert _same_bits(qz_reconstruct.qz_reconstruct_batched_fwd(spec, Zs), W3)
 
 
 def _local_bwd_specs():
