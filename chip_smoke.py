@@ -13,6 +13,9 @@ hand-written CUDA kernel:
   sample-reconstruct forward, the plan backward and the sample-pack
   upload kernels; evaluation draws sampled networks off the u8 carry;
   the composed round (explicit masks on the reconstruct kernels) once;
+  the rest of the wire on the same inputs: the allgather_packed uplink,
+  the packed4/packed2 downlinks (uint32 lanes carried, networks drawn
+  off them in the kernel), the continuous and discretize rounds;
 - the sharded federated round: the same round with one client per rank
   of a torch.distributed group, 10 ranks (processes) on the one card
   over gloo, on the one-client forward, backward and upload kernels;
@@ -138,8 +141,22 @@ Phases, one printed line or more each:
    bitwise the stacked aggregate's of the same 10 uploads; round 0's u8
    words differing from phase 7's at most 1e-3 of n_total; losses that
    fall and stay within 1e-3 of phase 7's; kernel 9's times and bound;
+   each rank's round 0 again under allgather_packed (the raw lanes
+   all-gathered), bitwise its psum_u32 round 0 on every rank;
 18. one JSON line with every kernel's launches, times and bound, the
    card, the run's total seconds, and last {"ok": true, "device": ...}.
+19. (run after phase 8) the wire at phase 7's inputs: round 0 under
+   mean_f32, psum_u32 and allgather_packed with the packed4 downlink,
+   equal by bits to each other and allgather_packed's to the plain
+   path's; 5-round fits under allgather_packed with packed4 and packed2
+   (launches as phase 7's, a carry of uint32 lanes of
+   packed_word_len(n, b), falling losses, 10 networks drawn off the
+   lanes by kernel 7, downlink 18,344 and 9,992 B a client, uplink
+   5,816); 2 rounds each of continuous (mean_f32) and discretize
+   (psum_u32, u8) on kernels 3 and 6, round 0 bitwise the plain path's;
+   kernels 8 (K=10) and 7 (K=1) on packed4, packed2 and packed3 lanes at
+   the three leaves bitwise their plain versions, timed (events, device,
+   bound, plain) beside u8 words.
 
 Usage, from the repo root on a machine with a CUDA GPU:
     python3 chip_smoke.py
@@ -519,7 +536,7 @@ def same_bits(got, want) -> bool:
 
     if got.shape != want.shape or got.dtype != want.dtype:
         return False
-    if got.dtype == torch.float32:
+    if got.dtype in (torch.float32, torch.uint32):  # uint32: packed lanes
         got, want = got.view(torch.int32), want.view(torch.int32)
     return bool(torch.equal(got, want))
 
@@ -893,12 +910,283 @@ def training_phases(card: str, dev) -> list:
     say(f"phase 8 done in {time.perf_counter() - t0:.1f} s")
     fed = {"zspecs": zspecs, "cfg": cfg, "state0": state0,
            "batch0": batches[0], "word0": round_words[0],
+           "scores": scores, "dense": dense, "batches": batches,
+           "eval_words": eval_words, "test": test,
            "state_r0": state_r0, "loss_r0": loss_r0,
            "round_words": round_words, "losses": losses,
            "host_state0": host_state(state0),
            "host_state_r0": host_state(state_r0)}
     return rows, fed
 
+
+
+def wire_phase(card: str, dev, fed: dict, rows: list) -> None:
+    """Phase 19, after phase 8: the rest of the federated wire on phase
+    7's Fig. 4 inputs (K=10, E=100): round 0 under the three transports
+    with the packed4 downlink; 5-round fits under allgather_packed with
+    packed4 and packed2 and an evaluation off their lanes; 2 rounds each
+    of the continuous and discretize modes; kernels 7 and 8 on packed
+    lanes against their plain versions and timed beside u8 words.  Adds
+    the packed-lane times and this phase's launches to the rows of
+    kernels 7 and 8 in ``rows``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.comm.bitpack import packed_len, packed_word_len
+    from repro_torch.comm.downlink import get_codec, packed_codec
+    from repro_torch.comm.metering import round_wire_report
+    from repro_torch.core.federated import (FederatedConfig, encode_state,
+                                            federated_round)
+    from repro_torch.core.sampling import as_words, sample_mask_qhash
+    from repro_torch.core.transpose_plan import row_plan
+    from repro_torch.kernels import ops, qz_decode
+    from repro_torch.kernels import qz_reconstruct as qr
+    from repro_torch.models.mlp import mlp_accuracy, mlp_loss
+    from repro_torch.train import evaluate, federated_fit
+
+    t0 = time.perf_counter()
+    zspecs, specs = fed["zspecs"], fed["zspecs"].specs
+    init = {"scores": fed["scores"], "dense": fed["dense"]}
+    words, batches = fed["round_words"], fed["batches"]
+    test = fed["test"]
+
+    def acc_fn(params):
+        return mlp_accuracy(params, test)
+
+    def config(**kw):
+        return FederatedConfig(**{**FED_CONFIG, **kw})
+
+    def run(what, fn):
+        """``fn()`` with every count at 0 just before it, read after."""
+        qr.reset_launches()
+        qz_decode.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in qr.LAUNCHES.items() if v}
+        if any(qz_decode.LAUNCHES.values()):
+            die(f"{what} launched a serve kernel")
+        return out, got
+
+    def expect(what, got, want):
+        say(f"wire: launches in {what}: {got}, expected {want}")
+        if got != want:
+            die(f"launch counts of {what} differ from the expected")
+
+    def same_state(a, b):
+        return all(same_bits(a[part][p], b[part][p])
+                   for part in ("scores", "dense") for p in a[part])
+
+    def state_bytes(st):
+        return (sum(v.numel() * v.element_size()
+                    for v in st["scores"].values())
+                + sum(4 * v.numel() for v in st["dense"].values()))
+
+    E3 = 3 * FED_E
+    # --- (a) the transports, round 0 with the packed4 downlink
+    out = {}
+    for agg in ("mean_f32", "psum_u32", "allgather_packed"):
+        cfg = config(aggregate=agg, downlink="packed4")
+        st0 = encode_state(zspecs, cfg, init, device=dev)
+        (st, met), got = run(f"round 0 ({agg}, packed4)",
+                             lambda: federated_round(
+                                 zspecs, st0, mlp_loss, batches[0], words[0],
+                                 cfg, round_index=0, device=dev))
+        want = {"qz_sample_reconstruct_batched_fwd": E3,
+                "qz_reconstruct_batched_bwd_plan": E3}
+        if agg != "mean_f32":  # an f32 upload is the plain draw
+            want["qz_sample_pack_batched_fwd"] = 3
+        expect(f"round 0 ({agg}, packed4)", got, want)
+        out[agg] = (st0, st, met)
+    (_, a, ma), (_, b, mb), (s0, c, mc) = out.values()
+    same = (same_state(a, c) and same_state(b, c)
+            and same_bits(ma["loss"], mc["loss"])
+            and same_bits(mb["loss"], mc["loss"]))
+    ref, ref_met = federated_round(zspecs, s0, mlp_loss, batches[0], words[0],
+                                   config(aggregate="allgather_packed",
+                                          downlink="packed4"),
+                                   round_index=0, impl="ref", device=dev)
+    torch.cuda.synchronize()
+    same_ref = same_state(ref, c) and same_bits(ref_met["loss"], mc["loss"])
+    say(f"wire: round 0 under mean_f32, psum_u32 and allgather_packed with "
+        f"packed4: lanes, dense leaves and loss the same bits = {same}; "
+        f"uplink {ma['uplink_bytes_per_client']:.0f} / "
+        f"{mb['uplink_bytes_per_client']:.0f} / "
+        f"{mc['uplink_bytes_per_client']:.0f} B a client; allgather_packed's "
+        f"on the plain path the same bits = {same_ref} (loss "
+        f"{float(mc['loss']):.6f})")
+    if not (same and same_ref):
+        die("the transports' packed4 rounds differ from each other or from "
+            "the plain path")
+
+    # --- (b) fits under allgather_packed with the packed codecs
+    want_down = {"packed4": 18_344, "packed2": 9_992}
+    fits = {}
+    for codec, down_b in want_down.items():
+        cfg = config(aggregate="allgather_packed", downlink=codec)
+        st0 = encode_state(zspecs, cfg, init, device=dev)
+        acc0, _ = evaluate(zspecs, st0, acc_fn, fed["eval_words"],
+                           carried=codec, device=dev)
+        t1 = time.perf_counter()
+        (st, mets), got = run(f"{FED_ROUNDS} rounds ({codec})",
+                              lambda: federated_fit(
+                                  zspecs, st0, mlp_loss, {
+                                      n: np.stack([bt[n] for bt in batches])
+                                      for n in ("x", "y")}, words, cfg,
+                                  device=dev))
+        fit_s = time.perf_counter() - t1
+        expect(f"{FED_ROUNDS} rounds (allgather_packed, {codec})", got, {
+            "qz_sample_reconstruct_batched_fwd": E3 * FED_ROUNDS,
+            "qz_reconstruct_batched_bwd_plan": E3 * FED_ROUNDS,
+            "qz_sample_pack_batched_fwd": 3 * FED_ROUNDS})
+        b = get_codec(codec).bits
+        lanes_ok = all(st["scores"][p].dtype == torch.uint32
+                       and tuple(st["scores"][p].shape)
+                       == (packed_word_len(s.n, b),)
+                       for p, s in specs.items())
+        (acc1, std1), ev = run(f"evaluation off {codec}", lambda: evaluate(
+            zspecs, st, acc_fn, fed["eval_words"], carried=codec, device=dev))
+        nets = len(fed["eval_words"])
+        expect(f"an evaluation of {nets} networks off {codec} lanes", ev,
+               {"qz_sample_reconstruct_fwd": 3 * nets})
+        losses = [float(v) for v in mets["loss"]]
+        rep = round_wire_report(zspecs, "allgather_packed", FED_K,
+                                downlink=codec)
+        up = (sum(4 * packed_len(s.n) for s in specs.values())
+              + 4 * zspecs.dense_total)
+        down = state_bytes(st)
+        metered = {float(v) for v in mets["downlink_bytes_per_client"]}
+        say(f"wire: allgather_packed/{codec}: {FED_ROUNDS} rounds in "
+            f"{fit_s:.3f} s, losses {[round(v, 6) for v in losses]}; carry "
+            f"uint32 lanes of packed_word_len(n, {b}) = {lanes_ok}; sampled "
+            f"accuracy {acc0:.4f} -> {acc1:.4f} +- {std1:.4f} ({EVAL_NETS} "
+            f"networks off the lanes); downlink {down} B a client (metrics "
+            f"{sorted(metered)}, report {rep['downlink_bytes_per_client']:.0f}"
+            f", expected {down_b}; f32 scores "
+            f"{4 * zspecs.n_total} B + dense {4 * zspecs.dense_total} B), "
+            f"uplink {up} B (report {rep['uplink_bytes_per_client']:.0f}) "
+            f"({card})")
+        if not lanes_ok:
+            die(f"the {codec} carry is not uint32 lanes")
+        if not losses[-1] < losses[0]:
+            die(f"the {codec} fit's loss did not fall: {losses}")
+        if not (down == down_b == rep["downlink_bytes_per_client"]
+                and metered == {float(down_b)} and up == 5_816
+                == rep["uplink_bytes_per_client"]
+                and 32 * (down_b - 4 * zspecs.dense_total)
+                == 4 * zspecs.n_total * b):
+            die(f"the {codec} round's metered bytes are not the lanes'")
+        fits[codec] = {"losses": losses, "accuracy": [acc0, acc1, std1],
+                       "fit_s": fit_s, "downlink_bytes_per_client": down,
+                       "launches": got, "evaluation_launches": ev}
+
+    # --- (c) the continuous and discretize modes, 2 rounds each
+    modes = {}
+    for mode, agg, codec in (("continuous", "mean_f32", "f32"),
+                             ("discretize", "psum_u32", "u8")):
+        cfg = config(mode=mode, aggregate=agg, downlink=codec)
+        st0 = encode_state(zspecs, cfg, init, device=dev)
+        (st, mets), got = run(f"2 rounds ({mode})", lambda: federated_fit(
+            zspecs, st0, mlp_loss, {n: np.stack([bt[n] for bt in
+                                                    batches[:2]])
+                                    for n in ("x", "y")}, words[:2], cfg,
+            device=dev))
+        want = {"qz_reconstruct_batched_fwd": 2 * E3}
+        if mode == "continuous":  # a rounded mask takes no gradient
+            want["qz_reconstruct_batched_bwd_plan"] = 2 * E3
+        expect(f"2 rounds ({mode}, {agg}, {codec}): kernels 3 and 6", got,
+               want)
+        (r0, m0), _ = run(f"round 0 ({mode})", lambda: federated_round(
+            zspecs, st0, mlp_loss, batches[0], words[0], cfg, round_index=0,
+            device=dev))
+        ref, ref_met = federated_round(zspecs, st0, mlp_loss, batches[0],
+                                       words[0], cfg, round_index=0,
+                                       impl="ref", device=dev)
+        torch.cuda.synchronize()
+        same_ref = same_state(ref, r0) and same_bits(ref_met["loss"],
+                                                     m0["loss"])
+        losses = [float(v) for v in mets["loss"]]
+        say(f"wire: {mode} ({agg}, {codec}): losses {losses}; round 0 "
+            f"bitwise the plain path's = {same_ref}")
+        if not same_ref:
+            die(f"{mode} round 0 through the kernels differs from the plain "
+                "path")
+        if not all(np.isfinite(losses)):
+            die(f"{mode} losses are not finite: {losses}")
+        modes[mode] = {"losses": losses, "launches": got}
+
+    # --- (d) kernels 7 and 8 on lanes, against plain and timed
+    rng = np.random.RandomState(SEED + 19)
+    max_err = {"qz_sample_reconstruct_batched_fwd": 0.0,
+               "qz_sample_reconstruct_fwd": 0.0}
+    kt = KernelTimes(card, {
+        f"{name} {codec} K={K}": "sample_reconstruct_window_kernel"
+        for name, K in (("qz_sample_reconstruct_batched_fwd", FED_K),
+                        ("qz_sample_reconstruct_fwd", 1))
+        for codec in ("u8", "packed4", "packed2", "packed3")})
+    for path, spec in specs.items():
+        m, n, d = spec.m, spec.n, spec.d
+        gidx, _ = row_plan(spec, dev)
+        P = torch.from_numpy(rng.rand(FED_K, n).astype(np.float32)).to(dev)
+        steps = as_words(rng.randint(0, 2**32, FED_K, dtype=np.uint64), dev)
+        row_ops = m * OPS_PER_WEIGHT + m * d * OPS_ROW_EDGE
+        for codec in ("u8", "packed4", "packed2", "packed3"):
+            c = packed_codec(3) if codec == "packed3" else get_codec(codec)
+            b, qp = c.bits, c.packed
+            Q = torch.stack([c.encode(spec, P[k], words[0])
+                             for k in range(FED_K)])
+            for K in (FED_K, 1):
+                Qk, sk = Q[:K].contiguous(), steps[:K]
+                name = ("qz_sample_reconstruct_batched_fwd" if K > 1
+                        else "qz_sample_reconstruct_fwd")
+                if K > 1:
+                    def kern():
+                        return qr.qz_sample_reconstruct_batched_fwd(
+                            spec, Qk, sk, b, qp)
+                else:
+                    def kern():
+                        return qr.qz_sample_reconstruct_fwd(
+                            spec, Qk[0], sk, b, qp)[None]
+                def plain():
+                    return ops.sample_reconstruct_plain(spec, Qk, sk, b, qp)
+                if qp:
+                    check_bitwise(max_err, name, kern(), plain(),
+                                  f"{path} K={K} {codec} lanes")
+                words_k = c.wire_words(spec, Qk)
+                Z = sample_mask_qhash(words_k, b, spec.seed, spec.tensor_id,
+                                      sk)
+                hit = Z[:, gidx[:m]] > 0  # (K, m, d): this run's draws
+                drawn, any_drawn = float(hit.sum()), float(hit.any(0).sum())
+                kt.add(f"{name} {codec} K={K}", path, kern,
+                       event_ms(plain, 3), None,
+                       row_ops + any_drawn * OPS_VALUE + K * n * OPS_DRAW
+                       + drawn,
+                       K * Qk.shape[1] * Qk.element_size() + 4 * K * m
+                       + 4 * K)
+    summary = {}
+    for key, acc in kt.acc.items():
+        name, codec, kk = key.split(" ")
+        summary.setdefault(name, {})[f"{codec} {kk}"] = {
+            "ms": acc["ms"], "device_ms": acc["device_ms"],
+            "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
+            "bound_by": ("operations" if acc["ops_ms"] >= acc["bytes_ms"]
+                         else "bytes"),
+            "per": "one launch at each of the three Fig. 4 leaves"}
+        dms = acc["device_ms"]
+        say(f"time: {name} on {codec} ({kk}), one launch a leaf, summed: "
+            f"kernel {acc['ms']:.4f} ms (device "
+            f"{'not measured' if dms is None else f'{dms:.4f} ms'}), bound "
+            f"{acc['bound_ms']:.5f} ms, plain {acc['plain_ms']:.3f} ms "
+            f"({card})")
+    for row in rows:
+        if row["name"] in summary:
+            row["packed_lanes"] = summary[row["name"]]
+            row["max_abs_err"] = max(row["max_abs_err"], max_err[row["name"]])
+            row["wire_phase"] = {"transports": {
+                agg: met_["uplink_bytes_per_client"]
+                for agg, (_, _, met_) in out.items()},
+                "fits": fits, "modes": modes}
+    say(f"phase 19 done in {time.perf_counter() - t0:.1f} s; every "
+        "comparison bitwise")
 
 
 def local_phases(card: str, dev, fed: dict, rows: list) -> list:
@@ -1637,10 +1925,10 @@ def lm_phases(card: str, dev, fed: dict, kernel_rows: list) -> list:
         launch8 = qr.qz_sample_reconstruct_batched_fwd
         launch4 = qr.qz_reconstruct_batched_bwd
 
-        def stashing8(spec, P, steps, qbits=None):
+        def stashing8(spec, P, steps, qbits=None, qpacked=False):
             stash8[spec] = (P.detach().clone(), steps.clone()
                             if torch.is_tensor(steps) else steps, qbits)
-            return launch8(spec, P, steps, qbits)
+            return launch8(spec, P, steps, qbits, qpacked)
 
         def stashing4(spec, G):
             out = launch4(spec, G)
@@ -1868,6 +2156,17 @@ def sharded_rank(a: dict) -> dict:
     launches.update(qz_decode.LAUNCHES)
     ops.sample_pack, qr.qz_reconstruct_bwd_plan = pack, plan_bwd
     fit_mod.sharded_client_update = update
+    # round 0 again from the same state under allgather_packed: the raw
+    # lanes all-gathered, the same popcount mean as psum_u32's
+    gather_cfg = FederatedConfig(**{**FED_CONFIG,
+                                    "aggregate": "allgather_packed"})
+    g_state, g_met = fit_mod.sharded_client_update(
+        zspecs, a["state0"], mlp_loss, {n: v[0] for n, v in batches.items()},
+        words[0], gather_cfg, round_index=0, device=dev)
+    torch.cuda.synchronize()
+    gather_same = bool(all(
+        same_bits(g_state[part][p], r0[0][part][p])
+        for part in ("scores", "dense") for p in r0[0][part]))
     if len(uploads) != len(zspecs.specs) or len(bwd) != len(zspecs.specs):
         raise RuntimeError(f"round 0 recorded {len(uploads)} uploads and "
                            f"{len(bwd)} backwards of {len(zspecs.specs)} "
@@ -1907,7 +2206,9 @@ def sharded_rank(a: dict) -> dict:
             "lanes": [lanes.cpu() for _, _, lanes in uploads],
             "operands": ([p.cpu() for p, _, _ in uploads] if rank == 0
                          else None),
-            "checks": checks, "bwd_checks": bwd_checks}
+            "checks": checks, "bwd_checks": bwd_checks,
+            "allgather_r0_same": gather_same,
+            "allgather_uplink": float(g_met["uplink_bytes_per_client"])}
 
 
 def sharded_phase(card: str, dev, fed: dict, rows: list) -> dict:
@@ -2037,6 +2338,14 @@ def sharded_phase(card: str, dev, fed: dict, rows: list) -> dict:
         f"aggregate's of the same {FED_K} uploads = {ok_agg}")
     if not ok_agg:
         die("the collective aggregate differs from the stacked one")
+    same_g = [r["allgather_r0_same"] for r in res]
+    say(f"sharded: round 0 under allgather_packed (the lanes all-gathered) "
+        f"bitwise the psum_u32 round 0 on every rank = {all(same_g)}; uplink "
+        f"{res[0]['allgather_uplink']:.0f} B a client")
+    if not all(same_g) or res[0]["allgather_uplink"] != res[0][
+            "uplink_bytes_per_client"]:
+        die(f"the allgather_packed round 0 differs from psum_u32's on ranks "
+            f"{[r['rank'] for r in res if not r['allgather_r0_same']]}")
     # against phase 7's stacked round 0 and fit
     flips = sum(int((res[0]["state_r0"]["scores"][p]
                      != fed["host_state_r0"]["scores"][p]).sum())
@@ -2476,6 +2785,8 @@ def main() -> None:
 
     train_rows, fed = training_phases(card, dev)
     rows += train_rows
+    wire_phase(card, dev, fed, rows)
+    del fed["batches"]
     rows += local_phases(card, dev, fed, rows)
     del fed["state_r0"], fed["state0"]
     torch.cuda.empty_cache()

@@ -1,11 +1,20 @@
-"""Bit-packing of binary masks: the uplink's wire lanes.
+"""Bit-packing: the uplink's mask lanes and the downlink's word lanes.
 
 The JAX package's ``comm/bitpack.py``.  A client uploads its mask
 ``z in {0,1}^n`` as 32 bits per uint32 lane: bit j of lane i is
-coordinate ``32*i + j``.  Lanes are carried as int64 tensors holding
-the uint32 value, as the port carries every hash word, so all the
-arithmetic here is exact integer arithmetic.  Every function takes
+coordinate ``32*i + j``.  Mask lanes are carried as int64 tensors
+holding the uint32 value, as the port carries every hash word, so all
+the arithmetic here is exact integer arithmetic.  Every function takes
 arbitrary leading batch axes: a (K, n) client slab packs to (K, L).
+
+The sub-byte downlink codecs pack b-bit words, b in [1, 16], into
+uint32 lanes: ``wpl = floor(32 / b)`` words a lane, word j of lane i
+coordinate ``i*wpl + j`` at bit offset ``b*j``.  A width that does not
+divide 32 leaves the top ``32 mod b`` bits of every lane unused.  These
+lanes are the round's carried state, so they are ``torch.uint32``
+tensors holding the bytes of the JAX package's uint32 carry; torch has
+no uint32 shifts on the CPU, so the arithmetic runs on an int32 view
+widened to int64.
 """
 
 from __future__ import annotations
@@ -44,3 +53,54 @@ def packed_popcount_sum(packed: torch.Tensor, n: int) -> torch.Tensor:
     int64, entry j the number of clients whose bit j is set."""
     bits = (packed.to(torch.int64)[:, :, None] >> _shifts(packed.device)) & 1
     return bits.sum(0).reshape(-1)[:n]
+
+
+# ---------------------------------------------------------------------------
+# b-bit word lanes (the packed downlink codecs)
+# ---------------------------------------------------------------------------
+
+def words_per_lane(bits: int) -> int:
+    """b-bit words per uint32 lane: floor(32 / b)."""
+    if not 1 <= bits <= 16:
+        raise ValueError(f"packed word width must be 1..16 bits, got {bits}")
+    return 32 // bits
+
+
+def packed_word_len(n: int, bits: int) -> int:
+    """uint32 lanes needed for n b-bit words: ceil(n / floor(32/b))."""
+    wpl = words_per_lane(bits)
+    return (n + wpl - 1) // wpl
+
+
+def _lanes_to_int64(lanes: torch.Tensor) -> torch.Tensor:
+    """uint32 lanes -> int64 holding the same values (through int32)."""
+    return lanes.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def _int64_to_lanes(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> uint32 lanes (through int32)."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(
+        torch.int32).view(torch.uint32)
+
+
+def pack_words(q: torch.Tensor, bits: int) -> torch.Tensor:
+    """b-bit words ``(..., n)`` (any integer dtype, values < 2^b) ->
+    ``(..., packed_word_len(n, b))`` uint32 lanes; word j of lane i is
+    coordinate ``i*wpl + j`` at bit offset ``b*j``."""
+    wpl = words_per_lane(bits)
+    n = q.shape[-1]
+    pad = packed_word_len(n, bits) * wpl - n
+    words = torch.nn.functional.pad(q.to(torch.int64), (0, pad))
+    words = words.reshape(*q.shape[:-1], -1, wpl)
+    shifts = bits * torch.arange(wpl, dtype=torch.int64, device=q.device)
+    return _int64_to_lanes((words << shifts).sum(-1))
+
+
+def unpack_words(lanes: torch.Tensor, n: int, bits: int) -> torch.Tensor:
+    """uint32 lanes ``(..., packed_word_len(n, b))`` -> ``(..., n)``
+    b-bit words as int64, the exact inverse of ``pack_words`` (the
+    trailing lane's padding dropped)."""
+    wpl = words_per_lane(bits)
+    shifts = bits * torch.arange(wpl, dtype=torch.int64, device=lanes.device)
+    words = (_lanes_to_int64(lanes)[..., None] >> shifts) & ((1 << bits) - 1)
+    return words.reshape(*lanes.shape[:-1], -1)[..., :n]

@@ -9,18 +9,30 @@ exact threshold value ``quant_threshold_u24(q, b) * 2^-24``.
 
 The encode keeps the multiply and the two adds as separate torch ops,
 in the JAX package's order: a fused multiply-add could move the floor
-at a boundary.  The packed sub-byte codecs are not ported yet.
+at a boundary.
+
+The packed sub-byte codecs (``packed4``/``packed2``, aliases
+``u4``/``u2``; ``packed_codec(b)`` for any b in [1, 16]) quantize
+exactly as ``u8``/``u16`` do and carry ``floor(32/b)`` words a uint32
+lane (``comm.bitpack.pack_words``), so their wire leaf has
+``packed_word_len(n, b)`` lanes and the metering counts the realized
+``32 * ceil(n / wpl)`` bits, padding included.  Every packed codec's
+wire dtype is uint32, so the dtype cannot name one: ``codec_for_dtype``
+raises on uint32, and packed carries are routed by explicit tag
+(``carried=``, ``downlink=``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
+from .bitpack import (pack_words, packed_word_len, unpack_words,
+                      words_per_lane)
 from ..core.hashrng import INV_2_24, hash_u32
 from ..core.sampling import QUANT_DITHER_CTR, as_word, clip_probs
-from ..core.sampling import quant_threshold_u24
+from ..core.sampling import quant_threshold_u24, word_values
 
 
 class DownlinkCodec:
@@ -37,11 +49,27 @@ class DownlinkCodec:
         n-coordinate score broadcast."""
         return self.bits * n
 
+    def wire_len(self, n: int) -> int:
+        """Length of the wire leaf of an n-coordinate score vector: n,
+        or the lane count of a packed codec."""
+        return n
+
     def encode(self, spec, scores: torch.Tensor, word) -> torch.Tensor:
         raise NotImplementedError
 
     def decode(self, spec, wire: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    def wire_words(self, spec, wire: torch.Tensor) -> torch.Tensor:
+        """Wire leaf -> per-coordinate words (the leaf itself, or the
+        unpacked lanes of a packed codec)."""
+        del spec
+        return wire
+
+    def threshold_u24(self, words: torch.Tensor) -> torch.Tensor:
+        """Per-coordinate words -> the 24-bit draw thresholds."""
+        raise NotImplementedError(
+            f"codec {self.name!r} has no quantized threshold")
 
 
 class F32Down(DownlinkCodec):
@@ -76,58 +104,115 @@ class QuantizedDown(DownlinkCodec):
                      as_word(word), coords)
         return (u >> 8).to(torch.float32) * INV_2_24
 
-    def encode(self, spec, scores, word):
+    def quantize(self, spec, scores, word) -> torch.Tensor:
+        """f32 scores -> the b-bit words, int32."""
         p = clip_probs(scores.to(torch.float32))
         d = self.dither(spec, word, p.shape[-1], p.device)
         # floor(p*S + 0.25 + 0.5*d), each op rounded on its own
         q = torch.floor((p * self.scale + 0.25) + d * 0.5)
-        q = torch.clamp(q, 0.0, self.scale)
-        q = q.to(torch.int32)
+        return torch.clamp(q, 0.0, self.scale).to(torch.int32)
+
+    def encode(self, spec, scores, word):
+        q = self.quantize(spec, scores, word)
         if self.wire_dtype == torch.uint16:
             # through int16: torch's CUDA kernels take few ops on uint16
             return q.to(torch.int16).view(torch.uint16)
         return q.to(self.wire_dtype)
 
+    def threshold_u24(self, words):
+        return quant_threshold_u24(word_values(words), self.bits)
+
     def decode(self, spec, wire):
-        del spec
-        if wire.dtype == torch.uint16:
-            wire = wire.view(torch.int16).to(torch.int32) & 0xFFFF
-        return quant_threshold_u24(wire, self.bits).to(
-            torch.float32) * INV_2_24
+        words = self.wire_words(spec, wire)
+        return self.threshold_u24(words).to(torch.float32) * INV_2_24
 
 
-_REGISTRY: Dict[str, DownlinkCodec] = {
-    c.name: c for c in (F32Down(), QuantizedDown("u16", 16, torch.uint16),
-                        QuantizedDown("u8", 8, torch.uint8))
-}
-_LATER = ("packed4", "packed2", "u4", "u2")
+class PackedDown(QuantizedDown):
+    """b-bit words, b in [1, 16], packed ``floor(32/b)`` a uint32 lane:
+    ``QuantizedDown``'s words and thresholds on another carrier."""
+
+    packed = True
+
+    def __init__(self, name: str, bits: int):
+        super().__init__(name, bits, torch.uint32)
+
+    def downlink_bits_per_client(self, n: int) -> int:
+        # realized lane bits: the tail lane's padding and the unused top
+        # 32 mod b bits of a non-divisor width are spent
+        return 32 * packed_word_len(n, self.bits)
+
+    def wire_len(self, n: int) -> int:
+        return packed_word_len(n, self.bits)
+
+    def encode(self, spec, scores, word):
+        return pack_words(self.quantize(spec, scores, word), self.bits)
+
+    def wire_words(self, spec, wire):
+        return unpack_words(wire, spec.n, self.bits)
 
 
-def codec_names() -> List[str]:
-    """The ported codecs' names (the packed ones come later)."""
-    return sorted(_REGISTRY)
+_REGISTRY: Dict[str, DownlinkCodec] = {}
+_ALIASES: Dict[str, str] = {}
+
+
+def register_codec(codec: DownlinkCodec,
+                   aliases: Tuple[str, ...] = ()) -> DownlinkCodec:
+    """Add a codec (and alias names) to the registry."""
+    _REGISTRY[codec.name] = codec
+    for a in aliases:
+        _ALIASES[a] = codec.name
+    return codec
+
+
+def codec_names(include_aliases: bool = True) -> List[str]:
+    """The registered codecs' names, then their aliases."""
+    names = sorted(_REGISTRY)
+    return names + sorted(_ALIASES) if include_aliases else names
+
+
+def packed_codec(bits: int) -> PackedDown:
+    """The ``packed{b}`` codec for a width b in [1, 16], registered at
+    first use (``packed4`` and ``packed2`` are registered already)."""
+    words_per_lane(bits)  # the range check
+    name = f"packed{bits}"
+    if name not in _REGISTRY:
+        register_codec(PackedDown(name, bits))
+    return _REGISTRY[name]
 
 
 def codec_for_dtype(dtype: torch.dtype) -> DownlinkCodec:
     """The codec whose wire leaves carry ``dtype``: floating leaves are
-    f32 scores, uint8/uint16 the u8/u16 words."""
+    f32 scores, uint8/uint16 the u8/u16 words.  uint32 is every packed
+    codec's carrier, so it names none and raises: route packed carries
+    by explicit tag."""
     if dtype.is_floating_point:
         return _REGISTRY["f32"]
-    for codec in _REGISTRY.values():
-        if codec.quantized and codec.wire_dtype == dtype:
-            return codec
-    raise ValueError(f"no downlink codec carries dtype {dtype}")
+    matches = [c for c in _REGISTRY.values()
+               if c.quantized and c.wire_dtype == dtype]
+    if len(matches) > 1:
+        raise ValueError(
+            f"dtype {dtype} is ambiguous between downlink codecs "
+            f"{', '.join(sorted(c.name for c in matches))}; route by "
+            "explicit tag (the carried=/downlink= argument)")
+    if matches:
+        return matches[0]
+    raise ValueError(f"no downlink codec carries dtype {dtype}; registered: "
+                     f"{', '.join(codec_names())}")
 
 
 def get_codec(name: str) -> DownlinkCodec:
-    if name in _LATER:
-        raise NotImplementedError(
-            f"downlink codec {name!r} (packed sub-byte lanes) is not "
-            "ported yet; the port carries f32, u16 and u8")
-    if name not in _REGISTRY:
+    canonical = _ALIASES.get(name, name)
+    if canonical not in _REGISTRY:
         raise ValueError(f"unknown downlink codec {name!r}; registered: "
-                         f"{', '.join(sorted(_REGISTRY))}")
-    return _REGISTRY[name]
+                         f"{', '.join(codec_names())}")
+    return _REGISTRY[canonical]
+
+
+register_codec(F32Down())
+register_codec(QuantizedDown("u16", 16, torch.uint16))
+register_codec(QuantizedDown("u8", 8, torch.uint8))
+register_codec(PackedDown("packed4", 4), aliases=("u4",))
+register_codec(PackedDown("packed2", 2), aliases=("u2",))
 
 
 def encode(codec: str, spec, scores: torch.Tensor, word) -> torch.Tensor:

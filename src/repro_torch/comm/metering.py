@@ -1,13 +1,15 @@
 """Exact wire accounting: bytes on the network per federated round.
 
-The JAX package's ``comm/metering.py`` for the ported transports and
-codecs.  Analytic: a function of the spec set, the uplink transport
-and the downlink codec.  Per round, per client:
+The JAX package's ``comm/metering.py``: ``round_wire_report``,
+``wire_table`` and ``downlink_table``.  Analytic: a function of the spec
+set, the uplink transport and the downlink codec.  Per round, per
+client:
 
   uplink    = the transport's mask bytes per zampled tensor (uint32
               lane padding included) + f32 bytes of the dense leaves;
   downlink  = the codec's score bytes per zampled tensor (b bits a
-              coordinate) + the same dense leaves.
+              coordinate, or a packed codec's realized lanes, 32 bits
+              each) + the same dense leaves.
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ def round_wire_report(zspecs, aggregate: str, num_clients: int,
 
 
 def wire_table(zspecs, num_clients: int, downlink: str = "f32") -> List[Dict]:
-    """One row per ported uplink transport at the given codec."""
+    """One row per uplink transport at the given codec."""
     baseline = round_wire_report(zspecs, "mean_f32", num_clients)
     rows = []
     for name in transport_names(include_aliases=False):
@@ -76,9 +78,10 @@ def wire_table(zspecs, num_clients: int, downlink: str = "f32") -> List[Dict]:
 
 def downlink_table(zspecs, num_clients: int,
                    aggregate: str = "psum_u32") -> List[Dict]:
-    """One row per ported downlink codec at the given transport."""
+    """One row per registered downlink codec (aliases left out) at the
+    given transport."""
     return [{"bench": "downlink_format", "codec": name, "K": num_clients,
              "n_total": zspecs.n_total, "m_total": zspecs.m_total,
              **round_wire_report(zspecs, aggregate, num_clients,
                                  downlink=name)}
-            for name in codec_names()]
+            for name in codec_names(include_aliases=False)]

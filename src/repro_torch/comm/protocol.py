@@ -1,10 +1,13 @@
 """Uplink transports: the wire format of the clients' mask uploads.
 
-The JAX package's ``comm/protocol.py``, the stacked (one-host) forms of
-``mean_f32`` (f32 {0,1} masks, 32 bits a coordinate; alias ``mean``)
-and ``psum_u32`` (bit-packed lanes, the server sums per-coordinate
-vote counts).  Both give the same bits: the counts are exact integers
-in either form, and the mean is ``counts * (1/K)`` in float32.
+The JAX package's ``comm/protocol.py``, its unweighted methods:
+``mean_f32`` (f32 {0,1} masks, 32 bits a coordinate; alias ``mean``),
+``psum_u32`` (bit-packed lanes, the server sums per-coordinate vote
+counts) and ``allgather_packed`` (the same lanes, gathered raw).  All
+give the same bits on binary masks: the counts are exact integers in
+every form, and the mean is ``counts * (1/K)`` in float32.  A
+continuous-mode upload is probabilities, not bits: it takes
+``mean_f32`` (``resolve_transport``), whose sum is then rounded.
 
 That reciprocal is the JAX package's arithmetic as it runs: under
 ``jax.jit`` XLA rewrites ``counts / K`` (K static) into a multiply by
@@ -23,7 +26,12 @@ cannot reduce uint32).  The sums are exact integers in any reduction
 order, and both end in the same ``* (1/K)``, so a collective mean
 equals the stacked mean of the same K uploads bit for bit.
 
-``allgather_packed`` comes with a later slice.
+``allgather_packed`` puts the same lanes on the wire as ``psum_u32``
+and differs only in where the unpack happens: stacked, the server
+takes the popcount mean of the (K, L) lanes; collectively, every rank
+all-gathers the raw lanes (the metered bytes, end to end) and takes
+the same popcount mean.  So all three transports give the same mean
+bit for bit, in either form.
 """
 
 from __future__ import annotations
@@ -121,6 +129,9 @@ class PsumU32(Transport):
     def uplink_bits_per_client(self, n: int) -> int:
         return 32 * packed_len(n)
 
+    def aggregate_stacked(self, Z):
+        return self.aggregate_stacked_packed(pack_mask(Z), Z.shape[-1])
+
     def aggregate_stacked_packed(self, lanes, n):
         return _counts_mean(packed_popcount_sum(lanes, n), lanes.shape[0])
 
@@ -134,9 +145,22 @@ class PsumU32(Transport):
         return _counts_mean(counts, axis_size(group))
 
 
-_REGISTRY: Dict[str, Transport] = {t.name: t for t in (MeanF32(), PsumU32())}
+class AllgatherPacked(PsumU32):
+    """``psum_u32``'s lanes and stacked mean; the collective gathers the
+    raw lanes, and the unpack is the server's."""
+
+    name = "allgather_packed"
+
+    def aggregate_collective_packed(self, lanes, n, group=None):
+        k = axis_size(group)
+        gathered = [torch.empty_like(lanes) for _ in range(k)]
+        dist.all_gather(gathered, lanes.contiguous(), group=group)
+        return self.aggregate_stacked_packed(torch.stack(gathered), n)
+
+
+_REGISTRY: Dict[str, Transport] = {
+    t.name: t for t in (MeanF32(), PsumU32(), AllgatherPacked())}
 _ALIASES = {"mean": "mean_f32"}
-_LATER = ("allgather_packed",)
 
 
 def transport_names(include_aliases: bool = True) -> List[str]:
@@ -146,10 +170,6 @@ def transport_names(include_aliases: bool = True) -> List[str]:
 
 def get_transport(name: str) -> Transport:
     canonical = _ALIASES.get(name, name)
-    if canonical in _LATER:
-        raise NotImplementedError(
-            f"transport {name!r} is not ported yet; the port has "
-            f"{', '.join(transport_names())}")
     if canonical not in _REGISTRY:
         raise ValueError(f"unknown transport {name!r}; registered: "
                          f"{', '.join(transport_names())}")

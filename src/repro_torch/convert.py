@@ -4,8 +4,9 @@ to the port.
 The JAX package's ``ServeState`` holds ``words`` and ``dense`` dicts
 keyed by path strings and a uint32 draw word ``step``; as numpy arrays
 they become the port's ``ServeState`` under the same paths.  A
-federated round state ``{"scores": {path: f32 scores or u8/u16 wire
-words}, "dense": {path: leaf}}`` becomes the same dict of tensors, and
+federated round state ``{"scores": {path: f32 scores, u8/u16 wire
+words or a packed codec's uint32 lanes}, "dense": {path: leaf}}``
+becomes the same dict of tensors (lanes as ``torch.uint32``), and
 so does a local-training state, whose Adam state (``step``, ``mu``,
 ``nu`` over the same tree) becomes the port's ``AdamState`` over the
 flat {path: leaf} dict the port's optimizers see.  bf16
@@ -69,8 +70,9 @@ def serve_state_from_jax(jstate, *, device="cuda") -> ServeState:
 
 def federated_state_from_arrays(zspecs: ZamplingSpecs, scores, dense, *,
                                 device="cuda"):
-    """The port's round state from numpy ``scores`` (f32 scores or the
-    codec's u8/u16 words, as ``encode_state`` carries them) and
+    """The port's round state from numpy ``scores`` (f32 scores, the
+    codec's u8/u16 words or uint32 lanes, as ``encode_state`` carries
+    them) and
     ``dense`` dicts keyed by the JAX package's path strings; each dense
     leaf in its template's dtype (bf16 leaves of an LM through f32)."""
     return state_to(zspecs, {"scores": {p: np.asarray(scores[p])

@@ -35,10 +35,17 @@ server's encode dither is keyed by ``fold_word(as_word(key), r)``.
 ``mask_path="composed"`` runs the composed oracle: explicit
 straight-through masks on the reconstruct kernels (kernel 3 forward,
 kernel 6 backward) and the upload as ``pack_mask`` of the drawn mask;
-it gives the fused round's state and loss bit for bit.  Partial
-participation, streaming aggregation, the downlink schedules and the
-continuous and discretize modes raise ``NotImplementedError``: they
-come with later slices, as does the sharded round's model axis.
+it gives the fused round's state and loss bit for bit.  The
+``continuous`` mode trains the expected network (kernels 3 and 6 on
+the probabilities) and uploads the probabilities over ``mean_f32``;
+``discretize`` trains the rounded network (kernel 3; a rounded mask
+takes no gradient, so only the dense leaves move) and uploads its bits
+over any transport.  Every transport (``mean_f32``, ``psum_u32``,
+``allgather_packed``) and every codec (f32, u16, u8 words, the packed
+sub-byte lanes) runs in both drivers; a packed codec's lanes are the
+carried state.  Partial participation, streaming aggregation and the
+downlink schedules raise ``NotImplementedError``: they come with later
+slices, as does the sharded round's model axis.
 """
 
 from __future__ import annotations
@@ -57,7 +64,7 @@ from ..device import as_tensor, resolve_device
 from ..optim import Optimizer, sgd
 from .sampling import as_word, as_words, fold_word
 from .zampling import (MASK_MODES, MaskProgram, ZamplingSpecs,
-                       infer_downlink, state_to)
+                       infer_downlink, state_to, validate_carried)
 
 # (params with a leading K axis, batch with a leading K axis) -> (K,)
 LossFn = Callable[[Dict[str, torch.Tensor], Dict[str, torch.Tensor]],
@@ -82,8 +89,8 @@ def _later(what: str):
 @dataclass(frozen=True)
 class FederatedConfig:
     """The JAX package's fields and defaults.  Values the port does not
-    run yet raise: modes other than ``sample``, ``stream_chunk > 0`` and
-    schedules other than ``constant``."""
+    run yet raise: ``stream_chunk > 0`` and schedules other than
+    ``constant``."""
 
     num_clients: int = 10
     local_steps: int = 1  # "epochs" per round in the paper (up to 100)
@@ -118,8 +125,6 @@ class FederatedConfig:
             raise ValueError(
                 f"unknown downlink_schedule {self.downlink_schedule!r}; "
                 f"valid schedules: {', '.join(DOWNLINK_SCHEDULES)}")
-        if self.mode != "sample":
-            raise _later(f"mode={self.mode!r}")
         if self.stream_chunk:
             raise _later("streaming aggregation (stream_chunk > 0)")
         if self.downlink_schedule != "constant":
@@ -140,13 +145,17 @@ def encode_state(zspecs: ZamplingSpecs, cfg: FederatedConfig, state,
                  word=0, *, device="cuda") -> Dict[str, Any]:
     """An f32 score state (numpy or tensors) in ``cfg.downlink``'s wire
     words on ``device`` — what the rounds carry.  ``word`` keys the
-    dither.  A state already carrying the codec passes through; one
-    carrying another codec raises."""
+    dither.  A state already carrying the codec (by dtype and, for a
+    packed codec, lane count) passes through; one carrying another
+    codec raises."""
     st = state_to(zspecs, state, resolve_device(device))
     codec = get_codec(cfg.downlink)
-    carried = infer_downlink(st["scores"])
-    if carried == codec.name:
+    try:
+        validate_carried(zspecs, st["scores"], codec.name)
         return st
+    except ValueError:
+        pass
+    carried = infer_downlink(st["scores"])
     if carried != "f32":
         raise ValueError(f"state is already encoded with downlink codec "
                          f"{carried!r}; decode_state it first before "
@@ -210,7 +219,10 @@ def local_update(zspecs: ZamplingSpecs, state: Dict[str, Any],
             {p: leaves[p] for p in zspecs.dense_paths}, step_words[e])
         loss_k = loss_fn(params, {n: v[e] if one else v[:, e]
                                   for n, v in batches.items()})
-        grads = torch.autograd.grad(loss_k.sum(), list(leaves.values()))
+        # a rounded (discretize) mask takes no gradient: its scores get 0
+        grads = [torch.zeros_like(leaves[p]) if g is None else g
+                 for p, g in zip(leaves, torch.autograd.grad(
+                     loss_k.sum(), list(leaves.values()), allow_unused=True))]
         updates, opt_state = opt.update(dict(zip(leaves, grads)), opt_state,
                                         leaves)
         trainable = {p: leaves[p].detach() + updates[p] for p in leaves}

@@ -13,7 +13,8 @@ package's draws them with ``jax.random``, which has no torch twin.
 ``MaskProgram`` is the mask lifecycle: scores in, weights or upload
 lanes out (``kernels.ops``).  ``mode`` is ``sample`` (a fresh
 Bernoulli mask per forward pass), ``continuous`` (the expected
-network, w = Q p) or ``discretize`` (w = Q 1[p >= 0.5]).  Sample mode
+network, w = Q p, whose upload is p itself) or ``discretize``
+(w = Q 1[p >= 0.5], whose upload is those rounded bits).  Sample mode
 with ``fused`` draws inside the reconstruct kernel; every other
 combination is the composed path: the explicit straight-through mask
 (``masks``), then ``weights_from_masks`` on the reconstruct kernels.
@@ -229,20 +230,23 @@ def validate_carried(zspecs: ZamplingSpecs, scores, carried: str) -> str:
     for path, spec in zspecs.specs.items():
         leaf = scores[path]
         if codec.quantized:
-            ok = leaf.dtype == codec.wire_dtype and leaf.shape[-1] == spec.n
+            ok = (leaf.dtype == codec.wire_dtype
+                  and leaf.shape[-1] == codec.wire_len(spec.n))
         else:
             ok = leaf.dtype.is_floating_point
         if not ok:
             raise ValueError(
                 f"score leaf {path!r} (dtype {leaf.dtype}, trailing dim "
                 f"{leaf.shape[-1]}) cannot carry the tagged codec "
-                f"{codec.name!r} (n={spec.n})")
+                f"{codec.name!r} (wire dtype {codec.wire_dtype}, wire "
+                f"length {codec.wire_len(spec.n)} for n={spec.n})")
     return codec.name
 
 
 def resolve_carried(zspecs: ZamplingSpecs, scores,
                     carried: Optional[str] = None) -> str:
-    """An explicit tag, validated; else the codec the dtypes name."""
+    """An explicit tag, validated; else the codec the dtypes name (which
+    raises on a packed carry: uint32 names no single codec)."""
     if carried is not None:
         return validate_carried(zspecs, scores, carried)
     return infer_downlink(scores)
@@ -258,7 +262,7 @@ class MaskProgram:
     ``fused``).  ``packed`` picks the upload's form: uint32 wire lanes,
     or the f32 {0,1} mask.  ``downlink`` names the codec of the server's
     broadcast; the ``*_from_wire`` path draws straight from its u8/u16
-    words."""
+    words or packed lanes."""
 
     zspecs: ZamplingSpecs
     mode: str = "sample"
@@ -279,6 +283,9 @@ class MaskProgram:
         return get_codec(self.downlink)
 
     def _wire_words(self, wire_scores, path: str) -> torch.Tensor:
+        """One tensor's encoded leaf, its dtype checked (and a packed
+        codec's lane count: every packed codec shares the uint32
+        carrier, so the dtype cannot tell them apart)."""
         codec = self.codec
         q = wire_scores[path]
         if q.dtype != codec.wire_dtype:
@@ -286,6 +293,14 @@ class MaskProgram:
                 f"score leaf {path!r} has dtype {q.dtype}, but downlink "
                 f"codec {codec.name!r} carries {codec.wire_dtype}; encode "
                 "the state first (core.federated.encode_state)")
+        if codec.packed:
+            n = self.zspecs.specs[path].n
+            if q.shape[-1] != codec.wire_len(n):
+                raise ValueError(
+                    f"score leaf {path!r} has {q.shape[-1]} uint32 lanes "
+                    f"but codec {codec.name!r} packs n={n} words into "
+                    f"{codec.wire_len(n)} lanes: is the carry another "
+                    "packed codec's?")
         return q
 
     def decode_scores(self, wire_scores) -> Dict[str, torch.Tensor]:
@@ -316,15 +331,15 @@ class MaskProgram:
                 for path, spec in self.zspecs.specs.items()}
 
     def mask_from_wire(self, q: torch.Tensor, spec: QSpec, step):
-        """One tensor's mask from its encoded broadcast words: in sample
-        mode the u8/u16 threshold compare (bit-identical to drawing on
-        the decoded scores); otherwise the mode's mask of the decoded
-        probabilities."""
+        """One tensor's mask from its encoded broadcast words (a packed
+        codec's lanes unpacked first): in sample mode the threshold
+        compare (bit-identical to drawing on the decoded scores);
+        otherwise the mode's mask of the decoded probabilities."""
         codec = self.codec
         if codec.quantized and self.mode == "sample":
             words = as_words(step, q.device) if q.ndim == 2 else as_word(step)
-            return sample_mask_qhash(q, codec.bits, spec.seed,
-                                     spec.tensor_id, words)
+            return sample_mask_qhash(codec.wire_words(spec, q), codec.bits,
+                                     spec.seed, spec.tensor_id, words)
         return self.mask(clip_probs(codec.decode(spec, q)), spec, step)
 
     def masks_from_wire(self, wire_scores, step) -> Dict[str, torch.Tensor]:
@@ -353,19 +368,24 @@ class MaskProgram:
         return leaves
 
     def upload(self, scores, steps) -> Dict[str, torch.Tensor]:
-        """The end-of-round upload of sample mode: fresh gradient-free
+        """The end-of-round upload: in sample mode fresh gradient-free
         bits at ``steps``, as wire lanes when ``packed`` (drawn in the
-        pack kernel when ``fused``), else f32 masks."""
-        if self.mode != "sample":
-            raise NotImplementedError(
-                f"the upload of mode={self.mode!r} is not ported yet; it "
-                "comes with the federated continuous/discretize modes")
+        pack kernel when ``fused``), else f32 masks; in discretize mode
+        the rounded bits, packed likewise; in continuous mode the
+        probabilities themselves (f32 only, the ``mean_f32`` wire)."""
         from ..comm.bitpack import pack_mask  # comm sits above core
         from ..kernels import ops
 
         out = {}
         for path, spec in self.zspecs.specs.items():
             p = clip_probs(scores[path].detach())
+            if self.mode == "continuous":
+                out[path] = p
+                continue
+            if self.mode == "discretize":
+                z = discretize_mask(p)
+                out[path] = pack_mask(z) if self.packed else z
+                continue
             if self.packed and self.fused:
                 op = (ops.sample_pack_batched if p.ndim == 2
                       else ops.sample_pack)
@@ -380,9 +400,9 @@ class MaskProgram:
     def weights_from_wire(self, wire_scores, dense,
                           steps) -> Dict[str, torch.Tensor]:
         """One forward pass drawn straight from the encoded broadcast:
-        in fused sample mode the u8/u16 threshold compare in the kernel,
-        no f32 scores.  Gradient-free; training decodes first
-        (``decode_scores``)."""
+        in fused sample mode the threshold compare in the kernel, on the
+        u8/u16 words or the packed lanes themselves, no f32 scores.
+        Gradient-free; training decodes first (``decode_scores``)."""
         codec = self.codec
         if not codec.quantized:
             return self.weights(wire_scores, dense, steps)
@@ -398,7 +418,8 @@ class MaskProgram:
             op = (ops.sample_reconstruct_batched if q.ndim == 2
                   else ops.sample_reconstruct)
             leaves[path] = _as_template(self.zspecs, path, op(
-                spec, q, steps, qbits=codec.bits, impl=self.impl))
+                spec, q, steps, qbits=codec.bits, qpacked=codec.packed,
+                impl=self.impl))
         leaves.update({path: dense[path] for path in self.zspecs.dense_paths})
         return leaves
 
@@ -443,8 +464,8 @@ def sample_masks(zspecs: ZamplingSpecs, state, key, *,
                  carried: Optional[str] = None,
                  device="cuda") -> Dict[str, torch.Tensor]:
     """{path: z} straight-through masks, one fresh draw per tensor at
-    the draw word ``key``; a u8/u16 carry draws by the threshold
-    compare."""
+    the draw word ``key``; a u8/u16 or packed carry draws by the
+    threshold compare (a packed one needs its ``carried`` tag)."""
     st = state_to(zspecs, state, resolve_device(device))
     program = _program(zspecs, st, mode, False, None, carried, None)
     return program.masks_from_wire(st["scores"], as_word(key))
@@ -460,8 +481,9 @@ def sample_weights(zspecs: ZamplingSpecs, state, key, *,
     the expected (``mode="continuous"``) or discretized network, which
     draw nothing.
     ``state["scores"]`` holds f32 scores or a codec's wire words
-    (``carried`` names the codec; without it the dtypes do); an
-    explicit ``downlink`` must agree with what the state carries."""
+    (``carried`` names the codec; without it the dtypes do, which
+    cannot name a packed codec); an explicit ``downlink`` must agree
+    with what the state carries."""
     st = state_to(zspecs, state, resolve_device(device))
     program = _program(zspecs, st, mode, True, downlink, carried, impl)
     return program.weights_from_wire(st["scores"], st["dense"], as_word(key))

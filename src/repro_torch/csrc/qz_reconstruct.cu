@@ -10,7 +10,9 @@
 // z_k[idx[r, j]] in ascending j, each multiply and add rounded on its
 // own, with z_k either
 //   - drawn in the body, z_k ~ Bern(p_k) from the hash stream at the
-//     coordinate (f32 probabilities, or the u8/u16 threshold compare):
+//     coordinate (f32 probabilities, or the threshold compare on u8/u16
+//     words or on b-bit words read straight from a packed codec's uint32
+//     lanes, a client's operand then packed_word_len(n, b) lanes):
 //     sample_reconstruct_window_kernel, replacing
 //     qz_sample_reconstruct_batched_fwd and, at K = 1,
 //     qz_sample_reconstruct_fwd;
@@ -151,18 +153,27 @@ namespace {
 // sample_pack_kernel: threads per CTA
 constexpr int THREADS = 128;
 
-// The explicit f32 operand of mask_reconstruct_window_kernel: no draw.
-constexpr int KIND_VALUES = 3;
+// The explicit f32 operand of mask_reconstruct_window_kernel: no draw
+// (a value apart from qz::WordKind's).
+constexpr int KIND_VALUES = 16;
 
+// The operand kind qz_sample_reconstruct takes for packed lanes of any
+// width; the width picks the instantiation (KIND_P4, KIND_P2, KIND_PB).
+constexpr int PACKED_LANES = 3;
+
+// Client k's operand: `stride` words of the kind's type from P, n of them
+// for a word a coordinate, packed_word_len(n, b) uint32 lanes for a
+// packed kind.
 template <int KIND>
 __device__ __forceinline__ const void* client_words(const void* P, uint32_t k,
-                                                    uint32_t n) {
-  const size_t off = static_cast<size_t>(k) * n;
+                                                    uint32_t stride) {
+  const size_t off = static_cast<size_t>(k) * stride;
   if (KIND == qz::KIND_F32 || KIND == KIND_VALUES) {
     return static_cast<const float*>(P) + off;
   }
   if (KIND == qz::KIND_U8) return static_cast<const uint8_t*>(P) + off;
-  return static_cast<const uint16_t*>(P) + off;
+  if (KIND == qz::KIND_U16) return static_cast<const uint16_t*>(P) + off;
+  return static_cast<const uint32_t*>(P) + off;
 }
 
 // plan_bwd_kernel: threads per CTA (read by plan_geometry in
@@ -501,6 +512,8 @@ struct FwdArgs {
   uint32_t slices;   // CTAs a window
   uint32_t rows;     // a window's rows a CTA (the last slice may hold fewer)
   uint32_t clients;  // clients a sweep
+  uint32_t stride;   // a client's operand: n words, or its packed lanes
+  qz::PackedWidth pw;  // the width of a KIND_PB operand
 };
 
 // Dynamic shared memory, in 4-byte words: per slot j the mixed value
@@ -678,10 +691,11 @@ __device__ __forceinline__ void reconstruct_window(const void* __restrict__ P,
         for (int g = 0; g < G; ++g) {
           const uint32_t k = k1 + g;
           if (k < ke) {
-            const void* pk = client_words<KIND>(P, k0 + k, a.n);
+            const void* pk = client_words<KIND>(P, k0 + k, a.stride);
             bool bit;
             if (DRAWN) {
-              bit = qz::mask_bit<DRAWN ? KIND : qz::KIND_F32>(pk, sHm[k], wbase + c);
+              bit = qz::mask_bit<DRAWN ? KIND : qz::KIND_F32>(pk, sHm[k], wbase + c,
+                                                             a.pw);
             } else {
               const float z = static_cast<const float*>(pk)[wbase + c];
               sZ[k * window + c] = z;
@@ -864,6 +878,8 @@ int fwd_args(const FwdConsts* c, bool values, FwdArgs& a, int& g) {
   a.slices = c->slices;
   a.rows = c->rows;
   a.clients = c->clients;
+  a.stride = c->n;
+  a.pw = qz::PackedWidth{};
   return 0;
 }
 
@@ -871,21 +887,34 @@ int fwd_args(const FwdConsts* c, bool values, FwdArgs& a, int& g) {
 
 extern "C" {
 
-// W (K, m) = Q Bern(P_k) for the K clients' operands P (K, n) of kind
-// `kind` (f32, u8 or u16), drawn at words `steps` (K,).
-int qz_sample_reconstruct(const void* P, int kind, const long long* steps,
-                          float* W, const FwdConsts* c, void* stream) {
+// W (K, m) = Q Bern(P_k) for the K clients' operands P of kind `kind`,
+// drawn at words `steps` (K,): f32, u8 or u16 (K, n) (kind 0, 1, 2), or
+// (kind PACKED_LANES) `bits`-bit words packed in (K, packed_word_len(n,
+// bits)) uint32 lanes, bits in [1, 16] (4 and 2 on their own
+// instantiations, any other width on KIND_PB's).
+int qz_sample_reconstruct(const void* P, int kind, int bits,
+                          const long long* steps, float* W,
+                          const FwdConsts* c, void* stream) {
   FwdArgs a;
   int g;
   const int rc = fwd_args(c, false, a, g);
   if (rc != 0) return rc;
-  if (kind < qz::KIND_F32 || kind > qz::KIND_U16) {
+  if (kind < qz::KIND_F32 || kind > PACKED_LANES ||
+      (kind == PACKED_LANES && (bits < 1 || bits > 16))) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (kind == PACKED_LANES) {  // the packed kind at this width
+    kind = bits == 4 ? qz::KIND_P4 : bits == 2 ? qz::KIND_P2 : qz::KIND_PB;
+    a.pw = qz::packed_width(static_cast<uint32_t>(bits));
+    a.stride = (c->n + a.pw.wpl - 1u) / a.pw.wpl;
   }
   auto kernel = kind == qz::KIND_F32 ? sample_fwd_kernel<qz::KIND_F32>(g)
               : kind == qz::KIND_U8  ? sample_fwd_kernel<qz::KIND_U8>(g)
-                                     : sample_fwd_kernel<qz::KIND_U16>(g);
-  static int opted[3][5] = {};
+              : kind == qz::KIND_U16 ? sample_fwd_kernel<qz::KIND_U16>(g)
+              : kind == qz::KIND_P4  ? sample_fwd_kernel<qz::KIND_P4>(g)
+              : kind == qz::KIND_P2  ? sample_fwd_kernel<qz::KIND_P2>(g)
+                                     : sample_fwd_kernel<qz::KIND_PB>(g);
+  static int opted[6][5] = {};
   const cudaError_t err = allow_smem(kernel, c->smem, opted[kind][g]);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<c->num_windows * c->slices, FWD_THREADS, c->smem,

@@ -17,7 +17,11 @@ K=1), the only one whose memory fits full-width LM training.
 (masks, or probabilities in continuous mode) with the same backward:
 kernel 3 forward (kernel 1, ``qz_reconstruct_fwd``, for the
 single-client ``reconstruct``).  With ``qbits`` the operand is the
-u8/u16 downlink words and the op has no gradient.
+u8/u16 downlink words, or with ``qpacked`` too a packed codec's (K,
+``packed_word_len(n, qbits)``) uint32 lanes, which kernels 7 and 8 read
+in their own body, at any window; the op has no gradient.  (The JAX
+package sends a window that does not hold whole lanes to its plain
+path; the CUDA kernels take every window.)
 ``sample_pack_batched`` draws the upload and emits wire lanes (kernel
 10; a spec with ``window % 32 != 0`` takes the plain path, as the JAX
 package's does); ``sample_pack``, one client's upload, is kernel 9 at
@@ -62,7 +66,7 @@ from typing import Optional
 
 import torch
 
-from ..comm.bitpack import pack_mask
+from ..comm.bitpack import pack_mask, packed_word_len, unpack_words
 from ..core.hashrng import bernoulli_u32
 from ..core.qspec import QSpec, row_indices, row_values
 from ..core.reconstruct import (_insert_padding_batched, _move_batched,
@@ -102,9 +106,12 @@ def resolve_impl(impl: Optional[str], x: torch.Tensor) -> str:
     return impl
 
 
-def _draw(spec: QSpec, P: torch.Tensor, steps: torch.Tensor, qbits):
+def _draw(spec: QSpec, P: torch.Tensor, steps: torch.Tensor, qbits,
+          qpacked: bool = False):
     if qbits is None:
         return sample_mask_hash(P, spec.seed, spec.tensor_id, steps)
+    if qpacked:  # the per-coordinate words first: JAX ops._sample_one
+        P = unpack_words(P, spec.n, qbits)
     return sample_mask_qhash(P, qbits, spec.seed, spec.tensor_id, steps)
 
 
@@ -116,13 +123,15 @@ def reconstruct_plain(spec: QSpec, Z: torch.Tensor) -> torch.Tensor:
 
 
 def sample_reconstruct_plain(spec: QSpec, P: torch.Tensor, steps,
-                             qbits: Optional[int] = None) -> torch.Tensor:
-    """The plain torch version of kernels 8 and 7: (K, n) operand + (K,)
-    draw words -> W (K, m) in moved flat order: the drawn masks through
-    ``reconstruct_plain``, as the kernel multiplies each edge value by
-    the client's drawn bit."""
+                             qbits: Optional[int] = None,
+                             qpacked: bool = False) -> torch.Tensor:
+    """The plain torch version of kernels 8 and 7: (K, n) operand (or,
+    with ``qpacked``, (K, packed_word_len(n, qbits)) lanes, unpacked to
+    words first) + (K,) draw words -> W (K, m) in moved flat order: the
+    drawn masks through ``reconstruct_plain``, as the kernel multiplies
+    each edge value by the client's drawn bit."""
     steps = as_words(steps, P.device).reshape(-1)
-    return reconstruct_plain(spec, _draw(spec, P, steps, qbits))
+    return reconstruct_plain(spec, _draw(spec, P, steps, qbits, qpacked))
 
 
 def plan_bwd_plain(spec: QSpec, G: torch.Tensor,
@@ -167,13 +176,13 @@ def sample_pack_one_plain(spec: QSpec, p: torch.Tensor, step) -> torch.Tensor:
                                       as_word(step)))
 
 
-def _fwd_many(spec, P, steps, impl, qbits, single):
+def _fwd_many(spec, P, steps, impl, qbits, single, qpacked=False):
     """Kernels 7/8 (a draw at ``steps``) or 1/3 (``steps`` None: P is
     the explicit operand)."""
     if impl == "ref":
         if steps is None:
             return reconstruct_plain(spec, P)
-        return sample_reconstruct_plain(spec, P, steps, qbits)
+        return sample_reconstruct_plain(spec, P, steps, qbits, qpacked)
     from . import qz_reconstruct as qr
 
     if steps is None:
@@ -181,8 +190,10 @@ def _fwd_many(spec, P, steps, impl, qbits, single):
             return qr.qz_reconstruct_fwd(spec, P[0])[None]
         return qr.qz_reconstruct_batched_fwd(spec, P)
     if single:
-        return qr.qz_sample_reconstruct_fwd(spec, P[0], steps, qbits)[None]
-    return qr.qz_sample_reconstruct_batched_fwd(spec, P, steps, qbits)
+        return qr.qz_sample_reconstruct_fwd(spec, P[0], steps, qbits,
+                                            qpacked)[None]
+    return qr.qz_sample_reconstruct_batched_fwd(spec, P, steps, qbits,
+                                                qpacked)
 
 
 def _bwd_many(spec, G, impl, single):
@@ -220,18 +231,23 @@ class _Reconstruct(torch.autograd.Function):
                 None, None, None, None)
 
 
-def _check_batched(spec, P, what):
-    if P.ndim != 2 or P.shape[-1] != spec.n:
+def _check_batched(spec, P, what, n=None):
+    n = spec.n if n is None else n
+    if P.ndim != 2 or P.shape[-1] != n:
         raise ValueError(f"{what} has shape {tuple(P.shape)}, spec "
-                         f"expects (K, {spec.n})")
+                         f"expects (K, {n})")
 
 
-def _sample_reconstruct(spec, P, steps, qbits, impl, single):
-    _check_batched(spec, P, "operand")
+def _sample_reconstruct(spec, P, steps, qbits, qpacked, impl, single):
+    if qpacked and qbits is None:
+        raise ValueError("qpacked requires qbits (a packed codec width)")
+    _check_batched(spec, P, "operand",
+                   packed_word_len(spec.n, int(qbits)) if qpacked else None)
     impl = resolve_impl(impl, P)
     steps = as_words(steps, P.device).reshape(-1)
     if qbits is not None:
-        W = _fwd_many(spec, P.contiguous(), steps, impl, int(qbits), single)
+        W = _fwd_many(spec, P.contiguous(), steps, impl, int(qbits), single,
+                      bool(qpacked))
     else:
         W = _Reconstruct.apply(P.to(torch.float32).contiguous(), steps,
                                spec, impl, single)
@@ -266,23 +282,27 @@ def reconstruct(spec: QSpec, z: torch.Tensor, *,
 
 def sample_reconstruct_batched(spec: QSpec, P: torch.Tensor, steps, *,
                                qbits: Optional[int] = None,
+                               qpacked: bool = False,
                                impl: Optional[str] = None) -> torch.Tensor:
     """Fused W_k = Q Bern(P_k) for K stacked clients: P (K, n) clipped
     probabilities + (K,) draw words -> (K, *spec.shape) f32.
 
     Differentiable in P (straight-through); chain through
     ``clip_probs`` for the paper's gate.  With ``qbits`` P is the
-    (K, n) u8/u16 word slab and the draw is the threshold compare."""
-    return _sample_reconstruct(spec, P, steps, qbits, impl, False)
+    (K, n) u8/u16 word slab and the draw is the threshold compare; with
+    ``qpacked`` too it is the (K, packed_word_len(n, qbits)) uint32 lane
+    slab of a packed codec."""
+    return _sample_reconstruct(spec, P, steps, qbits, qpacked, impl, False)
 
 
 def sample_reconstruct(spec: QSpec, p: torch.Tensor, step, *,
-                       qbits: Optional[int] = None,
+                       qbits: Optional[int] = None, qpacked: bool = False,
                        impl: Optional[str] = None) -> torch.Tensor:
     """Fused w = Q Bern(p) for one client: (n,) + a draw word ->
-    spec.shape f32.  Kernel 7 (the batched kernel at K=1) forward,
-    kernel 5 backward."""
-    return _sample_reconstruct(spec, p[None], step, qbits, impl, True)[0]
+    spec.shape f32 (``qbits``/``qpacked`` as for the batched op).
+    Kernel 7 (the batched kernel at K=1) forward, kernel 5 backward."""
+    return _sample_reconstruct(spec, p[None], step, qbits, qpacked, impl,
+                               True)[0]
 
 
 def sample_pack_batched(spec: QSpec, P: torch.Tensor, steps, *,

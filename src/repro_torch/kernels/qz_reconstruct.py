@@ -5,8 +5,10 @@ Replaces ten Pallas kernels of the JAX package's
 
 - ``qz_sample_reconstruct_batched_fwd`` (the fused round's forward) and
   ``qz_sample_reconstruct_fwd`` (its K=1 entry: local sample-mode
-  training, ``evaluate`` off the u8 carry) —
-  ``sample_reconstruct_window_kernel``;
+  training, ``evaluate`` off the u8 carry or a packed codec's lanes) —
+  ``sample_reconstruct_window_kernel``, whose operand is f32
+  probabilities, u8/u16 words or (``qpacked``) b-bit words in uint32
+  lanes, b in [1, 16], read in the body at any window;
 - ``qz_reconstruct_batched_fwd`` (the composed round's forward) and
   ``qz_reconstruct_fwd`` (its K=1 entry: continuous-mode training, the
   expected and discretized networks) — ``mask_reconstruct_window_kernel``,
@@ -52,6 +54,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..comm.bitpack import packed_word_len
 from ..core.qspec import QSpec, sigma_f32
 from ..core.sampling import as_word
 from ..core.transpose_plan import PlanLayout, build_plan_layout
@@ -102,8 +105,11 @@ LAUNCHES: Dict[str, int] = {
     "qz_sample_pack_fwd": 0,
 }
 
+# the operand kinds of qz_sample_reconstruct: f32 probabilities, u8 and
+# u16 words, and (PACKED_LANES) packed lanes of any width
 _KIND = {None: 0, 8: 1, 16: 2}
 _DTYPE = {None: torch.float32, 8: torch.uint8, 16: torch.uint16}
+PACKED_LANES = source_constant("qz_reconstruct.cu", "PACKED_LANES")
 
 
 def reset_launches() -> None:
@@ -114,7 +120,7 @@ def reset_launches() -> None:
 def _bind(lib: ctypes.CDLL) -> None:
     P, I, U, L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                   ctypes.c_longlong)
-    lib.qz_sample_reconstruct.argtypes = [P, I, P, P, P, P]
+    lib.qz_sample_reconstruct.argtypes = [P, I, I, P, P, P, P]
     lib.qz_sample_reconstruct.restype = I
     lib.qz_reconstruct_batched.argtypes = [P, P, P, P]
     lib.qz_reconstruct_batched.restype = I
@@ -490,12 +496,22 @@ def _check_spec(spec: QSpec) -> None:
                          f"kernels take fewer than {MAX_ROWS}")
 
 
-def _check_operand(spec: QSpec, P: torch.Tensor, qbits) -> int:
-    if qbits not in _KIND:
-        raise NotImplementedError(
-            f"qbits={qbits}: the packed sub-byte carry is not ported yet")
-    if P.dtype != _DTYPE[qbits] or P.ndim != 2 or P.shape[1] != spec.n:
-        raise ValueError(f"operand must be (K, {spec.n}) {_DTYPE[qbits]}, "
+def _check_operand(spec: QSpec, P: torch.Tensor, qbits,
+                   qpacked: bool = False) -> int:
+    """The operand's client count K, after checking its shape and dtype:
+    (K, n) f32 probabilities or u8/u16 words, or with ``qpacked`` the
+    (K, packed_word_len(n, qbits)) uint32 lanes of a packed codec."""
+    if qpacked:
+        if qbits is None:
+            raise ValueError("qpacked requires qbits (a packed codec width)")
+        want, dtype = packed_word_len(spec.n, qbits), torch.uint32
+    elif qbits in _KIND:
+        want, dtype = spec.n, _DTYPE[qbits]
+    else:
+        raise ValueError(f"qbits={qbits}: words a coordinate are u8 or u16; "
+                         "narrower words come packed (qpacked=True)")
+    if P.dtype != dtype or P.ndim != 2 or P.shape[1] != want:
+        raise ValueError(f"operand must be (K, {want}) {dtype}, "
                          f"got {tuple(P.shape)} {P.dtype}")
     if not P.is_contiguous():
         raise ValueError("operand must be contiguous")
@@ -505,16 +521,17 @@ def _check_operand(spec: QSpec, P: torch.Tensor, qbits) -> int:
     return K
 
 
-def _launch_sample_reconstruct(spec: QSpec, P, steps, qbits):
+def _launch_sample_reconstruct(spec: QSpec, P, steps, qbits, qpacked):
     if not P.is_cuda:
         raise ValueError("the sample-reconstruct kernel takes CUDA tensors")
     _check_spec(spec)
-    K = _check_operand(spec, P, qbits)
+    K = _check_operand(spec, P, qbits, qpacked)
     words = _step_words(steps, K, P.device)
     address = _fwd_consts(spec, K, False)[1]
     W = torch.empty((K, spec.m), dtype=torch.float32, device=P.device)
     rc = build().qz_sample_reconstruct(
-        P.data_ptr(), _KIND[qbits], words.data_ptr(), W.data_ptr(), address,
+        P.data_ptr(), PACKED_LANES if qpacked else _KIND[qbits],
+        qbits if qpacked else 0, words.data_ptr(), W.data_ptr(), address,
         _stream(P))
     raise_on(rc, "qz_sample_reconstruct")
     return W
@@ -522,27 +539,31 @@ def _launch_sample_reconstruct(spec: QSpec, P, steps, qbits):
 
 def qz_sample_reconstruct_batched_fwd(spec: QSpec, P: torch.Tensor,
                                       steps: torch.Tensor,
-                                      qbits: Optional[int] = None):
+                                      qbits: Optional[int] = None,
+                                      qpacked: bool = False):
     """W (K, m) moved flat order = Q Bern(P_k), drawn at words ``steps``
-    (K,); ``P`` (K, n) clipped f32 probabilities, or u8/u16 words."""
+    (K,); ``P`` (K, n) clipped f32 probabilities, or u8/u16 words, or
+    with ``qpacked`` (K, packed_word_len(n, qbits)) uint32 lanes."""
     if not P.is_cuda:
         from .ops import sample_reconstruct_plain
 
-        return sample_reconstruct_plain(spec, P, steps, qbits)
-    W = _launch_sample_reconstruct(spec, P, steps, qbits)
+        return sample_reconstruct_plain(spec, P, steps, qbits, qpacked)
+    W = _launch_sample_reconstruct(spec, P, steps, qbits, qpacked)
     LAUNCHES["qz_sample_reconstruct_batched_fwd"] += 1
     return W
 
 
 def qz_sample_reconstruct_fwd(spec: QSpec, p: torch.Tensor, step: torch.Tensor,
-                              qbits: Optional[int] = None):
+                              qbits: Optional[int] = None,
+                              qpacked: bool = False):
     """w (m,) = Q Bern(p) for one client: the batched kernel at K=1, so
     it equals a row of ``qz_sample_reconstruct_batched_fwd`` bit for bit."""
     if not p.is_cuda:
         from .ops import sample_reconstruct_plain
 
-        return sample_reconstruct_plain(spec, p[None], step, qbits)[0]
-    w = _launch_sample_reconstruct(spec, p[None], step, qbits)[0]
+        return sample_reconstruct_plain(spec, p[None], step, qbits,
+                                        qpacked)[0]
+    w = _launch_sample_reconstruct(spec, p[None], step, qbits, qpacked)[0]
     LAUNCHES["qz_sample_reconstruct_fwd"] += 1
     return w
 

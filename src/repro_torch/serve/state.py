@@ -66,6 +66,11 @@ def make_serve_state(zspecs: ZamplingSpecs, state, key, *,
     scores are encoded on ``device`` with ``dither_word`` keying the
     dither.  ``carried`` names the codec the leaves already carry.
     """
+    for name in (downlink, carried):
+        if name is not None and get_codec(name).packed:
+            raise NotImplementedError(
+                f"serving off {name!r}'s packed lanes is not ported yet; "
+                "the serve kernel reads f32 scores and u16/u8 words")
     dev = resolve_device(device)
     scores = {p: as_tensor(state["scores"][p], dev) for p in zspecs.specs}
     found = infer_downlink(scores)

@@ -132,8 +132,9 @@ def evaluate(zspecs: ZamplingSpecs, state: Dict[str, Any],
     """(mean, std) of ``metric_fn(params)`` over one sampled network per
     draw word (the paper's "sampled accuracy"), or (value, 0.0) of the
     expected (``mode="continuous"``) or discretized network, which take
-    no words.  ``carried`` names the codec of an encoded score state; a
-    u8/u16 carry is drawn from straight, in the kernel."""
+    no words.  ``carried`` names the codec of an encoded score state (a
+    packed codec's lanes need it); a u8/u16 or packed carry is drawn
+    from straight, in the kernel."""
     with torch.no_grad():
         if mode in ("continuous", "discretize"):
             params = sample_weights(zspecs, state, 0, mode=mode,

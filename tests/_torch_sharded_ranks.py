@@ -71,11 +71,15 @@ def rank_checks(setup):
     out["word"] = word
     up, _, _ = fed.local_update(zs, st, mlp_loss, mine, word, cfg)
     out["upload"] = {p: v.numpy() for p, v in up.items()}
-    psum, mean = (protocol.get_transport(t) for t in ("psum_u32", "mean"))
+    psum, mean, gather = (protocol.get_transport(t) for t in (
+        "psum_u32", "mean", "allgather_packed"))
     out["agg"] = {p: {
         "packed": psum.aggregate_collective_packed(up[p], s.n).numpy(),
         "psum": psum.aggregate_collective(unpack_mask(up[p], s.n)).numpy(),
-        "mean": mean.aggregate_collective(unpack_mask(up[p], s.n)).numpy()}
+        "mean": mean.aggregate_collective(unpack_mask(up[p], s.n)).numpy(),
+        "allgather": gather.aggregate_collective_packed(up[p], s.n).numpy(),
+        "allgather_z": gather.aggregate_collective(
+            unpack_mask(up[p], s.n)).numpy()}
         for p, s in zs.specs.items()}
 
     new, met = fed.sharded_client_update(zs, st, mlp_loss, mine, key, cfg,
@@ -86,6 +90,12 @@ def rank_checks(setup):
                                              cfg_mean, round_index=r,
                                              device="cpu")
     out["round_mean"] = (_np_state(new_m), _np_metrics(met_m))
+    cfg_gather = fed.FederatedConfig(**{**setup["fc"],
+                                        "aggregate": "allgather_packed"})
+    new_g, met_g = fed.sharded_client_update(zs, st, mlp_loss, mine, key,
+                                             cfg_gather, round_index=r,
+                                             device="cpu")
+    out["round_allgather"] = (_np_state(new_g), _np_metrics(met_g))
 
     words = setup["fit_words"]
     rounds = [_tensors({n: v[rank] for n, v in b.items()})

@@ -146,12 +146,13 @@ def test_u8_words_of_an_aggregate_and_the_encoded_state(setup):
 def test_metered_bytes_exact(setup):
     zs, jzs = setup["zs"], setup["jzs"]
     assert zs.dense_total == jzs.dense_total
-    for agg in ("mean", "mean_f32", "psum_u32"):
-        for down in ("f32", "u16", "u8"):
+    for agg in ("mean", "mean_f32", "psum_u32", "allgather_packed"):
+        for down in ("f32", "u16", "u8", "packed4", "packed2"):
             want = jmet.round_wire_report(jzs, agg, 7, downlink=down)
             assert tmet.round_wire_report(zs, agg, 7, downlink=down) == want
-    want = [r for r in jmet.wire_table(jzs, 10, downlink="u8")
-            if r["strategy"] != "allgather_packed"]
+    want = jmet.wire_table(jzs, 10, downlink="u8")
+    assert [r["strategy"] for r in want] == [
+        "allgather_packed", "mean_f32", "psum_u32"]
     assert tmet.wire_table(zs, 10, downlink="u8") == want
     want = {r["codec"]: r for r in jmet.downlink_table(jzs, 10)}
     for row in tmet.downlink_table(zs, 10):
@@ -163,9 +164,11 @@ def test_config_fields_and_what_raises():
     j = {f.name: f.default for f in dataclasses.fields(jfed.FederatedConfig)}
     assert t == j
     tfed.FederatedConfig(mask_path="composed")  # ported: kernels 3 and 6
-    for bad in (dict(mode="continuous"),
-                dict(stream_chunk=4), dict(downlink_schedule="cosine"),
-                dict(aggregate="allgather_packed"), dict(downlink="packed4")):
+    for ok in (dict(mode="continuous"), dict(mode="discretize"),
+               dict(aggregate="allgather_packed"), dict(downlink="packed4"),
+               dict(downlink="u2")):
+        tfed.FederatedConfig(**ok)  # ported
+    for bad in (dict(stream_chunk=4), dict(downlink_schedule="cosine")):
         with pytest.raises(NotImplementedError):
             tfed.FederatedConfig(**bad)
     for bad in (dict(mode="x"), dict(aggregate="x"), dict(downlink="x"),

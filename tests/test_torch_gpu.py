@@ -36,14 +36,17 @@ version too, and give the same bits on a second launch.  The forward
 kernels (8 on f32, u8 and u16 operands, 3, and their K=1 launches 7 and
 1) at those specs and at Fig. 4's leaves, K in {1, 3, 10, 33}, must
 equal their plain versions by bits (-0 is not +0), with a client at p =
-0 over a window and explicit operands holding -0 and negatives.
+0 over a window and explicit operands holding -0 and negatives; so must
+kernels 8 and 7 on packed lanes (b in {2, 3, 4}, a partial last lane,
+clients at p = 0 and p = 1 over a window).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.comm.downlink import get_codec
+from repro_torch.comm.bitpack import pack_words, packed_word_len
+from repro_torch.comm.downlink import get_codec, packed_codec
 from repro_torch.configs import get_arch
 from repro_torch.configs.mnistfc import MNISTFC
 from repro_torch.core.qspec import make_qspec, row_indices
@@ -612,3 +615,47 @@ def test_lm_round_under_scatter_equals_plain(cuda_train, monkeypatch):
     for part in ("scores", "dense"):
         for p in a[part]:
             assert torch.equal(a[part][p], b[part][p])
+
+
+# Kernels 7 and 8 on packed lanes: Fig. 4's leaves, and a spec whose
+# n = 28 leaves the last lane partial at every width tested
+LANE_SPECS = FWD_SPECS[-3:] + [("(7, 11) at window 4, n = 28", make_qspec(
+    7, (7, 11), 7, compression=3, d=2, window=4, seed=3))]
+
+
+@pytest.mark.parametrize("K", [1, 3, 10, 33])
+@pytest.mark.parametrize("bits", [2, 3, 4])
+@pytest.mark.parametrize("i", range(len(LANE_SPECS)))
+def test_forward_kernels_on_packed_lanes_equal_plain_by_bits(cuda_train, i,
+                                                             bits, K):
+    """Kernel 8 on (K, packed_word_len(n, b)) uint32 lanes against its
+    plain version (unpack, then draw) and against the f32 kernel on the
+    decoded probabilities, by bits; kernel 7 against its rows; one
+    launch each.  Client 0 is at p = 0 over window 0 and client K-1 at
+    p = 1 over the last window; b = 3 puts 10 words in a lane, so no
+    window of 128 holds whole lanes."""
+    _, spec = LANE_SPECS[i]
+    rng = np.random.RandomState(7 * i + bits + K)
+    q = rng.randint(0, 1 << bits, (K, spec.n))
+    q[0, :spec.window] = 0
+    q[K - 1, -spec.window:] = (1 << bits) - 1
+    lanes = pack_words(torch.from_numpy(q).to(cuda_train), bits)
+    assert lanes.dtype == torch.uint32
+    assert lanes.shape == (K, packed_word_len(spec.n, bits))
+    steps = as_words(rng.randint(0, 2**32, K, dtype=np.uint64), cuda_train)
+    W = _counted("qz_sample_reconstruct_batched_fwd",
+                 lambda: qz_reconstruct.qz_sample_reconstruct_batched_fwd(
+                     spec, lanes, steps, bits, True))
+    assert _same_bits(W, ops.sample_reconstruct_plain(spec, lanes, steps,
+                                                      bits, qpacked=True))
+    dec = packed_codec(bits).decode(spec, lanes)
+    assert _same_bits(W, qz_reconstruct.qz_sample_reconstruct_batched_fwd(
+        spec, dec, steps))
+    for k in sorted({0, K - 1}):
+        assert _same_bits(_counted(
+            "qz_sample_reconstruct_fwd",
+            lambda: qz_reconstruct.qz_sample_reconstruct_fwd(
+                spec, lanes[k], steps[k:k + 1], bits, True)), W[k])
+    with pytest.raises(ValueError, match="operand must be"):
+        qz_reconstruct.qz_sample_reconstruct_batched_fwd(
+            spec, lanes[:, :-1].contiguous(), steps, bits, True)

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports jax or the JAX package, and the entry points
-run on the card unless the caller asks for the CPU."""
+"""The port stands alone: no module of ``repro_torch``, not
+``chip_smoke.py`` and not ``examples/federated_mnistfc_torch.py``
+imports jax or the JAX package, and the entry points run on the card
+unless the caller asks for the CPU."""
 
 import os
 import subprocess
@@ -27,6 +28,7 @@ from repro_torch.serve import (ServeConfig, ServeScheduler,
                                serve_generate)
 
 ROOT = Path(__file__).resolve().parent.parent
+EXAMPLE = ROOT / "examples" / "federated_mnistfc_torch.py"
 
 _BLOCKED = """
 import importlib.abc, sys
@@ -60,7 +62,8 @@ def test_every_module_and_chip_smoke_import_without_jax():
     code = _BLOCKED + "\n".join(
         ["import importlib", f"sys.path.insert(0, {str(ROOT)!r})"]
         + [f"importlib.import_module({m!r})" for m in mods]
-        + ["import chip_smoke",
+        + ["import chip_smoke", "import runpy",
+           f"runpy.run_path({str(EXAMPLE)!r}, run_name='example')",
            "assert not any(k.split('.')[0] in ('jax', 'repro') "
            "for k in sys.modules)", "print('ok')"])
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -68,6 +71,34 @@ def test_every_module_and_chip_smoke_import_without_jax():
                          text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def _run_example(*flags):
+    """The example under the import blocker, in a new process."""
+    code = _BLOCKED + (f"import runpy, sys\nsys.argv = [{str(EXAMPLE)!r}, "
+                       f"*{list(flags)!r}]\n"
+                       f"runpy.run_path({str(EXAMPLE)!r}, "
+                       "run_name='__main__')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300)
+
+
+def test_example_runs_on_the_cpu_without_jax():
+    """The federated example at a small size on the CPU: the wire tables,
+    a line per evaluation, the cumulative downlink; a flag whose path is
+    not ported exits non-zero, naming its ROADMAP item."""
+    res = _run_example("--rounds", "2", "--clients", "3", "--local-steps",
+                       "2", "--device", "cpu", "--aggregate",
+                       "allgather_packed", "--downlink", "packed2")
+    assert res.returncode == 0, res.stderr
+    out = res.stdout
+    assert "transport=allgather_packed" in out and "packed2" in out
+    assert "round   2: loss=" in out and "sampled-acc=" in out
+    assert "cumulative downlink" in out and out.rstrip().endswith(
+        "never a naive float tensor.")
+    res = _run_example("--device", "cpu", "--stream-chunk", "2")
+    assert res.returncode != 0 and "ROADMAP item 6" in res.stderr
 
 
 def _tiny_state():

@@ -348,9 +348,11 @@ def test_fused_equals_composed_forward_and_gradient(small, batched):
 def test_mask_program_validates_mode(small):
     with pytest.raises(ValueError, match="unknown mask mode"):
         MaskProgram(small["zs"], mode="bogus")
-    with pytest.raises(NotImplementedError, match="upload"):
-        MaskProgram(small["zs"], mode="continuous").upload(
-            small["st"]["scores"], 1)
+    # the continuous upload is the clipped probabilities themselves
+    up = MaskProgram(small["zs"], mode="continuous").upload(
+        small["st"]["scores"], 1)
+    for p, s in small["st"]["scores"].items():
+        assert torch.equal(up[p], torch.clamp(s, 0.0, 1.0))
 
 
 @pytest.mark.parametrize("mode", ["continuous", "discretize"])

@@ -166,8 +166,8 @@ class TestDownlink:
     def test_f32_identity_and_packed_later(self):
         s = torch.rand(16)
         assert tdl.encode("f32", None, s, 0) is s
-        with pytest.raises(NotImplementedError):
-            tdl.get_codec("packed4")
+        packed = tdl.get_codec("packed4")  # ported: uint32 word lanes
+        assert packed.packed and packed.wire_dtype == torch.uint32
         with pytest.raises(ValueError):
             tdl.get_codec("nope")
 

@@ -200,8 +200,8 @@ def test_what_raises(setup):
         with pytest.raises(NotImplementedError, match="not ported"):
             tfed.sharded_client_update(zs, st, tmlp.mlp_loss, b, KEY, cfg,
                                        device="cpu", **bad)
-    with pytest.raises(NotImplementedError, match="allgather_packed"):
-        tprot.get_transport("allgather_packed")
+    ag = tprot.get_transport("allgather_packed")  # ported
+    assert ag.packed_wire and ag.name == "allgather_packed"
     with pytest.raises(ValueError, match="world"):
         run_ranks(ranks_mod.rank_sleeps, 0, (0,))
 
@@ -244,7 +244,8 @@ def test_collective_means_are_the_stacked_means_of_the_same_uploads(
         want_m = mean.aggregate_stacked(tbp.unpack_mask(lanes, s.n))
         assert torch.equal(agg[p], want_m)
         for r in ranks:
-            for form in ("packed", "psum", "mean"):
+            for form in ("packed", "psum", "mean", "allgather",
+                         "allgather_z"):
                 np.testing.assert_array_equal(r["agg"][p][form],
                                               agg[p].numpy())
     words = tfed._encode_scores(zs, cfg, agg, KEY, ROUND)
@@ -255,7 +256,7 @@ def test_collective_means_are_the_stacked_means_of_the_same_uploads(
 
 
 def test_every_rank_ends_with_the_same_state_and_metrics(ranks):
-    for key in ("round", "round_mean", "fit"):
+    for key in ("round", "round_mean", "round_allgather", "fit"):
         for r in ranks[1:]:
             _eq_state(r[key][0], ranks[0][key][0])
             for name, v in ranks[0][key][1].items():
@@ -288,17 +289,20 @@ def test_sharded_round_is_the_stacked_round(setup, ranks):
 
 
 def test_transports_and_kernel_wrappers_give_the_same_round(setup, ranks):
-    """mean_f32 and psum_u32 give the same round; so does the round
-    through the kernel wrappers, which each round calls 3E times for
-    kernels 7 and 5 and 3 times for kernel 9, and never a batched one."""
+    """mean_f32, psum_u32 and allgather_packed give the same round; so
+    does the round through the kernel wrappers, which each round calls
+    3E times for kernels 7 and 5 and 3 times for kernel 9, and never a
+    batched one."""
     want = {name: 0 for name in tqr.LAUNCHES}
     want.update({"qz_sample_reconstruct_fwd": 3 * E,
                  "qz_reconstruct_bwd_plan": 3 * E,
                  "qz_sample_pack_fwd": 3})
     for r in ranks:
         _eq_state(r["round_mean"][0], r["round"][0])
+        _eq_state(r["round_allgather"][0], r["round"][0])
         assert r["round_mean"][1]["uplink_bytes_per_client"] > \
-            r["round"][1]["uplink_bytes_per_client"]
+            r["round"][1]["uplink_bytes_per_client"] == \
+            r["round_allgather"][1]["uplink_bytes_per_client"]
         _eq_state(r["round_via_wrappers"], r["round"][0])
         assert r["wrapper_calls"] == want
 
