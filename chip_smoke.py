@@ -142,7 +142,11 @@ Phases, one printed line or more each:
    words differing from phase 7's at most 1e-3 of n_total; losses that
    fall and stay within 1e-3 of phase 7's; kernel 9's times and bound;
    each rank's round 0 again under allgather_packed (the raw lanes
-   all-gathered), bitwise its psum_u32 round 0 on every rank;
+   all-gathered), bitwise its psum_u32 round 0 on every rank; and round
+   0 as a faulted, weighted round (phase 20's cohort ids, sample counts
+   and fault plan), every rank's state the same, its counters and
+   realized bytes those of phase 20's stacked round, its u8 words
+   differing from that round's at most 1e-3 of n_total;
 18. one JSON line with every kernel's launches, times and bound, the
    card, the run's total seconds, and last {"ok": true, "device": ...}.
 19. (run after phase 8) the wire at phase 7's inputs: round 0 under
@@ -157,6 +161,20 @@ Phases, one printed line or more each:
    kernels 8 (K=10) and 7 (K=1) on packed4, packed2 and packed3 lanes at
    the three leaves bitwise their plain versions, timed (events, device,
    bound, plain) beside u8 words.
+20. (run after phase 19) partial participation, streaming and the
+   downlink schedules at phase 7's inputs: a weight-1 round with no
+   fault bitwise phase 7's round 0; a Dirichlet population of 100 (beta
+   0.5), cohorts of 10, dropout 0.2 and straggler, corrupt and duplicate
+   0.05: 3 rounds through streamed_federated_fit (staged from pinned
+   memory, no synchronising call on the round path), equal by bits to
+   federated_fit's, round 0 bitwise the plain path's, counters and
+   realized bytes printed; the K=10 round streamed in chunks of 4
+   bitwise the slab round 0; a round of 2048 clients (E=2) streamed in
+   chunks of 1024 and of 683, the same scores by bits, kernels 8, 6 and
+   10 at K=1024 against their plain versions and timed (events, device,
+   bound, plain, sparse.mm); 5-round cosine (H=5) and frontier fits on
+   u8 and packed4 with each round's widths and realized downlink; and
+   the stacked faulted round that phase 17's ranks are held to.
 
 Usage, from the repo root on a machine with a CUDA GPU:
     python3 chip_smoke.py
@@ -228,6 +246,13 @@ FED_FLIP_SHARE = 1e-3  # differing round-0 u8 words, of n_total (phase 17)
 # (tests/test_torch_fit_reference.py)
 SHARDED_LOSS_RTOL = 1e-3
 RANK_TIMEOUT = 600.0  # seconds, phase 17's ranks and their collectives
+# phase 20: a Dirichlet population, its cohorts and a fault plan with
+# every rate above 0; the streamed round's K, E and chunks; the schedules
+PART_N, PART_BETA, PART_ROUNDS = 100, 0.5, 3
+PART_PLAN = dict(dropout=0.2, straggler=0.05, corrupt=0.05, duplicate=0.05,
+                 seed=0)
+STREAM_K, STREAM_E, STREAM_CHUNKS = 2048, 2, (1024, 683)
+SCHED_ROUNDS, COSINE_H = 5, 5
 EVAL_NETS = 10
 # local zampling: the paper's Fig. 6 zampling_d16 (experiments/paper.py
 # :466-492 at quick=False), 500 of its 4000 steps
@@ -568,9 +593,13 @@ def fed_data():
 
 
 def host_state(state) -> dict:
-    """A round state's tensors as numpy arrays."""
-    return {part: {p: v.cpu().numpy() for p, v in state[part].items()}
-            for part in ("scores", "dense")}
+    """A round state's tensors as numpy arrays (a frontier state's widths
+    ``downlink_b`` too)."""
+    out = {part: {p: v.cpu().numpy() for p, v in state[part].items()}
+           for part in ("scores", "dense")}
+    if "downlink_b" in state:
+        out["downlink_b"] = state["downlink_b"].cpu().numpy()
+    return out
 
 
 def training_phases(card: str, dev) -> list:
@@ -1186,6 +1215,368 @@ def wire_phase(card: str, dev, fed: dict, rows: list) -> None:
                 for agg, (_, _, met_) in out.items()},
                 "fits": fits, "modes": modes}
     say(f"phase 19 done in {time.perf_counter() - t0:.1f} s; every "
+        "comparison bitwise")
+
+
+def participation_phase(card: str, dev, fed: dict, rows: list) -> None:
+    """Phase 20, after phase 19: partial participation, the streaming
+    round and the downlink schedules on phase 7's Fig. 4 inputs (K=10,
+    E=100).  Adds each path's launches and kernels 8, 6 and 10 at
+    K=1024 to their rows in ``rows``, and the stacked faulted round that
+    phase 17 holds its ranks to to ``fed``."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch.comm.bitpack import packed_len
+    from repro_torch.comm.downlink import get_codec
+    from repro_torch.comm.metering import (round_wire_report,
+                                           scheduled_downlink_bits)
+    from repro_torch.core.federated import (FederatedConfig, cosine_width,
+                                            encode_state, federated_round,
+                                            local_update)
+    from repro_torch.core.sampling import (as_words, fold_word,
+                                           sample_mask_hash)
+    from repro_torch.core.transpose_plan import row_plan
+    from repro_torch.data import (client_batch_stream, cohort_batch_stream,
+                                  dirichlet_client_split, iid_client_split)
+    from repro_torch.fault import ClientPopulation, FaultPlan
+    from repro_torch.kernels import ops, qz_decode
+    from repro_torch.kernels import qz_reconstruct as qr
+    from repro_torch.models.mlp import mlp_loss
+    from repro_torch.train import federated_fit, streamed_federated_fit
+
+    t0 = time.perf_counter()
+    zspecs, specs = fed["zspecs"], fed["zspecs"].specs
+    words, batches, st0 = fed["round_words"], fed["batches"], fed["state0"]
+    init = {"scores": fed["scores"], "dense": fed["dense"]}
+    E3 = 3 * FED_E
+    fwd, bwd, pack = ("qz_sample_reconstruct_batched_fwd",
+                      "qz_reconstruct_batched_bwd_plan",
+                      "qz_sample_pack_batched_fwd")
+    one_round = {fwd: E3, bwd: E3, pack: 3}
+    path_launches = {}
+
+    def config(**kw):
+        return FederatedConfig(**{**FED_CONFIG, **kw})
+
+    def run(what, fn, want):
+        """``fn()`` with every count at 0 just before it, read after, and
+        held to ``want``."""
+        qr.reset_launches()
+        qz_decode.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in qr.LAUNCHES.items() if v}
+        say(f"part: launches in {what}: {got}, expected {want}")
+        if got != want or any(qz_decode.LAUNCHES.values()):
+            die(f"launch counts of {what} differ from the expected")
+        path_launches[what] = got
+        return out
+
+    def same_state(a, b):
+        return (all(same_bits(a[part][p], b[part][p])
+                    for part in ("scores", "dense") for p in a[part])
+                and ("downlink_b" in a) == ("downlink_b" in b)
+                and ("downlink_b" not in a
+                     or torch.equal(a["downlink_b"], b["downlink_b"])))
+
+    def host(v):
+        return (v.cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v))
+
+    count_keys = ("num_participating", "num_dropped", "num_stragglers",
+                  "num_corrupt", "num_duplicates", "weight_sum",
+                  "round_skipped", "uplink_bytes_round",
+                  "downlink_bytes_round")
+
+    def counters(met, r=None):
+        return {k: float(met[k] if r is None else met[k][r])
+                for k in count_keys}
+
+    # --- (a) weight 1, no fault: the plain round's bits
+    cfg = config()
+    st, met = run("a weight-1 round with FaultPlan()", lambda:
+                  federated_round(zspecs, st0, mlp_loss, batches[0],
+                                  words[0], cfg, round_index=0,
+                                  client_ids=np.arange(FED_K),
+                                  weights=np.ones(FED_K, np.int64),
+                                  faults=FaultPlan(), device=dev),
+                  one_round)
+    ok = same_state(st, fed["state_r0"]) and same_bits(met["loss"],
+                                                       fed["loss_r0"])
+    say(f"part: weight-1 round 0 with FaultPlan() bitwise phase 7's round 0 "
+        f"(u8 words, dense leaves, loss) = {ok}; counters {counters(met)}")
+    if not ok or float(met["num_participating"]) != FED_K:
+        die("the weight-1 participation round differs from the plain round")
+
+    # --- (b) a Dirichlet population, faulted cohorts of 10
+    ds, _ = fed_data()
+    clients, hist = dirichlet_client_split(ds, PART_N, beta=PART_BETA, seed=0)
+    sizes = hist.sum(axis=1)
+    pop = ClientPopulation(PART_N, sample_counts=tuple(int(c) for c in sizes),
+                           seed=0)
+    plan = FaultPlan(**PART_PLAN)
+    stream = cohort_batch_stream(clients, pop, FED_K, FED_BATCH, FED_E,
+                                 seed=0)
+    items = [next(stream) for _ in range(PART_ROUNDS)]
+    del clients, stream
+    say(f"part: population N={PART_N} (Dirichlet beta={PART_BETA}, sizes "
+        f"{sizes.min()}..{sizes.max()}), cohorts "
+        f"{[[int(i) for i in it[0]] for it in items]}, plan {PART_PLAN}")
+    pwords = words[:PART_ROUNDS]
+    r_want = {k: v * PART_ROUNDS for k, v in one_round.items()}
+    torch.cuda.set_sync_debug_mode(1)  # warn on a synchronising call
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t1 = time.perf_counter()
+            s_state, s_mets = run(
+                f"{PART_ROUNDS} faulted rounds (streamed_federated_fit)",
+                lambda: streamed_federated_fit(
+                    zspecs, st0, mlp_loss, iter(items), pwords, cfg,
+                    faults=plan, device=dev), r_want)
+            s_time = time.perf_counter() - t1
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(w.message) for w in caught
+             if "synchroniz" in str(w.message)]
+    f_state, f_mets = run(
+        f"{PART_ROUNDS} faulted rounds (federated_fit)",
+        lambda: federated_fit(
+            zspecs, st0, mlp_loss, {
+                "x": np.stack([it[2] for it in items]),
+                "y": np.stack([it[3] for it in items])}, pwords, cfg,
+            client_ids=np.stack([it[0] for it in items]),
+            weights=np.stack([it[1] for it in items]), faults=plan,
+            device=dev), r_want)
+    same_fit = same_state(s_state, f_state) and all(
+        np.array_equal(host(s_mets[k]), host(v)) for k, v in f_mets.items())
+    for r in range(PART_ROUNDS):
+        say(f"part: round {r}: {counters(s_mets, r)}, loss "
+            f"{float(s_mets['loss'][r]):.6f} ({card})")
+    say(f"part: streamed_federated_fit {PART_ROUNDS} rounds in {s_time:.3f} "
+        f"s, {len(syncs)} synchronising calls on the round path "
+        f"{syncs[:3]}; bitwise federated_fit's (state and metrics) = "
+        f"{same_fit}")
+    if syncs or not same_fit:
+        die("the streamed fit synchronised or differs from federated_fit")
+    x0 = {"x": items[0][2], "y": items[0][3]}
+    kw0 = dict(client_ids=items[0][0], weights=items[0][1], faults=plan)
+    k0, km = run("faulted round 0", lambda: federated_round(
+        zspecs, st0, mlp_loss, x0, pwords[0], cfg, round_index=0,
+        device=dev, **kw0), one_round)
+    ref, rm = federated_round(zspecs, st0, mlp_loss, x0, pwords[0], cfg,
+                              round_index=0, impl="ref", device=dev, **kw0)
+    torch.cuda.synchronize()
+    same_ref = (same_state(k0, ref) and same_bits(km["loss"], rm["loss"])
+                and counters(km) == counters(rm) == counters(s_mets, 0))
+    say(f"part: faulted round 0 through the kernels bitwise the plain path "
+        f"on the card (words, dense leaves, loss, counters) = {same_ref}")
+    if not same_ref:
+        die("the faulted round 0 differs from the plain path")
+    rep = round_wire_report(zspecs, cfg.aggregate, FED_K, downlink="u8")
+    units = [float(v) / rep["uplink_bytes_per_client"]
+             for v in host(s_mets["uplink_bytes_round"])]
+    if not all(u == int(u) for u in units):
+        die(f"realized uplink is no whole number of uploads: {units}")
+
+    # the stacked faulted round phase 17's ranks are held to: phase 7's
+    # round-0 data under round 0's cohort ids, weights and plan
+    fst, fmet = federated_round(zspecs, st0, mlp_loss, batches[0], words[0],
+                                cfg, round_index=0, device=dev, **kw0)
+    ids0 = [int(i) for i in items[0][0]]
+    f_up, _, _ = local_update(
+        zspecs, st0, mlp_loss, {n: torch.from_numpy(v).to(dev)
+                                for n, v in batches[0].items()},
+        [fold_word(words[0], 0, i) for i in ids0], cfg)
+    fed["faulted"] = {"ids": ids0, "weights": [int(w) for w in items[0][1]],
+                      "state": host_state(fst), "counters": counters(fmet),
+                      "uploads": {p: v.cpu() for p, v in f_up.items()}}
+    say(f"part: the stacked faulted round 0 on phase 7's data: "
+        f"{counters(fmet)}")
+    del items
+
+    # --- (c) streaming: K=10 in chunks of 4, then 2048 clients
+    n4 = -(-FED_K // 4)
+    c4, c4m = run("round 0 streamed in chunks of 4", lambda: federated_round(
+        zspecs, st0, mlp_loss, batches[0], words[0], config(stream_chunk=4),
+        round_index=0, device=dev),
+        {fwd: n4 * E3, bwd: n4 * E3, pack: 3 * n4})
+    ok4 = same_state(c4, fed["state_r0"])
+    say(f"part: K={FED_K} streamed in chunks of 4 (4, 4, 2): the slab round "
+        f"0's words and dense leaves by bits = {ok4}; loss "
+        f"{float(c4m['loss']):.9f} (slab {float(fed['loss_r0']):.9f})")
+    if not ok4:
+        die("the streamed K=10 round differs from the slab round")
+    big = iid_client_split(ds, STREAM_K, seed=0)
+    bx, by = next(client_batch_stream(big, FED_BATCH, STREAM_E, seed=0))
+    bb = {"x": torch.from_numpy(bx).to(dev), "y": torch.from_numpy(by).to(dev)}
+    del big, bx, by
+    streamed = {}
+    for chunk in STREAM_CHUNKS:
+        n_chunks = -(-STREAM_K // chunk)
+        scfg = config(num_clients=STREAM_K, local_steps=STREAM_E,
+                      stream_chunk=chunk)
+        t1 = time.perf_counter()
+        out = run(f"a round of {STREAM_K} clients in chunks of {chunk}",
+                  lambda: federated_round(zspecs, st0, mlp_loss, bb,
+                                          words[1], scfg, round_index=1,
+                                          device=dev),
+                  {fwd: 3 * STREAM_E * n_chunks,
+                   bwd: 3 * STREAM_E * n_chunks, pack: 3 * n_chunks})
+        streamed[chunk] = (out, time.perf_counter() - t1)
+    (a_st, a_m), a_s = streamed[STREAM_CHUNKS[0]]
+    (b_st, b_m), b_s = streamed[STREAM_CHUNKS[1]]
+    same_scores = all(same_bits(a_st["scores"][p], b_st["scores"][p])
+                      for p in specs)
+    dense_d = max(float((a_st["dense"][p] - b_st["dense"][p]).abs().max())
+                  for p in zspecs.dense_paths)
+    say(f"part: {STREAM_K} clients, E={STREAM_E}: chunks of "
+        f"{STREAM_CHUNKS[0]} in {a_s:.3f} s, of {STREAM_CHUNKS[1]} in "
+        f"{b_s:.3f} s; u8 words the same bits = {same_scores}; dense leaves "
+        f"within {dense_d:.3e}; losses {float(a_m['loss']):.6f} / "
+        f"{float(b_m['loss']):.6f}; participating "
+        f"{float(a_m['num_participating']):.0f} ({card})")
+    if not same_scores or float(a_m["num_participating"]) != STREAM_K:
+        die("the streamed 2048-client rounds differ by chunk")
+    del bb, streamed, a_st, b_st
+    torch.cuda.empty_cache()
+
+    # kernels 8, 6 and 10 at K=1024 (one chunk), against plain and timed
+    K = STREAM_CHUNKS[0]
+    rng = np.random.RandomState(SEED + 20)
+    u8 = get_codec("u8")
+    max_err = {fwd: 0.0, bwd: 0.0, pack: 0.0}
+    kt = KernelTimes(card, {fwd: "sample_reconstruct_window_kernel",
+                            bwd: "plan_bwd_kernel",
+                            pack: "sample_pack_kernel"})
+    for path, spec in specs.items():
+        m, n, d = spec.m, spec.n, spec.d
+        gidx, _ = row_plan(spec, dev)
+        Q, QT = q_csr(spec, dev, False), q_csr(spec, dev, True)
+        P = u8.decode(spec, st0["scores"][path]).expand(K, n).contiguous()
+        steps = as_words(rng.randint(0, 2**32, K, dtype=np.uint64), dev)
+        G = torch.from_numpy(rng.randn(K, m).astype(np.float32)).to(dev)
+        check_bitwise(max_err, fwd, qr.qz_sample_reconstruct_batched_fwd(
+            spec, P, steps), ops.sample_reconstruct_plain(spec, P, steps),
+            f"{path} K={K}")
+        check_bitwise(max_err, bwd, qr.qz_reconstruct_batched_bwd_plan(
+            spec, G), ops.plan_bwd_plain(spec, G), f"{path} K={K}")
+        check_bitwise(max_err, pack, qr.qz_sample_pack_batched_fwd(
+            spec, P, steps), ops.sample_pack_plain(spec, P, steps),
+            f"{path} K={K}")
+        Z = sample_mask_hash(P, spec.seed, spec.tensor_id, steps)
+        bits = Z[:, gidx[:m]] > 0  # (K, m, d): this run's draws
+        drawn, any_drawn = float(bits.sum()), float(bits.any(0).sum())
+        del bits
+        Zt = Z.t().contiguous()
+        kt.add(fwd, path,
+               lambda: qr.qz_sample_reconstruct_batched_fwd(spec, P, steps),
+               event_ms(lambda: ops.sample_reconstruct_plain(spec, P, steps),
+                        1),
+               event_ms(lambda: torch.sparse.mm(Q, Zt), 10),
+               m * OPS_PER_WEIGHT + m * d * OPS_ROW_EDGE
+               + any_drawn * OPS_VALUE + K * n * OPS_DRAW + drawn,
+               K * (4 * n + 4 * m) + 4 * K)
+        geo = qr.plan_bwd_geometry(spec, dev, K=K)
+        Gt = G.t().contiguous()
+        kt.add(bwd, path, lambda: qr.qz_reconstruct_batched_bwd_plan(spec, G),
+               event_ms(lambda: ops.plan_bwd_plain(spec, G), 1),
+               event_ms(lambda: torch.sparse.mm(QT, Gt), 10),
+               OPS_PLAN * K * m * d,
+               (4 + geo.row_bytes) * m * d + 4 * (n + 1) + 4 * K * (m + n))
+        kt.add(pack, path,
+               lambda: qr.qz_sample_pack_batched_fwd(spec, P, steps),
+               event_ms(lambda: ops.sample_pack_plain(spec, P, steps), 1),
+               None, K * n * (OPS_DRAW + OPS_PACK),
+               K * (4 * n + 4 * packed_len(n)) + 4 * K)
+        del Z, Zt, P, G, Gt, Q, QT
+        torch.cuda.empty_cache()
+    chunk_path = f"a round of {STREAM_K} clients in chunks of {K}"
+    for row in rows:
+        name = row["name"]
+        if name not in kt.acc:
+            continue
+        a = kt.acc[name]
+        row["max_abs_err"] = max(row["max_abs_err"], max_err[name])
+        row["k1024"] = {
+            "launches": path_launches[chunk_path][name],
+            "per": f"one launch at each of the three Fig. 4 leaves, K={K}",
+            "ms": a["ms"], "device_ms": a["device_ms"],
+            "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+            "bound_by": ("operations" if a["ops_ms"] >= a["bytes_ms"]
+                         else "bytes"),
+            "library_ms": a["library_ms"] if name != pack else None,
+            "shapes": a["shapes"]}
+        dms = a["device_ms"]
+        say(f"time: {name} at K={K}, one launch a leaf, summed: kernel "
+            f"{a['ms']:.4f} ms (device "
+            f"{'not measured' if dms is None else f'{dms:.4f} ms'}), bound "
+            f"{a['bound_ms']:.5f} ms ({row['k1024']['bound_by']}), plain "
+            f"{a['plain_ms']:.3f} ms"
+            + (f", torch.sparse.mm {a['library_ms']:.4f} ms"
+               if name != pack else "") + f"; launches in {chunk_path}: "
+            f"{row['k1024']['launches']} ({card})")
+
+    # --- (d) the schedules: cosine (H=5) and frontier, u8 and packed4
+    sched = {}
+    for schedule in ("cosine", "frontier"):
+        for codec in ("u8", "packed4"):
+            scfg = config(downlink=codec, downlink_schedule=schedule,
+                          schedule_rounds=COSINE_H)
+            c = get_codec(codec)
+            st = encode_state(zspecs, scfg, init, device=dev)
+            widths, downs, losses = [], [], []
+            what = f"{SCHED_ROUNDS} {schedule} rounds on {codec}"
+            qr.reset_launches()
+            qz_decode.reset_launches()
+            for r in range(SCHED_ROUNDS):
+                b = (st["downlink_b"].tolist() if schedule == "frontier"
+                     else [cosine_width(scfg, r)] * len(specs))
+                st, m_ = federated_round(zspecs, st, mlp_loss, batches[r],
+                                         words[r], scfg, round_index=r,
+                                         device=dev)
+                widths.append(b)
+                downs.append(float(m_["downlink_bytes_per_client"]))
+                losses.append(float(m_["loss"]))
+                want_down = -(-sum(scheduled_downlink_bits(s.n, b[i])
+                                   for i, s in enumerate(specs.values()))
+                              // 8) + 4 * zspecs.dense_total
+                if downs[-1] != want_down:
+                    die(f"{what}: round {r} meters {downs[-1]} B, its widths "
+                        f"{b} send {want_down}")
+            torch.cuda.synchronize()
+            got = {k: v for k, v in qr.LAUNCHES.items() if v}
+            want = {k: v * SCHED_ROUNDS for k, v in one_round.items()}
+            path_launches[what] = got
+            carry_ok = all(st["scores"][p].dtype == c.wire_dtype
+                           and st["scores"][p].shape[-1] == c.wire_len(s.n)
+                           for p, s in specs.items())
+            full = round_wire_report(zspecs, cfg.aggregate, FED_K,
+                                     downlink=codec)[
+                "downlink_bytes_per_client"]
+            say(f"part: {what}: widths a round {widths}, realized downlink "
+                f"{downs} B a client (the codec's {full:.0f}), cumulative "
+                f"{sum(downs):.0f} B; losses {[round(v, 6) for v in losses]}"
+                f"; launches {got}; carry the codec's layout = {carry_ok} "
+                f"({card})")
+            if (got != want or any(qz_decode.LAUNCHES.values())
+                    or not carry_ok or not all(np.isfinite(losses))):
+                die(f"{what}: launches {got} (expected {want}), carry "
+                    f"{carry_ok} or losses {losses}")
+            if widths[0][0] != scfg.schedule_b_min or max(
+                    max(w) for w in widths) > c.bits:
+                die(f"{what}: widths {widths}")
+            sched[f"{schedule} {codec}"] = {"widths": widths,
+                                            "downlink": downs,
+                                            "losses": losses}
+    for row in rows:
+        if row["name"] in (fwd, bwd, pack):
+            row["participation_phase"] = {"launches": path_launches,
+                                          "schedules": sched}
+    say(f"phase 20 done in {time.perf_counter() - t0:.1f} s; every "
         "comparison bitwise")
 
 
@@ -2167,6 +2558,27 @@ def sharded_rank(a: dict) -> dict:
     gather_same = bool(all(
         same_bits(g_state[part][p], r0[0][part][p])
         for part in ("scores", "dense") for p in r0[0][part]))
+    # round 0 as a faulted, weighted round: this rank is phase 20's
+    # cohort client at its sample count, under its fault plan
+    from repro_torch.fault import FaultPlan
+
+    f, f_lanes = a["faulted"], []
+
+    def keeping_pack(spec, p, step, **kw):
+        lanes = pack(spec, p, step, **kw)
+        f_lanes.append(lanes.cpu())
+        return lanes
+
+    ops.sample_pack = keeping_pack
+    f_state, f_met = fit_mod.sharded_client_update(
+        zspecs, a["state0"], mlp_loss, {n: v[0] for n, v in batches.items()},
+        words[0], cfg, round_index=0, client_id=f["ids"][rank],
+        weight=f["weights"][rank], faults=FaultPlan(**PART_PLAN),
+        device=dev)
+    torch.cuda.synchronize()
+    ops.sample_pack = pack
+    faulted = (host_state(f_state), {k: float(f_met[k])
+                                     for k in f["counters"]}, f_lanes)
     if len(uploads) != len(zspecs.specs) or len(bwd) != len(zspecs.specs):
         raise RuntimeError(f"round 0 recorded {len(uploads)} uploads and "
                            f"{len(bwd)} backwards of {len(zspecs.specs)} "
@@ -2207,7 +2619,7 @@ def sharded_rank(a: dict) -> dict:
             "operands": ([p.cpu() for p, _, _ in uploads] if rank == 0
                          else None),
             "checks": checks, "bwd_checks": bwd_checks,
-            "allgather_r0_same": gather_same,
+            "allgather_r0_same": gather_same, "faulted": faulted,
             "allgather_uplink": float(g_met["uplink_bytes_per_client"])}
 
 
@@ -2223,8 +2635,11 @@ def sharded_phase(card: str, dev, fed: dict, rows: list) -> dict:
     from repro_torch.comm.protocol import resolve_transport
     from repro_torch.comm.shardmap import run_ranks
     from repro_torch.configs.mnistfc import MNISTFC
-    from repro_torch.core.federated import _encode_scores
+    from repro_torch.comm.bitpack import packed_weighted_sum, unpack_mask
+    from repro_torch.core.federated import (_encode_scores, _recip,
+                                            _resolve_faults)
     from repro_torch.core.sampling import as_word, fold_word
+    from repro_torch.fault import FaultPlan
     from repro_torch.kernels import ops
     from repro_torch.kernels import qz_reconstruct as qr
 
@@ -2249,7 +2664,9 @@ def sharded_phase(card: str, dev, fed: dict, rows: list) -> dict:
     # the group is gloo's, on CUDA tensors (the kernels run on the card)
     t1 = time.perf_counter()
     res = run_ranks(sharded_rank, FED_K, ({
-        "round_words": words, "state0": fed["host_state0"]},),
+        "round_words": words, "state0": fed["host_state0"],
+        "faulted": {k: fed["faulted"][k] for k in ("ids", "weights",
+                                                   "counters")}},),
         backend="gloo", timeout=RANK_TIMEOUT)
     run_s = time.perf_counter() - t1
     fit_s = [r["fit_s"] for r in res]
@@ -2346,6 +2763,54 @@ def sharded_phase(card: str, dev, fed: dict, rows: list) -> dict:
             "uplink_bytes_per_client"]:
         die(f"the allgather_packed round 0 differs from psum_u32's on ranks "
             f"{[r['rank'] for r in res if not r['allgather_r0_same']]}")
+    # the faulted round 0: its collectives against the stacked weighted
+    # aggregate of the same 10 uploads (exact), and against phase 20's
+    # stacked round, whose uploads come from bmm where a rank's from mm
+    fz = fed["faulted"]
+    f_state, f_count, _ = res[0]["faulted"]
+    same_f = all(np.array_equal(r["faulted"][0][part][p], f_state[part][p])
+                 and r["faulted"][1] == f_count for r in res
+                 for part in ("scores", "dense") for p in f_state[part])
+    ids_t = torch.tensor(fz["ids"], device=dev)
+    ranks_up = {p: torch.stack([r["faulted"][2][i] for r in res]).to(dev)
+                for i, p in enumerate(specs)}
+    z_wire, _, _, part_ = _resolve_faults(zspecs, True, ranks_up,
+                                          FaultPlan(**PART_PLAN), 0, ids_t)
+    w_eff = torch.tensor(fz["weights"], device=dev) * part_.to(torch.int64)
+    recip = _recip(w_eff.sum().to(torch.float32))
+    agg = {p: packed_weighted_sum(z_wire[p], spec.n, w_eff).to(
+        torch.float32) * recip for p, spec in specs.items()}
+    want = _encode_scores(zspecs, cfg, agg, words[0], 0)
+    exact = all(np.array_equal(want[p].cpu().numpy(), f_state["scores"][p])
+                for p in specs)
+    # every word that differs from phase 20's lies where a participating
+    # client's upload bit differs between the drivers
+    live = part_.cpu().numpy()
+    per_client, moved = [], {}
+    for p, spec in specs.items():
+        a_bits = unpack_mask(ranks_up[p].cpu(), spec.n, torch.int64).numpy()
+        b_bits = unpack_mask(fz["uploads"][p], spec.n, torch.int64).numpy()
+        d_bits = a_bits != b_bits
+        per_client.append(d_bits.sum(1))
+        moved[p] = d_bits[live].any(0)
+    per_client = [int(v) for v in np.sum(per_client, 0)]
+    diff_w = {p: f_state["scores"][p] != fz["state"]["scores"][p]
+              for p in specs}
+    f_flips = sum(int(v.sum()) for v in diff_w.values())
+    attributed = all(not (diff_w[p] & ~moved[p]).any() for p in specs)
+    say(f"sharded: faulted round 0 (ids {fz['ids']}, weights "
+        f"{fz['weights']}): every rank's state and counters the same = "
+        f"{same_f}; counters {f_count}, phase 20's stacked round's "
+        f"{fz['counters']}; u8 words bitwise the stacked weighted aggregate "
+        f"of the ranks' own uploads = {exact}; upload bits differing from "
+        f"phase 20's stacked round's, a client {per_client} (participating "
+        f"{[int(v) for v in live]}); {f_flips} of {zspecs.n_total} u8 words "
+        f"differ from that round's ({FED_FLIP_SHARE * zspecs.n_total:.0f} "
+        f"is 1e-3 of n_total), each at a coordinate where a participating "
+        f"client's upload differs = {attributed}")
+    if not (same_f and exact and attributed
+            and f_count == fz["counters"]):
+        die("the sharded faulted round differs from the stacked one")
     # against phase 7's stacked round 0 and fit
     flips = sum(int((res[0]["state_r0"]["scores"][p]
                      != fed["host_state_r0"]["scores"][p]).sum())
@@ -2786,6 +3251,7 @@ def main() -> None:
     train_rows, fed = training_phases(card, dev)
     rows += train_rows
     wire_phase(card, dev, fed, rows)
+    participation_phase(card, dev, fed, rows)
     del fed["batches"]
     rows += local_phases(card, dev, fed, rows)
     del fed["state_r0"], fed["state0"]

@@ -55,6 +55,38 @@ def packed_popcount_sum(packed: torch.Tensor, n: int) -> torch.Tensor:
     return bits.sum(0).reshape(-1)[:n]
 
 
+def packed_weighted_sum(packed: torch.Tensor, n: int,
+                        weights: torch.Tensor) -> torch.Tensor:
+    """Weighted per-coordinate vote counts: (K, L) lanes and (K,)
+    integer weights -> (n,) int64, entry j the sum of the weights of the
+    clients whose bit j is set.  Exact integers, so any order of the sum
+    gives the same counts; weights all 1 give ``packed_popcount_sum``'s.
+    One bit position at a time, so no (K, L, 32) temporary is built."""
+    lanes = packed.to(torch.int64)
+    w = weights.to(device=lanes.device, dtype=torch.int64)[:, None]
+    counts = torch.stack([(((lanes >> j) & 1) * w).sum(0)
+                          for j in range(32)], dim=-1)  # (L, 32)
+    return counts.reshape(-1)[:n]
+
+
+def packed_weighted_fold(acc: torch.Tensor, packed: torch.Tensor, n: int,
+                         weights: torch.Tensor) -> torch.Tensor:
+    """Fold one chunk of C uploads, (C, L) lanes with (C,) weights, into
+    the (n,) int64 vote counts so far: the streaming form of
+    ``packed_weighted_sum``, the same counts for any chunking."""
+    return acc + packed_weighted_sum(packed, n, weights)
+
+
+def packed_total_popcount(packed: torch.Tensor) -> torch.Tensor:
+    """Set bits over the trailing lane axis, leading axes kept, as int64:
+    an upload's checksum (``fault.validate``)."""
+    x = packed.to(torch.int64)
+    x = x - ((x >> 1) & 0x55555555)  # a lane's popcount, SWAR
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (((x * 0x01010101) & 0xFFFFFFFF) >> 24).sum(-1)
+
+
 # ---------------------------------------------------------------------------
 # b-bit word lanes (the packed downlink codecs)
 # ---------------------------------------------------------------------------

@@ -112,12 +112,37 @@ class QuantizedDown(DownlinkCodec):
         q = torch.floor((p * self.scale + 0.25) + d * 0.5)
         return torch.clamp(q, 0.0, self.scale).to(torch.int32)
 
-    def encode(self, spec, scores, word):
-        q = self.quantize(spec, scores, word)
+    def wire_of_words(self, q: torch.Tensor) -> torch.Tensor:
+        """Per-coordinate words (int32/int64) -> this codec's wire leaf."""
         if self.wire_dtype == torch.uint16:
             # through int16: torch's CUDA kernels take few ops on uint16
             return q.to(torch.int16).view(torch.uint16)
         return q.to(self.wire_dtype)
+
+    def encode(self, spec, scores, word):
+        return self.wire_of_words(self.quantize(spec, scores, word))
+
+    def encode_at(self, spec, scores, word, bits) -> torch.Tensor:
+        """The scheduled encode: quantize at width ``bits`` (an int, or a
+        0-d int64 tensor on the scores' device) no wider than the codec,
+        then widen into the codec's words.
+
+        ``q_b = floor(p * S_b + 1/4 + dither/2)`` with ``S_b = 2^b - 1``
+        and ``encode``'s dither, widened exactly to ``q = (q_b * S +
+        S_b // 2) // S_b`` (``S`` the codec's scale): ``encode``'s words
+        at ``bits == self.bits``.  The carry keeps the codec's layout, so
+        every reader of the words stays as it is; only b bits a
+        coordinate are metered (``comm.metering.scheduled_wire_metrics``).
+        """
+        p = clip_probs(scores.to(torch.float32))
+        d = self.dither(spec, word, p.shape[-1], p.device)
+        b = torch.as_tensor(bits, dtype=torch.int64, device=p.device)
+        s_b = (1 << b) - 1
+        s_bf = s_b.to(torch.float32)
+        q_b = torch.floor((p * s_bf + 0.25) + d * 0.5)
+        q_b = torch.minimum(torch.maximum(q_b, q_b.new_zeros(())), s_bf)
+        q = (q_b.to(torch.int64) * ((1 << self.bits) - 1) + s_b // 2) // s_b
+        return self.wire_of_words(q)
 
     def threshold_u24(self, words):
         return quant_threshold_u24(word_values(words), self.bits)
@@ -144,8 +169,8 @@ class PackedDown(QuantizedDown):
     def wire_len(self, n: int) -> int:
         return packed_word_len(n, self.bits)
 
-    def encode(self, spec, scores, word):
-        return pack_words(self.quantize(spec, scores, word), self.bits)
+    def wire_of_words(self, q):
+        return pack_words(q, self.bits)
 
     def wire_words(self, spec, wire):
         return unpack_words(wire, spec.n, self.bits)

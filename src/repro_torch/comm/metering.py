@@ -1,9 +1,11 @@
 """Exact wire accounting: bytes on the network per federated round.
 
 The JAX package's ``comm/metering.py``: ``round_wire_report``,
-``wire_table`` and ``downlink_table``.  Analytic: a function of the spec
-set, the uplink transport and the downlink codec.  Per round, per
-client:
+``wire_table`` and ``downlink_table``; the scheduled and realized
+counts of the downlink schedules and of partial participation; and the
+upload memory of the slab and streaming rounds.  Analytic: a function
+of the spec set, the uplink transport and the downlink codec.  Per
+round, per client:
 
   uplink    = the transport's mask bytes per zampled tensor (uint32
               lane padding included) + f32 bytes of the dense leaves;
@@ -15,6 +17,9 @@ client:
 from __future__ import annotations
 
 from typing import Dict, List
+
+import numpy as np
+import torch
 
 from .downlink import DownlinkCodec, codec_names, get_codec
 from .protocol import Transport, resolve_transport, transport_names
@@ -31,6 +36,37 @@ def score_downlink_bytes(codec: DownlinkCodec, n: int) -> int:
     """Exact wire bytes of the n-coordinate score broadcast to one
     client."""
     return -(-codec.downlink_bits_per_client(n) // 8)
+
+
+def scheduled_downlink_bits(n: int, bits):
+    """Realized downlink bits of one n-coordinate tensor sent at width
+    ``bits``: b-bit words in uint32 lanes, ``32 * ceil(n / floor(32/b))``,
+    the lanes' padding included.  An int for an int width, an int64
+    tensor for a tensor width."""
+    if isinstance(bits, int):
+        wpl = 32 // bits
+        return 32 * ((n + wpl - 1) // wpl)
+    wpl = 32 // bits.to(torch.int64)
+    return 32 * ((n + wpl - 1) // wpl)
+
+
+def scheduled_wire_metrics(report, zspecs, b_vec: torch.Tensor,
+                           num_clients: int):
+    """``report`` with its downlink counts replaced by a scheduled
+    round's realized ones: tensor i at width ``b_vec[i]`` (ordered as
+    ``zspecs.specs``), the dense leaves in f32.  The replaced values are
+    f32 tensors on ``b_vec``'s device, computed as the JAX package's
+    traced round computes them."""
+    bits = sum(scheduled_downlink_bits(spec.n, b_vec[i])
+               for i, spec in enumerate(zspecs.specs.values()))
+    dense_bytes = _F32_BYTES * zspecs.dense_total
+    down = torch.ceil(bits.to(torch.float32) / 8.0) + float(
+        np.float32(dense_bytes))
+    down_f32 = float(np.float32(_F32_BYTES * zspecs.n_total + dense_bytes))
+    return {**report,
+            "downlink_bytes_per_client": down,
+            "downlink_bytes_round": down * float(np.float32(num_clients)),
+            "downlink_vs_f32": down / down_f32}
 
 
 def round_wire_report(zspecs, aggregate: str, num_clients: int,
@@ -55,6 +91,45 @@ def round_wire_report(zspecs, aggregate: str, num_clients: int,
         "downlink_vs_f32": float(down_client) / float(down_f32),
         "naive_uplink_bytes_per_client": float(
             _F32_BYTES * zspecs.m_total + dense),
+    }
+
+
+def upload_slab_bytes(zspecs, aggregate: str, num_clients: int,
+                      mode: str = "sample") -> float:
+    """Device bytes of the (K, lanes) upload slab the one-shot round
+    stacks before it reduces: K uploads of their wire bytes each."""
+    t = resolve_transport(aggregate, mode)
+    per = sum(mask_uplink_bytes(t, s.n) for s in zspecs.specs.values())
+    return float(per * num_clients)
+
+
+def streaming_peak_bytes(zspecs, aggregate: str, chunk: int,
+                         mode: str = "sample") -> float:
+    """Upload-side device bytes of the streaming round at its peak: one
+    chunk's uploads and an (n,) vote-count accumulator a tensor, counted
+    at 4 bytes a coordinate as the JAX package counts it; whatever K."""
+    acc = sum(_F32_BYTES * s.n for s in zspecs.specs.values())
+    return upload_slab_bytes(zspecs, aggregate, chunk, mode) + acc
+
+
+def realized_wire_metrics(report: Dict, uplink_units,
+                          cohort_size: int) -> Dict:
+    """A partial-participation round's realized byte counts.
+
+    ``uplink_units``: the uploads that crossed the uplink (arrivals,
+    corrupt ones included, plus a second copy a duplicate), an f32
+    tensor or a number.  Dropped and late clients send nothing; every
+    sampled client receives the broadcast.  Per-client figures stay the
+    protocol's."""
+    return {
+        "uplink_bytes_per_client": report["uplink_bytes_per_client"],
+        "uplink_bytes_round":
+            report["uplink_bytes_per_client"] * uplink_units,
+        "downlink_bytes_per_client": report["downlink_bytes_per_client"],
+        "downlink_bytes_round":
+            report["downlink_bytes_per_client"] * float(cohort_size),
+        "naive_uplink_bytes_per_client":
+            report["naive_uplink_bytes_per_client"],
     }
 
 

@@ -1,6 +1,6 @@
 """Uplink transports: the wire format of the clients' mask uploads.
 
-The JAX package's ``comm/protocol.py``, its unweighted methods:
+The JAX package's ``comm/protocol.py``:
 ``mean_f32`` (f32 {0,1} masks, 32 bits a coordinate; alias ``mean``),
 ``psum_u32`` (bit-packed lanes, the server sums per-coordinate vote
 counts) and ``allgather_packed`` (the same lanes, gathered raw).  All
@@ -32,6 +32,14 @@ takes the popcount mean of the (K, L) lanes; collectively, every rank
 all-gathers the raw lanes (the metered bytes, end to end) and takes
 the same popcount mean.  So all three transports give the same mean
 bit for bit, in either form.
+
+The weighted forms serve partial participation: each upload enters the
+server's sum times its integer weight (its sample count, 0 when it
+did not take part), and the round divides by the realized weight sum.
+They return unnormalized sums: f32 sums of the masks times the weights
+on ``mean_f32``, int64 vote counts on the packed transports.  The folds
+add one chunk of uploads to a running sum (the streaming round), so
+the counts come out the same for any chunking.
 """
 
 from __future__ import annotations
@@ -42,7 +50,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .bitpack import pack_mask, packed_len, packed_popcount_sum, unpack_mask
+from .bitpack import (pack_mask, packed_len, packed_popcount_sum,
+                      packed_weighted_fold, packed_weighted_sum, unpack_mask)
 from .shardmap import axis_size
 
 
@@ -90,6 +99,49 @@ class Transport:
         raise NotImplementedError(
             f"transport {self.name!r} does not take packed lanes")
 
+    # -- weighted (partial participation): unnormalized sums
+
+    def aggregate_stacked_weighted(self, Z: torch.Tensor,
+                                   weights: torch.Tensor) -> torch.Tensor:
+        """(K, n) masks and (K,) integer weights -> (n,) f32 weighted
+        sum."""
+        raise NotImplementedError
+
+    def aggregate_collective_weighted(self, z: torch.Tensor, weight,
+                                      group=None) -> torch.Tensor:
+        """This rank's (n,) mask and weight -> the (n,) f32 weighted sum
+        over the group."""
+        raise NotImplementedError
+
+    def aggregate_stacked_packed_weighted(self, lanes, n: int, weights):
+        """(K, L) lanes and (K,) weights -> (n,) int64 vote counts."""
+        raise NotImplementedError(
+            f"transport {self.name!r} does not take packed lanes")
+
+    def aggregate_collective_packed_weighted(self, lanes, n: int, weight,
+                                             group=None):
+        """This rank's (L,) lanes and weight -> the (n,) int64 vote
+        counts over the group."""
+        raise NotImplementedError(
+            f"transport {self.name!r} does not take packed lanes")
+
+    # -- streaming: one (n,) accumulator, a chunk of uploads at a time
+
+    def stream_init(self, n: int, device) -> torch.Tensor:
+        """The zero accumulator: int64 counts on a packed transport,
+        f32 sums on ``mean_f32``."""
+        dtype = torch.int64 if self.packed_wire else torch.float32
+        return torch.zeros((n,), dtype=dtype, device=device)
+
+    def fold_stacked_weighted(self, acc, Z, weights):
+        """Add a (C, n) chunk of masks times its (C,) weights to ``acc``."""
+        return acc + self.aggregate_stacked_weighted(Z, weights)
+
+    def fold_stacked_packed_weighted(self, acc, lanes, n: int, weights):
+        """Add a (C, L) chunk of lanes times its (C,) weights to ``acc``."""
+        return acc + self.aggregate_stacked_packed_weighted(lanes, n,
+                                                            weights)
+
 
 def _counts_mean(counts: torch.Tensor, k: int) -> torch.Tensor:
     return counts.to(torch.float32) * recip_f32(k)
@@ -119,6 +171,18 @@ class MeanF32(Transport):
     def aggregate_collective(self, z, group=None):
         return pmean(z.to(torch.float32), group)
 
+    def aggregate_stacked_weighted(self, Z, weights):
+        # z * w is exact for a {0, 1} mask, and the identity at w = 1: the
+        # unweighted sum's bits
+        w = weights.to(device=Z.device, dtype=torch.float32)[:, None]
+        return (Z.to(torch.float32) * w).sum(0)
+
+    def aggregate_collective_weighted(self, z, weight, group=None):
+        s = z.to(torch.float32) * torch.as_tensor(
+            weight, device=z.device).to(torch.float32)
+        dist.all_reduce(s, group=group)
+        return s
+
 
 class PsumU32(Transport):
     """Bit-packed lanes; the server sums the per-coordinate bits."""
@@ -144,6 +208,19 @@ class PsumU32(Transport):
         dist.all_reduce(counts, group=group)
         return _counts_mean(counts, axis_size(group))
 
+    def aggregate_stacked_packed_weighted(self, lanes, n, weights):
+        return packed_weighted_sum(lanes, n, weights)
+
+    def fold_stacked_packed_weighted(self, acc, lanes, n, weights):
+        return packed_weighted_fold(acc, lanes, n, weights)
+
+    def aggregate_collective_packed_weighted(self, lanes, n, weight,
+                                             group=None):
+        counts = unpack_mask(lanes, n, dtype=torch.int64) * torch.as_tensor(
+            weight, device=lanes.device).to(torch.int64)
+        dist.all_reduce(counts, group=group)
+        return counts
+
 
 class AllgatherPacked(PsumU32):
     """``psum_u32``'s lanes and stacked mean; the collective gathers the
@@ -156,6 +233,19 @@ class AllgatherPacked(PsumU32):
         gathered = [torch.empty_like(lanes) for _ in range(k)]
         dist.all_gather(gathered, lanes.contiguous(), group=group)
         return self.aggregate_stacked_packed(torch.stack(gathered), n)
+
+    def aggregate_collective_packed_weighted(self, lanes, n, weight,
+                                             group=None):
+        # the raw lanes and the weights gathered: the server sees every
+        # upload with its weight and reduces as the stacked round does
+        k = axis_size(group)
+        w = torch.as_tensor(weight, device=lanes.device).to(
+            torch.int64).reshape(1)
+        gathered = [torch.empty_like(lanes) for _ in range(k)]
+        dist.all_gather(gathered, lanes.contiguous(), group=group)
+        ws = [torch.empty_like(w) for _ in range(k)]
+        dist.all_gather(ws, w, group=group)
+        return packed_weighted_sum(torch.stack(gathered), n, torch.cat(ws))
 
 
 _REGISTRY: Dict[str, Transport] = {

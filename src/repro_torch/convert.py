@@ -69,26 +69,30 @@ def serve_state_from_jax(jstate, *, device="cuda") -> ServeState:
 
 
 def federated_state_from_arrays(zspecs: ZamplingSpecs, scores, dense, *,
-                                device="cuda"):
+                                downlink_b=None, device="cuda"):
     """The port's round state from numpy ``scores`` (f32 scores, the
     codec's u8/u16 words or uint32 lanes, as ``encode_state`` carries
     them) and
     ``dense`` dicts keyed by the JAX package's path strings; each dense
-    leaf in its template's dtype (bf16 leaves of an LM through f32)."""
-    return state_to(zspecs, {"scores": {p: np.asarray(scores[p])
-                                        for p in zspecs.specs},
-                             "dense": {p: np.asarray(dense[p])
-                                       for p in zspecs.dense_paths}},
-                    resolve_device(device))
+    leaf in its template's dtype (bf16 leaves of an LM through f32).
+    ``downlink_b``: a frontier schedule's per-tensor widths, carried as
+    int64."""
+    state = {"scores": {p: np.asarray(scores[p]) for p in zspecs.specs},
+             "dense": {p: np.asarray(dense[p]) for p in zspecs.dense_paths}}
+    if downlink_b is not None:
+        state["downlink_b"] = np.asarray(downlink_b)
+    return state_to(zspecs, state, resolve_device(device))
 
 
 def federated_state_from_jax(jzspecs, jstate, *, device="cuda"):
     """(the port's ZamplingSpecs, its round state) for a JAX
     ``ZamplingSpecs`` and a JAX federated state (``encode_state``'s
-    output, or an f32 ``init_state``)."""
+    output with a frontier schedule's ``downlink_b``, or an f32
+    ``init_state``)."""
     zspecs = zspecs_from_jax(jzspecs)
     return zspecs, federated_state_from_arrays(
-        zspecs, jstate["scores"], jstate["dense"], device=device)
+        zspecs, jstate["scores"], jstate["dense"],
+        downlink_b=jstate.get("downlink_b"), device=device)
 
 
 def local_state_from_arrays(zspecs: ZamplingSpecs, scores, dense,

@@ -130,3 +130,13 @@ def quant_threshold_u24(q: torch.Tensor, bits: int) -> torch.Tensor:
                          f"got {bits}")
     a = q.to(torch.int64) << (24 - bits)
     return a + a // ((1 << bits) - 1)
+
+
+def quant_threshold_u24_dyn(q: torch.Tensor, bits) -> torch.Tensor:
+    """``quant_threshold_u24`` with the width a tensor: ``bits`` (an int64
+    tensor, or an int) broadcasts against ``q``, as a scheduled round's
+    per-tensor width does.  The same integer identity, so for any b in
+    [1, 16] the result equals ``quant_threshold_u24(q, b)``."""
+    b = torch.as_tensor(bits, dtype=torch.int64, device=q.device)
+    a = q.to(torch.int64) << (24 - b)
+    return a + a // ((1 << b) - 1)

@@ -174,12 +174,18 @@ def build_specs(template: dict, config: ZamplingConfig,
 def state_to(zspecs: ZamplingSpecs, state, device) -> Dict[str, Any]:
     """``{"scores": {path: (n,) scores or wire words}, "dense": {path:
     leaf in its template dtype}}`` from numpy arrays or tensors, on
-    ``device``; any other key of ``state`` is left out."""
-    return {"scores": {p: as_tensor(state["scores"][p], device)
-                       for p in zspecs.specs},
-            "dense": {p: as_tensor(state["dense"][p], device,
-                                   zspecs.template[p].torch_dtype)
-                      for p in zspecs.dense_paths}}
+    ``device``, with the frontier schedule's per-tensor widths
+    ``downlink_b`` (int64) where ``state`` carries them; any other key
+    of ``state`` is left out."""
+    out = {"scores": {p: as_tensor(state["scores"][p], device)
+                      for p in zspecs.specs},
+           "dense": {p: as_tensor(state["dense"][p], device,
+                                  zspecs.template[p].torch_dtype)
+                     for p in zspecs.dense_paths}}
+    if "downlink_b" in state:
+        out["downlink_b"] = as_tensor(state["downlink_b"], device,
+                                      torch.int64)
+    return out
 
 
 def init_state(zspecs: ZamplingSpecs, scores, dense_init=None, *,

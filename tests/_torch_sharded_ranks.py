@@ -143,6 +143,71 @@ def rank_checks(setup):
     return out
 
 
+def rank_participation(setup):
+    """``test_torch_participation.py``'s ranks: this rank's weighted
+    collectives under every transport, a faulted, weighted, frontier
+    ``sharded_client_fit`` of the rounds in ``setup``, and its round 0
+    alone; rank 0 also runs the stacked rounds on the same inputs."""
+    from repro_torch.fault import FaultPlan
+
+    torch.set_num_threads(1)
+    zs = build_specs(mlp_template(SMALL_DIMS), ZamplingConfig(**setup["zc"]))
+    cfg = fed.FederatedConfig(**setup["fc"])
+    plan = FaultPlan(**setup["plan"])
+    st = state_to(zs, setup["state"], CPU)
+    rank, world = axis_index(), axis_size()
+    ids, weights, words = setup["ids"], setup["weights"], setup["words"]
+    rounds = [_tensors(b) for b in setup["batches"]]  # (K, E, B, ...)
+    mine = {n: torch.stack([b[n][rank] for b in rounds]) for n in ("x", "y")}
+    out = {"rank": rank}
+
+    word = fold_word(as_word(words[0]), 0, int(ids[0][rank]))
+    up, _, _ = fed.local_update(zs, st, mlp_loss, {
+        n: v[0] for n, v in mine.items()}, word, cfg)
+    w = int(weights[0][rank])
+    out["upload"] = {p: v.numpy() for p, v in up.items()}
+    out["collective"] = {p: {
+        "mean": protocol.get_transport("mean").aggregate_collective_weighted(
+            unpack_mask(up[p], s.n), w).numpy(),
+        **{t: protocol.get_transport(t).aggregate_collective_packed_weighted(
+            up[p], s.n, w).numpy() for t in ("psum_u32", "allgather_packed")}}
+        for p, s in zs.specs.items()}
+
+    new, met = fed.sharded_client_update(
+        zs, st, mlp_loss, {n: v[0] for n, v in mine.items()}, words[0], cfg,
+        round_index=0, client_id=int(ids[0][rank]), weight=w, faults=plan,
+        device="cpu")
+    out["round0"] = (_np_state(new), new["downlink_b"].numpy(),
+                     _np_metrics(met))
+    fit, mets = sharded_client_fit(
+        zs, st, mlp_loss, mine, words, cfg,
+        client_ids=[int(r[rank]) for r in ids],
+        weights=[int(r[rank]) for r in weights], faults=plan, device="cpu")
+    out["fit"] = (_np_state(fit), fit["downlink_b"].numpy(),
+                  _np_metrics(mets))
+    if rank == 0:
+        seq, rows = st, []
+        for r, b in enumerate(rounds):
+            seq, m = fed.federated_round(
+                zs, seq, mlp_loss, b, words[r], cfg, round_index=r,
+                client_ids=ids[r], weights=weights[r], faults=plan,
+                device="cpu")
+            rows.append((_np_state(seq), seq["downlink_b"].numpy(),
+                         _np_metrics(m)))
+        out["stacked"] = rows
+        x = rounds[0]["x"][:, 0]
+        same = []
+        for a, b in zip(SMALL_DIMS[:-1], SMALL_DIMS[1:]):
+            wt = torch.from_numpy(np.random.RandomState(a).randn(
+                world, a, b).astype(np.float32))
+            y = torch.bmm(x, wt)
+            same.append(all(torch.equal(y[k], x[k] @ wt[k])
+                            for k in range(world)))
+            x = torch.relu(y)
+        out["bmm_equals_mm"] = same
+    return out
+
+
 def rank_fails_on_one():
     """Rank 1 raises; rank 0 waits in a collective it never completes."""
     if axis_index() == 1:

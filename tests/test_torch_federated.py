@@ -166,15 +166,26 @@ def test_config_fields_and_what_raises():
     tfed.FederatedConfig(mask_path="composed")  # ported: kernels 3 and 6
     for ok in (dict(mode="continuous"), dict(mode="discretize"),
                dict(aggregate="allgather_packed"), dict(downlink="packed4"),
-               dict(downlink="u2")):
+               dict(downlink="u2"), dict(stream_chunk=4),
+               dict(downlink="u8", downlink_schedule="cosine",
+                    schedule_rounds=5),
+               dict(downlink="packed4", downlink_schedule="frontier")):
         tfed.FederatedConfig(**ok)  # ported
-    for bad in (dict(stream_chunk=4), dict(downlink_schedule="cosine")):
-        with pytest.raises(NotImplementedError):
-            tfed.FederatedConfig(**bad)
+        jfed.FederatedConfig(**ok)
+    # the JAX package's checks, and nothing else, raise
     for bad in (dict(mode="x"), dict(aggregate="x"), dict(downlink="x"),
-                dict(min_clients=0)):
+                dict(min_clients=0), dict(stream_chunk=-1),
+                dict(downlink_schedule="x"),
+                dict(downlink_schedule="cosine"),
+                dict(downlink="u8", downlink_schedule="cosine"),
+                dict(downlink="u8", downlink_schedule="frontier",
+                     schedule_b_min=9),
+                dict(downlink="u8", downlink_schedule="frontier",
+                     frontier_threshold=0.0)):
         with pytest.raises(ValueError):
             tfed.FederatedConfig(**bad)
+        with pytest.raises(ValueError):
+            jfed.FederatedConfig(**bad)
 
 
 def _jax_local(setup, words):

@@ -57,7 +57,8 @@ def test_every_module_and_chip_smoke_import_without_jax():
               "train.fit", "train.local", "data.synthetic",
               "data.federated_split", "models.mlp", "configs.mnistfc",
               "optim.optimizers", "device", "launch.train",
-              "models.model", "models.common", "models.attention"):
+              "models.model", "models.common", "models.attention",
+              "fault", "fault.plan", "fault.population", "fault.validate"):
         assert f"repro_torch.{m}" in mods
     code = _BLOCKED + "\n".join(
         ["import importlib", f"sys.path.insert(0, {str(ROOT)!r})"]
@@ -88,17 +89,23 @@ def test_example_runs_on_the_cpu_without_jax():
     """The federated example at a small size on the CPU: the wire tables,
     a line per evaluation, the cumulative downlink; a flag whose path is
     not ported exits non-zero, naming its ROADMAP item."""
+    # with partial participation, streaming and a schedule, ported since
     res = _run_example("--rounds", "2", "--clients", "3", "--local-steps",
                        "2", "--device", "cpu", "--aggregate",
-                       "allgather_packed", "--downlink", "packed2")
+                       "allgather_packed", "--downlink", "packed2",
+                       "--population", "12", "--cohort", "3",
+                       "--dropout-rate", "0.3", "--stream-chunk", "2",
+                       "--downlink-schedule", "frontier")
     assert res.returncode == 0, res.stderr
     out = res.stdout
     assert "transport=allgather_packed" in out and "packed2" in out
     assert "round   2: loss=" in out and "sampled-acc=" in out
+    assert "population N=12" in out and "w_sum" in out
+    assert "schedule=frontier" in out
     assert "cumulative downlink" in out and out.rstrip().endswith(
         "never a naive float tensor.")
-    res = _run_example("--device", "cpu", "--stream-chunk", "2")
-    assert res.returncode != 0 and "ROADMAP item 6" in res.stderr
+    res = _run_example("--device", "cpu", "--het-table")
+    assert res.returncode != 0 and "ROADMAP item 10" in res.stderr
 
 
 def _tiny_state():

@@ -196,10 +196,12 @@ def test_collectives_and_round_at_a_world_of_one(setup, tmp_path):
 def test_what_raises(setup):
     zs, cfg, st = setup["zs"], setup["cfg"], setup["st"]
     b = {n: v[0] for n, v in setup["batches"][0].items()}
-    for bad in (dict(client_id=1), dict(weight=2), dict(faults=object())):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    # the participation arguments are ported: outside a process group
+    # the round has no ranks to meet
+    for kw in (dict(client_id=1), dict(weight=2)):
+        with pytest.raises(ValueError, match="process group"):
             tfed.sharded_client_update(zs, st, tmlp.mlp_loss, b, KEY, cfg,
-                                       device="cpu", **bad)
+                                       device="cpu", **kw)
     ag = tprot.get_transport("allgather_packed")  # ported
     assert ag.packed_wire and ag.name == "allgather_packed"
     with pytest.raises(ValueError, match="world"):
