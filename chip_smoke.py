@@ -561,8 +561,12 @@ def same_bits(got, want) -> bool:
 
     if got.shape != want.shape or got.dtype != want.dtype:
         return False
-    if got.dtype in (torch.float32, torch.uint32):  # uint32: packed lanes
-        got, want = got.view(torch.int32), want.view(torch.int32)
+    # uint32: packed lanes; uint16: u16 words (no unsigned compare on all
+    # devices)
+    signed = {torch.float32: torch.int32, torch.uint32: torch.int32,
+              torch.uint16: torch.int16}.get(got.dtype)
+    if signed is not None:
+        got, want = got.view(signed), want.view(signed)
     return bool(torch.equal(got, want))
 
 
@@ -2853,6 +2857,659 @@ def sharded_phase(card: str, dev, fed: dict, rows: list) -> dict:
     return row
 
 
+def moved_scores(scores, seed=7, frac=0.01, amp=0.05):
+    """A synthetic converged round: ``frac`` of the scores move by
+    ``amp`` N(0, 1), from ``RandomState(seed)``, leaf by leaf in the
+    dict's order."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = {}
+    for p, s in scores.items():
+        touch = rng.rand(s.size) < frac
+        out[p] = np.where(touch, s + amp * rng.randn(s.size),
+                          s).astype(np.float32)
+    return out
+
+
+def serve_modes_phase(card: str, dev, ctx: dict) -> list:
+    """Phase 21, after phase 5: the load and cached modes, packed lanes
+    and round deltas on phase 4's full-width serving state.  Returns the
+    rows of the kernels line: the serve body's resident and cached
+    sources, packed4/packed2 lanes on its regenerating source, the tile
+    fill and kernel 7 at serving shapes."""
+    import numpy as np
+    import torch
+    from repro_torch.comm.metering import serve_resident_bytes
+    from repro_torch.kernels import ops, qz_decode, qz_reconstruct
+    from repro_torch.serve import (HotBlockCache, ServeConfig,
+                                   ServeScheduler, apply_delta,
+                                   delta_report, make_delta, make_generator,
+                                   make_serve_state, reconstruct_resident)
+
+    t_phase = time.perf_counter()
+    model, cfg, zspecs = ctx["model"], ctx["cfg"], ctx["zspecs"]
+    sstate, scores, dense = ctx["sstate"], ctx["scores"], ctx["dense"]
+    stats, bound_ms, Xs = ctx["stats"], ctx["bound_ms"], ctx["Xs"]
+    rng = np.random.RandomState(SEED + 21)
+    L = cfg.n_layers
+    paths = LINEARS + ("lm_head",)
+    full = 1 << 40  # past the model: one pool row a canonical tile
+    budgets = (("0", 0), ("64 MiB", 64 << 20), ("full", full))
+    seq = max(map(len, PROMPTS)) + NEW_TOKENS
+    per_step = 7 * L + 1
+    names = ("qz_resident_matmul", "qz_cached_matmul", "qz_fill_tiles",
+             "qz_sample_reconstruct_fwd", "packed4", "packed2")
+    max_err = {k: 0.0 for k in names}
+
+    def check(name, got, want, what):
+        torch.cuda.synchronize()
+        same = same_bits(got, want)
+        diff = (got.double() - want.double()).abs().max().item()
+        max_err[name] = max(max_err[name], diff)
+        say(f"modes-kernel-vs-plain: {name} {what}: bitwise={same} "
+            f"max_abs_err={diff:.3e}")
+        if not same:
+            die(f"{name} differs from its plain version ({what})")
+
+    def device_ms(fn, reps, tag, ev_ms, per_call=1):
+        """Device ms a call of ``fn`` (its ``per_call`` launches of
+        ``tag`` summed) by torch.profiler over ``reps`` warmed calls, or
+        None: when the trace does not hold every launch (a second try
+        first), or reads above ``ev_ms``, the call's CUDA-event time,
+        which serialized launches cannot exceed."""
+        def calls():
+            for _ in range(reps):
+                fn()
+
+        fn()
+        for _ in range(2):
+            by_tag, _ = profile_device_us(calls, (tag,))
+            us, n_l = by_tag[tag]
+            if n_l == reps * per_call:
+                break
+        else:
+            say(f"time: the profiler traced {n_l} of {reps * per_call} "
+                f"launches of {tag}: not measured")
+            return None
+        ms = 1e-3 * us / reps
+        if ms > ev_ms:
+            say(f"time: the profiler reads {ms:.4f} ms of {tag} a call, "
+                f"above the events' {ev_ms:.4f} ms: not measured")
+            return None
+        return ms
+
+    def state_of(codec, sc):
+        return make_serve_state(zspecs, {"scores": sc, "dense": dense},
+                                DRAW_WORD, downlink=codec, dither_word=0,
+                                device=dev)
+
+    # --- (a) the kernels against their plain versions --------------------
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    W = reconstruct_resident(sstate)  # kernel 7, one launch a leaf
+    torch.cuda.synchronize()
+    say(f"modes: reconstruct_resident: {len(W)} leaves, "
+        f"{sum(w.numel() for w in W.values())} weights "
+        f"({sstate.loaded_zampled_bytes()} B) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for path, spec in zspecs.specs.items():
+        rows = torch.from_numpy(rng.randint(0, spec.m, 65536)).to(dev)
+        p = ops.serve_operand(sstate.words[path], 8)
+        check("qz_sample_reconstruct_fwd", W[path].reshape(-1)[rows],
+              ops.serve_edge_weights(spec, p, DRAW_WORD, rows, 8),
+              f"{path} at 65536 sampled rows")
+    lanes = {c: state_of(c, scores) for c in ("packed4", "packed2")}
+    caches = {}
+    for tag, b in budgets:
+        caches[tag] = HotBlockCache(sstate, b)
+        caches[tag].fill(sstate)
+    cfull = caches["full"]
+    say(f"modes: caches at budgets {[t for t, _ in budgets]}: "
+        f"{[c.resident_tiles for c in caches.values()]} of "
+        f"{cfull.total_tiles} tiles, pool "
+        f"{[c.capacity_bytes for c in caches.values()]} B")
+    for path in paths:
+        spec = zspecs.specs[path]
+        grid = cfull.grids[path]
+        k = rng.choice(grid.groups * grid.nblk,
+                       min(2048, grid.groups * grid.nblk), replace=False)
+        g = torch.from_numpy(k // grid.nblk).to(dev)
+        t = torch.from_numpy(k % grid.nblk).to(dev)
+        p = ops.serve_operand(sstate.words[path], 8)
+        plain = ops.fill_tiles_plain(spec, p, DRAW_WORD, g, t, 8)
+        check("qz_fill_tiles", ops.serve_fill_tiles(
+            spec, sstate.words[path], DRAW_WORD, g, t, qbits=8), plain,
+            f"{path} {len(k)} sampled tiles")
+        slot = torch.from_numpy(cfull.slots[path][k // grid.nblk,
+                                                   k % grid.nblk]).to(dev)
+        check("qz_fill_tiles", cfull.pool[slot.long()], plain,
+              f"{path} the full pool's rows of the same tiles")
+    for path in paths:
+        spec = zspecs.specs[path]
+        groups, d_in, d_out = ops.serve_group_dims(spec)
+        p = ops.serve_operand(sstate.words[path], 8)
+        for group in sorted({0, groups - 1}):
+            off = group * d_in * d_out
+            kw = dict(row_offset=off, d_in=d_in, d_out=d_out)
+            for B in (1, 4):
+                X = torch.from_numpy(rng.randn(B, d_in).astype(
+                    np.float32)).to(dev)
+                one = B == 1
+                sfx = "matvec" if one else "matmul"  # kernels 11 and 12
+                what = f"{path} g={group} B={B}"
+
+                def run(fn, *a, **k2):
+                    return fn(*a, X[0], **k2)[None] if one else fn(*a, X, **k2)
+
+                yp = ops.serve_contract_plain(spec, p, DRAW_WORD, X, off,
+                                              d_in, d_out, 8)
+                rp = ops.serve_contract_plain(spec, None, 0, X, off, d_in,
+                                              d_out, None, W=W[path])
+                # the resident and cached sources serve B=1 as a batch
+                # of one, as the JAX package's engines do
+                check("qz_resident_matmul", qz_decode.qz_resident_matmul(
+                    spec, W[path].reshape(-1), X, **kw), rp, what)
+                if not same_bits(rp, yp):
+                    die(f"the resident plain tree differs from the "
+                        f"regenerating one ({what})")
+                for tag, cache in caches.items():
+                    a = cache.arrays()
+                    sl = a["slots"][path][group]
+                    cp = ops.serve_contract_plain(
+                        spec, p, DRAW_WORD, X, off, d_in, d_out, 8,
+                        pool=a["pool"], slots=sl)
+                    check("qz_cached_matmul", qz_decode.qz_cached_matmul(
+                        spec, p, DRAW_WORD, X, a["pool"], sl, qbits=8, **kw),
+                        cp, f"{what} budget {tag}")
+                    if not same_bits(cp, yp):
+                        die(f"the cached plain tree differs from the "
+                            f"regenerating one ({what} budget {tag})")
+                for codec, st in lanes.items():
+                    qb = 4 if codec == "packed4" else 2
+                    lp = ops.serve_operand(st.words[path], qb, True)
+                    check(codec, run(
+                        getattr(qz_decode, f"qz_sample_{sfx}"), spec, lp,
+                        DRAW_WORD, qbits=qb, qpacked=True, **kw),
+                        ops.serve_contract_plain(spec, lp, DRAW_WORD, X, off,
+                                                 d_in, d_out, qb,
+                                                 qpacked=True),
+                        f"{what} {codec} lanes")
+    del caches
+    say(f"modes: (a) kernel checks done in {time.perf_counter() - t0:.1f} s;"
+        " every comparison bitwise")
+
+    # --- (b) the schedulers in every mode: the main path -----------------
+    qz_decode.reset_launches()
+    qz_reconstruct.reset_launches()
+    path_launches, b1_launches = {}, {}
+
+    def serve_run(mode, state, budget, label):
+        """One scheduler on PROMPTS, then its engine at B=1 on the first
+        prompt; launches and times of both, peak memory, resident
+        bytes."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(qz_decode.LAUNCHES)
+        k7 = qz_reconstruct.LAUNCHES["qz_sample_reconstruct_fwd"]
+        tb = time.perf_counter()
+        sched = ServeScheduler(model, state, ServeConfig(
+            lanes=LANES, seq_len=seq, cache_budget_bytes=budget, mode=mode,
+            max_new_tokens=NEW_TOKENS), device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - tb
+        built = {k: qz_decode.LAUNCHES[k] - before[k] for k in before}
+        k7 = qz_reconstruct.LAUNCHES["qz_sample_reconstruct_fwd"] - k7
+        rids = [sched.submit(pr) for pr in PROMPTS]
+        mid = dict(qz_decode.LAUNCHES)
+        step_ms = []
+        while sched.pending:
+            t1 = time.perf_counter()
+            sched.step_once()
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+        stepped = {k: qz_decode.LAUNCHES[k] - mid[k] for k in mid}
+        got = [sched.results[r].tolist() for r in rids]
+        eng = sched.engine
+        mid = dict(qz_decode.LAUNCHES)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        new, _ = make_generator(eng.step, NEW_TOKENS)(
+            sched.arrays, eng.init_cache(1, seq),
+            torch.tensor([PROMPTS[0]], device=dev))
+        torch.cuda.synchronize()
+        single_steps = len(PROMPTS[0]) + NEW_TOKENS - 1
+        single_ms = 1e3 * (time.perf_counter() - t1) / single_steps
+        single = {k: qz_decode.LAUNCHES[k] - mid[k] for k in mid}
+        res = serve_resident_bytes(state, budget if mode == "cached" else 0,
+                                   mode=mode, kv_cache=sched.kv)
+        peak = torch.cuda.max_memory_allocated()
+        src = {"load": "resident", "streaming": "sample",
+               "cached": "cached"}[mode]
+        want_mm = {f"qz_{src}_matmul": per_step * sched.steps}
+        want_mv = {(f"qz_{src}_matvec" if src == "sample" else
+                    f"qz_{src}_matmul"): per_step * single_steps}
+        ok = (all(stepped[k] == v for k, v in want_mm.items())
+              and sum(stepped.values()) == sum(want_mm.values())
+              and all(single[k] == v for k, v in want_mv.items())
+              and sum(single.values()) == sum(want_mv.values()))
+        say(f"modes: {label}: build {build_s:.2f} s (fill launches "
+            f"{built['qz_fill_tiles']}, kernel 7 launches {k7}); "
+            f"{sched.steps} steps, median {float(np.median(step_ms)):.2f} "
+            f"ms/step at {LANES} lanes (min {min(step_ms):.2f}), B=1 "
+            f"{single_ms:.2f} ms/step; launches a step "
+            f"{sum(stepped.values()) / sched.steps:.0f} ({stepped}), B=1 "
+            f"{single}; resident {res['total_bytes']:.0f} B (zampled "
+            f"{res['zampled_bytes']:.0f}, pool {res['cache_bytes']:.0f}, KV "
+            f"{res['kv_bytes']:.0f}, dense {res['dense_bytes']:.0f}); "
+            f"peak memory {peak} B ({card})")
+        if not ok:
+            die(f"{label}: launches do not match {per_step} a step "
+                f"({stepped}, B=1 {single})")
+        if new[0].tolist() != got[0]:
+            die(f"{label}: the B=1 tokens differ from its scheduler lane's")
+        out = {"tokens": got, "steps": sched.steps, "stepped": stepped,
+               "step_ms": float(np.median(step_ms)), "single_ms": single_ms,
+               "resident": res, "peak_bytes": peak, "sched": sched,
+               "fill_launches": built["qz_fill_tiles"], "kernel7": k7}
+        for k, v in list(stepped.items()) + list(built.items()):
+            path_launches[k] = path_launches.get(k, 0) + v
+        for k, v in single.items():  # the B=1 runs, counted apart
+            b1_launches[k] = b1_launches.get(k, 0) + v
+        path_launches["qz_sample_reconstruct_fwd"] = (
+            path_launches.get("qz_sample_reconstruct_fwd", 0) + k7)
+        return out
+
+    t0 = time.perf_counter()
+    del W
+    runs = {}
+    for label, mode, budget in (("load", "load", 0),
+                                ("streaming", "streaming", 0),
+                                ("cached budget 0", "cached", 0),
+                                ("cached budget 64 MiB", "cached", 64 << 20),
+                                ("cached budget full", "cached", full)):
+        r = serve_run(mode, sstate, budget, label)
+        del r["sched"]
+        runs[label] = r
+        say(f"modes: {label}: tokens equal SERVE_TOKENS: "
+            f"{r['tokens'] == SERVE_TOKENS}")
+        if r["tokens"] != SERVE_TOKENS:
+            die(f"{label}: the scheduler's tokens differ from SERVE_TOKENS")
+        if label == "load" and r["kernel7"] != len(zspecs.specs):
+            die(f"load: kernel 7 launched {r['kernel7']} times, not once a "
+                f"leaf")
+    # --- packed lanes through the engine
+    for label, codec, mode, budget in (
+            ("packed4 streaming", "packed4", "streaming", 0),
+            ("packed4 cached 64 MiB", "packed4", "cached", 64 << 20),
+            ("packed2 streaming", "packed2", "streaming", 0)):
+        r = serve_run(mode, lanes[codec], budget, label)
+        del r["sched"]
+        runs[label] = r
+        for pr, toks in zip(PROMPTS, r["tokens"]):
+            say(f"modes: {label}: {pr} -> {toks}")
+    if runs["packed4 cached 64 MiB"]["tokens"] != runs[
+            "packed4 streaming"]["tokens"]:
+        die("packed4: the cached scheduler's tokens differ from streaming's")
+    say(f"modes: packed4 cached tokens equal its streaming tokens: True; "
+        f"(b) done in {time.perf_counter() - t0:.1f} s")
+
+    # --- (c) a round delta ------------------------------------------------
+    t0 = time.perf_counter()
+    scores2 = moved_scores(scores)
+    for codec in ("f32", "u16", "u8"):
+        s1 = sstate if codec == "u8" else state_of(codec, scores)
+        s2 = state_of(codec, scores2)
+        t1 = time.perf_counter()
+        rep = delta_report(s1, s2)
+        torch.cuda.synchronize()
+        t_rep = time.perf_counter() - t1
+        delta = make_delta(s1, s2)
+        patched = apply_delta(s1, delta)
+        same = all(same_bits(patched.words[p], s2.words[p])
+                   for p in s2.words)
+        say(f"delta: {codec}: {rep['words_changed']} of "
+            f"{rep['words_total']} words changed, {rep['words_flipped']} "
+            f"drawn bits flipped; delta {rep['delta_bytes']} B against full "
+            f"{rep['full_bytes']} B ({rep['delta_vs_full']:.5f}); report in "
+            f"{t_rep:.2f} s; patched words bitwise a fresh state's: {same}")
+        if not same:
+            die(f"delta {codec}: the patched words differ from a fresh "
+                f"state's")
+        if codec != "u8":
+            del s1, s2, patched
+    torch.cuda.empty_cache()
+    cache = HotBlockCache(sstate, full)
+    cache.fill(sstate)
+    t1 = time.perf_counter()
+    new = apply_delta(sstate, delta, cache=cache)
+    torch.cuda.synchronize()
+    t_inv = time.perf_counter() - t1
+    kept = cache.resident_tiles
+    for path, slots in cache.slots.items():
+        g, t = np.nonzero(slots >= 0)
+        cold = ops.serve_fill_tiles(
+            cache.grids[path].spec, new.words[path], new.step,
+            torch.from_numpy(g).to(dev), torch.from_numpy(t).to(dev),
+            qbits=8)
+        got = cache.pool[torch.from_numpy(slots[g, t]).long().to(dev)]
+        if not same_bits(got, cold):
+            die(f"delta: retained tiles of {path} differ from a cold fill")
+        del cold, got
+    say(f"delta: u8 apply_delta with the full cache: {kept} of "
+        f"{cache.total_tiles} tiles retained "
+        f"({cache.counters['invalidations']} invalidated) in {t_inv:.2f} s; "
+        f"every retained tile bitwise a cold fill from the new words: True")
+    del cache
+    torch.cuda.empty_cache()
+    # mid-flight on a cached scheduler, against a fresh one on round t+1
+    scfg = ServeConfig(lanes=LANES, seq_len=seq, cache_budget_bytes=64 << 20,
+                       mode="cached", max_new_tokens=NEW_TOKENS)
+    before = dict(qz_decode.LAUNCHES)
+    sched = ServeScheduler(model, sstate, scfg, device=dev)
+    for pr in PROMPTS:
+        sched.submit(pr)
+    sched.step_once()
+    sched.step_once()
+    t1 = time.perf_counter()
+    swapped = sched.apply_round_delta(delta)
+    torch.cuda.synchronize()
+    t_swap = time.perf_counter() - t1
+    if not all(same_bits(swapped.words[p], s2.words[p]) for p in s2.words):
+        die("apply_round_delta: the words differ from round t+1's")
+    sched.run()
+    rids = [sched.submit(pr) for pr in PROMPTS]
+    after = [sched.run()[r].tolist() for r in rids]
+    fresh = ServeScheduler(model, s2, scfg, device=dev)
+    fids = [fresh.submit(pr) for pr in PROMPTS]
+    want = [fresh.run()[r].tolist() for r in fids]
+    c = sched.metrics()["cache"]
+    for k in before:
+        path_launches[k] = path_launches.get(k, 0) + (
+            qz_decode.LAUNCHES[k] - before[k])
+    say(f"delta: apply_round_delta mid-flight on a cached scheduler (64 "
+        f"MiB) in {1e3 * t_swap:.1f} ms: {c['invalidations']} tiles "
+        f"invalidated, {c['resident_tiles']}/{c['total_tiles']} resident; "
+        f"post-swap tokens equal a fresh round-t+1 scheduler's: "
+        f"{after == want}")
+    for pr, toks in zip(PROMPTS, after):
+        say(f"delta: post-swap {pr} -> {toks}")
+    if after != want:
+        die("the post-swap tokens differ from a fresh scheduler's")
+    del sched, fresh, s2, patched, swapped, new
+    torch.cuda.empty_cache()
+    say(f"modes: (c) done in {time.perf_counter() - t0:.1f} s; main-path "
+        f"launches {path_launches}, at B=1 {b1_launches}")
+    for k in ("qz_resident_matmul", "qz_cached_matmul", "qz_fill_tiles",
+              "qz_sample_reconstruct_fwd"):
+        if not path_launches.get(k):
+            die(f"{k} was not launched on the serving modes' path")
+    for k in ("qz_resident_matmul", "qz_cached_matmul"):
+        if not b1_launches.get(k):
+            die(f"{k} was not launched at B=1 on the serving modes' path")
+
+    # --- (d) times: each source per engine step --------------------------
+    from repro_torch.core.sampling import sample_mask_qhash
+
+    t0 = time.perf_counter()
+    W = reconstruct_resident(sstate)
+    cache = HotBlockCache(sstate, full)
+    cache.fill(sstate)
+    a = cache.arrays()
+    rows = []
+    for src, B in (("resident", LANES), ("resident", 1), ("cached", LANES),
+                   ("cached", 1), ("packed4", LANES), ("packed2", LANES)):
+        one = B == 1
+        packed = src.startswith("packed")
+        name = (f"qz_sample_matmul[{src}]" if packed
+                else f"qz_{src}_matmul" + ("[B=1]" if one else ""))
+        ms = device = plain = bound = yard = 0.0
+        shapes = {}
+        for path in paths:
+            spec = zspecs.specs[path]
+            groups, d_in, d_out, drawn, word_bytes = stats[path]
+            X = Xs[(B, path)]
+            kw = dict(row_offset=0, d_in=d_in, d_out=d_out)
+            # the resident and cached sources compute X @ W_g: the
+            # yardstick is that product on the reconstructed leaf
+            Wg = W[path].reshape(groups, d_in, d_out)[0]
+            if src == "resident":
+                Wf = W[path].reshape(-1)
+
+                def call():
+                    return qz_decode.qz_resident_matmul(spec, Wf, X, **kw)
+
+                def plain_call():
+                    return ops.serve_contract_plain(spec, None, 0, X, 0,
+                                                    d_in, d_out, None, W=Wf)
+                nbytes = groups * (4 * d_in * d_out + 4 * B * (d_in + d_out))
+                b = 1e3 * max(nbytes / PEAK_BYTES_PER_S,
+                              groups * 2 * B * d_in * d_out / PEAK_OPS_PER_S)
+            elif src == "cached":
+                p = ops.serve_operand(sstate.words[path], 8)
+                sl = a["slots"][path][0]
+
+                def call():
+                    return qz_decode.qz_cached_matmul(
+                        spec, p, DRAW_WORD, X, a["pool"], sl, qbits=8, **kw)
+
+                def plain_call():
+                    return ops.serve_contract_plain(
+                        spec, p, DRAW_WORD, X, 0, d_in, d_out, 8,
+                        pool=a["pool"], slots=sl)
+                nblk = cache.grids[path].nblk
+                nbytes = groups * (4 * d_in * d_out + 4 * nblk
+                                   + 4 * B * (d_in + d_out))
+                b = 1e3 * max(nbytes / PEAK_BYTES_PER_S,
+                              groups * 2 * B * d_in * d_out / PEAK_OPS_PER_S)
+            else:
+                qb = 4 if src == "packed4" else 2
+                p = ops.serve_operand(lanes[src].words[path], qb, True)
+
+                def call():
+                    return qz_decode.qz_sample_matmul(
+                        spec, p, DRAW_WORD, X, qbits=qb, qpacked=True, **kw)
+
+                def plain_call():
+                    return ops.serve_contract_plain(
+                        spec, p, DRAW_WORD, X, 0, d_in, d_out, qb,
+                        qpacked=True)
+                b = bound_ms(path, B, bits=qb)
+            reps = 3 if path == "lm_head" else 10
+            t_k = event_ms(call, reps)
+            t_d = device_ms(call, reps, "serve_matmul_kernel", t_k)
+            t_p = event_ms(plain_call, 1)
+            t_y = None if packed else event_ms(lambda: X @ Wg, reps)
+            ms += groups * t_k
+            device = (device + groups * t_d if t_d is not None
+                      and device is not None else None)
+            plain += groups * t_p
+            bound += b
+            yard = None if t_y is None else yard + groups * t_y
+            shapes[path] = {"d_in": d_in, "d_out": d_out, "launches": groups,
+                            "ms": t_k, "device_ms": t_d, "plain_ms": t_p,
+                            "bound_ms": b / groups, "library_ms": t_y}
+            say(f"time: {name} {path} {d_in}x{d_out} B={B}: kernel "
+                f"{t_k:.4f} ms (device "
+                f"{'not measured' if t_d is None else f'{t_d:.4f} ms'}), "
+                f"plain {t_p:.2f} ms, bound {b / groups:.4f} ms"
+                + ("" if t_y is None else
+                   f", torch.matmul(X, W_g) {t_y:.4f} ms")
+                + f" ({card})")
+        key = f"qz_{src}_matmul"
+        launches = (runs[f"{src} streaming"]["stepped"]["qz_sample_matmul"]
+                    if packed else b1_launches[key] if one
+                    else path_launches[key])
+        row = {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/qz_decode.cu",
+            "replaces": ("src/repro/kernels/qz_decode.py:207" if one
+                         else "src/repro/kernels/qz_decode.py:239"),
+            "launches": launches,
+            "max_abs_err": max_err[src if packed else key],
+            "ms": ms, "device_ms": device, "plain_ms": plain,
+            "bound_ms": bound,
+            "bound_by": "operations" if packed else "bytes",
+            "library_ms": yard,
+            "library_call": (None if packed else
+                             "torch.matmul(X, W_g) per linear on the "
+                             "reconstructed leaf"),
+            "batch": B, "per": f"one engine step ({per_step} launches)",
+            "weight_source": src, "shapes": shapes}
+        if packed:
+            row["launches_on"] = f"the {src} streaming scheduler's steps"
+        elif one:
+            row["launches_on"] = "the B=1 runs of the load or cached engine"
+        if src == "cached":
+            row["budget"] = "full (every tile in the pool)"
+        rows.append(row)
+        say(f"time: {name} per engine step (B={B}): kernel {ms:.3f} ms "
+            f"(device {'not measured' if device is None else f'{device:.3f} ms'}"
+            f"), bound {bound:.3f} ms ({bound / ms:.3f} of it), plain "
+            f"{plain:.1f} ms"
+            + ("" if yard is None else f", torch.matmul {yard:.3f} ms")
+            + (f", {ms / ctx['u8_ms']:.3f}x phase 5's u8 "
+               f"{ctx['u8_ms']:.3f} ms" if packed else "")
+            + f" ({card})")
+    # the fill: every tile of the model, and kernel 7 at serving shapes
+    k = cache.total_tiles
+    gt = {}
+    for path in paths:
+        grid = cache.grids[path]
+        n = grid.groups * grid.nblk
+        idx = torch.arange(n, device=dev)
+        gt[path] = (idx // grid.nblk, idx % grid.nblk)
+
+    def fill_all():
+        for path in paths:
+            ops.serve_fill_tiles(zspecs.specs[path], sstate.words[path],
+                                 DRAW_WORD, *gt[path], qbits=8)
+
+    def fill_all_plain():
+        for path in paths:
+            ops.fill_tiles_plain(
+                zspecs.specs[path], ops.serve_operand(sstate.words[path], 8),
+                DRAW_WORD, *gt[path], 8)
+
+    t_fill = event_ms(fill_all, 3)
+    t_fill_d = device_ms(fill_all, 3, "fill_tiles_kernel", t_fill,
+                         len(paths))
+    t_fill_p = event_ms(fill_all_plain, 1, warm=False)
+    fill_ops = fill_bytes = 0.0
+    for path in paths:
+        groups, d_in, d_out, drawn, word_bytes = stats[path]
+        w = groups * d_in * d_out
+        fill_ops += w * (OPS_PER_WEIGHT + 8 * OPS_PER_EDGE) + float(
+            drawn.sum()) * OPS_PER_DRAWN
+        fill_bytes += groups * word_bytes + 4 * w
+    fill_bound, fill_by = _bound_ms(fill_ops, fill_bytes)
+    rows.append({
+        "name": "qz_fill_tiles", "route": "cuda",
+        "source": "src/repro_torch/csrc/qz_decode.cu",
+        "replaces": "src/repro/kernels/ops.py:1184 (serve_fill_tiles, jnp)",
+        "launches": path_launches["qz_fill_tiles"],
+        "max_abs_err": max_err["qz_fill_tiles"], "ms": t_fill,
+        "device_ms": t_fill_d, "plain_ms": t_fill_p,
+        "bound_ms": fill_bound, "bound_by": fill_by, "library_ms": None,
+        "per": f"the full pool, {k} tiles ({len(paths)} launches)"})
+    say(f"time: qz_fill_tiles, all {k} tiles: kernel {t_fill:.3f} ms "
+        f"(device {'not measured' if t_fill_d is None else f'{t_fill_d:.3f} ms'}"
+        f"), bound {fill_bound:.3f} ms ({fill_by}), plain {t_fill_p:.1f} "
+        f"ms ({card})")
+    del cache, a, gt
+    torch.cuda.empty_cache()
+
+    def recon_all():
+        reconstruct_resident(sstate)
+
+    del W
+    torch.cuda.empty_cache()
+    t_rec = event_ms(recon_all, 3)
+    t_rec_d = device_ms(recon_all, 3, "sample_reconstruct_window_kernel",
+                        t_rec, len(zspecs.specs))
+    # the row's unit: one leaf, wq (its plain version's row plan for all
+    # leaves would not fit beside the rest)
+    spec_wq = zspecs.specs["blocks/attn/wq"]
+    p_wq = ops.serve_operand(sstate.words["blocks/attn/wq"], 8)
+
+    def rec_wq():
+        return ops.sample_reconstruct(spec_wq, p_wq, DRAW_WORD, qbits=8)
+
+    t_rec_wq = event_ms(rec_wq, 10)
+    t_rec_wq_d = device_ms(rec_wq, 10, "sample_reconstruct_window_kernel",
+                           t_rec_wq)
+    t_rec_p_wq = event_ms(lambda: ops.sample_reconstruct(
+        spec_wq, p_wq, DRAW_WORD, qbits=8, impl="ref"), 1)
+    from repro_torch.core import transpose_plan
+    transpose_plan.clear_caches()  # the plain version's row plan
+    torch.cuda.empty_cache()
+    # the yardstick: torch.sparse.mm of the CSR Q against the drawn mask,
+    # as kernel 7's other rows
+    Q = q_csr(spec_wq, dev, False)
+    z = sample_mask_qhash(p_wq, 8, spec_wq.seed, spec_wq.tensor_id,
+                          DRAW_WORD)[:, None].contiguous()
+    lib_err = (torch.sparse.mm(Q, z).reshape(-1)
+               - rec_wq().reshape(-1)).abs().max().item()
+    t_rec_lib = event_ms(lambda: torch.sparse.mm(Q, z), 10)
+    del Q, z
+    torch.cuda.empty_cache()
+    g_wq, di_wq, do_wq, drawn_wq, wb_wq = stats["blocks/attn/wq"]
+    wq_bound, wq_by = _bound_ms(
+        g_wq * di_wq * do_wq * (OPS_PER_WEIGHT + 8 * OPS_PER_EDGE)
+        + float(drawn_wq.sum()) * OPS_PER_DRAWN,
+        spec_wq.n + 4 * spec_wq.m)
+    rec_ops = rec_bytes = 0.0
+    for path, spec in zspecs.specs.items():
+        if path in stats:
+            groups, d_in, d_out, drawn, word_bytes = stats[path]
+            nd = float(drawn.sum())
+        else:  # the embedding: its drawn edges counted here
+            p = ops.serve_operand(sstate.words[path], 8)
+            nd = 0.0
+            step_rows = 1 << 19
+            for r0 in range(0, spec.m, step_rows):
+                rr = torch.arange(r0, min(spec.m, r0 + step_rows),
+                                  device=dev)
+                nd += float(ops.serve_edge_bits(spec, p, DRAW_WORD, rr,
+                                                8).sum())
+        rec_ops += spec.m * (OPS_PER_WEIGHT + 8 * OPS_PER_EDGE) + (
+            nd * OPS_PER_DRAWN)
+        rec_bytes += spec.n + 4 * spec.m
+    rec_bound, rec_by = _bound_ms(rec_ops, rec_bytes)
+    rows.append({
+        "name": "qz_sample_reconstruct_fwd[serve]", "route": "cuda",
+        "source": "src/repro_torch/csrc/qz_reconstruct.cu",
+        "replaces": "src/repro/kernels/qz_reconstruct.py:489",
+        "launches": path_launches["qz_sample_reconstruct_fwd"],
+        "max_abs_err": max_err["qz_sample_reconstruct_fwd"],
+        "ms": t_rec_wq, "device_ms": t_rec_wq_d, "plain_ms": t_rec_p_wq,
+        "bound_ms": wq_bound, "bound_by": wq_by, "library_ms": t_rec_lib,
+        "library_call": "torch.sparse.mm(Q_csr, z) on the drawn mask "
+                        "(no draw)",
+        "per": "one launch: the blocks/attn/wq leaf from u8 words",
+        "all_leaves": {"ms": t_rec, "device_ms": t_rec_d,
+                       "bound_ms": rec_bound, "bound_by": rec_by,
+                       "launches": len(zspecs.specs),
+                       "weights": zspecs.m_total}})
+    say(f"time: kernel 7 reconstruct_resident, all {len(zspecs.specs)} "
+        f"leaves: kernel {t_rec:.3f} ms (device "
+        f"{'not measured' if t_rec_d is None else f'{t_rec_d:.3f} ms'}), "
+        f"bound {rec_bound:.3f} ms ({rec_by}); blocks/attn/wq: kernel "
+        f"{t_rec_wq:.3f} ms (device "
+        f"{'not measured' if t_rec_wq_d is None else f'{t_rec_wq_d:.3f} ms'}"
+        f"), bound {wq_bound:.4f} ms ({wq_by}), plain {t_rec_p_wq:.1f} ms, "
+        f"torch.sparse.mm(Q_csr, z) {t_rec_lib:.4f} ms (max abs diff "
+        f"{lib_err:.3e} from the kernel) ({card})")
+    for label, r in runs.items():
+        say(f"modes: table: {label}: {r['step_ms']:.2f} ms/step at {LANES} "
+            f"lanes, {r['single_ms']:.2f} ms/step at B=1, resident "
+            f"{r['resident']['total_bytes']:.0f} B, peak memory "
+            f"{r['peak_bytes']} B ({card})")
+    say(f"phase 21 done in {time.perf_counter() - t_phase:.1f} s; every "
+        f"comparison bitwise")
+    return rows
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -3116,14 +3773,14 @@ def main() -> None:
         word_bytes = (nblk // bpw) * spec.window  # u8 windows a group reads
         stats[path] = (groups, d_in, d_out, drawn.cpu().numpy(), word_bytes)
 
-    def bound_ms(path, B):
+    def bound_ms(path, B, bits=8):
         groups, d_in, d_out, drawn, word_bytes = stats[path]
         w = d_in * d_out
         total = 0.0
         for g in range(groups):
             ops_n = (w * (OPS_PER_WEIGHT + 8 * OPS_PER_EDGE + 2 * B)
                      + drawn[g] * OPS_PER_DRAWN)
-            bytes_n = word_bytes + 4 * B * (d_in + d_out)
+            bytes_n = word_bytes * bits / 8 + 4 * B * (d_in + d_out)
             total += max(ops_n / PEAK_OPS_PER_S, bytes_n / PEAK_BYTES_PER_S)
         return 1e3 * total
 
@@ -3245,7 +3902,13 @@ def main() -> None:
         f"{rows[0]['ms']:.3f} / {med:.3f} ms = {rows[0]['ms'] / med:.3f}, "
         f"single request {rows[1]['ms']:.3f} / {single_ms:.3f} ms = "
         f"{rows[1]['ms'] / single_ms:.3f} ({card})")
-    del sstate, sched, eng, model
+    del sched, eng
+    torch.cuda.empty_cache()
+    rows += serve_modes_phase(card, dev, {
+        "model": model, "cfg": cfg, "zspecs": zspecs, "sstate": sstate,
+        "scores": scores, "dense": dense, "stats": stats,
+        "bound_ms": bound_ms, "Xs": Xs, "u8_ms": rows[0]["ms"]})
+    del sstate, model, Xs
     torch.cuda.empty_cache()
 
     train_rows, fed = training_phases(card, dev)

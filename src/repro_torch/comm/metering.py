@@ -2,8 +2,9 @@
 
 The JAX package's ``comm/metering.py``: ``round_wire_report``,
 ``wire_table`` and ``downlink_table``; the scheduled and realized
-counts of the downlink schedules and of partial participation; and the
-upload memory of the slab and streaming rounds.  Analytic: a function
+counts of the downlink schedules and of partial participation; the
+upload memory of the slab and streaming rounds; and a serving node's
+delta wire and resident bytes.  Analytic: a function
 of the spec set, the uplink transport and the downlink codec.  Per
 round, per client:
 
@@ -110,6 +111,61 @@ def streaming_peak_bytes(zspecs, aggregate: str, chunk: int,
     at 4 bytes a coordinate as the JAX package counts it; whatever K."""
     acc = sum(_F32_BYTES * s.n for s in zspecs.specs.values())
     return upload_slab_bytes(zspecs, aggregate, chunk, mode) + acc
+
+
+def delta_wire_bytes(total_words: int, changed_words: int,
+                     word_bytes: int) -> int:
+    """Exact wire bytes of a sparse word delta (``serve.delta``): the
+    cheaper of a presence bitmap (ceil(total/8) + changed * word_bytes)
+    and a coordinate list (4 + changed * (4 + word_bytes))."""
+    if changed_words < 0 or changed_words > total_words:
+        raise ValueError(f"changed_words={changed_words} outside "
+                         f"[0, {total_words}]")
+    bitmap = -(-total_words // 8) + changed_words * word_bytes
+    coords = 4 + changed_words * (4 + word_bytes)
+    return min(bitmap, coords)
+
+
+def serve_tile_pool_bytes(zspecs, cache_budget: int, bm=None) -> int:
+    """Allocated bytes of the hot-block tile pool at ``cache_budget``:
+    ``min(budget // (4 bm), tiles)`` rows of 4 bm bytes, where tiles
+    counts the canonical blocks of every zampled matmul leaf ('embed'
+    streams through the row gather and owns none), as
+    ``serve.cache.HotBlockCache`` allocates it."""
+    from ..kernels import ops  # kernels sit above comm
+
+    bm = bm or ops.SERVE_BM
+    tiles = 0
+    for path, spec in zspecs.specs.items():
+        if path == "embed":
+            continue
+        groups, d_in, d_out = ops.serve_group_dims(spec)
+        tiles += groups * ops.serve_block_grid(spec, bm, 0, d_in * d_out)[1]
+    return min(int(cache_budget) // (4 * bm), tiles) * 4 * bm
+
+
+def serve_resident_bytes(sstate, cache_budget: int = 0, *,
+                         mode: str = "streaming",
+                         kv_cache=None) -> Dict[str, float]:
+    """Exact resident bytes of one serving node: the zampled state (the
+    words and draw word, or in load mode the f32 leaves), the tile pool
+    in cached mode, the KV cache's tensors (its positions are int64 in
+    the port, int32 in the JAX package), and the dense leaves."""
+    if mode not in ("load", "streaming", "cached"):
+        raise ValueError(f"unknown serve mode {mode!r}")
+    if mode == "load":
+        zampled, pool = sstate.loaded_zampled_bytes(), 0
+    else:
+        zampled = sstate.resident_zampled_bytes()
+        pool = (serve_tile_pool_bytes(sstate.zspecs, cache_budget)
+                if mode == "cached" else 0)
+    kv = 0 if kv_cache is None else sum(
+        t.numel() * t.element_size() for t in kv_cache)
+    dense = sstate.dense_bytes()
+    return {"mode": mode, "zampled_bytes": float(zampled),
+            "cache_bytes": float(pool), "kv_bytes": float(kv),
+            "dense_bytes": float(dense),
+            "total_bytes": float(zampled + pool + kv + dense)}
 
 
 def realized_wire_metrics(report: Dict, uplink_units,

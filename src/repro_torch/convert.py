@@ -3,7 +3,9 @@ to the port.
 
 The JAX package's ``ServeState`` holds ``words`` and ``dense`` dicts
 keyed by path strings and a uint32 draw word ``step``; as numpy arrays
-they become the port's ``ServeState`` under the same paths.  A
+they become the port's ``ServeState`` under the same paths, its codec
+the tag that checks them (a packed codec's uint32 lanes cross as
+``torch.uint32``, which no dtype alone could name).  A
 federated round state ``{"scores": {path: f32 scores, u8/u16 wire
 words or a packed codec's uint32 lanes}, "dense": {path: leaf}}``
 becomes the same dict of tensors (lanes as ``torch.uint32``), and

@@ -5,7 +5,21 @@
 // (src/repro/kernels/qz_decode.py).  Per weight it regenerates the row's
 // d Q edges from the counter hash, draws each edge's mask bit from the
 // score word at the edge's z coordinate (f32 Bernoulli compare, or the
-// u8/u16 widened-threshold integer compare) and sums vals * bits.
+// widened-threshold integer compare of u8/u16 words and of packed b-bit
+// words, read from lane coord / wpl) and sums vals * bits.
+//
+// Weight source (SRC, a template parameter of the one body): REGEN is the
+// above.  RESIDENT reads the tile from a reconstructed leaf,
+// W[row_offset + i * d_out + o] (the load mode): no mask phase and no
+// grid barrier, so it is an ordinary launch.  CACHED reads a weight from
+// the hot-block pool, pool[slot * bm + lane], where its canonical block
+// t = (window - w0) * bpw + (row in window) / bm has slots[t] >= 0
+// (lane = (row in window) mod bm), and regenerates it as REGEN does
+// where the block has none.  The walk is the same for the three, so they
+// give the same Y bits: the weights agree but for the sign of zero (a
+// weight of no drawn edge is +0 here, and -0 in a pool tile or a
+// reconstructed leaf when every product is -0), and a walk's sums start
+// at +0, so a +-0 product leaves them as they are.
 //
 // Bound: the instructions the card issues, not the bytes (a few a
 // weight) and not the float rate the stated bound counts them at.  A
@@ -88,6 +102,8 @@ struct ServeConsts {
   int d_in, d_out;
   unsigned bpw, rpw_m, rpw_s1, rpw_s2, bm_m, bm_s1, bm_s2;
   int co, rows, chunk, smem, all_flush;
+  int src;    // weight source: SRC_REGEN, SRC_RESIDENT or SRC_CACHED
+  int qbits;  // b of a KIND_PB operand (packed lanes of any width)
 };
 
 namespace {
@@ -98,6 +114,16 @@ constexpr int SLOTS = 2;                     // weights a lane draws at once
 constexpr int LANE_EDGES = SLOTS * D8;       // bits of a lane's drawn mask
 constexpr int WARP_EDGES = 32 * LANE_EDGES;  // list entries of a warp pass
 constexpr int PASS = THREADS * SLOTS;        // weights of a CTA pass
+
+enum Source : int { SRC_REGEN = 0, SRC_RESIDENT = 1, SRC_CACHED = 2 };
+
+// Where RESIDENT and CACHED read their weights.
+struct Sources {
+  const float* W;     // RESIDENT: the leaf's weights, flat
+  const float* pool;  // CACHED: (S, bm) tiles
+  const int* slots;   // CACHED: the group's (nblk,) slot map, -1 = none
+  uint32_t bm;        // rows of a canonical block, a pool row's width
+};
 
 struct GroupArgs {
   uint32_t row_offset;  // first flat row of the group
@@ -125,11 +151,23 @@ __device__ __forceinline__ uint32_t block_of(uint32_t r, uint32_t rpw,
   return win * g.bpw + g.bm(r - win * rpw);
 }
 
+// CACHED: row r's weight from the pool if its block has a slot.
+__device__ __forceinline__ bool pool_weight(uint32_t r, uint32_t rpw,
+                                            const GroupArgs& g,
+                                            const Sources& src, float* w) {
+  const uint32_t win = g.rpw(r), within = r - win * rpw, jb = g.bm(within);
+  const int slot = src.slots[(win - g.w0) * g.bpw + jb];
+  if (slot < 0) return false;
+  *w = src.pool[static_cast<size_t>(slot) * src.bm + (within - jb * src.bm)];
+  return true;
+}
+
 // Phase 1: bit c of bits is the mask bit of coordinate w0 * window + c.
 template <int KIND>
 __device__ __forceinline__ void draw_bits(const void* __restrict__ words,
                                           const qz::SpecArgs& s,
                                           const GroupArgs& g, uint32_t hm,
+                                          const qz::PackedWidth& pw,
                                           uint32_t* bits) {
   const uint32_t lane = threadIdx.x & 31u;
   const uint32_t nwords = (g.n_coords + 31u) / 32u;
@@ -138,7 +176,7 @@ __device__ __forceinline__ void draw_bits(const void* __restrict__ words,
   for (uint32_t wi = (blockIdx.x * THREADS + threadIdx.x) / 32u; wi < nwords;
        wi += warps) {
     const uint32_t c = wi * 32u + lane;
-    const bool b = c < g.n_coords && qz::mask_bit<KIND>(words, hm, c0 + c);
+    const bool b = c < g.n_coords && qz::mask_bit<KIND>(words, hm, c0 + c, pw);
     const uint32_t word = __ballot_sync(0xFFFFFFFFu, b);
     if (lane == 0) bits[wi] = word;
   }
@@ -148,11 +186,13 @@ __device__ __forceinline__ void draw_bits(const void* __restrict__ words,
 // past d_in 0.  Scratch (aux, 32-bit words; serve_plan's REGEN_BYTES):
 // per warp its list of drawn edges (overwritten by their values) and its
 // lanes' row hashes.  vk[j] = fmix32(CTR_VAL + j + K1), j < 2 d.
-template <int KIND>
+// CACHED: a weight whose block has a slot draws no edge and takes the
+// pool's value.
+template <int SRC>
 __device__ __forceinline__ void regenerate_d8(
     const qz::SpecArgs& s, const GroupArgs& g, const Plan& p,
     const uint32_t* bits, const uint32_t* vk, uint32_t hq, int o0,
-    float* __restrict__ sW, uint32_t* __restrict__ aux) {
+    const Sources& src, float* __restrict__ sW, uint32_t* __restrict__ aux) {
   const int t = threadIdx.x, lane = t & 31;
   uint32_t* items = aux + (t >> 5) * (WARP_EDGES + 32 * SLOTS);
   uint32_t* hrs = items + WARP_EDGES;
@@ -162,12 +202,20 @@ __device__ __forceinline__ void regenerate_d8(
   for (int e0 = 0; e0 < tile_w; e0 += PASS) {
     // each lane's 2 weights: row hash, and the 16 edges' mask bits
     uint32_t drawn = 0;
+    bool hit[SLOTS];
+    float hv[SLOTS];
 #pragma unroll
     for (int j = 0; j < SLOTS; ++j) {
       const int e = e0 + j * THREADS + t;
       const int i = e >> p.co_shift, o = o0 + (e & (p.co - 1));
       uint32_t hr = 0;
+      hit[j] = false;
+      hv[j] = 0.0f;
       if (e < tile_w && i < g.d_in && o < g.d_out) {
+        const uint32_t r = g.row_offset + static_cast<uint32_t>(i) * g.d_out + o;
+        if constexpr (SRC == SRC_CACHED) hit[j] = pool_weight(r, s.rows_per_window, g, src, &hv[j]);
+      }
+      if (!hit[j] && e < tile_w && i < g.d_in && o < g.d_out) {
         const uint32_t r = g.row_offset + static_cast<uint32_t>(i) * g.d_out + o;
         hr = qz::combine(hq, r);
         // (base + stride k) & wmask, with base unmasked: the same index
@@ -219,6 +267,7 @@ __device__ __forceinline__ void regenerate_d8(
         if ((drawn >> (j * D8 + k)) & 1u) prod = vals[pos++];
         acc = (k == 0) ? prod : __fadd_rn(acc, prod);
       }
+      if (hit[j]) acc = hv[j];
       const int e = e0 + j * THREADS + t;
       if (e < tile_w) sW[(e & (p.co - 1)) * (p.rows + 4) + (e >> p.co_shift)] = acc;
     }
@@ -226,18 +275,37 @@ __device__ __forceinline__ void regenerate_d8(
   }
 }
 
-// A tile's weights at any degree: one weight per thread, qz::edge_weight.
-template <int KIND>
+// A tile's weights at any degree: one weight per thread, qz::edge_weight
+// (CACHED: the pool's value where the block has a slot).
+template <int KIND, int SRC>
 __device__ __forceinline__ void regenerate_any(
     const void* __restrict__ words, const qz::SpecArgs& s, const GroupArgs& g,
-    const Plan& p, uint32_t hq, uint32_t hm, int o0, float* __restrict__ sW) {
+    const Plan& p, uint32_t hq, uint32_t hm, const qz::PackedWidth& pw,
+    const Sources& src, int o0, float* __restrict__ sW) {
   const int tile_w = p.rows * p.co;
   for (int e = threadIdx.x; e < tile_w; e += THREADS) {
     const int i = e >> p.co_shift, o = o0 + (e & (p.co - 1));
     float w = 0.0f;
     if (i < g.d_in && o < g.d_out) {
-      w = qz::edge_weight<KIND>(s, hq, hm, words,
-                                g.row_offset + static_cast<uint32_t>(i) * g.d_out + o);
+      const uint32_t r = g.row_offset + static_cast<uint32_t>(i) * g.d_out + o;
+      bool hit = false;
+      if constexpr (SRC == SRC_CACHED) hit = pool_weight(r, s.rows_per_window, g, src, &w);
+      if (!hit) w = qz::edge_weight<KIND>(s, hq, hm, words, r, pw);
+    }
+    sW[(e & (p.co - 1)) * (p.rows + 4) + (e >> p.co_shift)] = w;
+  }
+}
+
+// RESIDENT: a tile's weights read from the reconstructed leaf.
+__device__ __forceinline__ void load_resident(const GroupArgs& g, const Plan& p,
+                                              const float* __restrict__ W, int o0,
+                                              float* __restrict__ sW) {
+  const int tile_w = p.rows * p.co;
+  for (int e = threadIdx.x; e < tile_w; e += THREADS) {
+    const int i = e >> p.co_shift, o = o0 + (e & (p.co - 1));
+    float w = 0.0f;
+    if (i < g.d_in && o < g.d_out) {
+      w = W[static_cast<size_t>(g.row_offset) + static_cast<size_t>(i) * g.d_out + o];
     }
     sW[(e & (p.co - 1)) * (p.rows + 4) + (e >> p.co_shift)] = w;
   }
@@ -323,11 +391,12 @@ __device__ __forceinline__ void walk(const float* __restrict__ X,
 }
 
 // scratch: the group's mask bits (phase 1), then the tile counter
-template <int KIND, int D, bool ALL_FLUSH>
+template <int KIND, int D, bool ALL_FLUSH, int SRC>
 __global__ void __launch_bounds__(THREADS, 3)
 serve_matmul_kernel(const void* __restrict__ words, uint32_t step,
                     const float* __restrict__ X, float* __restrict__ Y, int B,
-                    qz::SpecArgs s, GroupArgs g, Plan p, uint32_t* scratch) {
+                    qz::SpecArgs s, GroupArgs g, Plan p, qz::PackedWidth pw,
+                    Sources src, uint32_t* scratch) {
   extern __shared__ float smem[];
   __shared__ uint32_t vk[2 * D8];
   __shared__ int next_tile;
@@ -337,21 +406,25 @@ serve_matmul_kernel(const void* __restrict__ words, uint32_t step,
   const uint32_t hq = qz::prefix2(s.seed, s.tensor_id);
   const uint32_t hm = qz::mask_prefix(s.seed, s.tensor_id, step);
   uint32_t* counter = scratch + (g.n_coords + 31u) / 32u;
-  if constexpr (D == D8) draw_bits<KIND>(words, s, g, hm, scratch);
-  if (blockIdx.x == 0 && t == 0) *counter = 0u;
+  if constexpr (SRC != SRC_RESIDENT) {  // RESIDENT: the launch zeroes it
+    if constexpr (D == D8) draw_bits<KIND>(words, s, g, hm, pw, scratch);
+    if (blockIdx.x == 0 && t == 0) *counter = 0u;
+  }
   if (t < 2 * D8) vk[t] = qz::fmix32(qz::CTR_VAL + static_cast<uint32_t>(t) + qz::K1);
-  cg::this_grid().sync();  // every bit drawn, the counter at 0
+  if constexpr (SRC != SRC_RESIDENT) cg::this_grid().sync();  // every bit drawn, the counter at 0
   for (;;) {
     if (t == 0) next_tile = static_cast<int>(atomicAdd(counter, 1u));
     __syncthreads();
     const int tile = next_tile;
     if (tile >= p.tiles) break;
     const int o0 = tile * p.co;
-    if constexpr (D == D8) {
-      regenerate_d8<KIND>(s, g, p, scratch, vk, hq, o0, sW,
-                          reinterpret_cast<uint32_t*>(aux));
+    if constexpr (SRC == SRC_RESIDENT) {
+      load_resident(g, p, src.W, o0, sW);
+    } else if constexpr (D == D8) {
+      regenerate_d8<SRC>(s, g, p, scratch, vk, hq, o0, src, sW,
+                         reinterpret_cast<uint32_t*>(aux));
     } else {
-      regenerate_any<KIND>(words, s, g, p, hq, hm, o0, sW);
+      regenerate_any<KIND, SRC>(words, s, g, p, hq, hm, pw, src, o0, sW);
     }
     walk<ALL_FLUSH>(X, Y, B, s.rows_per_window, g, p, o0, sW, aux);
   }
@@ -362,7 +435,7 @@ serve_matmul_kernel(const void* __restrict__ words, uint32_t step,
 template <int KIND>
 __global__ void edges_kernel(const void* __restrict__ words, uint32_t step,
                              const long long* __restrict__ rows, int R,
-                             qz::SpecArgs s, int* __restrict__ idx,
+                             qz::SpecArgs s, qz::PackedWidth pw, int* __restrict__ idx,
                              uint8_t* __restrict__ bits, float* __restrict__ vals,
                              float* __restrict__ w) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
@@ -375,10 +448,45 @@ __global__ void edges_kernel(const void* __restrict__ words, uint32_t step,
   for (int k = 0; k < s.d; ++k) {
     const uint32_t ix = e.index(k, s.window);
     idx[j * s.d + k] = static_cast<int>(ix);
-    bits[j * s.d + k] = qz::mask_bit<KIND>(words, hm, wbase + ix) ? 1 : 0;
+    bits[j * s.d + k] = qz::mask_bit<KIND>(words, hm, wbase + ix, pw) ? 1 : 0;
     vals[j * s.d + k] = e.value(k, s.sigma);
   }
-  w[j] = qz::edge_weight<KIND>(s, hq, hm, words, r);
+  w[j] = qz::edge_weight<KIND>(s, hq, hm, words, r, pw);
+}
+
+// The geometry of a tile fill: a group's rows, the leaf's, a block's.
+struct FillArgs {
+  uint32_t sub;  // rows of a group: d_in * d_out
+  uint32_t m;    // rows of the leaf
+  uint32_t bm;   // rows of a canonical block
+  uint32_t bpw;  // canonical blocks a window
+};
+
+// The tile fill: a CTA a tile (group groups_idx[t], canonical block
+// blocks[t]), a thread a lane, out[t * bm + lane] = the row's weight as
+// the plain path computes it (qz::edge_weight_plain, the sign of zero
+// included), +0 at a lane past the group, the window or the leaf.
+template <int KIND>
+__global__ void fill_tiles_kernel(const void* __restrict__ words, uint32_t step,
+                                  const int* __restrict__ groups_idx,
+                                  const int* __restrict__ blocks, qz::SpecArgs s,
+                                  FillArgs f, qz::PackedWidth pw,
+                                  float* __restrict__ out) {
+  const uint32_t tile = blockIdx.x, lane = threadIdx.x;
+  const uint64_t row_offset = static_cast<uint64_t>(groups_idx[tile]) * f.sub;
+  const uint32_t t = static_cast<uint32_t>(blocks[tile]);
+  const uint32_t j = t % f.bpw;
+  const uint64_t r = (row_offset / s.rows_per_window + t / f.bpw) * s.rows_per_window +
+                     j * f.bm + lane;
+  const bool live = r >= row_offset && r < row_offset + f.sub &&
+                    j * f.bm + lane < s.rows_per_window && r < f.m;
+  float w = 0.0f;
+  if (live) {
+    w = qz::edge_weight_plain<KIND>(s, qz::prefix2(s.seed, s.tensor_id),
+                                    qz::mask_prefix(s.seed, s.tensor_id, step), words,
+                                    static_cast<uint32_t>(r), pw);
+  }
+  out[static_cast<size_t>(tile) * f.bm + lane] = w;
 }
 
 // qz::log_unit, sqrt_nonneg, cos_small and gaussian_from_u32 against logf,
@@ -402,11 +510,11 @@ __global__ void gauss_check_kernel(unsigned long long* __restrict__ out) {
   }
 }
 
-// The cooperative grid of an instance at this shared memory: one CTA per
-// slot the card holds (the attribute raised first where it passes 48 KB).
-template <int KIND, int D, bool ALL_FLUSH>
+// The grid of an instance at this shared memory: one CTA per slot the
+// card holds (the attribute raised first where it passes 48 KB).
+template <int KIND, int D, bool ALL_FLUSH, int SRC>
 cudaError_t grid_of(size_t smem, int* ctas) {
-  auto* kernel = serve_matmul_kernel<KIND, D, ALL_FLUSH>;
+  auto* kernel = serve_matmul_kernel<KIND, D, ALL_FLUSH, SRC>;
   static size_t allowed = 48 * 1024;  // raised once per instance, as needed
   // the CTAs an SM holds at each shared memory asked about (a few sizes:
   // the engine's shapes at its batch sizes)
@@ -440,14 +548,17 @@ cudaError_t grid_of(size_t smem, int* ctas) {
   return *ctas > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;  // no CTA fits an SM
 }
 
-// A cooperative launch on the grid of grid_of.
-template <int KIND, int D, bool ALL_FLUSH>
+// A launch on the grid of grid_of: cooperative where a mask phase comes
+// first (REGEN, CACHED); RESIDENT zeroes the tile counter and launches
+// plainly.
+template <int KIND, int D, bool ALL_FLUSH, int SRC>
 cudaError_t launch(size_t smem, cudaStream_t st, const void* words,
                    uint32_t step, const float* X, float* Y, int B,
                    const qz::SpecArgs& s, const GroupArgs& g, const Plan& p,
+                   const qz::PackedWidth& pw, const Sources& src,
                    uint32_t* scratch) {
   int ctas = 0;
-  const cudaError_t rc = grid_of<KIND, D, ALL_FLUSH>(smem, &ctas);
+  cudaError_t rc = grid_of<KIND, D, ALL_FLUSH, SRC>(smem, &ctas);
   if (rc != cudaSuccess) return rc;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeCooperative;
@@ -459,37 +570,62 @@ cudaError_t launch(size_t smem, cudaStream_t st, const void* words,
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, serve_matmul_kernel<KIND, D, ALL_FLUSH>, words,
-                            step, X, Y, B, s, g, p, scratch);
+  if (SRC == SRC_RESIDENT) {
+    rc = cudaMemsetAsync(scratch + (g.n_coords + 31u) / 32u, 0, sizeof(uint32_t), st);
+    if (rc != cudaSuccess) return rc;
+    cfg.numAttrs = 0;
+  }
+  return cudaLaunchKernelEx(&cfg, serve_matmul_kernel<KIND, D, ALL_FLUSH, SRC>, words,
+                            step, X, Y, B, s, g, p, pw, src, scratch);
 }
 
-template <int KIND, int D, bool ALL_FLUSH>
+template <int KIND, int D, bool ALL_FLUSH, int SRC>
 struct Launch {
   template <typename... A>
-  static cudaError_t run(A... args) { return launch<KIND, D, ALL_FLUSH>(args...); }
+  static cudaError_t run(A... args) { return launch<KIND, D, ALL_FLUSH, SRC>(args...); }
 };
 
-template <int KIND, int D, bool ALL_FLUSH>
+template <int KIND, int D, bool ALL_FLUSH, int SRC>
 struct Grid {
-  static cudaError_t run(size_t smem, int* ctas) { return grid_of<KIND, D, ALL_FLUSH>(smem, ctas); }
+  static cudaError_t run(size_t smem, int* ctas) {
+    return grid_of<KIND, D, ALL_FLUSH, SRC>(smem, ctas);
+  }
 };
 
-// F<KIND, D, ALL_FLUSH>::run(args...) for the instance the constants name.
-template <template <int, int, bool> class F, typename... A>
-cudaError_t dispatch(const ServeConsts& c, A... args) {
-  const bool d8 = c.d == D8, all = c.all_flush != 0;
+// F<KIND, D, ALL_FLUSH, SRC>::run(args...) for the instance the constants
+// name.  RESIDENT reads no words and draws no bits: one instance per
+// ALL_FLUSH.
+template <template <int, int, bool, int> class F, int KIND, int SRC, typename... A>
+cudaError_t dispatch_shape(const ServeConsts& c, A... args) {
+  const bool all = c.all_flush != 0;
+  if (c.d == D8) {
+    return all ? F<KIND, D8, true, SRC>::run(args...) : F<KIND, D8, false, SRC>::run(args...);
+  }
+  return all ? F<KIND, 0, true, SRC>::run(args...) : F<KIND, 0, false, SRC>::run(args...);
+}
+
+template <template <int, int, bool, int> class F, int SRC, typename... A>
+cudaError_t dispatch_kind(const ServeConsts& c, A... args) {
   switch (c.kind) {
-    case qz::KIND_F32:
-      return d8 ? (all ? F<qz::KIND_F32, D8, true>::run(args...) : F<qz::KIND_F32, D8, false>::run(args...))
-                : (all ? F<qz::KIND_F32, 0, true>::run(args...) : F<qz::KIND_F32, 0, false>::run(args...));
-    case qz::KIND_U8:
-      return d8 ? (all ? F<qz::KIND_U8, D8, true>::run(args...) : F<qz::KIND_U8, D8, false>::run(args...))
-                : (all ? F<qz::KIND_U8, 0, true>::run(args...) : F<qz::KIND_U8, 0, false>::run(args...));
-    case qz::KIND_U16:
-      return d8 ? (all ? F<qz::KIND_U16, D8, true>::run(args...) : F<qz::KIND_U16, D8, false>::run(args...))
-                : (all ? F<qz::KIND_U16, 0, true>::run(args...) : F<qz::KIND_U16, 0, false>::run(args...));
-    default:
-      return cudaErrorInvalidValue;
+    case qz::KIND_F32: return dispatch_shape<F, qz::KIND_F32, SRC>(c, args...);
+    case qz::KIND_U8: return dispatch_shape<F, qz::KIND_U8, SRC>(c, args...);
+    case qz::KIND_U16: return dispatch_shape<F, qz::KIND_U16, SRC>(c, args...);
+    case qz::KIND_P4: return dispatch_shape<F, qz::KIND_P4, SRC>(c, args...);
+    case qz::KIND_P2: return dispatch_shape<F, qz::KIND_P2, SRC>(c, args...);
+    case qz::KIND_PB: return dispatch_shape<F, qz::KIND_PB, SRC>(c, args...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <template <int, int, bool, int> class F, typename... A>
+cudaError_t dispatch(const ServeConsts& c, A... args) {
+  switch (c.src) {
+    case SRC_REGEN: return dispatch_kind<F, SRC_REGEN>(c, args...);
+    case SRC_CACHED: return dispatch_kind<F, SRC_CACHED>(c, args...);
+    case SRC_RESIDENT:
+      return c.all_flush ? F<qz::KIND_F32, 0, true, SRC_RESIDENT>::run(args...)
+                         : F<qz::KIND_F32, 0, false, SRC_RESIDENT>::run(args...);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -505,6 +641,16 @@ qz::SpecArgs spec_args(unsigned seed, unsigned tensor_id, int window,
   return s;
 }
 
+// The packed width a KIND_PB operand of b-bit words needs (the others fix
+// theirs at compile time); 0 when b is outside [1, 16].
+bool width_of(int kind, int bits, qz::PackedWidth* pw) {
+  *pw = qz::PackedWidth{};
+  if (kind != qz::KIND_PB) return true;
+  if (bits < 1 || bits > 16) return false;
+  *pw = qz::packed_width(static_cast<uint32_t>(bits));
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -512,15 +658,20 @@ extern "C" {
 // Y (B, d_out) = X (B, d_in) @ W_g for the group whose rows start at
 // row_offset, with constants c; w0 and n_coords: the group's first window
 // and its windows' coordinates; scratch holds ceil(n_coords / 32) + 1
-// words.  Returns the cudaError_t of the launch (an attribute or a
-// cooperative launch the card refuses included).
+// words.  W: the resident leaf (c->src RESIDENT); pool, slots and bm: the
+// tile pool and the group's slot map (CACHED).  Returns the cudaError_t
+// of the launch (an attribute or a cooperative launch the card refuses
+// included).
 int qz_serve_matmul(const void* words, unsigned step, const float* X, float* Y,
                     int B, unsigned row_offset, unsigned w0, unsigned n_coords,
-                    unsigned* scratch, const ServeConsts* c, void* stream) {
+                    unsigned* scratch, const ServeConsts* c, const float* W,
+                    const float* pool, const int* slots, unsigned bm, void* stream) {
   if (c->co < 1 || (c->co & (c->co - 1)) || c->rows < c->d_in || c->rows % 8 ||
       c->chunk < 8 || c->chunk % 8) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  qz::PackedWidth pw;
+  if (!width_of(c->kind, c->qbits, &pw)) return static_cast<int>(cudaErrorInvalidValue);
   const qz::SpecArgs s = spec_args(c->seed, c->tensor_id, c->window,
                                    c->rows_per_window, c->d, c->sigma);
   GroupArgs g;
@@ -538,9 +689,14 @@ int qz_serve_matmul(const void* words, unsigned step, const float* X, float* Y,
   p.tiles = (c->d_out + c->co - 1) / c->co;
   p.rows = c->rows;
   p.chunk = c->chunk;
+  Sources src;
+  src.W = W;
+  src.pool = pool;
+  src.slots = slots;
+  src.bm = bm;
   const cudaError_t rc = dispatch<Launch>(
       *c, static_cast<size_t>(c->smem), static_cast<cudaStream_t>(stream), words,
-      static_cast<uint32_t>(step), X, Y, B, s, g, p, scratch);
+      static_cast<uint32_t>(step), X, Y, B, s, g, p, pw, src, scratch);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   return static_cast<int>(cudaGetLastError());
 }
@@ -556,27 +712,59 @@ int qz_gauss_check(unsigned long long* out, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int qz_edges(const void* words, int kind, unsigned step, const long long* rows,
-             int R, unsigned seed, unsigned tensor_id, int window,
-             unsigned rows_per_window, int d, float sigma, int* idx,
-             unsigned char* bits, float* vals, float* w, void* stream) {
+int qz_edges(const void* words, int kind, int bits, unsigned step,
+             const long long* rows, int R, unsigned seed, unsigned tensor_id,
+             int window, unsigned rows_per_window, int d, float sigma, int* idx,
+             unsigned char* bits_out, float* vals, float* w, void* stream) {
+  qz::PackedWidth pw;
+  if (!width_of(kind, bits, &pw)) return static_cast<int>(cudaErrorInvalidValue);
   const qz::SpecArgs s = spec_args(seed, tensor_id, window, rows_per_window, d, sigma);
   const int threads = 128;
   const dim3 grid((R + threads - 1) / threads);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define QZ_EDGES(K) \
+  edges_kernel<K><<<grid, threads, 0, st>>>(words, step, rows, R, s, pw, idx, bits_out, vals, w)
   switch (kind) {
-    case qz::KIND_F32:
-      edges_kernel<qz::KIND_F32><<<grid, threads, 0, st>>>(words, step, rows, R, s, idx, bits, vals, w);
-      break;
-    case qz::KIND_U8:
-      edges_kernel<qz::KIND_U8><<<grid, threads, 0, st>>>(words, step, rows, R, s, idx, bits, vals, w);
-      break;
-    case qz::KIND_U16:
-      edges_kernel<qz::KIND_U16><<<grid, threads, 0, st>>>(words, step, rows, R, s, idx, bits, vals, w);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case qz::KIND_F32: QZ_EDGES(qz::KIND_F32); break;
+    case qz::KIND_U8: QZ_EDGES(qz::KIND_U8); break;
+    case qz::KIND_U16: QZ_EDGES(qz::KIND_U16); break;
+    case qz::KIND_P4: QZ_EDGES(qz::KIND_P4); break;
+    case qz::KIND_P2: QZ_EDGES(qz::KIND_P2); break;
+    case qz::KIND_PB: QZ_EDGES(qz::KIND_PB); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef QZ_EDGES
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out (T, bm) = the weights of T canonical blocks (groups_idx, blocks:
+// (T,) int32), fill_tiles_kernel; sub = d_in * d_out of a group, m the
+// leaf's rows, bpw its canonical blocks a window; bm <= 1024.
+int qz_fill_tiles(const void* words, int kind, int bits, unsigned step,
+                  const int* groups_idx, const int* blocks, int T, unsigned seed,
+                  unsigned tensor_id, int window, unsigned rows_per_window, int d,
+                  float sigma, unsigned sub, unsigned m, unsigned bm, unsigned bpw,
+                  float* out, void* stream) {
+  qz::PackedWidth pw;
+  if (!width_of(kind, bits, &pw) || bm < 1 || bm > 1024) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (T == 0) return static_cast<int>(cudaSuccess);
+  const qz::SpecArgs s = spec_args(seed, tensor_id, window, rows_per_window, d, sigma);
+  const FillArgs f{sub, m, bm, bpw};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define QZ_FILL(K) \
+  fill_tiles_kernel<K><<<T, bm, 0, st>>>(words, step, groups_idx, blocks, s, f, pw, out)
+  switch (kind) {
+    case qz::KIND_F32: QZ_FILL(qz::KIND_F32); break;
+    case qz::KIND_U8: QZ_FILL(qz::KIND_U8); break;
+    case qz::KIND_U16: QZ_FILL(qz::KIND_U16); break;
+    case qz::KIND_P4: QZ_FILL(qz::KIND_P4); break;
+    case qz::KIND_P2: QZ_FILL(qz::KIND_P2); break;
+    case qz::KIND_PB: QZ_FILL(qz::KIND_PB); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef QZ_FILL
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -35,7 +35,13 @@ no vmap rules to install.
 SERVE HALF.  Every zampled linear of the serving engine calls
 ``serve_matmul`` (or ``serve_matvec`` at B=1); each regenerates the
 group's Q edges, draws the mask bits straight from the encoded score
-words, and contracts against the activations.  Impl dispatch:
+words (f32, u8/u16, or a packed codec's uint32 lanes), and contracts
+against the activations.  The load mode's ``serve_resident_*`` read
+the weights from a reconstructed leaf instead, and the cached mode's
+``serve_cached_*`` from the hot-block tile pool where a block has a
+slot (``serve_fill_tiles`` fills it); the three are one kernel with a
+weight source, and one plain tree (``serve_contract_plain``).  Impl
+dispatch:
 ``"cuda"`` is the CUDA kernel (``kernels.qz_decode``), ``"chunked"``
 the plain torch path below.  With no impl given (and no
 ``REPRO_SERVE_IMPL`` override) a CUDA tensor goes to the kernel and a
@@ -57,6 +63,14 @@ exact zeros there, so both trees give the same values.  Each edge
 weight ``sum_k vals_k * bit_k`` also sums in ascending k.  The plain
 path and the kernel compute exactly this, so they agree bit for bit,
 and a batch row's result does not depend on the batch size.
+
+THE SIGN OF ZERO.  A weight whose products are all +-0 (no edge drawn)
+is -0 in the plain path iff every product is -0 (a negative value times
+a 0 bit); the fill kernel and kernel 7 keep that rule, so pool tiles
+and resident leaves equal their plain versions by bits.  The serve
+kernel's own regeneration adds +0 for an undrawn edge instead.  Y does
+not see the difference: its sums start at +0, so a ±0 product leaves a
+sum as it is, and Y is never -0.
 """
 
 from __future__ import annotations
@@ -66,7 +80,8 @@ from typing import Optional
 
 import torch
 
-from ..comm.bitpack import pack_mask, packed_word_len, unpack_words
+from ..comm.bitpack import (pack_mask, packed_word_len, unpack_words,
+                            words_per_lane)
 from ..core.hashrng import bernoulli_u32
 from ..core.qspec import QSpec, row_indices, row_values
 from ..core.reconstruct import (_insert_padding_batched, _move_batched,
@@ -394,132 +409,355 @@ def serve_block_of(spec: QSpec, rows: torch.Tensor, bm: int) -> torch.Tensor:
     return win * bpw + (rows - win * spec.rows_per_window) // bm
 
 
-def serve_operand(words: torch.Tensor, qbits: Optional[int]) -> torch.Tensor:
+def serve_operand(words: torch.Tensor, qbits: Optional[int],
+                  qpacked: bool = False) -> torch.Tensor:
     """The kernel's score operand: f32 scores clipped to probabilities,
-    or the codec's uint8/uint16 words as they are."""
+    the codec's uint8/uint16 words, or (``qpacked``) a packed codec's
+    uint32 lanes, as they are."""
     if qbits is None:
+        if qpacked:
+            raise ValueError("qpacked requires qbits (a packed codec width)")
         return torch.clamp(words.to(torch.float32), 0.0, 1.0)
-    want = {8: torch.uint8, 16: torch.uint16}.get(qbits)
-    if want is None:
-        raise NotImplementedError(
-            f"{qbits}-bit words: the packed sub-byte carry is not ported "
-            "yet; the port serves f32, u16 and u8")
+    if qpacked:
+        words_per_lane(int(qbits))  # b in [1, 16]
+        want = torch.uint32
+    else:
+        want = {8: torch.uint8, 16: torch.uint16}.get(qbits)
+        if want is None:
+            raise ValueError(f"{qbits}-bit words are carried packed: pass "
+                             "qpacked=True with the uint32 lanes")
     if words.dtype != want:
-        raise ValueError(f"{qbits}-bit words must be {want}, got "
-                         f"{words.dtype}")
+        raise ValueError(f"{qbits}-bit {'lanes' if qpacked else 'words'} "
+                         f"must be {want}, got {words.dtype}")
     return words
 
 
-def serve_edge_bits(spec: QSpec, p: torch.Tensor, step,
-                    rows: torch.Tensor, qbits: Optional[int]) -> torch.Tensor:
+def _edge_words(p: torch.Tensor, coords: torch.Tensor, qbits: int,
+                qpacked: bool) -> torch.Tensor:
+    """The b-bit word (int64) at each coordinate: a word array indexed,
+    or each coordinate's lane ``coords // wpl`` gathered (through an
+    int32 view) and its word shifted out; no per-coordinate slab."""
+    if not qpacked:
+        return word_values(p)[coords]
+    wpl = words_per_lane(qbits)
+    lanes = p.view(torch.int32)[coords // wpl].to(torch.int64) & 0xFFFFFFFF
+    return (lanes >> (qbits * (coords % wpl))) & ((1 << qbits) - 1)
+
+
+def drawn_bits_at(spec: QSpec, p: torch.Tensor, step, coords: torch.Tensor,
+                  qbits: Optional[int], qpacked: bool = False) -> torch.Tensor:
+    """The serve kernels' draw: the mask bit (bool) at each global z
+    coordinate in ``coords`` (int64, any shape), from the score operand
+    ``p`` (``serve_operand``).  The one statement of the rule that the
+    edge bits, the tile fill and a delta's flip map share."""
+    u = mask_u32(spec.seed, spec.tensor_id, as_word(step), coords)
+    if qbits is None:
+        return bernoulli_u32(u, p[coords]) > 0
+    return (u >> 8) < quant_threshold_u24(
+        _edge_words(p, coords, qbits, qpacked), qbits)
+
+
+def serve_edge_bits(spec: QSpec, p: torch.Tensor, step, rows: torch.Tensor,
+                    qbits: Optional[int],
+                    qpacked: bool = False) -> torch.Tensor:
     """The mask bit (float32 0/1, ``(..., d)``) of each Q edge of the
     flat rows ``rows``, drawn from the score operand ``p``
     (``serve_operand``) at the edge's global z coordinate."""
     rows = rows.to(torch.int64)
     idx = row_indices(spec, rows)
-    coords = (rows // spec.rows_per_window)[..., None] * spec.window + idx
-    u = mask_u32(spec.seed, spec.tensor_id, as_word(step), coords)
-    if qbits is None:
-        return bernoulli_u32(u, p[coords])
-    thr = quant_threshold_u24(word_values(p)[coords], qbits)
-    return ((u >> 8) < thr).to(torch.float32)
+    win = rows // spec.rows_per_window
+    coords = win[..., None] * spec.window + idx
+    if not rows.is_cuda and rows.numel():
+        # each coordinate is read by many edges: on the host, draw the
+        # rows' windows once and gather (the same bits, far fewer hashes)
+        lo = int(win.min()) * spec.window
+        hi = (int(win.max()) + 1) * spec.window
+        if hi - lo < coords.numel():
+            span = torch.arange(lo, hi, dtype=torch.int64)
+            bits = drawn_bits_at(spec, p, step, span, qbits, qpacked)
+            return bits[coords - lo].to(torch.float32)
+    return drawn_bits_at(spec, p, step, coords, qbits,
+                         qpacked).to(torch.float32)
 
 
 def serve_edge_weights(spec: QSpec, p: torch.Tensor, step,
-                       rows: torch.Tensor, qbits: Optional[int]):
+                       rows: torch.Tensor, qbits: Optional[int],
+                       qpacked: bool = False):
     """Streamed weight values at flat rows ``rows``: the rows' Q values
     times their edges' mask bits, summed in ascending k."""
     prod = row_values(spec, rows) * serve_edge_bits(spec, p, step, rows,
-                                                   qbits)
+                                                   qbits, qpacked)
     acc = prod[..., 0]
     for k in range(1, spec.d):
         acc = acc + prod[..., k]
     return acc
 
 
-def serve_contract_plain(spec: QSpec, p: torch.Tensor, step,
+def _block_coords(spec: QSpec, rows: torch.Tensor, w0: int, bm: int):
+    """(t, lane) of flat rows: the canonical block index relative to the
+    group's first window ``w0`` (the slot map's column) and the row's
+    place in its block (the pool row's column)."""
+    rpw = spec.rows_per_window
+    bpw = max(1, -(-rpw // bm))
+    win = rows // rpw
+    within = rows - win * rpw
+    return (win - w0) * bpw + within // bm, within % bm
+
+
+def _plain_weights(spec: QSpec, rows: torch.Tensor, p, step, qbits, qpacked,
+                   W, pool, slots, w0: int, bm: int) -> torch.Tensor:
+    """Weights at flat rows from one of the three sources: regenerated
+    from the words, read from a resident leaf ``W``, or read from the
+    tile pool where the row's block has a slot and regenerated where it
+    has none."""
+    if W is not None:
+        return W.reshape(-1)[rows]
+    if pool is None:
+        return serve_edge_weights(spec, p, step, rows, qbits, qpacked)
+    t, lane = _block_coords(spec, rows, w0, bm)
+    slot = slots.to(torch.int64)[t]
+    hit = slot >= 0
+    out = torch.empty(rows.shape, dtype=torch.float32, device=rows.device)
+    out[hit] = pool[slot[hit], lane[hit]]
+    if not bool(hit.all()):
+        out[~hit] = serve_edge_weights(spec, p, step, rows[~hit], qbits,
+                                       qpacked)
+    return out
+
+
+def serve_contract_plain(spec: QSpec, p: Optional[torch.Tensor], step,
                          X: torch.Tensor, row_offset: int, d_in: int,
                          d_out: int, qbits: Optional[int],
-                         bm: int = SERVE_BM) -> torch.Tensor:
+                         bm: int = SERVE_BM, *, qpacked: bool = False,
+                         W: Optional[torch.Tensor] = None,
+                         pool: Optional[torch.Tensor] = None,
+                         slots: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain torch version of the serve kernels: (B, d_in) -> (B,
-    d_out) through the canonical tree, regenerating the weights a few
-    input rows at a time."""
+    d_out) through the canonical tree, the weights taken a few input
+    rows at a time from one source: regenerated from the operand ``p``
+    (streaming), read from the resident leaf ``W`` (load), or from the
+    tile ``pool`` by the group's ``slots`` map with the rest regenerated
+    (cached).  One tree for the three, so they give the same bits."""
     dev = X.device
     X = X.to(torch.float32)
     B = X.shape[0]
     y = torch.zeros((B, d_out), dtype=torch.float32, device=dev)
     part = torch.zeros_like(y)
     cols = torch.arange(d_out, dtype=torch.int64, device=dev)
+    w0 = row_offset // spec.rows_per_window
     step_rows = max(1, _CHUNK_EDGES // (d_out * spec.d))
     for i0 in range(0, d_in, step_rows):
         i1 = min(d_in, i0 + step_rows)
         ii = torch.arange(i0, i1, dtype=torch.int64, device=dev)
         rows = row_offset + ii[:, None] * d_out + cols  # (ci, d_out)
-        W = serve_edge_weights(spec, p, step, rows, qbits)
+        Wc = _plain_weights(spec, rows, p, step, qbits, qpacked, W, pool,
+                            slots, w0, bm)
         blk = serve_block_of(spec, rows, bm)
         nxt = serve_block_of(spec, rows + d_out, bm)
         flush = (blk != nxt) | (ii[:, None] == d_in - 1)
         for c in range(i1 - i0):
-            part = part + X[:, i0 + c, None] * W[c]
+            part = part + X[:, i0 + c, None] * Wc[c]
             y = torch.where(flush[c], y + part, y)
             part = torch.where(flush[c], 0.0, part)
     return y
 
 
-def _contract(spec: QSpec, words, step, X, group: int,
-              qbits: Optional[int], impl: Optional[str], bm: int, single):
+def _group_rows(spec: QSpec, group: int, X: torch.Tensor):
+    """(row_offset, d_in, d_out) of ``group``, checked against X."""
     groups, d_in, d_out = serve_group_dims(spec)
     if not 0 <= group < groups:
         raise ValueError(f"group {group} out of range [0, {groups})")
     if X.shape[-1] != d_in:
         raise ValueError(f"activation has trailing dim {X.shape[-1]}, spec "
                          f"group expects d_in={d_in}")
-    if words.device != X.device:
-        raise ValueError(f"words on {words.device}, activations on "
-                         f"{X.device}")
+    return group * d_in * d_out, d_in, d_out
+
+
+def _same_device(a: torch.Tensor, X: torch.Tensor, what: str) -> None:
+    if a.device != X.device:
+        raise ValueError(f"{what} on {a.device}, activations on {X.device}")
+
+
+def _contract(spec: QSpec, words, step, X, group: int,
+              qbits: Optional[int], qpacked: bool, impl: Optional[str],
+              bm: int, single: bool):
+    row_offset, d_in, d_out = _group_rows(spec, group, X)
+    _same_device(words, X, "words")
     impl = resolve_serve_impl(impl, X)
-    row_offset = group * d_in * d_out
-    p = serve_operand(words, qbits)
+    p = serve_operand(words, qbits, qpacked)
     if impl == "cuda":
         from . import qz_decode
 
         fn = qz_decode.qz_sample_matvec if single else qz_decode.qz_sample_matmul
         return fn(spec, p, step, X, row_offset=row_offset, d_in=d_in,
-                  d_out=d_out, qbits=qbits, bm=bm)
+                  d_out=d_out, qbits=qbits, qpacked=qpacked, bm=bm)
     Xb = X[None] if single else X
     y = serve_contract_plain(spec, p, step, Xb, row_offset, d_in, d_out,
-                             qbits, bm)
+                             qbits, bm, qpacked=qpacked)
     return y[0] if single else y
+
+
+def _check_rank(X, ndim: int, name: str):
+    if X.ndim != ndim:
+        want = "x (d_in,)" if ndim == 1 else "X (B, d_in)"
+        raise ValueError(f"{name} takes {want}, got {tuple(X.shape)}")
 
 
 def serve_matvec(spec: QSpec, words: torch.Tensor, step, x: torch.Tensor, *,
                  group: int = 0, qbits: Optional[int] = None,
-                 impl: Optional[str] = None, bm: int = SERVE_BM):
+                 qpacked: bool = False, impl: Optional[str] = None,
+                 bm: int = SERVE_BM):
     """Streamed y = x @ W_g: encoded words + x (d_in,) -> (d_out,) f32.
 
-    ``words``: f32 scores (clipped in-op), or the codec's uint8/uint16
-    words with ``qbits`` set.  ``step`` is the draw word; ``group``
-    selects the stacked layer.
+    ``words``: f32 scores (clipped in-op), the codec's uint8/uint16
+    words with ``qbits`` set, or a packed codec's uint32 lanes with
+    ``qpacked`` too (each edge reads lane ``coord // wpl``).  ``step``
+    is the draw word; ``group`` selects the stacked layer.
     """
-    if x.ndim != 1:
-        raise ValueError(f"serve_matvec takes x (d_in,), got {tuple(x.shape)}")
-    return _contract(spec, words, step, x, int(group), qbits, impl,
-                     int(bm), True)
+    _check_rank(x, 1, "serve_matvec")
+    return _contract(spec, words, step, x, int(group), qbits, bool(qpacked),
+                     impl, int(bm), True)
 
 
 def serve_matmul(spec: QSpec, words: torch.Tensor, step, X: torch.Tensor, *,
                  group: int = 0, qbits: Optional[int] = None,
-                 impl: Optional[str] = None, bm: int = SERVE_BM):
+                 qpacked: bool = False, impl: Optional[str] = None,
+                 bm: int = SERVE_BM):
     """Streamed Y = X @ W_g for a (B, d_in) batch -> (B, d_out) f32."""
-    if X.ndim != 2:
-        raise ValueError(f"serve_matmul takes X (B, d_in), got "
-                         f"{tuple(X.shape)}")
-    return _contract(spec, words, step, X, int(group), qbits, impl,
-                     int(bm), False)
+    _check_rank(X, 2, "serve_matmul")
+    return _contract(spec, words, step, X, int(group), qbits, bool(qpacked),
+                     impl, int(bm), False)
+
+
+def _resident(spec: QSpec, W: torch.Tensor, X, group: int, bm: int):
+    row_offset, d_in, d_out = _group_rows(spec, group, X)
+    _same_device(W, X, "W")
+    if W.numel() != spec.m or W.dtype != torch.float32:
+        raise ValueError(f"resident leaf must hold the spec's {spec.m} "
+                         f"float32 weights, got {tuple(W.shape)} {W.dtype}")
+    if X.is_cuda:
+        from . import qz_decode
+
+        return qz_decode.qz_resident_matmul(
+            spec, W, X, row_offset=row_offset, d_in=d_in, d_out=d_out, bm=bm)
+    return serve_contract_plain(spec, None, 0, X, row_offset, d_in, d_out,
+                                None, bm, W=W)
+
+
+def serve_resident_matvec(spec: QSpec, W: torch.Tensor, x: torch.Tensor, *,
+                          group: int = 0, bm: int = SERVE_BM):
+    """y = x @ W_g against a materialized leaf (load mode), through the
+    canonical tree, so it equals ``serve_matvec`` bit for bit: the
+    modes differ in where a weight comes from, not in how it is summed.
+    ``W``: the reconstructed leaf (``serve.state.reconstruct_resident``).
+    The matmul on ``x[None]``; a CUDA tensor runs the serve kernel's
+    resident source."""
+    _check_rank(x, 1, "serve_resident_matvec")
+    return _resident(spec, W, x[None], int(group), int(bm))[0]
+
+
+def serve_resident_matmul(spec: QSpec, W: torch.Tensor, X: torch.Tensor, *,
+                          group: int = 0, bm: int = SERVE_BM):
+    """Y = X @ W_g against a materialized leaf for a (B, d_in) batch."""
+    _check_rank(X, 2, "serve_resident_matmul")
+    return _resident(spec, W, X, int(group), int(bm))
+
+
+def serve_cached_matmul(spec: QSpec, words: torch.Tensor, step,
+                        X: torch.Tensor, pool: torch.Tensor,
+                        slots: torch.Tensor, *, group: int = 0,
+                        qbits: Optional[int] = None, qpacked: bool = False,
+                        bm: int = SERVE_BM):
+    """Streamed Y = X @ W_g with the hot-block cache in the loop.
+
+    ``pool`` (S, bm) f32 and ``slots`` (nblk,) int32 come from
+    ``serve.cache.HotBlockCache`` (its slot map of the leaf at
+    ``group``).  A block with a slot reads its weights from the pool,
+    the others regenerate them; both give the same values, and the
+    canonical tree sums them, so the result equals ``serve_matmul`` bit
+    for bit at every occupancy.  A CUDA tensor runs the serve kernel's
+    cached source."""
+    _check_rank(X, 2, "serve_cached_matmul")
+    group, bm = int(group), int(bm)
+    row_offset, d_in, d_out = _group_rows(spec, group, X)
+    for a, what in ((words, "words"), (pool, "pool"), (slots, "slots")):
+        _same_device(a, X, what)
+    _, nblk, _ = serve_block_grid(spec, bm, row_offset, d_in * d_out)
+    if tuple(slots.shape) != (nblk,):
+        raise ValueError(f"slots must be the group's ({nblk},) slot map, "
+                         f"got {tuple(slots.shape)}")
+    if pool.ndim != 2 or pool.shape[1] != bm or pool.dtype != torch.float32:
+        raise ValueError(f"pool must be (S, {bm}) float32, got "
+                         f"{tuple(pool.shape)} {pool.dtype}")
+    p = serve_operand(words, qbits, qpacked)
+    if X.is_cuda:
+        from . import qz_decode
+
+        return qz_decode.qz_cached_matmul(
+            spec, p, step, X, pool, slots, row_offset=row_offset, d_in=d_in,
+            d_out=d_out, qbits=qbits, qpacked=bool(qpacked), bm=bm)
+    return serve_contract_plain(spec, p, step, X, row_offset, d_in, d_out,
+                                qbits, bm, qpacked=bool(qpacked), pool=pool,
+                                slots=slots)
+
+
+def fill_tiles_plain(spec: QSpec, p: torch.Tensor, step,
+                     groups_idx: torch.Tensor, blocks: torch.Tensor,
+                     qbits: Optional[int], qpacked: bool = False,
+                     bm: int = SERVE_BM) -> torch.Tensor:
+    """The plain torch version of the tile fill: (T,) (group, canonical
+    block) pairs -> (T, bm) weights, exact +0.0 at dead lanes."""
+    _, d_in, d_out = serve_group_dims(spec)
+    sub = d_in * d_out
+    rpw = spec.rows_per_window
+    bpw = max(1, -(-rpw // bm))
+    g = groups_idx.to(device=p.device, dtype=torch.int64)
+    t = blocks.to(device=p.device, dtype=torch.int64)
+    row_offset = (g * sub)[:, None]
+    j = (t % bpw)[:, None]
+    lane = torch.arange(bm, dtype=torch.int64, device=g.device)
+    rows = ((row_offset // rpw) + (t // bpw)[:, None]) * rpw + j * bm + lane
+    live = ((rows >= row_offset) & (rows < row_offset + sub)
+            & (j * bm + lane < rpw) & (rows < spec.m))
+    rows = torch.where(live, rows, row_offset)  # a dead lane reads nothing
+    out = torch.empty(rows.shape, dtype=torch.float32, device=g.device)
+    per = max(1, _CHUNK_EDGES // (bm * spec.d))
+    for i0 in range(0, rows.shape[0], per):
+        w = serve_edge_weights(spec, p, step, rows[i0:i0 + per], qbits,
+                               qpacked)
+        out[i0:i0 + per] = torch.where(live[i0:i0 + per], w, 0.0)
+    return out
+
+
+def serve_fill_tiles(spec: QSpec, words: torch.Tensor, step,
+                     groups_idx: torch.Tensor, blocks: torch.Tensor, *,
+                     qbits: Optional[int] = None, qpacked: bool = False,
+                     bm: int = SERVE_BM) -> torch.Tensor:
+    """Batched tile fill: the weights of T canonical blocks, (T,) group
+    and (T,) block indices -> (T, bm) f32, exact +0.0 at dead lanes:
+    the values ``serve_matmul`` regenerates for those blocks, which the
+    hot-block cache writes into its pool.  A CUDA tensor runs the fill
+    kernel (one thread a (tile, lane))."""
+    g = torch.as_tensor(groups_idx)
+    t = torch.as_tensor(blocks)
+    if g.shape != t.shape or g.ndim != 1:
+        raise ValueError(f"groups_idx/blocks must be matching (T,) arrays, "
+                         f"got {tuple(g.shape)} vs {tuple(t.shape)}")
+    g = g.to(device=words.device, dtype=torch.int32)
+    t = t.to(device=words.device, dtype=torch.int32)
+    p = serve_operand(words, qbits, qpacked)
+    if p.is_cuda:
+        from . import qz_decode
+
+        return qz_decode.qz_fill_tiles(spec, p, step, g, t, qbits=qbits,
+                                       qpacked=bool(qpacked), bm=int(bm))
+    return fill_tiles_plain(spec, p, step, g, t, qbits, bool(qpacked),
+                            int(bm))
 
 
 def serve_embed_rows(spec: QSpec, words: torch.Tensor, step,
-                     tokens: torch.Tensor, *, qbits: Optional[int] = None):
+                     tokens: torch.Tensor, *, qbits: Optional[int] = None,
+                     qpacked: bool = False):
     """Streamed embedding rows: tokens (...) -> (..., d_model) f32.
 
     Row t of the (vocab, d_model) table is the flat-row run
@@ -530,7 +768,7 @@ def serve_embed_rows(spec: QSpec, words: torch.Tensor, step,
     if groups != 1:
         raise ValueError(f"serve_embed_rows addresses 2-D table leaves; "
                          f"spec shape {spec.shape} has {groups} groups")
-    p = serve_operand(words, qbits)
+    p = serve_operand(words, qbits, qpacked)
     cols = torch.arange(d_out, dtype=torch.int64, device=tokens.device)
     rows = tokens.to(torch.int64)[..., None] * d_out + cols
-    return serve_edge_weights(spec, p, step, rows, qbits)
+    return serve_edge_weights(spec, p, step, rows, qbits, qpacked)

@@ -19,22 +19,56 @@ deterministically on request).  Initial parameters come from numpy
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..core.zampling import LeafSpec, flatten
-from .attention import AttnDims, self_attention
+from . import attention as attn
+from .attention import AttnDims, KVCache, self_attention
 from .common import cross_entropy, linear, rms_norm, swiglu
 
 
 @dataclass(frozen=True)
 class Model:
-    """What the serving engine needs of a model: its config."""
+    """The dense decoder: its config, and single-token decoding over
+    dense parameters (a flat {path: leaf} dict, as
+    ``core.zampling.weights_from_masks`` returns it), in float32."""
 
     cfg: ArchConfig
+
+    def init_cache(self, params, batch_size: int, seq_len: int,
+                   device=None) -> KVCache:
+        """The (L, B, C, n_kv, hd) float32 KV cache at position 0, on
+        ``device``: by default where ``params`` live, or the card when
+        there are none (``params`` gives nothing else, as in the JAX
+        package)."""
+        if device is None:
+            leaf = next(iter(params.values()), None) if params else None
+            device = leaf.device if torch.is_tensor(leaf) else "cuda"
+        dims = attn_dims(self.cfg)
+        one = attn.init_cache(batch_size, seq_len, dims, torch.float32,
+                              device)
+        L = self.cfg.n_layers
+        return KVCache(k=one.k[None].repeat(L, 1, 1, 1, 1),
+                       v=one.v[None].repeat(L, 1, 1, 1, 1), pos=one.pos)
+
+    @torch.no_grad()
+    def decode_step(self, params: Dict[str, torch.Tensor], cache: KVCache,
+                    batch) -> tuple:
+        """One token a row: ``batch["tokens"]`` (B, 1) -> (logits (B, 1,
+        padded_vocab), cache), every leaf a dense tensor."""
+
+        def linear_fn(path, layer, x2d):
+            w = params[path]
+            return x2d @ (w[layer] if w.ndim == 3 else w).to(torch.float32)
+
+        x = params["embed"].to(torch.float32)[batch["tokens"]]
+        return decode_layers(self.cfg, x, cache, linear_fn,
+                             lambda p: params[p].to(torch.float32))
 
 
 def build_model(cfg: ArchConfig) -> Model:
@@ -56,6 +90,55 @@ def attn_dims(cfg: ArchConfig) -> AttnDims:
         rope_theta=cfg.rope_theta,
         causal=True,
     )
+
+
+def decode_layers(cfg: ArchConfig, x: torch.Tensor, cache: KVCache,
+                  linear_fn: Callable, dense: Callable,
+                  live: Optional[torch.Tensor] = None):
+    """The decoder's layers for one token a row, unrolled in Python:
+    embedded tokens x (B, 1, D) float32 -> (logits (B, 1, V), cache).
+
+    ``linear_fn(path, layer, x2d)`` is every projection, (B, d_in) ->
+    (B, d_out) float32 (the serving engine streams the zampled ones);
+    ``dense(path)`` a dense leaf (norms, biases).  A scalar
+    ``cache.pos`` is the single-request path, a (B,) one the per-lane
+    path with the optional (B,) ``live`` mask."""
+    dims = attn_dims(cfg)
+    B = x.shape[0]
+    lanes = cache.pos.ndim == 1
+    if lanes:
+        lv = (torch.ones((B,), dtype=torch.bool, device=x.device)
+              if live is None else live.to(torch.bool))
+        positions = cache.pos[:, None]
+    else:
+        positions = cache.pos.expand(B, 1)
+    extras = (["bq", "bk", "bv"] if dims.qkv_bias else []) + (
+        ["q_norm", "k_norm"] if dims.qk_norm else [])
+    nk, nv = [], []
+    new_pos = cache.pos
+    for l in range(cfg.n_layers):
+        h = rms_norm(x, dense("blocks/ln1")[l]).reshape(B, -1)
+        q = linear_fn("blocks/attn/wq", l, h)[:, None, :]
+        k = linear_fn("blocks/attn/wk", l, h)[:, None, :]
+        v = linear_fn("blocks/attn/wv", l, h)[:, None, :]
+        ap = {e: dense(f"blocks/attn/{e}")[l] for e in extras}
+        q, k, v = attn.finish_qkv(ap, q, k, v, dims, positions)
+        lc = KVCache(k=cache.k[l], v=cache.v[l], pos=cache.pos)
+        if lanes:
+            out, nc = attn.decode_attend_lanes(q, k, v, lc, dims, lv)
+        else:
+            out, nc = attn.decode_attend(q, k, v, lc, dims)
+        new_pos = nc.pos
+        x = x + linear_fn("blocks/attn/wo", l, out.reshape(B, -1))[:, None, :]
+        hm = rms_norm(x, dense("blocks/ln2")[l]).reshape(B, -1)
+        g = linear_fn("blocks/mlp/gate", l, hm)
+        u = linear_fn("blocks/mlp/up", l, hm)
+        x = x + linear_fn("blocks/mlp/down", l, F.silu(g) * u)[:, None, :]
+        nk.append(nc.k)
+        nv.append(nc.v)
+    x = rms_norm(x, dense("final_norm"))
+    logits = linear_fn("lm_head", 0, x.reshape(B, -1))[:, None, :]
+    return logits, KVCache(k=torch.stack(nk), v=torch.stack(nv), pos=new_pos)
 
 
 def param_template(cfg: ArchConfig) -> dict:

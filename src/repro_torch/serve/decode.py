@@ -1,10 +1,25 @@
 """Serving engine and generation driver (the JAX package's
-``serve/decode.py``, ``mode="streaming"``).
+``serve/decode.py``).
 
-Every zampled linear of the decode step contracts the activations
-against the encoded words through ``kernels.ops.serve_matmul`` (or
-``serve_matvec`` for a single request), so no weight tensor exists.
-Layers run in a Python loop, as in JAX, where they are unrolled.
+Three ways to source a zampled linear's weights at decode time, one
+engine and one canonical contraction:
+
+- ``mode="load"``: every zampled leaf reconstructed once
+  (``serve.state.reconstruct_resident``, kernel 7 on the card) and read
+  by ``ops.serve_resident_matmul``: fast, but 32 bits a weight.
+- ``mode="streaming"``: the node holds only the encoded words; every
+  linear calls ``ops.serve_matmul`` (``serve_matvec`` at B=1), which
+  regenerates the weights inside the contraction.  No weight tensor
+  exists.
+- ``mode="cached"``: streaming plus the hot-block tile pool
+  (``serve.cache``): a block with a slot reads its weights from the
+  pool, the others regenerate them (``ops.serve_cached_matmul``).
+
+All three walk the canonical tree with the same weight values, so they
+give the same logits bit for bit at any cache occupancy; on the card
+they are one kernel with three weight sources.  Layers run in a Python
+loop (``models.model.decode_layers``), as in JAX, where they are
+unrolled.
 
 Activations and the KV cache are float32.  The streamed projections
 return float32; the JAX engine writes them into the config's cache
@@ -12,7 +27,8 @@ dtype with a one-hot blend, which under ``jax.jit`` turns a bf16 cache
 into float32 after the first step.  The port keeps the cache float32
 from the start, which is what the JAX scheduler computes.
 
-``mode="load"`` and ``mode="cached"`` are not ported yet.
+Sampling is greedy: the JAX package's temperature sampling draws from
+``jax.random``, which has no torch twin.
 """
 
 from __future__ import annotations
@@ -20,30 +36,21 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
+from ..core.zampling import ZamplingSpecs, weights_from_masks
 from ..device import resolve_device
 from ..kernels import ops
-from ..models import attention as attn
 from ..models.attention import KVCache
-from ..models.common import rms_norm
-from ..models.model import Model, attn_dims
-from .state import ServeState
+from ..models.model import Model, decode_layers
+from .state import ServeState, reconstruct_resident
 
-_LATER_MODES = {
-    "load": "reconstruct-on-load serving comes with the load/cached slice "
-            "(kernel qz_sample_reconstruct_fwd)",
-    "cached": "the hot-block tile cache comes with the load/cached slice",
-}
+MODES = ("load", "streaming", "cached")
 _DENSE_ONLY = ("ln1", "ln2", "bq", "bk", "bv", "q_norm", "k_norm",
                "final_norm")
 
 
 def check_mode(mode: str) -> None:
-    if mode in _LATER_MODES:
-        raise NotImplementedError(f"mode={mode!r} is not ported yet: "
-                                  f"{_LATER_MODES[mode]}")
-    if mode != "streaming":
+    if mode not in MODES:
         raise ValueError(f"unknown serve mode {mode!r}")
 
 
@@ -52,9 +59,7 @@ def make_generator(step_fn, max_new_tokens: int):
 
     Returns ``run(arrays, cache, prompt) -> (new_tokens (B, N), cache)``:
     the prompt goes through the step token by token (building the KV
-    cache), then ``max_new_tokens`` are chosen by argmax.  (The JAX
-    driver's temperature sampling draws from ``jax.random`` and is not
-    ported.)
+    cache), then ``max_new_tokens`` are chosen by argmax.
     """
 
     @torch.no_grad()
@@ -71,12 +76,33 @@ def make_generator(step_fn, max_new_tokens: int):
     return run
 
 
+def generate(model: Model, params: Dict[str, torch.Tensor], prompt,
+             max_new_tokens: int, *, seq_len: Optional[int] = None,
+             device="cuda") -> torch.Tensor:
+    """Greedy generation from dense parameters ({path: leaf}); (B,
+    Sp+new) int64 tokens."""
+    dev = resolve_device(device)
+    prompt = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
+    B, Sp = prompt.shape
+    cache = model.init_cache(params, B, seq_len or (Sp + max_new_tokens),
+                             device=dev)
+
+    def step_fn(arrays, c, tok):
+        return model.decode_step(arrays, c, {"tokens": tok})
+
+    new, _ = make_generator(step_fn, max_new_tokens)(params, cache, prompt)
+    return torch.cat([prompt, new], dim=1)
+
+
 class ServeEngine(NamedTuple):
     """A serving plan for one (model, ServeState) pair.
 
     ``step(arrays, cache, tok (B, 1), live=None) -> (logits (B, 1, V),
     cache)``: a scalar ``cache.pos`` is the single-request path, a (B,)
     one the per-lane path with an optional (B,) ``live`` mask.
+    ``arrays_of(sstate, cache=None)`` builds the step's arrays for any
+    state of this engine's specs and codec (in cached mode merging the
+    hot-block cache's snapshot), which is the hot-swap path.
     """
 
     step: Callable[..., Any]
@@ -89,10 +115,11 @@ class ServeEngine(NamedTuple):
 def build_serve_engine(model: Model, sstate: ServeState, *,
                        mode: str = "streaming", impl: Optional[str] = None,
                        device="cuda") -> ServeEngine:
-    """Build the streaming decode step for a dense-family decoder.
+    """Build the decode step for a dense-family decoder in ``mode``.
 
-    ``impl`` picks the serve impl (``"cuda"`` or ``"chunked"``; default
-    by the tensors' device).  ``sstate`` must live on ``device``.
+    ``impl`` picks the streaming impl (``"cuda"`` or ``"chunked"``;
+    default by the tensors' device); the load and cached sources follow
+    the tensors' device.  ``sstate`` must live on ``device``.
     """
     check_mode(mode)
     dev = resolve_device(device)
@@ -100,17 +127,24 @@ def build_serve_engine(model: Model, sstate: ServeState, *,
         raise ValueError(f"serve state lives on {sstate.device}, engine "
                          f"asked for {dev}")
     cfg = model.cfg
-    dims = attn_dims(cfg)
-    L = cfg.n_layers
     specs = sstate.zspecs.specs
-    qbits = sstate.qbits
+    qbits, qpacked = sstate.qbits, sstate.qpacked
     for path in specs:
         if path.rsplit("/", 1)[-1] in _DENSE_ONLY:
             raise NotImplementedError(
                 f"engine expects bias/norm leaves dense, got zampled {path!r}")
 
-    def arrays_of(s: ServeState) -> Dict[str, Any]:
-        return s.arrays()
+    def arrays_of(s: ServeState, cache=None) -> Dict[str, Any]:
+        if mode == "load":
+            return {"weights": reconstruct_resident(s),
+                    "dense": dict(s.dense)}
+        out = s.arrays()
+        if mode == "cached":
+            if cache is None:
+                raise ValueError("mode='cached' needs the HotBlockCache: "
+                                 "arrays_of(sstate, cache=hot_block_cache)")
+            out.update(cache.arrays())
+        return out
 
     def linear(arrays, path, layer, x2d):
         """x2d (B, d_in) @ leaf[layer] -> (B, d_out) float32."""
@@ -118,68 +152,43 @@ def build_serve_engine(model: Model, sstate: ServeState, *,
         if spec is None:
             w = arrays["dense"][path]
             return x2d @ (w[layer] if w.ndim == 3 else w)
-        words, step = arrays["words"][path], arrays["step"]
-        if x2d.shape[0] == 1:
-            return ops.serve_matvec(spec, words, step, x2d[0], group=layer,
-                                    qbits=qbits, impl=impl)[None]
-        return ops.serve_matmul(spec, words, step, x2d, group=layer,
-                                qbits=qbits, impl=impl)
+        if mode == "load":
+            return ops.serve_resident_matmul(spec, arrays["weights"][path],
+                                             x2d, group=layer)
+        if mode == "cached":
+            return ops.serve_cached_matmul(
+                spec, arrays["words"][path], arrays["step"], x2d,
+                arrays["pool"], arrays["slots"][path][layer], group=layer,
+                qbits=qbits, qpacked=qpacked)
+        if x2d.shape[0] == 1:  # kernel 11, the B=1 form of kernel 12
+            return ops.serve_matvec(spec, arrays["words"][path],
+                                    arrays["step"], x2d[0], group=layer,
+                                    qbits=qbits, qpacked=qpacked,
+                                    impl=impl)[None]
+        return ops.serve_matmul(spec, arrays["words"][path], arrays["step"],
+                                x2d, group=layer, qbits=qbits,
+                                qpacked=qpacked, impl=impl)
 
     def embed_rows(arrays, tokens):
         spec = specs.get("embed")
         if spec is None:
             return arrays["dense"]["embed"][tokens]
+        if mode == "load":
+            return arrays["weights"]["embed"][tokens]
         return ops.serve_embed_rows(spec, arrays["words"]["embed"],
-                                    arrays["step"], tokens, qbits=qbits)
-
-    extras = (["bq", "bk", "bv"] if dims.qkv_bias else []) + (
-        ["q_norm", "k_norm"] if dims.qk_norm else [])
+                                    arrays["step"], tokens, qbits=qbits,
+                                    qpacked=qpacked)
 
     @torch.no_grad()
     def step(arrays, cache: KVCache, tokens, live=None):
         dense = arrays["dense"]
-        x = embed_rows(arrays, tokens)  # (B, 1, D)
-        B = x.shape[0]
-        lanes = cache.pos.ndim == 1
-        if lanes:
-            lv = (torch.ones((B,), dtype=torch.bool, device=x.device)
-                  if live is None else live.to(torch.bool))
-            positions = cache.pos[:, None]
-        else:
-            positions = cache.pos.expand(B, 1)
-        nk, nv = [], []
-        new_pos = cache.pos
-        for l in range(L):
-            h = rms_norm(x, dense["blocks/ln1"][l]).reshape(B, -1)
-            q = linear(arrays, "blocks/attn/wq", l, h)[:, None, :]
-            k = linear(arrays, "blocks/attn/wk", l, h)[:, None, :]
-            v = linear(arrays, "blocks/attn/wv", l, h)[:, None, :]
-            ap = {e: dense[f"blocks/attn/{e}"][l] for e in extras}
-            q, k, v = attn.finish_qkv(ap, q, k, v, dims, positions)
-            lc = KVCache(k=cache.k[l], v=cache.v[l], pos=cache.pos)
-            if lanes:
-                out, nc = attn.decode_attend_lanes(q, k, v, lc, dims, lv)
-            else:
-                out, nc = attn.decode_attend(q, k, v, lc, dims)
-            new_pos = nc.pos
-            x = x + linear(arrays, "blocks/attn/wo", l,
-                           out.reshape(B, -1))[:, None, :]
-            hm = rms_norm(x, dense["blocks/ln2"][l]).reshape(B, -1)
-            g = linear(arrays, "blocks/mlp/gate", l, hm)
-            u = linear(arrays, "blocks/mlp/up", l, hm)
-            x = x + linear(arrays, "blocks/mlp/down", l,
-                           F.silu(g) * u)[:, None, :]
-            nk.append(nc.k)
-            nv.append(nc.v)
-        x = rms_norm(x, dense["final_norm"])
-        logits = linear(arrays, "lm_head", 0, x.reshape(B, -1))[:, None, :]
-        return logits, KVCache(k=torch.stack(nk), v=torch.stack(nv),
-                               pos=new_pos)
+        return decode_layers(
+            cfg, embed_rows(arrays, tokens), cache,
+            lambda path, layer, x2d: linear(arrays, path, layer, x2d),
+            dense.__getitem__, live)
 
     def init_cache(batch_size: int, seq_len: int) -> KVCache:
-        one = attn.init_cache(batch_size, seq_len, dims, torch.float32, dev)
-        return KVCache(k=one.k[None].repeat(L, 1, 1, 1, 1),
-                       v=one.v[None].repeat(L, 1, 1, 1, 1), pos=one.pos)
+        return model.init_cache(None, batch_size, seq_len, device=dev)
 
     def init_lane_cache(lanes: int, seq_len: int) -> KVCache:
         c = init_cache(lanes, seq_len)
@@ -192,9 +201,11 @@ def build_serve_engine(model: Model, sstate: ServeState, *,
 
 def serve_generate(model: Model, sstate: ServeState, prompt, max_new_tokens: int,
                    *, mode: str = "streaming", impl: Optional[str] = None,
-                   seq_len: Optional[int] = None,
+                   seq_len: Optional[int] = None, cache=None,
                    device="cuda") -> torch.Tensor:
-    """Greedy generation from a ServeState; (B, Sp+new) int64 tokens."""
+    """Greedy generation from a ServeState; (B, Sp+new) int64 tokens.
+    ``mode="cached"`` serves through ``cache`` (a warmed
+    ``serve.cache.HotBlockCache``).  Every mode gives the same tokens."""
     engine = build_serve_engine(model, sstate, mode=mode, impl=impl,
                                 device=device)
     prompt = torch.as_tensor(prompt, dtype=torch.int64,
@@ -202,5 +213,16 @@ def serve_generate(model: Model, sstate: ServeState, prompt, max_new_tokens: int
     B, Sp = prompt.shape
     kv = engine.init_cache(B, seq_len or (Sp + max_new_tokens))
     run = make_generator(engine.step, max_new_tokens)
-    new, _ = run(engine.arrays_of(sstate), kv, prompt)
+    new, _ = run(engine.arrays_of(sstate, cache=cache), kv, prompt)
     return torch.cat([prompt, new], dim=1)
+
+
+def serve_from_compressed(model: Model, zspecs: ZamplingSpecs,
+                          masks: Dict[str, torch.Tensor],
+                          dense: Dict[str, torch.Tensor], prompt,
+                          max_new_tokens: int, **kw) -> torch.Tensor:
+    """Deployment from the compressed (masks, dense) artifact:
+    reconstruct every leaf once (``weights_from_masks``), then
+    ``generate``.  Storage n bits and the dense leaves, against 32 m."""
+    params = weights_from_masks(zspecs, masks, {"dense": dense})
+    return generate(model, params, prompt, max_new_tokens, **kw)

@@ -8,8 +8,13 @@ the validity mask); a lane prefills decode-style, one prompt token per
 step; it retires at ``max_new_tokens`` or its eos.  A lane's values
 equal the single-request path's, so batching changes no output.
 
-Sampling is greedy on the host: one device sync per step.  The hot
-block cache and round deltas are not ported yet and raise.
+Sampling is greedy on the host: one device sync per step.  In cached
+mode the scheduler owns the hot-block cache (built from the config's
+budget unless one is passed) and counts its hits each step.  Round
+updates hot-swap mid-flight: ``apply_round_delta`` patches the words,
+drops exactly the tiles whose drawn bits flip, refills the freed slots
+from the new words and swaps the arrays; in-flight requests keep the KV
+they built under round t and go on under t+1.
 """
 
 from __future__ import annotations
@@ -23,8 +28,9 @@ import torch
 
 from ..device import resolve_device
 from ..models.model import Model
-from .cache import ServeConfig
-from .decode import ServeEngine, build_serve_engine, check_mode
+from .cache import HotBlockCache, ServeConfig, build_cache
+from .decode import ServeEngine, build_serve_engine
+from .delta import ServeDelta, apply_delta
 from .state import ServeState
 
 
@@ -44,20 +50,18 @@ class ServeScheduler:
     """Fixed-lane continuous-batching driver for one serving node."""
 
     def __init__(self, model: Model, sstate: ServeState, config: ServeConfig,
-                 *, cache=None, engine: Optional[ServeEngine] = None,
-                 device="cuda"):
-        check_mode(config.mode)
-        if cache is not None:
-            raise NotImplementedError(
-                "the hot-block tile cache is not ported yet")
+                 *, cache: Optional[HotBlockCache] = None,
+                 engine: Optional[ServeEngine] = None, device="cuda"):
         self.device = resolve_device(device)
         self.config = config
         self.sstate = sstate
         self.engine = engine or build_serve_engine(
             model, sstate, mode=config.mode, impl=config.impl,
             device=device)
-        self.cache = None
-        self.arrays = self.engine.arrays_of(sstate)
+        self.cache = cache
+        if self.engine.mode == "cached" and self.cache is None:
+            self.cache = build_cache(sstate, config)
+        self.arrays = self.engine.arrays_of(sstate, cache=self.cache)
         self.kv = self.engine.init_lane_cache(config.lanes, config.seq_len)
         self._lane: List[Optional[Request]] = [None] * config.lanes
         self._queue: deque = deque()
@@ -117,6 +121,8 @@ class ServeScheduler:
             self.arrays, self.kv, torch.from_numpy(tok).to(self.device),
             torch.from_numpy(live).to(self.device))
         self.steps += 1
+        if self.cache is not None:
+            self.cache.record_step()
         row = logits[:, 0].cpu().numpy()  # the per-step device sync
         for l, req in enumerate(self._lane):
             if req is None:
@@ -134,11 +140,30 @@ class ServeScheduler:
             self.step_once()
         return self.results
 
-    def apply_round_delta(self, delta) -> ServeState:
-        raise NotImplementedError(
-            "XOR round deltas (serve/delta.py) are not ported yet")
+    def swap_state(self, sstate: ServeState) -> None:
+        """Replace the serving state wholesale (a full re-broadcast): the
+        whole cache drops and refills; in-flight lanes keep their KV."""
+        if self.cache is not None:
+            self.cache.invalidate_all()
+            self.cache.fill(sstate)
+        self.sstate = sstate
+        self.arrays = self.engine.arrays_of(sstate, cache=self.cache)
+
+    def apply_round_delta(self, delta: ServeDelta) -> ServeState:
+        """Hot-swap mid-flight: patch the words, drop exactly the tiles
+        whose drawn bits flip, refill the freed slots from the new
+        words, swap the arrays."""
+        new_state = apply_delta(self.sstate, delta, cache=self.cache)
+        if self.cache is not None:
+            self.cache.fill(new_state)
+        self.sstate = new_state
+        self.arrays = self.engine.arrays_of(new_state, cache=self.cache)
+        return new_state
 
     def metrics(self) -> Dict[str, Any]:
-        return {"steps": self.steps, "lanes": self.config.lanes,
-                "active": self.active, "queued": len(self._queue),
-                "completed": len(self.results)}
+        out = {"steps": self.steps, "lanes": self.config.lanes,
+               "active": self.active, "queued": len(self._queue),
+               "completed": len(self.results)}
+        if self.cache is not None:
+            out["cache"] = self.cache.stats()
+        return out

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``repro_torch``, not
-``chip_smoke.py`` and not ``examples/federated_mnistfc_torch.py``
-imports jax or the JAX package, and the entry points run on the card
+``chip_smoke.py`` and not the port's examples
+(``examples/federated_mnistfc_torch.py``,
+``examples/serve_compressed_torch.py``) imports jax or the JAX package, and the entry points run on the card
 unless the caller asks for the CPU."""
 
 import os
@@ -29,6 +30,7 @@ from repro_torch.serve import (ServeConfig, ServeScheduler,
 
 ROOT = Path(__file__).resolve().parent.parent
 EXAMPLE = ROOT / "examples" / "federated_mnistfc_torch.py"
+SERVE_EXAMPLE = ROOT / "examples" / "serve_compressed_torch.py"
 
 _BLOCKED = """
 import importlib.abc, sys
@@ -65,6 +67,7 @@ def test_every_module_and_chip_smoke_import_without_jax():
         + [f"importlib.import_module({m!r})" for m in mods]
         + ["import chip_smoke", "import runpy",
            f"runpy.run_path({str(EXAMPLE)!r}, run_name='example')",
+           f"runpy.run_path({str(SERVE_EXAMPLE)!r}, run_name='example')",
            "assert not any(k.split('.')[0] in ('jax', 'repro') "
            "for k in sys.modules)", "print('ok')"])
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -122,16 +122,25 @@ def test_scheduler_lanes_equal_single_request(served):
 
 
 def test_later_modes_and_branches_raise(served):
+    """What still raises now that load and cached serve: an unknown
+    mode, and a cached engine asked for its arrays without a cache;
+    ``ServeConfig()``'s cached scheduler (budget 0) runs and gives the
+    streaming scheduler's tokens."""
     _, _, state, model = served
-    for mode in ("load", "cached"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_serve_engine(model, state, mode=mode, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ServeScheduler(model, state, ServeConfig(), device="cpu")
-    sched = ServeScheduler(model, state, ServeConfig(mode="streaming"),
-                           device="cpu")
-    with pytest.raises(NotImplementedError):
-        sched.apply_round_delta(None)
+    with pytest.raises(ValueError, match="unknown serve mode"):
+        build_serve_engine(model, state, mode="turbo", device="cpu")
+    eng = build_serve_engine(model, state, mode="cached", device="cpu")
+    with pytest.raises(ValueError, match="HotBlockCache"):
+        eng.arrays_of(state)
+    out = {}
+    for mode in ("cached", "streaming"):
+        sched = ServeScheduler(model, state, ServeConfig(
+            mode=mode, max_new_tokens=2, seq_len=SEQ), device="cpu")
+        rid = sched.submit([5, 17])
+        out[mode] = sched.run()[rid].tolist()
+        assert ("cache" in sched.metrics()) == (mode == "cached")
+    assert out["cached"] == out["streaming"]
+    assert ServeConfig().mode == "cached"
 
 
 def test_jax_bf16_cache_promotes_to_f32():
