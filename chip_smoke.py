@@ -32,6 +32,9 @@ hand-written CUDA kernel:
   forward and the scatter backward: at the entry point's default scale
   0.25 (f32) and at full width (bf16).
 
+Then checkpoints of those paths' states, and the paper's experiments
+(experiments/paper.py) through their own functions at a cut.
+
 Phases, one printed line or more each:
 
 1. device: the card's name and power limit (nvidia-smi);
@@ -175,6 +178,17 @@ Phases, one printed line or more each:
    bound, plain, sparse.mm); 5-round cosine (H=5) and frontier fits on
    u8 and packed4 with each round's widths and realized downlink; and
    the stacked faulted round that phase 17's ranks are held to.
+22. (run after phases 7, 15 and 21) checkpoints and the paper's
+   experiments: phase 15's full-width LM state through launch/train.py's
+   writer and back onto the card, every leaf bitwise (the file's bytes,
+   save and load seconds); phase 7's 5-round state saved and loaded, one
+   more round from each bitwise the same; phase 4's u8 carry served from
+   its checkpoint, routed by its codec tag, giving SERVE_TOKENS; phase
+   21's packed4 lanes round-tripped by bits; then comm_savings_table()
+   and run_wire_formats(quick=True) whole (its transports' scores
+   bit-identical) and one cell of each of the seven training
+   experiments at a cut (PAPER_STEPS local steps, PAPER_ROUNDS rounds),
+   every value finite, with the kernels they launched.
 
 Usage, from the repo root on a machine with a CUDA GPU:
     python3 chip_smoke.py
@@ -264,6 +278,8 @@ SCATTER_STEPS = 20  # phase 12: local steps under REPRO_BWD_PLAN=scatter
 LM_K = 4  # launch/train.py's clients
 LM_ROUNDS = 3  # phase 15: full-width rounds
 LOCAL_LR = 1e-2
+PAPER_STEPS = 100  # phase 22: local steps of a training experiment's cell
+PAPER_ROUNDS = 3  # phase 22: rounds of a federated experiment's cell
 LOCAL_BATCH = 128
 LINEARS = ("blocks/attn/wq", "blocks/attn/wk", "blocks/attn/wv",
            "blocks/attn/wo", "blocks/mlp/gate", "blocks/mlp/up",
@@ -564,7 +580,8 @@ def same_bits(got, want) -> bool:
     # uint32: packed lanes; uint16: u16 words (no unsigned compare on all
     # devices)
     signed = {torch.float32: torch.int32, torch.uint32: torch.int32,
-              torch.uint16: torch.int16}.get(got.dtype)
+              torch.uint16: torch.int16,
+              torch.bfloat16: torch.int16}.get(got.dtype)
     if signed is not None:
         got, want = got.view(signed), want.view(signed)
     return bool(torch.equal(got, want))
@@ -948,7 +965,7 @@ def training_phases(card: str, dev) -> list:
            "state_r0": state_r0, "loss_r0": loss_r0,
            "round_words": round_words, "losses": losses,
            "host_state0": host_state(state0),
-           "host_state_r0": host_state(state_r0)}
+           "host_state_r0": host_state(state_r0), "state_fit": state}
     return rows, fed
 
 
@@ -2233,6 +2250,7 @@ def lm_phases(card: str, dev, fed: dict, kernel_rows: list) -> list:
             round_s.append(dt)
 
         history = lm_train.train(run, on_round=on_round)
+        fed["lm_run"] = run  # its state is phase 22's LM checkpoint
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         lm_launches = dict(qr.LAUNCHES)
@@ -2960,6 +2978,7 @@ def serve_modes_phase(card: str, dev, ctx: dict) -> list:
               ops.serve_edge_weights(spec, p, DRAW_WORD, rows, 8),
               f"{path} at 65536 sampled rows")
     lanes = {c: state_of(c, scores) for c in ("packed4", "packed2")}
+    ctx["packed4_words"] = lanes["packed4"].words  # phase 22's lanes
     caches = {}
     for tag, b in budgets:
         caches[tag] = HotBlockCache(sstate, b)
@@ -3510,6 +3529,197 @@ def serve_modes_phase(card: str, dev, ctx: dict) -> list:
     return rows
 
 
+def finite_row(row) -> bool:
+    """Every number in an experiment row (nested in dicts, lists and
+    tuples) is finite."""
+    import math
+
+    if isinstance(row, dict):
+        return all(finite_row(v) for v in row.values())
+    if isinstance(row, (list, tuple)):
+        return all(finite_row(v) for v in row)
+    if isinstance(row, (int, float)) and not isinstance(row, bool):
+        return math.isfinite(row)
+    return True
+
+
+def paper_phase(card: str, dev, fed: dict, carries: dict) -> None:
+    """Phase 22, after phases 7, 15 and 21: checkpoints at full width
+    (phase 15's LM state through launch/train.py's writer, phase 7's
+    5-round Fig. 4 state resumed for a round, phase 4's u8 carry served,
+    phase 21's packed4 lanes), then the paper's experiments through
+    their own functions: Table 1 and the wire formats whole, one cell
+    of each training experiment at a cut."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import (checkpoint_downlink,
+                                        load_checkpoint, save_checkpoint)
+    from repro_torch.configs import get_arch
+    from repro_torch.core.federated import federated_round
+    from repro_torch.experiments import (comm_savings_table, paper,
+                                         run_wire_formats)
+    from repro_torch.kernels import qz_decode
+    from repro_torch.kernels import qz_reconstruct as qr
+    from repro_torch.launch import train as lm_train
+    from repro_torch.models.mlp import mlp_loss
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import (ServeConfig, ServeScheduler,
+                                   make_serve_state)
+
+    t_phase = time.perf_counter()
+    out = ROOT / "build" / "phase22"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+
+    def leaves(tree, prefix=""):
+        if isinstance(tree, dict):
+            for k in sorted(tree):
+                yield from leaves(tree[k], f"{prefix}/{k}" if prefix else k)
+        else:
+            yield prefix, tree
+
+    def same_tree(a, b) -> bool:
+        la, lb = dict(leaves(a)), dict(leaves(b))
+        return la.keys() == lb.keys() and all(
+            same_bits(la[k], lb[k]) for k in la)
+
+    # --- (a) checkpoints ---------------------------------------------------
+    qr.reset_launches()
+    qz_decode.reset_launches()
+    run = fed.pop("lm_run")
+    run.args.out = str(out / "lm")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = lm_train.save(run)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded, meta = load_checkpoint(path, run.state, device=dev)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    same = same_tree(loaded, run.state)
+    n_scores = sum(v.numel() for v in run.state["scores"].values())
+    dtypes = sorted({str(v.dtype) for _, v in leaves(loaded)})
+    say(f"ckpt: full-width qwen2-0.5b LM state ({n_scores} scores, "
+        f"{len(run.state['dense'])} dense leaves, dtypes {dtypes}) through "
+        f"launch/train.py's writer: {os.path.getsize(path)} B, saved in "
+        f"{t_save:.2f} s, loaded onto the card in {t_load:.2f} s; every "
+        f"leaf bitwise={same}; meta {meta} ({card})")
+    if not same or meta.get("arch") != run.cfg.name:
+        die("the full-width LM checkpoint does not load back by bits")
+    del run, loaded
+    fed.pop("lm_run", None)
+    torch.cuda.empty_cache()
+
+    zspecs, cfg, st = fed["zspecs"], fed["cfg"], fed["state_fit"]
+    save_checkpoint(str(out / "fig4"), st, meta={"rounds": FED_ROUNDS},
+                    downlink=cfg.downlink)
+    st2, meta = load_checkpoint(str(out / "fig4.npz"), st, device=dev)
+    word = fed["round_words"][0] ^ 0x5A5A5A5A
+    nxt = [federated_round(zspecs, s_, mlp_loss, fed["batch0"], word, cfg,
+                           round_index=FED_ROUNDS, device=dev)
+           for s_ in (st, st2)]
+    torch.cuda.synchronize()
+    same_state = same_tree(st2, st)
+    same_round = (same_tree(nxt[0][0], nxt[1][0])
+                  and same_bits(nxt[0][1]["loss"], nxt[1][1]["loss"]))
+    say(f"ckpt: Fig. 4 state after {FED_ROUNDS} rounds ({cfg.downlink} "
+        f"words, tag {checkpoint_downlink(meta)!r}): "
+        f"{os.path.getsize(out / 'fig4.npz')} B, loaded bitwise="
+        f"{same_state}; round {FED_ROUNDS} from the loaded state bitwise the "
+        f"in-memory one's (words, dense, loss {float(nxt[0][1]['loss']):.6f})"
+        f"={same_round}")
+    if not (same_state and same_round
+            and checkpoint_downlink(meta) == cfg.downlink):
+        die("the resumed Fig. 4 round differs from the in-memory round")
+
+    szs = carries["zspecs"]
+    save_checkpoint(str(out / "serve"), carries["u8"], downlink="u8")
+    carry, meta = load_checkpoint(str(out / "serve.npz"), carries["u8"],
+                                  device=dev)
+    tag = checkpoint_downlink(meta)
+    served = make_serve_state(szs, carry, DRAW_WORD, carried=tag, device=dev)
+    sched = ServeScheduler(build_model(get_arch("qwen2-0.5b")), served,
+                           ServeConfig(lanes=LANES,
+                                       seq_len=max(map(len, PROMPTS))
+                                       + NEW_TOKENS, mode="streaming",
+                                       max_new_tokens=NEW_TOKENS),
+                           device=dev)
+    rids = [sched.submit(p_) for p_ in PROMPTS]
+    while sched.pending:
+        sched.step_once()
+    got = [sched.results[r].tolist() for r in rids]
+    say(f"ckpt: phase 4's u8 carry ({os.path.getsize(out / 'serve.npz')} B)"
+        f" loaded, routed by its tag {tag!r} into make_serve_state: the "
+        f"scheduler's tokens equal SERVE_TOKENS: {got == SERVE_TOKENS}")
+    if tag != "u8" or got != SERVE_TOKENS:
+        die("the served checkpoint does not give SERVE_TOKENS")
+    del sched, served, carry
+    lanes = {"scores": carries["packed4"]}
+    save_checkpoint(str(out / "packed4"), lanes, downlink="packed4")
+    lanes2, meta = load_checkpoint(str(out / "packed4"), lanes, device=dev)
+    ok4 = same_tree(lanes2, lanes) and all(
+        v.dtype == torch.uint32 for v in lanes2["scores"].values())
+    say(f"ckpt: phase 21's packed4 lanes ({os.path.getsize(out / 'packed4.npz')}"
+        f" B) round-trip as uint32 by bits={ok4}, tag "
+        f"{checkpoint_downlink(meta)!r}")
+    if not ok4 or checkpoint_downlink(meta) != "packed4":
+        die("the packed4 lanes do not round-trip by bits")
+    launches = {k: v for k, v in {**qr.LAUNCHES, **qz_decode.LAUNCHES}.items()
+                if v}
+    say(f"ckpt: launches {launches} (the resumed rounds and the served "
+        f"checkpoint)")
+    for name in ("qz_sample_reconstruct_batched_fwd",
+                 "qz_reconstruct_batched_bwd_plan",
+                 "qz_sample_pack_batched_fwd", "qz_sample_matmul"):
+        if not launches.get(name):
+            die(f"the checkpoint checks launched no {name}")
+    shutil.rmtree(out, ignore_errors=True)
+
+    # --- (b) the experiments through their own functions ---------------
+    qr.reset_launches()
+    qz_decode.reset_launches()
+    t0 = time.perf_counter()
+    runs = [("comm_savings_table", lambda: comm_savings_table()),
+            ("run_wire_formats", lambda: run_wire_formats(True, device=dev)),
+            ("run_local_compression", lambda: [paper.local_compression_cell(
+                5, 4, steps=PAPER_STEPS, device=dev)]),
+            ("run_federated", lambda: [paper.federated_cell(
+                8, K=10, E=40, rounds=PAPER_ROUNDS, device=dev)]),
+            ("run_downlink_tradeoff", lambda: [paper.downlink_cell(
+                "packed4", "frontier", rounds=PAPER_ROUNDS, device=dev)]),
+            ("run_heterogeneity", lambda: [paper.heterogeneity_cell(
+                0.1, "u8", rounds=PAPER_ROUNDS, device=dev)]),
+            ("run_sensitivity", lambda: paper.sensitivity_cell(
+                "sample", steps=PAPER_STEPS, device=dev)),
+            ("run_integrality", lambda: [paper.integrality_cell(
+                (0.1, 0.1), steps=PAPER_STEPS, device=dev)]),
+            ("run_zhou_comparison", lambda: [paper.zhou_cell(
+                "zampling_d16", 1.0, 16, steps=PAPER_STEPS, device=dev)])]
+    for name, fn in runs:
+        t1 = time.perf_counter()
+        rows = fn()
+        torch.cuda.synchronize()
+        for row in rows:
+            say(f"paper: {name}: {json.dumps(row, default=str)}")
+            if not finite_row(row):
+                die(f"{name} gave a value that is not finite")
+        say(f"paper: {name}: {len(rows)} rows in "
+            f"{time.perf_counter() - t1:.2f} s")
+    launches = {k: v for k, v in {**qr.LAUNCHES, **qz_decode.LAUNCHES}.items()
+                if v}
+    say(f"paper: the experiments in {time.perf_counter() - t0:.1f} s; "
+        f"launches {launches}")
+    for name in ("qz_sample_reconstruct_batched_fwd",
+                 "qz_reconstruct_batched_bwd_plan",
+                 "qz_sample_pack_batched_fwd", "qz_sample_reconstruct_fwd",
+                 "qz_reconstruct_fwd", "qz_reconstruct_bwd_plan"):
+        if not launches.get(name):
+            die(f"the experiments launched no {name}")
+    say(f"phase 22 done in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -3904,11 +4114,14 @@ def main() -> None:
         f"{rows[1]['ms'] / single_ms:.3f} ({card})")
     del sched, eng
     torch.cuda.empty_cache()
-    rows += serve_modes_phase(card, dev, {
-        "model": model, "cfg": cfg, "zspecs": zspecs, "sstate": sstate,
-        "scores": scores, "dense": dense, "stats": stats,
-        "bound_ms": bound_ms, "Xs": Xs, "u8_ms": rows[0]["ms"]})
-    del sstate, model, Xs
+    sctx = {"model": model, "cfg": cfg, "zspecs": zspecs, "sstate": sstate,
+            "scores": scores, "dense": dense, "stats": stats,
+            "bound_ms": bound_ms, "Xs": Xs, "u8_ms": rows[0]["ms"]}
+    rows += serve_modes_phase(card, dev, sctx)
+    # phase 22's serving carries: phase 4's u8 words, phase 21's lanes
+    carries = {"zspecs": zspecs, "packed4": sctx.pop("packed4_words"),
+               "u8": {"scores": sstate.words, "dense": sstate.dense}}
+    del sstate, model, Xs, sctx
     torch.cuda.empty_cache()
 
     train_rows, fed = training_phases(card, dev)
@@ -3920,6 +4133,9 @@ def main() -> None:
     del fed["state_r0"], fed["state0"]
     torch.cuda.empty_cache()
     rows += lm_phases(card, dev, fed, rows)
+    torch.cuda.empty_cache()
+    paper_phase(card, dev, fed, carries)
+    del carries
     torch.cuda.empty_cache()
     rows.append(sharded_phase(card, dev, fed, rows))
     say(f"card: {card}")

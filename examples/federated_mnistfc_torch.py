@@ -28,7 +28,9 @@ start uniform from a numpy seed (the JAX example draws them with
 ``jax.random``, which has no torch twin); the round words come from the
 same numpy seed.  The kernels run on the card (``--device cuda``, the
 default); ``--device cpu`` runs their plain torch versions.
-``--het-table`` is not ported.
+``--het-table`` prints the heterogeneity table instead (accuracy against
+Dirichlet beta per downlink codec, ``experiments.run_heterogeneity`` at
+its quick grid) and exits.
 
   PYTHONPATH=src python examples/federated_mnistfc_torch.py [--rounds 25]
   PYTHONPATH=src python examples/federated_mnistfc_torch.py \\
@@ -40,7 +42,6 @@ default); ``--device cpu`` runs their plain torch versions.
 from __future__ import annotations
 
 import argparse
-import sys
 
 import numpy as np
 import torch
@@ -52,16 +53,13 @@ from repro_torch.core.zampling import ZamplingConfig, build_specs, init_state
 from repro_torch.data import (client_batch_stream, cohort_batch_stream,
                               dirichlet_client_split, iid_client_split,
                               make_teacher_dataset)
+from repro_torch.experiments import run_heterogeneity
 from repro_torch.fault import ClientPopulation, FaultPlan
 from repro_torch.models.mlp import (SMALL_DIMS, mlp_accuracy, mlp_loss,
                                     mlp_template)
 from repro_torch.train import evaluate, federated_fit
 
 EVAL_NETS = 10
-
-# the flag of the JAX example whose path the port does not run yet, and
-# the ROADMAP item (queue 1) that brings it
-_LATER = {"het_table": "item 10 (model zoo and tooling: experiments/paper.py)"}
 FAULT_COLS = ("num_participating", "num_dropped", "num_stragglers",
               "num_corrupt", "num_duplicates", "round_skipped")
 
@@ -99,26 +97,34 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--stream-chunk", type=int, default=0,
                     help="fold the uploads this many clients at a time "
                          "(0: one slab)")
-    ap.add_argument("--het-table", action="store_true")
+    ap.add_argument("--het-table", action="store_true",
+                    help="print the heterogeneity table (accuracy against "
+                         "Dirichlet beta per downlink codec) and exit")
     ap.add_argument("--seed", type=int, default=0,
                     help="numpy seed of the scores and the round words")
     ap.add_argument("--device", default="cuda", help="cuda | cpu")
     return ap
 
 
-def refuse_unported(args) -> None:
-    """Exit non-zero on a flag whose path the port does not run yet."""
-    for name, item in _LATER.items():
-        if getattr(args, name):
-            flag = "--" + name.replace("_", "-")
-            sys.exit(f"{flag} is not ported to repro_torch yet; it comes "
-                     f"with ROADMAP {item}")
+def het_table(device) -> None:
+    """The JAX example's heterogeneity table, a row per (beta, codec)."""
+    print("accuracy vs Dirichlet beta x downlink codec (quick grid)")
+    print(f"{'beta':>6} {'codec':>6} {'acc':>7} {'std':>6} "
+          f"{'down KiB':>9} {'vs f32':>7}")
+    for row in run_heterogeneity(quick=True, device=device):
+        print(f"{row['beta']:>6.2f} {row['codec']:>6} "
+              f"{row['final_sampled_acc']:>7.3f} {row['sampled_std']:>6.3f} "
+              f"{row['downlink_bytes_per_client'] / 1024:>9.1f} "
+              f"{row['downlink_vs_f32']:>7.4f}", flush=True)
 
 
 def main(argv=None) -> None:
     ap = parser()
     args = ap.parse_args(argv)
-    refuse_unported(args)
+    if args.het_table:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        het_table(torch.device(args.device))
+        return
     use_cohort = args.population > 0
     cohort = args.cohort or args.clients
     if use_cohort and cohort > args.population:

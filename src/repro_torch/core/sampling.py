@@ -140,3 +140,17 @@ def quant_threshold_u24_dyn(q: torch.Tensor, bits) -> torch.Tensor:
     b = torch.as_tensor(bits, dtype=torch.int64, device=q.device)
     a = q.to(torch.int64) << (24 - b)
     return a + a // ((1 << b) - 1)
+
+
+def init_scores(rng: np.random.RandomState, n: int, *,
+                dist: str = "uniform", beta_a: float = 1.0,
+                beta_b: float = 1.0) -> np.ndarray:
+    """p(0) ~ U(0, 1)^n (the paper's init), or Beta(a, b)^n for App. A's
+    sweeps, as float32 from a numpy ``RandomState``.  The JAX package
+    draws from ``jax.random``, which has no torch twin, and torch's
+    ``Beta`` takes no generator: the same distributions, other draws."""
+    if dist == "uniform":
+        return rng.rand(n).astype(np.float32)
+    if dist == "beta":
+        return rng.beta(beta_a, beta_b, n).astype(np.float32)
+    raise ValueError(f"unknown init dist {dist!r}")

@@ -89,6 +89,41 @@ class ZamplingSpecs:
     def dense_total(self) -> int:
         return sum(math.prod(self.template[p].shape) for p in self.dense_paths)
 
+    @property
+    def compression(self) -> float:
+        return self.m_total / max(self.n_total, 1)
+
+    def comm_bits_per_round(self, packed: bool = True,
+                            downlink: str = "f32") -> Dict[str, int]:
+        """The paper's Table 1 accounting, a client a round, in bits.
+
+        ``client_up`` and ``server_down`` are the paper's idealized
+        figures: n mask bits up, n scores down at the codec's b bits.
+        The ``*_wire`` keys are the exact protocol figures, lane padding
+        (masks travel as uint32 lanes) and the f32 dense leaves both ways
+        included: ``client_up_wire`` is 8x ``round_wire_report``'s
+        ``uplink_bytes_per_client`` for a packed transport (``packed``)
+        or ``mean_f32``, ``server_down_wire`` 8x its
+        ``downlink_bytes_per_client`` at ``downlink``."""
+        from ..comm.bitpack import packed_len  # comm sits above core
+        from ..comm.downlink import get_codec
+        from ..comm.metering import score_downlink_bytes
+
+        codec = get_codec(downlink)
+        n, m = self.n_total, self.m_total
+        dense_bits = 32 * self.dense_total
+        lane_bits = sum(32 * packed_len(s.n) for s in self.specs.values())
+        down_wire = sum(8 * score_downlink_bytes(codec, s.n)
+                        for s in self.specs.values())
+        return {
+            "naive_client_up": 32 * m,
+            "client_up": n if packed else 8 * n,
+            "server_down": codec.bits * n,
+            "naive_server_down": 32 * m,
+            "client_up_wire": (lane_bits if packed else 32 * n) + dense_bits,
+            "server_down_wire": down_wire + dense_bits,
+        }
+
 
 def _as_leaf(leaf) -> LeafSpec:
     if isinstance(leaf, LeafSpec):

@@ -23,14 +23,22 @@ def resolve_device(device) -> torch.device:
 
 
 def as_tensor(a, device, dtype=None) -> torch.Tensor:
-    """numpy array (bf16 included, through float32) or tensor -> tensor."""
+    """numpy array or tensor -> tensor.  A 2-byte void array is bf16:
+    an ``ml_dtypes`` bfloat16 array, or the raw ``|V2`` bytes ``np.load``
+    reads back from a checkpoint's bf16 leaf (numpy alone has no bf16).
+    Its uint16 bits become a ``torch.bfloat16`` tensor, bit for bit."""
     if isinstance(a, torch.Tensor):
         t = a
     else:
         a = np.asarray(a)
-        if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
-            a = a.astype(np.float32)
-        t = torch.from_numpy(np.array(a))
+        if a.dtype.kind == "V":
+            if a.dtype.itemsize != 2:
+                raise TypeError(f"a void array of dtype {a.dtype} is no "
+                                "bf16 leaf (2 bytes an element)")
+            t = torch.from_numpy(np.array(a.view(np.uint16))).view(
+                torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(a))
     if dtype is not None:
         t = t.to(dtype)
     return t.to(device)

@@ -22,10 +22,10 @@ scores, the dense leaves' init, a round key split per round), this one
 draws from numpy at fixed seeds: scores U(0, 1) and each round's uint32
 word from ``RandomState(0)``, dense leaves from
 ``models.model.init_dense`` at seed 0.
-It writes ``history.json`` (the per-round losses) into ``--out``, and
-no checkpoint yet: the JAX checkpoint's bf16 leaves need
-``ml_dtypes``, which the card's machine lacks (ROADMAP queue 1, item
-8).
+It writes the JAX entry point's checkpoint into ``--out`` (``ckpt.npz``
+and ``ckpt.meta.json``, the state's leaves at their dtypes, bf16 as its
+bits; ``checkpoint.load_checkpoint`` reads it back onto the card) and
+``history.json``, the per-round losses.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..checkpoint import save_checkpoint
 from ..configs import get_arch
 from ..core.federated import FederatedConfig, federated_round
 from ..core.zampling import ZamplingConfig, build_specs, init_state
@@ -134,7 +135,7 @@ def describe(run: LMRun) -> str:
     n_params = sum(int(np.prod(leaf.shape)) for leaf in zs.template.values())
     return (f"[train] arch={run.cfg.name} scaled: {n_params/1e6:.1f}M "
             f"params, reparam {zs.m_total/1e6:.1f}M -> {zs.n_total/1e6:.2f}M "
-            f"trainable ({zs.m_total / zs.n_total:.1f}x), client "
+            f"trainable ({zs.compression:.1f}x), client "
             f"upload/round = {zs.n_total/8/1e3:.0f} KB vs naive "
             f"{zs.m_total*4/1e6:.0f} MB")
 
@@ -159,16 +160,28 @@ def train(run: LMRun, on_round: Optional[Callable] = None) -> list:
     return history
 
 
+def save(run: LMRun) -> str:
+    """``run.state`` as ``{--out}/ckpt.npz`` with the JAX entry point's
+    meta; returns the npz path."""
+    path = os.path.join(run.args.out, "ckpt")
+    save_checkpoint(path, run.state,
+                    meta={"arch": run.cfg.name, "q_seed": 0,
+                          "rounds": run.args.rounds,
+                          "compression": run.zspecs.compression})
+    return path + ".npz"
+
+
 def main(argv=None) -> list:
     args = parser().parse_args(argv)
     run = build(args)
     print(describe(run), flush=True)
     os.makedirs(args.out, exist_ok=True)
     history = train(run)
+    save(run)
     with open(os.path.join(args.out, "history.json"), "w") as f:
         json.dump(history, f)
     print(f"[train] done. loss {history[0]:.3f} -> {history[-1]:.3f}; "
-          f"history at {args.out}/history.json (no checkpoint yet)")
+          f"checkpoint at {args.out}/ckpt.npz")
     return history
 
 

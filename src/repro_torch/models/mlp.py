@@ -6,14 +6,16 @@ The JAX package's ``models/mlp.py``: SMALL 784-20-20-10, MNISTFC
 leading client axis on every leaf, ``(K, in, out)`` and ``(K, out)``
 with inputs ``(K, B, in)``, runs the K clients' networks as
 ``torch.bmm`` — the products the JAX package leaves to XLA under
-``vmap``.  Initial parameters come from numpy (``dense_init`` draws
-from ``jax.random``, which has no torch twin).
+``vmap``.  Initial parameters come from numpy (``init_mlp_params``; the
+JAX package's ``dense_init`` draws from ``jax.random``, which has no
+torch twin).
 """
 
 from __future__ import annotations
 
 from typing import Dict, Sequence
 
+import numpy as np
 import torch
 
 from ..core.zampling import LeafSpec
@@ -24,6 +26,19 @@ MNISTFC_DIMS = (784, 300, 100, 10)
 
 def param_count(dims: Sequence[int]) -> int:
     return sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+
+
+def init_mlp_params(rng: np.random.RandomState,
+                    dims: Sequence[int]) -> Dict[str, np.ndarray]:
+    """Initial parameters as float32 numpy arrays: each kernel He-normal
+    (std sqrt(2 / in), the JAX package's ``dense_init``) drawn from
+    ``rng`` layer by layer, each bias zero."""
+    params = {}
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        params[f"layer{i}/kernel"] = (rng.randn(a, b)
+                                      * (2.0 / a) ** 0.5).astype(np.float32)
+        params[f"layer{i}/bias"] = np.zeros((b,), np.float32)
+    return params
 
 
 def mlp_template(dims: Sequence[int]) -> Dict[str, LeafSpec]:

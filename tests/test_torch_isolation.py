@@ -1,12 +1,15 @@
 """The port stands alone: no module of ``repro_torch``, not
 ``chip_smoke.py`` and not the port's examples
 (``examples/federated_mnistfc_torch.py``,
-``examples/serve_compressed_torch.py``) imports jax or the JAX package, and the entry points run on the card
+``examples/serve_compressed_torch.py``, ``examples/quickstart_torch.py``)
+imports jax or the JAX package, and the entry points run on the card
 unless the caller asks for the CPU."""
 
 import os
+import runpy
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -14,11 +17,13 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.configs import get_arch
 from repro_torch.core.federated import (FederatedConfig, encode_state,
                                         federated_round)
 from repro_torch.core.zampling import (ZamplingConfig, build_specs,
                                        sample_weights)
+from repro_torch.experiments import paper, run_wire_formats
 from repro_torch.launch import train as lm_train
 from repro_torch.models.mlp import (SMALL_DIMS, mlp_accuracy, mlp_loss,
                                     mlp_template)
@@ -31,6 +36,7 @@ from repro_torch.serve import (ServeConfig, ServeScheduler,
 ROOT = Path(__file__).resolve().parent.parent
 EXAMPLE = ROOT / "examples" / "federated_mnistfc_torch.py"
 SERVE_EXAMPLE = ROOT / "examples" / "serve_compressed_torch.py"
+QUICKSTART = ROOT / "examples" / "quickstart_torch.py"
 
 _BLOCKED = """
 import importlib.abc, sys
@@ -60,7 +66,9 @@ def test_every_module_and_chip_smoke_import_without_jax():
               "data.federated_split", "models.mlp", "configs.mnistfc",
               "optim.optimizers", "device", "launch.train",
               "models.model", "models.common", "models.attention",
-              "fault", "fault.plan", "fault.population", "fault.validate"):
+              "fault", "fault.plan", "fault.population", "fault.validate",
+              "checkpoint", "checkpoint.ckpt", "core.zonotope",
+              "experiments", "experiments.paper"):
         assert f"repro_torch.{m}" in mods
     code = _BLOCKED + "\n".join(
         ["import importlib", f"sys.path.insert(0, {str(ROOT)!r})"]
@@ -68,6 +76,7 @@ def test_every_module_and_chip_smoke_import_without_jax():
         + ["import chip_smoke", "import runpy",
            f"runpy.run_path({str(EXAMPLE)!r}, run_name='example')",
            f"runpy.run_path({str(SERVE_EXAMPLE)!r}, run_name='example')",
+           f"runpy.run_path({str(QUICKSTART)!r}, run_name='example')",
            "assert not any(k.split('.')[0] in ('jax', 'repro') "
            "for k in sys.modules)", "print('ok')"])
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -77,21 +86,38 @@ def test_every_module_and_chip_smoke_import_without_jax():
     assert res.stdout.strip() == "ok"
 
 
-def _run_example(*flags):
-    """The example under the import blocker, in a new process."""
-    code = _BLOCKED + (f"import runpy, sys\nsys.argv = [{str(EXAMPLE)!r}, "
-                       f"*{list(flags)!r}]\n"
-                       f"runpy.run_path({str(EXAMPLE)!r}, "
-                       "run_name='__main__')")
+def _run_example(*flags, script=EXAMPLE, prelude=""):
+    """An example under the import blocker, in a new process;
+    ``prelude`` runs before it."""
+    code = _BLOCKED + prelude + (
+        f"import runpy, sys\nsys.argv = [{str(script)!r}, "
+        f"*{list(flags)!r}]\n"
+        f"runpy.run_path({str(script)!r}, run_name='__main__')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     return subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, timeout=300)
 
 
+# the heterogeneity table's quick grid at a cut: 2 betas x 2 codecs, 2
+# rounds of 4 clients taking 2 steps
+_SMALL_HET = """
+import torch
+torch.set_num_threads(2)
+import repro_torch.experiments as ex
+from repro_torch.experiments import paper
+def _small(quick=True, *, device="cuda"):
+    assert quick
+    return [paper.heterogeneity_cell(b, c, N=6, K=4, E=2, rounds=2,
+                                     n_eval=2, device=device)
+            for b in (0.1, 1.0) for c in ("f32", "packed4")]
+ex.run_heterogeneity = _small
+"""
+
+
 def test_example_runs_on_the_cpu_without_jax():
     """The federated example at a small size on the CPU: the wire tables,
-    a line per evaluation, the cumulative downlink; a flag whose path is
-    not ported exits non-zero, naming its ROADMAP item."""
+    a line per evaluation, the cumulative downlink; ``--het-table`` the
+    heterogeneity table's rows (its grid cut here)."""
     # with partial participation, streaming and a schedule, ported since
     res = _run_example("--rounds", "2", "--clients", "3", "--local-steps",
                        "2", "--device", "cpu", "--aggregate",
@@ -107,8 +133,30 @@ def test_example_runs_on_the_cpu_without_jax():
     assert "schedule=frontier" in out
     assert "cumulative downlink" in out and out.rstrip().endswith(
         "never a naive float tensor.")
-    res = _run_example("--device", "cpu", "--het-table")
-    assert res.returncode != 0 and "ROADMAP item 10" in res.stderr
+    res = _run_example("--device", "cpu", "--het-table", prelude=_SMALL_HET)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.strip().splitlines()
+    assert lines[0].startswith("accuracy vs Dirichlet beta")
+    assert lines[1].split() == ["beta", "codec", "acc", "std", "down",
+                                "KiB", "vs", "f32"]
+    rows = [line.split() for line in lines[2:]]
+    assert [r[:2] for r in rows] == [["0.10", "f32"], ["0.10", "packed4"],
+                                     ["1.00", "f32"], ["1.00", "packed4"]]
+    assert all(r[-1] == ("1.0000" if r[1] == "f32" else "0.1449")
+               for r in rows)
+
+
+def test_quickstart_runs_on_the_cpu_without_jax():
+    res = _run_example("--device", "cpu", "--steps", "20",
+                       script=QUICKSTART,
+                       prelude="import torch\ntorch.set_num_threads(2)\n")
+    assert res.returncode == 0, res.stderr
+    out = res.stdout.splitlines()
+    assert out[0] == "weights m=16280, trainable n=4160 (3.9x compression)"
+    assert out[1] == ("federated client upload: 4160 bits vs naive 520960 "
+                      "(125x)")
+    assert out[2].startswith("loss: ") and out[3].startswith(
+        "sampled accuracy ") and out[4].startswith("expected accuracy ")
 
 
 def _tiny_state():
@@ -145,7 +193,7 @@ def test_entry_points_default_to_the_card():
             call()
 
 
-def test_training_entry_points_default_to_the_card():
+def test_training_entry_points_default_to_the_card(tmp_path):
     zspecs = build_specs(mlp_template(SMALL_DIMS), ZamplingConfig(
         compression=8, d=10, window=128, min_size=128))
     rng = np.random.RandomState(0)
@@ -158,6 +206,10 @@ def test_training_entry_points_default_to_the_card():
     x = rng.randn(2, 1, 4, 784).astype(np.float32)
     y = rng.randint(0, 10, (2, 1, 4)).astype(np.int32)
     test = {"x": torch.from_numpy(x[0, 0]), "y": torch.from_numpy(y[0, 0])}
+    ckpt = tmp_path / "ckpt.npz"
+    save_checkpoint(str(ckpt), state)
+    quickstart = runpy.run_path(str(QUICKSTART), run_name="quickstart")
+    quickstart = types.SimpleNamespace(**quickstart)
     calls = [
         lambda: encode_state(zspecs, cfg, state),
         lambda: sample_weights(zspecs, state, 3),
@@ -169,6 +221,10 @@ def test_training_entry_points_default_to_the_card():
                          [1]),
         lambda: lm_train.build(lm_train.parser().parse_args(
             ["--scale", "0.01", "--rounds", "1"])),
+        lambda: load_checkpoint(str(ckpt), state),
+        lambda: paper.zhou_cell("zhou_d1_nm", 1.0, 1, steps=1, n_samples=1),
+        lambda: run_wire_formats(),
+        lambda: quickstart.main(["--steps", "1"]),
     ]
     if torch.cuda.is_available():
         # with a card, the default is the card
