@@ -30,7 +30,10 @@ hand-written CUDA kernel:
   batch 4, sequence 128, compression 8, d=8, mean uploads, f32
   downlink) under REPRO_BWD_PLAN=scatter, on the sample-reconstruct
   forward and the scatter backward: at the entry point's default scale
-  0.25 (f32) and at full width (bf16).
+  0.25 (f32) and at full width (bf16); the same entry point on
+  mamba2-1.3b at full width (48 Mamba2 SSD layers, d_model 2048, bf16),
+  and every other family of the registry (MoE, hybrid, enc-dec, VLM) at
+  its reduced size.
 
 Then checkpoints of those paths' states, and the paper's experiments
 (experiments/paper.py) through their own functions at a cut.
@@ -189,6 +192,19 @@ Phases, one printed line or more each:
    bit-identical) and one cell of each of the seven training
    experiments at a cut (PAPER_STEPS local steps, PAPER_ROUNDS rounds),
    every value finite, with the kernels they launched.
+23. (run after phase 16) the model families: every arch of the
+   registry at reduced() size, one LM round (K=2, E=2, batch 2, sequence
+   80) through kernels 8 and 4 and on the plain path, equal by bits in
+   loss, scores and dense leaves (the audio family with make_batch's
+   enc_embeds); a reduced decoder's round at sequence 4096 through the
+   blockwise attention, with and without a window, and one layer's
+   attention against the direct form (allclose, peak memory of both);
+   mamba2-1.3b through launch/train.py, round 0 at
+   MAMBA_BITWISE_SCALE against the plain path, then 3 full-width rounds
+   (K=4, E=2, batch 4, sequence 128, bf16) under REPRO_BWD_PLAN=scatter
+   with their losses, seconds, busy share and peak memory, and kernels 8
+   and 4 timed (events, device, bound) at each of its 8 zampled leaves
+   on one local step's own operands.
 
 Usage, from the repo root on a machine with a CUDA GPU:
     python3 chip_smoke.py
@@ -277,6 +293,15 @@ CONT_STEPS = 100
 SCATTER_STEPS = 20  # phase 12: local steps under REPRO_BWD_PLAN=scatter
 LM_K = 4  # launch/train.py's clients
 LM_ROUNDS = 3  # phase 15: full-width rounds
+FAM_K, FAM_E, FAM_B, FAM_S = 2, 2, 2, 80  # phase 23 (a): a reduced round
+FLASH_S = 4096  # phase 23 (b): the blockwise attention's sequence
+FLASH_WINDOW = 512
+FLASH_RTOL, FLASH_ATOL = 1e-4, 1e-5  # blockwise against direct, f32
+MAMBA_ARCH = "mamba2-1.3b"  # phase 23 (c): the full-width family
+MAMBA_ROUNDS = 3
+MAMBA_BITWISE_SCALE = 0.25  # its round 0 against the plain path
+MAMBA_CHECK_ROWS = 4096  # kernel 8's rows checked a client at full width
+MAMBA_CHECK_WINDOWS = 6  # kernel 4's windows checked (and the first, last)
 LOCAL_LR = 1e-2
 PAPER_STEPS = 100  # phase 22: local steps of a training experiment's cell
 PAPER_ROUNDS = 3  # phase 22: rounds of a federated experiment's cell
@@ -470,19 +495,26 @@ class KernelTimes:
 
     def __init__(self, card: str, tags: dict):
         self.card, self.tags = card, tags  # {kernel name: profiler tag}
-        self.acc = {name: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+        self.acc = {name: {"ms": 0.0, "device_ms": 0.0, "plain_ms": None,
                            "library_ms": 0.0, "ops_ms": 0.0,
                            "bytes_ms": 0.0, "bound_ms": 0.0, "shapes": {}}
                     for name in tags}
 
-    def add(self, name, path, kernel, t_p, t_y, ops_n, bytes_n):
+    def add(self, name, path, kernel, t_p, t_y, ops_n, bytes_n,
+            reps: int = 50, prof_reps: int = 10):
         """One kernel at one leaf; ``t_y`` None where no library call
-        computes the same function."""
-        t_k = event_ms(kernel, 50)
+        computes the same function (``t_p`` None: no plain version timed)."""
+        t_k = event_ms(kernel, reps)
         tag = self.tags[name]
-        by_tag, _ = profile_device_us(
-            lambda: [kernel() for _ in range(10)], (tag,))
-        us, n_l = by_tag[tag]
+        def calls():  # each output freed before the next launch
+            for _ in range(prof_reps):
+                kernel()
+
+        for _ in range(3):  # the profiler sometimes returns no trace
+            by_tag, _ = profile_device_us(calls, (tag,))
+            us, n_l = by_tag[tag]
+            if n_l:
+                break
         t_d = 1e-3 * us / n_l if n_l else None  # no device trace: None
         b, _ = _bound_ms(ops_n, bytes_n)
         a = self.acc[name]
@@ -490,7 +522,8 @@ class KernelTimes:
         a["device_ms"] = (a["device_ms"] + t_d
                           if t_d is not None and a["device_ms"] is not None
                           else None)
-        a["plain_ms"] += t_p
+        if t_p is not None:  # None: no leaf's plain version timed
+            a["plain_ms"] = (a["plain_ms"] or 0.0) + t_p
         a["library_ms"] += t_y if t_y is not None else 0.0
         a["ops_ms"] += 1e3 * ops_n / PEAK_OPS_PER_S
         a["bytes_ms"] += 1e3 * bytes_n / PEAK_BYTES_PER_S
@@ -500,7 +533,7 @@ class KernelTimes:
                              "bytes": bytes_n}
         say(f"time: {name} {path}: kernel {t_k:.4f} ms (device "
             f"{'not measured' if t_d is None else f'{t_d:.4f} ms'}), plain "
-            f"{t_p:.3f} ms, "
+            + ("not timed, " if t_p is None else f"{t_p:.3f} ms, ")
             + (f"torch.sparse.mm {t_y:.4f} ms, " if t_y is not None else "")
             + f"bound {b:.5f} ms ({self.card})")
 
@@ -515,18 +548,19 @@ class KernelTimes:
             "max_abs_err": max_err, "ms": times * a["ms"],
             "device_ms": (None if a["device_ms"] is None
                           else times * a["device_ms"]),
-            "plain_ms": times * a["plain_ms"],
+            "plain_ms": (None if a["plain_ms"] is None
+                         else times * a["plain_ms"]),
             "bound_ms": times * a["bound_ms"],
             "bound_by": ("operations" if a["ops_ms"] >= a["bytes_ms"]
                          else "bytes"),
             "library_ms": times * a["library_ms"] if lib else None,
             "library_call": lib, "per": per, "shapes": a["shapes"],
         }
-        dms = r["device_ms"]
+        dms, pms = r["device_ms"], r["plain_ms"]
         say(f"time: {name} per {per}: kernel {r['ms']:.4f} ms (device "
             f"{'not measured' if dms is None else f'{dms:.4f} ms'}), bound "
             f"{r['bound_ms']:.5f} ms ({r['bound_by']}), plain "
-            f"{r['plain_ms']:.2f} ms"
+            + ("not timed" if pms is None else f"{pms:.2f} ms")
             + (f", {lib} {r['library_ms']:.4f} ms" if lib else "")
             + f" ({self.card})")
         return r
@@ -2484,6 +2518,441 @@ def lm_phases(card: str, dev, fed: dict, kernel_rows: list) -> list:
     return [row]
 
 
+def families_phase(card: str, dev, fed: dict, rows: list) -> None:
+    """Phase 23, after phase 16: the model families on the kernels.
+    (a) every arch of the registry at ``reduced()``, one LM round (K=2,
+    E=2, batch 2, sequence 80) through kernels 8 and 4 and the same round
+    on the plain path, equal by bits in loss, scores and dense leaves;
+    (b) a reduced decoder's round at sequence 4096 through the blockwise
+    attention, with and without a window, and one layer's attention held
+    against the direct form; (c) mamba2-1.3b through launch/train.py:
+    round 0 at ``MAMBA_BITWISE_SCALE`` against the plain path, then 3
+    rounds at full width under REPRO_BWD_PLAN=scatter, and kernels 8 and
+    4 timed at every zampled leaf on one local step's own operands.
+    Adds a ``mamba2_step`` entry to kernels 8's and 4's rows."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ARCHS, InputShape, get_arch
+    from repro_torch.core import federated as tfed
+    from repro_torch.core.sampling import (as_words, fold_word,
+                                           sample_mask_hash)
+    from repro_torch.core.transpose_plan import clear_caches
+    from repro_torch.core.zampling import (ZamplingConfig, build_specs,
+                                           init_state)
+    from repro_torch.data import lm_token_batches
+    from repro_torch.kernels import ops, qz_decode
+    from repro_torch.kernels import qz_reconstruct as qr
+    from repro_torch.launch import input_specs
+    from repro_torch.launch import train as lm_train
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import flash
+    from repro_torch.models.model import (attn_dims, init_dense, loss_fn,
+                                          param_template)
+
+    t_phase = time.perf_counter()
+    fwd = "qz_sample_reconstruct_batched_fwd"
+    bwd = "qz_reconstruct_batched_bwd"
+
+    def launched():
+        return {k: v for k, v in qr.LAUNCHES.items() if v}
+
+    def kernels_and_plain(what, zs, state, loss, batch, word, fcfg):
+        """One round through the kernels and on the plain path, under
+        deterministic algorithms; dies unless they agree by bits and the
+        kernel round launched kernels 8 and 4 once a leaf a step."""
+        want = {fwd: len(zs.specs) * fcfg.local_steps,
+                bwd: len(zs.specs) * fcfg.local_steps}
+        res, secs = {}, {}
+        torch.use_deterministic_algorithms(True)
+        try:
+            for impl in (None, "ref"):
+                qr.reset_launches()
+                qz_decode.reset_launches()
+                t1 = time.perf_counter()
+                res[impl] = tfed.federated_round(zs, state, loss, batch, word,
+                                                 fcfg, impl=impl, device=dev)
+                torch.cuda.synchronize()
+                secs[impl] = time.perf_counter() - t1
+                got = launched()
+                if got != (want if impl is None else {}) or any(
+                        qz_decode.LAUNCHES.values()):
+                    die(f"{what}: {impl or 'kernel'} round launches {got}, "
+                        f"expected {want if impl is None else {}}")
+                if impl is None:
+                    kernel_launches = got
+        finally:
+            torch.use_deterministic_algorithms(False)
+        (a, ma), (b, mb) = res[None], res["ref"]
+        same = (all(same_bits(a["scores"][p], b["scores"][p])
+                    for p in zs.specs),
+                all(same_bits(a["dense"][p], b["dense"][p])
+                    for p in zs.dense_paths),
+                same_bits(ma["loss"], mb["loss"]))
+        loss_v = float(ma["loss"])
+        say(f"families: {what}: loss {loss_v:.9f}; kernels {secs[None]:.2f} "
+            f"s, plain {secs['ref']:.2f} s ({card}); launches "
+            f"{kernel_launches}; scores bitwise={same[0]}, dense "
+            f"bitwise={same[1]}, loss bitwise={same[2]}")
+        if not np.isfinite(loss_v):
+            die(f"{what}: loss {loss_v} is not finite")
+        if not all(same):
+            die(f"{what}: the kernel round differs from the plain path")
+        return kernel_launches
+
+    os.environ["REPRO_BWD_PLAN"] = "scatter"
+    try:
+        # --- (a) every family at reduced() through the kernels ------------
+        t0 = time.perf_counter()
+        n = FAM_K * FAM_E * FAM_B
+        fcfg = tfed.FederatedConfig(num_clients=FAM_K, local_steps=FAM_E,
+                                    local_lr=0.05)
+        per_arch = {}
+        for name in sorted(ARCHS):
+            cfg = get_arch(name).reduced()
+            zs = build_specs(param_template(cfg), ZamplingConfig(
+                compression=8, d=8, min_size=4096))
+            rng = np.random.RandomState(SEED + 23)
+            scores = {p: rng.rand(s.n).astype(np.float32)
+                      for p, s in zs.specs.items()}
+            state = init_state(zs, scores, init_dense(cfg, zs.dense_paths, 0),
+                               device=dev)
+            toks = next(lm_token_batches(cfg.vocab, n, FAM_S + 1, seed=0)
+                        ).reshape(FAM_K, FAM_E, FAM_B, FAM_S + 1)
+            batch = {"tokens": toks[..., :-1], "labels": toks[..., :-1]}
+            if cfg.family in ("encdec", "audio"):
+                enc = input_specs.make_batch(cfg, InputShape(
+                    "phase23", FAM_S, n, "train"), seed=0)["enc_embeds"]
+                batch["enc_embeds"] = enc.reshape(FAM_K, FAM_E, FAM_B,
+                                                  *enc.shape[1:])
+            per_arch[name] = kernels_and_plain(
+                f"{name} reduced ({cfg.family}, {len(zs.specs)} zampled "
+                f"leaves, K={FAM_K} E={FAM_E} B={FAM_B} S={FAM_S})", zs,
+                state, functools.partial(loss_fn, cfg), batch, 23, fcfg)
+            del state, scores
+            clear_caches()
+        say(f"families: all {len(ARCHS)} reduced archs bitwise kernels "
+            f"against plain in {time.perf_counter() - t0:.1f} s ({card})")
+
+        # --- (b) the blockwise path at sequence 4096 -----------------------
+        t0 = time.perf_counter()
+        cfg = get_arch("qwen2-0.5b").reduced()
+        zs = build_specs(param_template(cfg), ZamplingConfig(
+            compression=8, d=8, min_size=4096))
+        rng = np.random.RandomState(SEED + 24)
+        state = init_state(zs, {p: rng.rand(s.n).astype(np.float32)
+                                for p, s in zs.specs.items()},
+                           init_dense(cfg, zs.dense_paths, 0), device=dev)
+        toks = next(lm_token_batches(cfg.vocab, 2, FLASH_S + 1, seed=1)
+                    ).reshape(2, 1, 1, FLASH_S + 1)
+        batch = {"tokens": toks[..., :-1], "labels": toks[..., :-1]}
+        calls = [0]
+        blockwise = flash.blockwise_attention
+
+        def counting(*a, **kw):
+            calls[0] += 1
+            return blockwise(*a, **kw)
+
+        flash.blockwise_attention = counting
+        try:
+            for window in (None, FLASH_WINDOW):
+                calls[0] = 0
+                qr.reset_launches()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t1 = time.perf_counter()
+                _, met = tfed.federated_round(
+                    zs, state, functools.partial(loss_fn, cfg,
+                                                 window_override=window),
+                    batch, 24, tfed.FederatedConfig(
+                        num_clients=2, local_steps=1, local_lr=0.05),
+                    device=dev)
+                loss_v = float(met["loss"])
+                say(f"flash: qwen2-0.5b reduced round at S={FLASH_S} (K=2, "
+                    f"E=1, B=1), window {window}: loss {loss_v:.6f}, "
+                    f"{time.perf_counter() - t1:.2f} s, {calls[0]} "
+                    f"blockwise_attention calls, launches {launched()}, peak "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+                    f"({card})")
+                if calls[0] != cfg.n_layers or not np.isfinite(loss_v):
+                    die(f"the S={FLASH_S} round made {calls[0]} blockwise "
+                        f"calls (expected {cfg.n_layers}), loss {loss_v}")
+        finally:
+            flash.blockwise_attention = blockwise
+        del state
+        # one layer's attention, blockwise against the direct form, with
+        # the gradient in the layer's input
+        D, S = cfg.d_model, FLASH_S
+        prng = np.random.RandomState(SEED + 25)
+        tmpl = param_template(cfg)["blocks"]["attn"]
+        params = {w: torch.from_numpy((prng.randn(2, *leaf.shape[1:]) * (
+            0.5 / np.sqrt(leaf.shape[1]) if len(leaf.shape) == 3 else 0.1)
+        ).astype(np.float32)).to(dev) for w, leaf in tmpl.items()}
+        x = torch.from_numpy(prng.randn(2, 1, S, D).astype(np.float32)).to(dev)
+        wts = torch.from_numpy(prng.randn(2, 1, S, D).astype(np.float32)
+                               ).to(dev)
+        positions = torch.arange(S, device=dev).expand(1, S)
+
+        def one_layer(dims, direct):
+            threshold = tattn.FLASH_THRESHOLD
+            if direct:
+                tattn.FLASH_THRESHOLD = 1 << 30
+            try:
+                xx = x.clone().requires_grad_(True)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                out = tattn.self_attention(params, xx, dims, positions)
+                g, = torch.autograd.grad((out * wts).sum(), xx)
+                torch.cuda.synchronize()
+                return (out.detach(), g,
+                        torch.cuda.max_memory_allocated() - base)
+            finally:
+                tattn.FLASH_THRESHOLD = threshold
+
+        for window in (None, FLASH_WINDOW):
+            dims = attn_dims(cfg, window)
+            ob, gb, mb_ = one_layer(dims, False)
+            od, gd, md_ = one_layer(dims, True)
+            ok = (torch.allclose(ob, od, rtol=FLASH_RTOL, atol=FLASH_ATOL)
+                  and torch.allclose(gb, gd, rtol=FLASH_RTOL,
+                                     atol=FLASH_ATOL))
+            say(f"flash: one layer's attention (K=2, B=1, S={S}, 4 heads of "
+                f"64, window {window}), blockwise against direct: output "
+                f"max abs diff {(ob - od).abs().max().item():.3e}, input "
+                f"gradient {(gb - gd).abs().max().item():.3e}, allclose "
+                f"(rtol {FLASH_RTOL}, atol {FLASH_ATOL}) {ok}; peak above "
+                f"the inputs, forward and backward: blockwise "
+                f"{mb_ / 2**20:.1f} MiB, direct {md_ / 2**20:.1f} MiB "
+                f"({card})")
+            if not ok:
+                die("the blockwise attention differs from the direct form")
+        del params, x, wts
+        clear_caches()
+        torch.cuda.empty_cache()
+        say(f"families: blockwise part done in "
+            f"{time.perf_counter() - t0:.1f} s ({card})")
+
+        # --- (c) mamba2-1.3b through launch/train.py -----------------------
+        t0 = time.perf_counter()
+        args = lm_train.parser().parse_args(
+            ["--arch", MAMBA_ARCH, "--scale", str(MAMBA_BITWISE_SCALE),
+             "--rounds", "1"])
+        run = lm_train.build(args)
+        say(lm_train.describe(run) + f"; K={args.clients} E="
+            f"{args.local_steps} B={args.batch} S={args.seq} "
+            f"{run.cfg.dtype}; REPRO_BWD_PLAN=scatter")
+        kernels_and_plain(f"{MAMBA_ARCH} round 0 at scale "
+                          f"{MAMBA_BITWISE_SCALE}", run.zspecs, run.state,
+                          run.loss, run.batch(), run.words[0], run.fcfg)
+        del run
+        clear_caches()
+        torch.cuda.empty_cache()
+
+        args = lm_train.parser().parse_args(
+            ["--arch", MAMBA_ARCH, "--scale", "1.0", "--rounds",
+             str(MAMBA_ROUNDS)])
+        t1 = time.perf_counter()
+        run = lm_train.build(args)
+        E = args.local_steps
+        say(lm_train.describe(run) + f"; K={args.clients} E={E} "
+            f"B={args.batch} S={args.seq} {run.cfg.dtype}; "
+            f"REPRO_BWD_PLAN=scatter; built in {time.perf_counter() - t1:.1f}"
+            " s")
+        n_leaves = len(run.zspecs.specs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        qr.reset_launches()
+        qz_decode.reset_launches()
+        per_round, round_s, snap = [], [], {}
+
+        def on_round(r, state, met, dt):
+            now = dict(qr.LAUNCHES)
+            per_round.append({k: v - snap.get(k, 0) for k, v in now.items()
+                              if v - snap.get(k, 0)})
+            snap.update(now)
+            round_s.append(dt)
+
+        history = lm_train.train(run, on_round=on_round)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        total_mem = torch.cuda.get_device_properties(0).total_memory
+        m_launches = dict(qr.LAUNCHES)
+        want = {fwd: n_leaves * E, bwd: n_leaves * E}
+        med = float(np.median(round_s))
+        say(f"mamba2: full width, {MAMBA_ROUNDS} rounds: losses {history}; "
+            f"round times {[round(t, 4) for t in round_s]} s (median "
+            f"{med:.4f}); launches per round {per_round}, expected {want} "
+            f"each; peak device memory {peak / 2**30:.3f} GiB of "
+            f"{total_mem / 2**30:.1f} ({card})")
+        if not all(np.isfinite(history)):
+            die(f"a full-width mamba2 loss is not finite: {history}")
+        if (any(pr != want for pr in per_round)
+                or any(qz_decode.LAUNCHES.values())):
+            die(f"full-width mamba2 launches differ from {n_leaves} E of "
+                "kernels 8 and 4 a round, none of the others")
+        if peak >= total_mem:
+            die("the full-width mamba2 round outgrew the card")
+        by_tag, dev_us, top = profile_device_us(
+            lambda: tfed.federated_round(run.zspecs, run.state, run.loss,
+                                         run.batch(), run.words[-1],
+                                         run.fcfg, device=dev),
+            ("sample_reconstruct_window_kernel", "scatter_bwd_kernel"), top=8)
+        busy = 1e-3 * dev_us / (1e3 * med) if dev_us > 0 else None
+        if dev_us > 0:
+            say(f"profile: one full-width mamba2 round: all kernels "
+                f"{1e-3 * dev_us:.3f} ms of device time, busy share over the "
+                f"median round {busy:.4f}"
+                + "".join(f"; {t} {1e-3 * v[0]:.3f} ms ({v[1]} launches)"
+                          for t, v in by_tag.items()) + f" ({card})")
+            for kname, us, n_l in top:
+                say(f"profile: mamba2 round: {1e-3 * us:9.3f} ms in "
+                    f"{n_l:5d} launches of {kname[:110]}")
+        else:
+            say("profile: torch.profiler showed no device time; busy share "
+                "not measured")
+        # one local step's operands: cotangents to the host (they would
+        # not fit beside the step on the card), probabilities and words
+        stash8, stash4 = {}, {}
+        launch8, launch4 = qr.qz_sample_reconstruct_batched_fwd, \
+            qr.qz_reconstruct_batched_bwd
+
+        def stashing8(spec, P, steps, qbits=None, qpacked=False):
+            stash8[spec] = (P.detach().clone(), steps.clone()
+                            if torch.is_tensor(steps) else steps, qbits,
+                            qpacked)
+            return launch8(spec, P, steps, qbits, qpacked)
+
+        def stashing4(spec, G):
+            stash4[spec] = G.detach().to("cpu")
+            return launch4(spec, G)
+
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in run.batch().items()}
+        words = [fold_word(run.words[-1], 0, i) for i in range(args.clients)]
+        qr.qz_sample_reconstruct_batched_fwd = stashing8
+        qr.qz_reconstruct_batched_bwd = stashing4
+        try:
+            tfed.local_update(run.zspecs, run.state, run.loss,
+                              {k: v[:, :1].contiguous()
+                               for k, v in batch.items()}, words,
+                              dataclasses.replace(run.fcfg, local_steps=1))
+        finally:
+            qr.qz_sample_reconstruct_batched_fwd = launch8
+            qr.qz_reconstruct_batched_bwd = launch4
+        zspecs = run.zspecs
+        del run, batch
+        torch.cuda.empty_cache()
+        if set(stash8) != set(zspecs.specs.values()) or set(stash4) != set(
+                zspecs.specs.values()):
+            die("one full-width mamba2 step did not reach kernels 8 and 4 at "
+                "every zampled leaf")
+        kt4 = KernelTimes(card, {bwd: "scatter_bwd_kernel"})
+        kt8 = KernelTimes(card, {fwd: "sample_reconstruct_window_kernel"})
+        K = args.clients
+        step_err = {fwd: 0.0, bwd: 0.0}
+        past = {fwd: 0, bwd: 0}  # entries checked at a flat offset >= 2^31
+        crng = np.random.RandomState(SEED + 26)
+        for path, spec in zspecs.specs.items():
+            m, nn_, d = spec.m, spec.n, spec.d
+            G = stash4.pop(spec).to(dev)
+            # kernel 4 at sampled windows against the plain rule on the
+            # step's own cotangent: a window reads every client's rows,
+            # client k's at flat offsets k*m + r
+            nw, rpw = spec.num_windows, spec.rows_per_window
+            wins = sorted({0, nw - 1, *crng.randint(
+                0, nw, MAMBA_CHECK_WINDOWS).tolist()})
+            got = qr.qz_reconstruct_batched_bwd(spec, G).reshape(
+                K, nw, spec.window)[:, wins]
+            check_bitwise(step_err, bwd, got,
+                          ops.scatter_bwd_windows_plain(spec, G, wins),
+                          f"{MAMBA_ARCH} {path} at {len(wins)} sampled "
+                          f"windows of {nw}, K={K} (reads up to flat offset "
+                          f"{K * m - 1})")
+            past[bwd] += sum(k * m + min(m, (w + 1) * rpw) - 1 >= 1 << 31
+                             for w in wins for k in range(K))
+            del got
+            kt4.add(bwd, path, lambda: qr.qz_reconstruct_batched_bwd(spec, G),
+                    None, None, *scatter_work(spec, G), reps=10, prof_reps=5)
+            del G
+            P, steps, qbits, qpacked = stash8.pop(spec)
+            # kernel 8 at sampled rows of every client against the plain
+            # rule (each edge's value times the bit drawn from P), the last
+            # rows and those around flat offset 2^31 among them
+            W = qr.qz_sample_reconstruct_batched_fwd(spec, P, steps, qbits,
+                                                     qpacked)
+            words = as_words(steps, dev).reshape(-1)
+            for k in range(K):
+                edge = (1 << 31) - k * m
+                picks = torch.from_numpy(np.concatenate([
+                    crng.randint(0, m, MAMBA_CHECK_ROWS),
+                    np.arange(max(0, m - 64), m),
+                    np.arange(max(0, edge - 64), max(0, min(m, edge + 64)))
+                ])).to(dev)
+                check_bitwise(
+                    step_err, fwd, W[k, picks], ops.serve_edge_weights(
+                        spec, ops.serve_operand(P[k], qbits, qpacked),
+                        words[k], picks, qbits, qpacked),
+                    f"{MAMBA_ARCH} {path} client {k} at {picks.numel()} "
+                    f"sampled rows (flat offsets {k * m} to {k * m + m - 1})")
+                past[fwd] += int((k * m + picks >= 1 << 31).sum())
+            del W
+            Z = sample_mask_hash(P, spec.seed, spec.tensor_id,
+                                 as_words(steps, dev).reshape(-1))
+            drawn, any_drawn = drawn_counts(spec, Z)
+            kt8.add(fwd, path, lambda: qr.qz_sample_reconstruct_batched_fwd(
+                        spec, P, steps, qbits, qpacked), None, None,
+                    m * OPS_PER_WEIGHT + m * d * OPS_ROW_EDGE
+                    + any_drawn * OPS_VALUE + K * nn_ * OPS_DRAW + drawn,
+                    K * (P.element_size() * nn_ + 4 * m) + 4 * K,
+                    reps=10, prof_reps=5)
+            say(f"launch: {MAMBA_ARCH} {path} m={m} n={nn_} rpw="
+                f"{spec.rows_per_window} K={K} (K*m={K * m}): kernel 8 "
+                f"{geometry_text(qr.fwd_geometry(spec, K))}; kernel 4 "
+                f"{geometry_text(qr.scatter_bwd_geometry(spec, K))}")
+            del P, Z
+            torch.cuda.empty_cache()
+        say(f"families: full-width {MAMBA_ARCH} kernels 8 and 4 bitwise the "
+            f"plain rule on the step's own operands, {past[fwd]} weights and "
+            f"{past[bwd]} (window, client) reads at flat offsets >= 2^31")
+        if K * max(sp.m for sp in zspecs.specs.values()) > 1 << 31 and not (
+                past[fwd] and past[bwd]):
+            die("no checked entry of the full-width step lies past flat "
+                "offset 2^31")
+        per = (f"one full-width {MAMBA_ARCH} local step under "
+               f"REPRO_BWD_PLAN=scatter: 1 launch per zampled leaf, K={K}")
+        step_rows = {
+            bwd: kt4.row(bwd, "src/repro/kernels/qz_reconstruct.py:296",
+                         m_launches[bwd], step_err[bwd], 1, per, None),
+            fwd: kt8.row(fwd, "src/repro/kernels/qz_reconstruct.py:553",
+                         m_launches[fwd], step_err[fwd], 1, per, None)}
+        tags = {bwd: "scatter_bwd_kernel",
+                fwd: "sample_reconstruct_window_kernel"}
+        for r in rows:
+            if r["name"] in step_rows:
+                sr = step_rows[r["name"]]
+                entry = {k: sr[k] for k in (
+                    "launches", "max_abs_err", "ms", "device_ms", "bound_ms",
+                    "bound_by", "per", "shapes")}
+                if dev_us > 0:
+                    us, _ = by_tag[tags[r["name"]]]
+                    entry["device_ms_in_main_path"] = 1e-3 * us / E
+                entry["families_launches"] = {a: v.get(r["name"], 0)
+                                              for a, v in per_arch.items()}
+                entry["round"] = {"losses": history, "round_s": round_s,
+                                  "peak_bytes": peak, "busy_share": busy}
+                r["mamba2_step"] = entry
+        say(f"families: mamba2-1.3b part done in "
+            f"{time.perf_counter() - t0:.1f} s ({card})")
+    finally:
+        os.environ.pop("REPRO_BWD_PLAN", None)
+        torch.use_deterministic_algorithms(False)
+    say(f"phase 23 done in {time.perf_counter() - t_phase:.1f} s")
+
+
 def sharded_rank(a: dict) -> dict:
     """One rank of phase 17, in its own process (started by
     ``comm.shardmap.run_ranks``): client k = the rank trains phase 7's
@@ -4133,6 +4602,8 @@ def main() -> None:
     del fed["state_r0"], fed["state0"]
     torch.cuda.empty_cache()
     rows += lm_phases(card, dev, fed, rows)
+    torch.cuda.empty_cache()
+    families_phase(card, dev, fed, rows)
     torch.cuda.empty_cache()
     paper_phase(card, dev, fed, carries)
     del carries

@@ -1,4 +1,7 @@
-from .base import ArchConfig
-from .registry import ARCHS, get_arch
+from .base import ArchConfig, EncoderConfig, MoEConfig, SSMConfig
+from .registry import ARCHS, SHAPES, InputShape, get_arch, get_shape
 
-__all__ = ["ArchConfig", "ARCHS", "get_arch"]
+__all__ = [
+    "ArchConfig", "EncoderConfig", "MoEConfig", "SSMConfig",
+    "ARCHS", "SHAPES", "InputShape", "get_arch", "get_shape",
+]

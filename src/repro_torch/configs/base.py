@@ -10,7 +10,7 @@ d_model <= 512, <= 4 experts) — same family, same code paths.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -118,3 +118,52 @@ class ArchConfig:
             attn_every=2 if self.attn_every else 0,
             dtype="float32",
         )
+
+    def supports_shape(self, shape_name: str) -> Tuple[bool, str]:
+        """Which input shapes this arch runs (DESIGN.md §4 skips)."""
+        if shape_name == "long_500k":
+            if self.family in ("ssm", "hybrid"):
+                return True, "sub-quadratic (SSM/hybrid)"
+            if self.window is not None:
+                return True, f"sliding-window attention (W={self.window})"
+            if self.family in ("dense", "moe"):
+                return True, "SWA long-context variant (DESIGN.md §4)"
+            return False, ("full-attention VLM/enc-dec arch: quadratic "
+                           "attention at 500k; no SWA variant published")
+        return True, ""
+
+
+def param_count_estimate(cfg: ArchConfig) -> int:
+    """Rough N for MODEL_FLOPS=6ND accounting (embeddings excluded)."""
+    d = cfg.d_model
+    hd = cfg.resolved_head_dim
+    per_layer = 0
+    if cfg.n_heads:
+        per_layer += d * hd * (cfg.n_heads + 2 * cfg.n_kv) + cfg.n_heads * hd * d
+    if cfg.moe is not None:
+        per_layer += 3 * d * cfg.moe.d_ff_expert * cfg.moe.num_experts
+        per_layer += d * cfg.moe.num_experts
+    elif cfg.d_ff:
+        per_layer += 3 * d * cfg.d_ff
+    if cfg.ssm is not None:
+        di = cfg.ssm.expand * d
+        nh = di // cfg.ssm.headdim
+        conv_dim = di + 2 * cfg.ssm.n_groups * cfg.ssm.d_state
+        per_layer += d * (2 * di + 2 * cfg.ssm.n_groups * cfg.ssm.d_state + nh)
+        per_layer += conv_dim * cfg.ssm.conv_width + di * d + nh * 2 + di
+    total = cfg.n_layers * per_layer
+    total += 2 * cfg.vocab * d  # embed + head
+    if cfg.encoder is not None:
+        e = cfg.encoder
+        total += e.n_layers * (4 * d * d + 3 * d * e.d_ff)
+    return int(total)
+
+
+def active_param_count_estimate(cfg: ArchConfig) -> int:
+    """N_active for MoE (6·N_active·D accounting)."""
+    if cfg.moe is None:
+        return param_count_estimate(cfg)
+    d = cfg.d_model
+    dense_moe = 3 * d * cfg.moe.d_ff_expert * cfg.moe.num_experts
+    active_moe = 3 * d * cfg.moe.d_ff_expert * cfg.moe.top_k
+    return param_count_estimate(cfg) - cfg.n_layers * (dense_moe - active_moe)

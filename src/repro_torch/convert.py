@@ -15,7 +15,9 @@ flat {path: leaf} dict the port's optimizers see.  bf16
 leaves (``ml_dtypes`` arrays) widen to float32 on the way and land in
 their template's dtype: the LM round state of the JAX package's
 ``launch/train.py`` (f32 scores, bf16 dense leaves at full width) comes
-across exactly.  The port's spec set is
+across exactly, for every model family (the MoE router and the SSM's
+``A_log``, ``D`` and ``dt_bias`` stay float32, as their templates say;
+dense leaves are keyed by their nested paths, ``blocks/ssm/A_log``).  The port's spec set is
 rebuilt from the JAX template's shapes and config, and every QSpec is
 checked field by field against the JAX one, so a mismatch in leaf order
 (and so in tensor ids) raises here rather than serving other weights.

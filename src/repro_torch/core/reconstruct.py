@@ -133,44 +133,55 @@ def plan_apply_batched(spec: QSpec, g_pad: torch.Tensor,
     return _edge_sum(plan.vals.reshape(spec.n, plan.deg), gath)
 
 
+def scatter_windows(spec: QSpec, g_rows: torch.Tensor, w0: int,
+                    w1: int) -> torch.Tensor:
+    """The scatter transpose of windows [w0, w1) alone: ``g_rows`` (K,
+    (w1 - w0) * rows_per_window) the cotangents of their padded rows ->
+    (K, (w1 - w0) * window), their coordinates.
+
+    Window w's rows [w*rpw, (w+1)*rpw) write only into its coordinates.
+    Their edges are regenerated on g's device, stably sorted by
+    coordinate (which keeps each coordinate's edges in (row, k) order),
+    laid out in a degree-padded table whose padding entries read a
+    zero, and summed from +0 in ascending order.  Edges of padding rows
+    multiply a zero cotangent and add nothing."""
+    k, dev = g_rows.shape[0], g_rows.device
+    rpw, win, d = spec.rows_per_window, spec.window, spec.d
+    g_ext = torch.cat([g_rows.to(torch.float32),
+                       torch.zeros((k, 1), dtype=torch.float32, device=dev)],
+                      dim=1)  # the last column: the padding entries' zero
+    rp = torch.arange(w0 * rpw, w1 * rpw, dtype=torch.int64, device=dev)
+    local = padded_row_window(spec, rp) - w0
+    key = (local[:, None] * win + row_indices(spec, rp)).reshape(-1)
+    vals = row_values(spec, rp).reshape(-1)
+    src = (rp - w0 * rpw).repeat_interleave(d)
+    ks, perm = torch.sort(key, stable=True)
+    cells = (w1 - w0) * win
+    counts = torch.bincount(key, minlength=cells)
+    deg = max(1, int(counts.max()))
+    starts = torch.cumsum(counts, 0) - counts
+    slot = ks * deg + (torch.arange(ks.numel(), device=dev) - starts[ks])
+    t_rows = torch.full((cells * deg,), rp.numel(), dtype=torch.int64,
+                        device=dev)
+    t_vals = torch.zeros(cells * deg, dtype=torch.float32, device=dev)
+    t_rows[slot] = src[perm]
+    t_vals[slot] = vals[perm]
+    gath = g_ext[:, t_rows].reshape(k, cells, deg)
+    return _edge_sum(t_vals.reshape(cells, deg), gath)
+
+
 def scatter_apply_batched(spec: QSpec, g_pad: torch.Tensor) -> torch.Tensor:
     """Q^T for K cotangents in padded row space by the scatter: (K,
-    m_pad) -> (K, n), holding no row plan and no transpose plan.
-
-    Window w's rows [w*rpw, (w+1)*rpw) write only into its coordinates,
-    so the windows go a chunk at a time: their rows' edges are
-    regenerated on g's device, stably sorted by coordinate (which keeps
-    each coordinate's edges in (row, k) order), laid out in a
-    degree-padded table whose padding entries read a zero, and summed
-    from +0 in ascending order.  Edges of padding rows multiply a zero
-    cotangent and add nothing."""
-    k, dev = g_pad.shape[0], g_pad.device
-    rpw, win, d = spec.rows_per_window, spec.window, spec.d
-    g_ext = torch.cat([g_pad.to(torch.float32),
-                       torch.zeros((k, 1), dtype=torch.float32, device=dev)],
-                      dim=1)  # column m_pad: the padding entries' zero
-    out = torch.empty((k, spec.n), dtype=torch.float32, device=dev)
-    per = max(1, _SCATTER_CHUNK_EDGES // (rpw * d))
+    m_pad) -> (K, n), holding no row plan and no transpose plan: a chunk
+    of windows at a time through ``scatter_windows``."""
+    rpw, win = spec.rows_per_window, spec.window
+    out = torch.empty((g_pad.shape[0], spec.n), dtype=torch.float32,
+                      device=g_pad.device)
+    per = max(1, _SCATTER_CHUNK_EDGES // (rpw * spec.d))
     for w0 in range(0, spec.num_windows, per):
         w1 = min(spec.num_windows, w0 + per)
-        rp = torch.arange(w0 * rpw, w1 * rpw, dtype=torch.int64, device=dev)
-        local = padded_row_window(spec, rp) - w0
-        key = (local[:, None] * win + row_indices(spec, rp)).reshape(-1)
-        vals = row_values(spec, rp).reshape(-1)
-        src = rp.repeat_interleave(d)
-        ks, perm = torch.sort(key, stable=True)
-        cells = (w1 - w0) * win
-        counts = torch.bincount(key, minlength=cells)
-        deg = max(1, int(counts.max()))
-        starts = torch.cumsum(counts, 0) - counts
-        slot = ks * deg + (torch.arange(ks.numel(), device=dev) - starts[ks])
-        t_rows = torch.full((cells * deg,), spec.m_pad, dtype=torch.int64,
-                            device=dev)
-        t_vals = torch.zeros(cells * deg, dtype=torch.float32, device=dev)
-        t_rows[slot] = src[perm]
-        t_vals[slot] = vals[perm]
-        gath = g_ext[:, t_rows].reshape(k, cells, deg)
-        out[:, w0 * win:w1 * win] = _edge_sum(t_vals.reshape(cells, deg), gath)
+        out[:, w0 * win:w1 * win] = scatter_windows(
+            spec, g_pad[:, w0 * rpw:w1 * rpw], w0, w1)
     return out
 
 

@@ -87,7 +87,7 @@ from ..core.qspec import QSpec, row_indices, row_values
 from ..core.reconstruct import (_insert_padding_batched, _move_batched,
                                 _unmove_batched, plan_apply_batched,
                                 reconstruct_batched_ref,
-                                scatter_apply_batched)
+                                scatter_apply_batched, scatter_windows)
 from ..core.sampling import (as_word, as_words, mask_u32,
                               quant_threshold_u24, sample_mask_hash,
                               sample_mask_qhash, word_values)
@@ -170,6 +170,26 @@ def scatter_bwd_plain(spec: QSpec, G: torch.Tensor) -> torch.Tensor:
     no plan held (``core.reconstruct.scatter_apply_batched``)."""
     return scatter_apply_batched(
         spec, _insert_padding_batched(spec, G.to(torch.float32)))
+
+
+def scatter_bwd_windows_plain(spec: QSpec, G: torch.Tensor,
+                              windows) -> torch.Tensor:
+    """Kernel 4's plain version at some windows alone: (K, m) cotangents
+    in moved flat order -> (K, len(windows), window), the listed windows'
+    coordinates, gathering only those windows' rows (so it checks a leaf
+    too large for ``scatter_bwd_plain`` at sampled windows).  Equals the
+    same columns of ``scatter_bwd_plain`` bit for bit."""
+    G = G.to(torch.float32)
+    rpw, outs = spec.rows_per_window, []
+    for w in windows:
+        rp = torch.arange(w * rpw, (w + 1) * rpw, dtype=torch.int64,
+                          device=G.device)
+        blk, loc = rp // spec.m_pad_loc, rp % spec.m_pad_loc
+        real = loc < spec.m_blk  # padding rows read +0, as inserted
+        g = torch.where(real, G[:, torch.where(real, blk * spec.m_blk + loc,
+                                               0)], 0.0)
+        outs.append(scatter_windows(spec, g, w, w + 1))
+    return torch.stack(outs, 1)
 
 
 def scatter_bwd_one_plain(spec: QSpec, g: torch.Tensor) -> torch.Tensor:

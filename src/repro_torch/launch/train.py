@@ -1,19 +1,22 @@
-"""End-to-end LM training: federated zampling of a decoder LM.
+"""End-to-end LM training: federated zampling of an assigned architecture.
 
 The JAX package's ``launch/train.py``, with its flags, defaults,
-``scaled()`` and printed lines: an assigned architecture (size-scaled
-below ``--scale 1``) trains by federated zampling on the synthetic
-Markov LM stream, K clients taking E local SGD steps a round, ``mean``
-uploads of f32 masks and the ``f32`` downlink.  Each local step runs
+``scaled()`` and printed lines: an assigned architecture of any family
+(``build_model``; size-scaled below ``--scale 1``) trains by federated
+zampling on the synthetic Markov LM stream, K clients taking E local
+SGD steps a round, ``mean`` uploads of f32 masks and the ``f32``
+downlink.  Each local step runs
 the fused sample-reconstruct forward (CUDA kernel 8) and the transpose
 backward the gate ``REPRO_BWD_PLAN`` names (``core.transpose_plan``).
 At full width (``--scale 1.0``, bf16 leaves) the transpose plans of
-qwen2-0.5b would need ~100 GB of device memory, so full width trains
-only under ``REPRO_BWD_PLAN=scatter`` (kernel 4, which regenerates Q
-and holds no plan):
+qwen2-0.5b would need ~100 GB of device memory, so full width of any
+family trains only under ``REPRO_BWD_PLAN=scatter`` (kernel 4, which
+regenerates Q and holds no plan):
 
   REPRO_BWD_PLAN=scatter python -m repro_torch.launch.train \\
       --scale 1.0 --rounds 3 --out runs/full
+  REPRO_BWD_PLAN=scatter python -m repro_torch.launch.train \\
+      --arch mamba2-1.3b --scale 1.0 --rounds 3 --out runs/mamba2
   python -m repro_torch.launch.train --device cpu --scale 0.01 \\
       --rounds 2 --local-steps 2 --batch 2 --seq 16 --out runs/tiny
 
@@ -22,6 +25,11 @@ scores, the dense leaves' init, a round key split per round), this one
 draws from numpy at fixed seeds: scores U(0, 1) and each round's uint32
 word from ``RandomState(0)``, dense leaves from
 ``models.model.init_dense`` at seed 0.
+The batch carries JAX's two keys, ``tokens`` and ``labels`` (so
+pixtral-12b trains on tokens, as in JAX).  The enc-dec (audio) family's
+forward also reads ``enc_embeds``, which that batch lacks: the JAX entry
+point raises ``KeyError`` there, and this one refuses the arch up front
+(``build``) with an error that names the missing input.
 It writes the JAX entry point's checkpoint into ``--out`` (``ckpt.npz``
 and ``ckpt.meta.json``, the state's leaves at their dtypes, bf16 as its
 bits; ``checkpoint.load_checkpoint`` reads it back onto the card) and
@@ -47,7 +55,8 @@ from ..core.federated import FederatedConfig, federated_round
 from ..core.zampling import ZamplingConfig, build_specs, init_state
 from ..data import lm_token_batches
 from ..device import resolve_device
-from ..models.model import init_dense, loss_fn, param_template
+from ..models.model import (build_model, family, init_dense, loss_fn,
+                            param_template)
 
 
 def scaled(cfg, scale: float):
@@ -111,8 +120,17 @@ class LMRun:
 
 def build(args: argparse.Namespace) -> LMRun:
     """The configuration, spec set, initial state and data of a run."""
-    dev = resolve_device(args.device)
     cfg = scaled(get_arch(args.arch), args.scale)
+    if family(cfg) == "encdec":
+        raise ValueError(
+            f"--arch {cfg.name}: the {cfg.family} family's forward reads "
+            "batch['enc_embeds'] (the encoder's frame embeddings), which "
+            "this entry point's token batches ({'tokens', 'labels'}) do "
+            "not carry; the JAX entry point raises KeyError: 'enc_embeds' "
+            "here. Train it through core.federated.federated_round with "
+            "launch.input_specs.make_batch's inputs instead.")
+    dev = resolve_device(args.device)
+    build_model(cfg)
     zspecs = build_specs(param_template(cfg), ZamplingConfig(
         compression=args.compression, d=args.d, min_size=4096))
     rng = np.random.RandomState(0)

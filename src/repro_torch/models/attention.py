@@ -1,18 +1,22 @@
 """Grouped-query attention (the JAX package's ``models/attention.py``):
-the training forward and the parts the serving engine runs.
+the training forward, decoding, and the encoder-decoder's cross
+attention.
 
-``self_attention`` is the full-sequence causal attention of training,
-K clients at once: each client's projections, then ``finish_qkv`` and
+``self_attention`` is the full-sequence attention of training, K
+clients at once: each client's projections, then ``finish_qkv`` and
 ``_sdpa_rows`` over the K*B rows, each with its own client's bias, in
 the plain einsum/softmax form the JAX package computes below its
-``FLASH_THRESHOLD`` (the blockwise path from 4096 tokens on is not
-ported).  ``finish_qkv`` is the bias / head-reshape / qk-norm / rope
-tail of the projections; ``decode_attend`` writes one token into the KV
-cache and attends; ``decode_attend_lanes`` does the same with a
-per-lane (B,) position and a live mask, for the continuous-batching
-scheduler.  The cache write is the one-hot blend
-``k * (1 - oh) + oh * k_new``, as in JAX, so each lane's values equal
-the single-request path's.
+``FLASH_THRESHOLD``; from that sequence length on, the blockwise
+online-softmax form of ``models/flash.py``, as in JAX.  ``finish_qkv``
+is the bias / head-reshape / qk-norm / rope tail of the projections;
+``decode_attend`` writes one token into the KV cache and attends;
+``decode_attend_lanes`` does the same with a per-lane (B,) position and
+a live mask, for the continuous-batching scheduler.  The cache write is
+the one-hot blend ``k * (1 - oh) + oh * k_new``, as in JAX, so each
+lane's values equal the single-request path's.
+``decode_self_attention`` is one token of one model (no client axis),
+as the JAX package's; ``encode_kv`` and ``cross_attention`` take the K
+axis as ``self_attention`` does.
 """
 
 from __future__ import annotations
@@ -90,14 +94,11 @@ def _sdpa_rows(q, k, v, mask, n_rep: int):
 
 
 def self_attention(params, x, dims: AttnDims, positions):
-    """Full-sequence causal self-attention of K clients: ``x`` (K, B, S,
-    D), every leaf of ``params`` with a leading K axis, ``positions``
-    (B, S); returns (K, B, S, D)."""
+    """Full-sequence self-attention of K clients: ``x`` (K, B, S, D),
+    every leaf of ``params`` with a leading K axis, ``positions`` (B, S);
+    returns (K, B, S, D).  From ``FLASH_THRESHOLD`` tokens on, the
+    blockwise form, which assumes positions == arange, as in JAX."""
     K, B, S, _ = x.shape
-    if S >= FLASH_THRESHOLD:
-        raise NotImplementedError(
-            f"sequence length {S} >= {FLASH_THRESHOLD}: the blockwise "
-            "attention (models/flash.py) is not ported yet")
     q, k, v = (linear(x, params[w]).reshape(K * B, S, -1)
                for w in ("wq", "wk", "wv"))
     # the K*B rows, each beside its client's bias and norm scales
@@ -107,6 +108,12 @@ def self_attention(params, x, dims: AttnDims, positions):
                  for name in ("q_norm", "k_norm") if name in params})
     pos = positions.repeat(K, 1)
     q, k, v = finish_qkv(rows, q, k, v, dims, pos)
+    if S >= FLASH_THRESHOLD:
+        from .flash import blockwise_attention
+
+        out = blockwise_attention(q, k, v, causal=dims.causal,
+                                  window=dims.window)
+        return linear(out.reshape(K, B, S, -1), params["wo"])
     qi, ki = pos[:, None, :, None], pos[:, None, None, :]
     mask = torch.zeros((K * B, 1, S, S), dtype=torch.float32, device=x.device)
     if dims.causal:
@@ -185,3 +192,51 @@ def decode_attend_lanes(q, k, v, cache: KVCache, dims: AttnDims, live):
                 dims.n_heads // dims.n_kv)
     new_pos = torch.where(live, pos + 1, pos)
     return out.reshape(B, 1, -1), KVCache(new_k, new_v, new_pos)
+
+
+def decode_self_attention(params, x, cache: KVCache, dims: AttnDims):
+    """One-token decode of one model: x (B, 1, d), leaves without a
+    client axis.  Ring-buffer write under SWA."""
+    B = x.shape[0]
+    positions = cache.pos.expand(B, 1)
+    q, k, v = (x @ params[w] for w in ("wq", "wk", "wv"))
+    q, k, v = finish_qkv(params, q, k, v, dims, positions)
+    out, new_cache = decode_attend(q, k, v, cache, dims)
+    return out @ params["wo"], new_cache
+
+
+def encode_kv(params, enc_out, dims: AttnDims):
+    """K clients' cross-attention keys and values: enc_out (K, B, Se, D)
+    -> k, v (K, B, Se, n_kv, hd)."""
+    K, B, Se, _ = enc_out.shape
+    k = linear(enc_out, params["wk"]).reshape(K, B, Se, dims.n_kv,
+                                              dims.head_dim)
+    v = linear(enc_out, params["wv"]).reshape(K, B, Se, dims.n_kv,
+                                              dims.head_dim)
+    return k, v
+
+
+def cross_attention(params, x, enc_k, enc_v, dims: AttnDims, enc_mask=None):
+    """Decoder->encoder attention of K clients: x (K, B, S, D), enc_k/v
+    (K, B, Se, KV, hd) precomputed, ``enc_mask`` (K*B, Se) bool or None.
+    No rope on q.  The blockwise form under JAX's condition: a side of
+    ``FLASH_THRESHOLD`` tokens or more, no mask, both sides multiples
+    of 1024."""
+    K, B, S, _ = x.shape
+    Se = enc_k.shape[2]
+    q = linear(x, params["wq"]).reshape(K * B, S, dims.n_heads,
+                                        dims.head_dim)
+    ek = enc_k.reshape(K * B, Se, dims.n_kv, dims.head_dim)
+    ev = enc_v.reshape(K * B, Se, dims.n_kv, dims.head_dim)
+    if (max(S, Se) >= FLASH_THRESHOLD and enc_mask is None
+            and S % 1024 == 0 and Se % 1024 == 0):
+        from .flash import blockwise_attention
+
+        out = blockwise_attention(q, ek, ev, causal=False)
+        return linear(out.reshape(K, B, S, -1), params["wo"])
+    mask = None
+    if enc_mask is not None:
+        mask = torch.where(enc_mask[:, None, None, :], 0.0, NEG_INF).to(
+            torch.float32)
+    out = _sdpa_rows(q, ek, ev, mask, dims.n_heads // dims.n_kv)
+    return linear(out.reshape(K, B, S, -1), params["wo"])

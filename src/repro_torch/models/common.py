@@ -61,6 +61,24 @@ def swiglu(x, gate_w, up_w, down_w):
     return linear(h, down_w)
 
 
+def _bias(b: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """A bias for ``y``: (out,), or (K, out) beside a (K, ..., out)
+    activation, one row a client."""
+    if b.ndim == 1:
+        return b
+    return b.reshape(b.shape[0], *([1] * (y.ndim - 2)), b.shape[-1])
+
+
+def gelu_mlp(x, up_w, up_b, down_w, down_b):
+    """GELU (tanh form, ``jax.nn.gelu``'s default) MLP with biases, the
+    activation in float32."""
+    h = linear(x, up_w)
+    h = h + _bias(up_b, h)
+    h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
+    y = linear(h, down_w)
+    return y + _bias(down_b, y)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
                   ignore: int = -100, num_classes: int = 0,
                   lead: int = 0) -> torch.Tensor:

@@ -127,6 +127,10 @@ def build_serve_engine(model: Model, sstate: ServeState, *,
         raise ValueError(f"serve state lives on {sstate.device}, engine "
                          f"asked for {dev}")
     cfg = model.cfg
+    if cfg.family not in ("dense", "vlm") or cfg.moe is not None:
+        raise NotImplementedError(
+            "the serving engine covers the dense decoder family; got "
+            f"family={cfg.family!r}")
     specs = sstate.zspecs.specs
     qbits, qpacked = sstate.qbits, sstate.qpacked
     for path in specs:

@@ -68,7 +68,13 @@ def test_every_module_and_chip_smoke_import_without_jax():
               "models.model", "models.common", "models.attention",
               "fault", "fault.plan", "fault.population", "fault.validate",
               "checkpoint", "checkpoint.ckpt", "core.zonotope",
-              "experiments", "experiments.paper"):
+              "experiments", "experiments.paper", "models.ssm", "models.moe",
+              "models.flash", "launch.input_specs", "train.steps",
+              "configs.registry", "configs.mamba2_1_3b",
+              "configs.mixtral_8x7b", "configs.olmoe_1b_7b",
+              "configs.pixtral_12b", "configs.qwen1_5_4b",
+              "configs.qwen3_14b", "configs.seamless_m4t_medium",
+              "configs.yi_9b", "configs.zamba2_7b"):
         assert f"repro_torch.{m}" in mods
     code = _BLOCKED + "\n".join(
         ["import importlib", f"sys.path.insert(0, {str(ROOT)!r})"]
@@ -221,6 +227,11 @@ def test_training_entry_points_default_to_the_card(tmp_path):
                          [1]),
         lambda: lm_train.build(lm_train.parser().parse_args(
             ["--scale", "0.01", "--rounds", "1"])),
+        lambda: lm_train.build(lm_train.parser().parse_args(
+            ["--arch", "mamba2-1.3b", "--scale", "0.01", "--rounds", "1"])),
+        lambda: lm_train.main(["--arch", "mamba2-1.3b", "--scale", "1.0",
+                               "--rounds", "1", "--out",
+                               str(tmp_path / "run")]),
         lambda: load_checkpoint(str(ckpt), state),
         lambda: paper.zhou_cell("zhou_d1_nm", 1.0, 1, steps=1, n_samples=1),
         lambda: run_wire_formats(),
@@ -234,6 +245,17 @@ def test_training_entry_points_default_to_the_card(tmp_path):
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def test_entry_point_refuses_the_audio_family_by_name():
+    """JAX's entry point raises KeyError: 'enc_embeds' on the audio
+    family; the port's refuses it up front, naming the missing input,
+    on any device."""
+    for device in ("cpu", "cuda"):
+        with pytest.raises(ValueError, match="enc_embeds"):
+            lm_train.build(lm_train.parser().parse_args(
+                ["--arch", "seamless-m4t-medium", "--scale", "0.01",
+                 "--device", device]))
 
 
 def _run_smoke(cwd):

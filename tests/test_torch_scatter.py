@@ -233,3 +233,52 @@ def test_scatter_chunks_do_not_change_the_bits(monkeypatch):
     full = trec.grad_z_scatter_batched_ref(t, G)
     monkeypatch.setattr(trec, "_SCATTER_CHUNK_EDGES", 1)
     assert torch.equal(trec.grad_z_scatter_batched_ref(t, G), full)
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+@pytest.mark.parametrize("i", range(len(SPECS)))
+@pytest.mark.parametrize("shards", [1, 2])
+def test_windowed_plain_scatter_equals_the_whole(i, shards):
+    """``scatter_bwd_windows_plain`` (the check of kernel 4 at sampled
+    windows of a leaf too large for the whole plain transpose) equals
+    the same columns of ``scatter_bwd_plain`` bit for bit, the first,
+    a middle and the last (ragged) window, over shard blocks too."""
+    shape, fan_in, c, d, window = SPECS[i]
+    spec = tq.make_qspec(4, shape, fan_in, compression=c, d=d,
+                         window=window, seed=1, shard_count=shards)
+    G = torch.from_numpy(_cot(3, spec, 11)).reshape(3, -1)
+    G[1, 1::5] = -0.0
+    full = tops.scatter_bwd_plain(spec, G)
+    wins = sorted({0, spec.num_windows // 2, spec.num_windows - 1})
+    got = tops.scatter_bwd_windows_plain(spec, G, wins)
+    want = full.reshape(3, spec.num_windows, spec.window)[:, wins]
+    assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("i", range(len(SPECS)))
+def test_edge_weights_at_rows_equal_the_plain_sample_reconstruct(i):
+    """The weights at sampled rows of one client, by
+    ``serve_edge_weights`` on its f32 probabilities and draw word (the
+    check of kernel 8 at rows of a leaf too large for the whole plain
+    version), equal those rows of ``sample_reconstruct_plain`` bit for
+    bit, the sign of zero too."""
+    t, _ = _specs(i)
+    rng = np.random.RandomState(13 + i)
+    P = torch.from_numpy(rng.rand(3, t.n).astype(np.float32))
+    P[:, ::2] = 0.0
+    P[:, 1::11] = 1.0
+    steps = torch.tensor([5, 2**31 + 3, 2**32 - 1], dtype=torch.int64)
+    full = tops.sample_reconstruct_plain(t, P, steps)
+    neg0 = torch.signbit(full) & (full == 0)  # no edge drawn, all q < 0
+    if t.d == 1:
+        assert neg0.any()
+    for k in range(3):
+        rows = torch.cat([torch.from_numpy(rng.randint(0, t.m, 257)),
+                          torch.nonzero(neg0[k])[:64, 0]])
+        got = tops.serve_edge_weights(t, tops.serve_operand(P[k], None),
+                                      steps[k], rows, None)
+        assert _same_bits(got, full[k, rows])
