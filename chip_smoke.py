@@ -205,6 +205,27 @@ Phases, one printed line or more each:
    with their losses, seconds, busy share and peak memory, and kernels 8
    and 4 timed (events, device, bound) at each of its 8 zampled leaves
    on one local step's own operands.
+24. (run after phase 17) the model axis.  (a) Every zampled leaf of
+   full-width qwen2-0.5b at launch/train.py's flags (compression 8, d=8,
+   min_size 4096), its major axis where launch/sharding.py's param_spec
+   puts a model axis of AXIS_MS ranks: on each shard's window range the
+   K=1 kernels 7 (f32, u8 words, packed4 lanes), 1, 2, 5 and 9 and the
+   K=AXIS_K kernels 8 (f32, u8, packed4), 3, 4, 6 and 10, each equal by
+   bits to the same block of the whole leaf's launch and, at sampled
+   windows of each shard, to the plain version over those windows (the
+   plain global op's rows there); the plan walk (5, 6) on whole shards
+   of the small leaves and on the first and last windows of each shard
+   of the others; one shard's launch timed against the whole leaf's for
+   kernels 8 and 4.  (b) Fig. 4's MNISTFC at full width on a grid of
+   AXIS_GRID_B data x model ranks (K=4 clients, psum_u32 uplink, u8
+   downlink, E=100, batch 64) for AXIS_ROUNDS rounds, through the shard
+   launches of kernels 7, 5 and 9, against 4 data-axis-only ranks on the
+   same sharded specs: each round's score words (the model ranks' slices
+   joined), dense leaves and loss equal by bits.  (c) Full-width
+   qwen2-0.5b (E=2, batch 4, sequence 128, bf16, REPRO_BWD_PLAN=scatter)
+   on a grid of AXIS_GRID_C ranks (K=2) for one round, against 2
+   data-axis-only ranks: round 0's state and loss equal by bits (by
+   digest), with the round's seconds and each rank's peak memory.
 
 Usage, from the repo root on a machine with a CUDA GPU:
     python3 chip_smoke.py
@@ -303,6 +324,16 @@ MAMBA_BITWISE_SCALE = 0.25  # its round 0 against the plain path
 MAMBA_CHECK_ROWS = 4096  # kernel 8's rows checked a client at full width
 MAMBA_CHECK_WINDOWS = 6  # kernel 4's windows checked (and the first, last)
 LOCAL_LR = 1e-2
+AXIS_MS = 4  # phase 24 (a): the model axis of the full-width ops
+AXIS_K = 4  # (a): clients of the K-client kernels
+AXIS_ZAMPLING = dict(compression=8, d=8, min_size=4096)  # launch/train.py
+AXIS_SAMPLED = 3  # (a): a shard's random windows checked (and its ends)
+AXIS_PLAN_WINDOWS = 8  # (a): the plan walk's windows at each end of a shard
+AXIS_PLAN_WHOLE = 1 << 22  # (a): leaves up to this many weights: whole shards
+AXIS_GRID_B = (4, 2)  # (b): data x model ranks, MNISTFC
+AXIS_ROUNDS = 2  # (b): rounds
+AXIS_GRID_C = (2, 2)  # (c): data x model ranks, full-width qwen2-0.5b
+AXIS_LM = dict(local_steps=2, batch=4, seq=128, lr=0.05)  # (c): the LM flags
 PAPER_STEPS = 100  # phase 22: local steps of a training experiment's cell
 PAPER_ROUNDS = 3  # phase 22: rounds of a federated experiment's cell
 LOCAL_BATCH = 128
@@ -4189,6 +4220,522 @@ def paper_phase(card: str, dev, fed: dict, carries: dict) -> None:
     say(f"phase 22 done in {time.perf_counter() - t_phase:.1f} s")
 
 
+def _axis_plan(mesh):
+    """shard_plan_fn: a leaf's major axis where param_spec puts the
+    model axis of ``mesh``."""
+    from repro_torch.launch.sharding import model_axis_of, param_spec
+
+    return lambda path, shape: model_axis_of(param_spec(path, shape, mesh))
+
+
+def model_axis_ops(card: str, dev, fed: dict, rows: list) -> None:
+    """Phase 24 (a): kernels 1-10 on each shard's window range at the
+    full-width qwen2-0.5b leaves, against the whole leaf's launch and the
+    plain versions at sampled windows; folds the checks into ``rows``'
+    max_abs_err."""
+    import numpy as np
+    import torch
+
+    from repro_torch.comm.downlink import get_codec
+    from repro_torch.configs import get_arch
+    from repro_torch.core.zampling import ZamplingConfig, build_specs
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import qz_reconstruct as qr
+    from repro_torch.kernels.qz_sharded import shard_windows
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model import param_template
+
+    t0 = time.perf_counter()
+    cfg = fed.get("axis_lm_cfg") or get_arch("qwen2-0.5b")
+    zspecs = build_specs(param_template(cfg), ZamplingConfig(
+        **AXIS_ZAMPLING, shard_align=AXIS_MS),
+        shard_plan_fn=_axis_plan(Mesh(("data", "model"), (1, AXIS_MS))))
+    specs = {p: s for p, s in zspecs.specs.items()
+             if s.shard_count == AXIS_MS}
+    say(f"model axis: qwen2-0.5b at full width, {len(specs)} of "
+        f"{len(zspecs.specs)} zampled leaves sharded {AXIS_MS} ways: "
+        + ", ".join(f"{p} {s.shape} axis {s.major_axis} ({s.nw_loc} of "
+                    f"{s.num_windows} windows a shard)"
+                    for p, s in specs.items()))
+    if len(specs) != len(zspecs.specs):
+        die("a full-width qwen2-0.5b leaf is not sharded on the model axis")
+    err = {r["name"]: 0.0 for r in rows}
+    checks = {name: 0 for name in qr.LAUNCHES}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 24)
+    rng = np.random.RandomState(SEED + 24)
+
+    def hold(name, got, want, what):
+        torch.cuda.synchronize()
+        if not same_bits(got, want):
+            die(f"{name} on a shard differs from {what}")
+        if got.dtype == torch.float32:
+            err[name] = max(err[name], float(
+                (got.double() - want.double()).abs().max().item()))
+        checks[name] += 1
+
+    whole_ms, shard_ms = {}, {}  # by kernel, summed over the leaves
+    for path, spec in specs.items():
+        K, n_loc = AXIS_K, spec.nw_loc * spec.window
+        P = torch.rand((K, spec.n), generator=gen, device=dev)
+        P[0, :spec.window] = 0.0  # a client at p = 0 over a window
+        steps = torch.arange(7, 7 + K, dtype=torch.int64, device=dev)
+        G = torch.randn((K, spec.m), generator=gen, device=dev)
+        G[0, :spec.m // 3] = 0.0  # rows that carry no cotangent
+        codecs = {"f32": (P, None, False)}
+        for c in (get_codec("u8"), get_codec("packed4")):
+            codecs[c.name] = (c.encode(spec, P, 3), c.bits, c.packed)
+        whole = {name: qr.qz_sample_reconstruct_batched_fwd(
+            spec, q, steps, b, pk) for name, (q, b, pk) in codecs.items()}
+        whole1 = {name: qr.qz_sample_reconstruct_fwd(
+            spec, q[0], steps[:1], b, pk) for name, (q, b, pk) in
+            codecs.items()}
+        k3w, k1w = (qr.qz_reconstruct_batched_fwd(spec, P),
+                    qr.qz_reconstruct_fwd(spec, P[0]))
+        g4, g2 = qr.qz_reconstruct_batched_bwd(spec, G), qr.qz_reconstruct_bwd(
+            spec, G[0])
+        l10 = qr.qz_sample_pack_batched_fwd(spec, P, steps)
+        l9 = qr.qz_sample_pack_fwd(spec, P[0], 7)
+        torch.cuda.synchronize()
+        for sid in range(AXIS_MS):
+            win = shard_windows(spec, sid, AXIS_MS)
+            rblk = slice(sid * spec.m_blk, (sid + 1) * spec.m_blk)
+            cblk = slice(sid * n_loc, (sid + 1) * n_loc)
+            base = qr.window_range(spec, win).out_base
+            for name, (q, b, pk) in codecs.items():
+                per = q.shape[1] // AXIS_MS
+                qs_ = q[:, sid * per:(sid + 1) * per].contiguous()
+                ws = qr.qz_sample_reconstruct_batched_fwd(spec, qs_, steps, b,
+                                                          pk, win)
+                hold("qz_sample_reconstruct_batched_fwd", ws,
+                     whole[name][:, rblk], f"the whole launch ({path} {name})")
+                w7 = qr.qz_sample_reconstruct_fwd(spec, qs_[0], steps[:1], b,
+                                                  pk, win)
+                hold("qz_sample_reconstruct_fwd", w7, whole1[name][rblk],
+                     f"the whole launch ({path} {name})")
+                sampled = _axis_windows(spec, win, rng)
+                for w in sampled:
+                    r = qr.window_range(spec, (w, w + 1))
+                    lw = (w - win[0]) * per // spec.nw_loc
+                    qw = qs_[:, lw:lw + per // spec.nw_loc]
+                    hold("qz_sample_reconstruct_batched_fwd",
+                         ws[:, r.out_base - base:r.out_base - base + r.m_out],
+                         ops.sample_reconstruct_plain(spec, qw, steps, b, pk,
+                                                      (w, w + 1)),
+                         f"its plain version ({path} {name} window {w})")
+            Ps = P[:, cblk].contiguous()
+            hold("qz_reconstruct_batched_fwd",
+                 qr.qz_reconstruct_batched_fwd(spec, Ps, win), k3w[:, rblk],
+                 f"the whole launch ({path})")
+            hold("qz_reconstruct_fwd", qr.qz_reconstruct_fwd(spec, Ps[0], win),
+                 k1w[rblk], f"the whole launch ({path})")
+            Gs = G[:, rblk].contiguous()
+            gs4 = qr.qz_reconstruct_batched_bwd(spec, Gs, win)
+            hold("qz_reconstruct_batched_bwd", gs4, g4[:, cblk],
+                 f"the whole launch ({path})")
+            hold("qz_reconstruct_bwd", qr.qz_reconstruct_bwd(spec, Gs[0], win),
+                 g2[cblk], f"the whole launch ({path})")
+            ls10 = qr.qz_sample_pack_batched_fwd(spec, Ps, steps, win)
+            lanes = slice(sid * n_loc // 32, (sid + 1) * n_loc // 32)
+            hold("qz_sample_pack_batched_fwd", ls10, l10[:, lanes],
+                 f"the whole launch ({path})")
+            hold("qz_sample_pack_fwd", qr.qz_sample_pack_fwd(spec, Ps[0], 7,
+                                                             win),
+                 l9[lanes], f"the whole launch ({path})")
+            for w in _axis_windows(spec, win, rng):
+                r = qr.window_range(spec, (w, w + 1))
+                rows_w = slice(r.out_base - base, r.out_base - base + r.m_out)
+                cols = slice((w - win[0]) * spec.window,
+                             (w - win[0] + 1) * spec.window)
+                pw = Ps[:, cols]
+                hold("qz_reconstruct_batched_fwd",
+                     qr.qz_reconstruct_batched_fwd(spec, Ps, win)[:, rows_w],
+                     ops.reconstruct_plain(spec, pw, (w, w + 1)),
+                     f"its plain version ({path} window {w})")
+                gw = Gs[:, rows_w]
+                hold("qz_reconstruct_batched_bwd", gs4[:, cols],
+                     ops.scatter_bwd_plain(spec, gw, (w, w + 1)),
+                     f"its plain version ({path} window {w})")
+                hold("qz_reconstruct_batched_bwd_plan", gs4[:, cols],
+                     ops.plan_bwd_plain(spec, gw, "canonical", (w, w + 1)),
+                     f"the plain plan ({path} window {w})")
+                hold("qz_sample_pack_batched_fwd",
+                     ls10[:, cols.start // 32:cols.stop // 32],
+                     ops.sample_pack_plain(spec, pw, steps, (w, w + 1)),
+                     f"its plain version ({path} window {w})")
+            # the plan walk: whole shards of a small leaf, else each
+            # shard's first and last windows
+            spans = ([win] if spec.m <= AXIS_PLAN_WHOLE else
+                     [(win[0], win[0] + AXIS_PLAN_WINDOWS),
+                      (win[1] - AXIS_PLAN_WINDOWS, win[1])])
+            for w0, w1 in spans:
+                r = qr.window_range(spec, (w0, w1))
+                gr = G[:, r.out_base:r.out_base + r.m_out].contiguous()
+                want = g4[:, w0 * spec.window:w1 * spec.window]
+                hold("qz_reconstruct_batched_bwd_plan",
+                     qr.qz_reconstruct_batched_bwd_plan(spec, gr, "canonical",
+                                                        (w0, w1)), want,
+                     f"the scatter's whole launch ({path} windows {w0}-{w1})")
+                hold("qz_reconstruct_bwd_plan",
+                     qr.qz_reconstruct_bwd_plan(spec, gr[0], "canonical",
+                                                (w0, w1)), want[0],
+                     f"the scatter's whole launch ({path} windows {w0}-{w1})")
+            qr.clear_caches()
+        # one shard's launch against the whole leaf's, every kernel (the
+        # plan walk only where whole-leaf layouts are cheap to build): the
+        # last shard, whose rows all carry a cotangent (client 0's first
+        # third carry none, which the scatter skips)
+        win_t = shard_windows(spec, AXIS_MS - 1, AXIS_MS)
+        P_t = P[:, spec.n - n_loc:].contiguous()
+        G_t = G[:, spec.m - spec.m_blk:].contiguous()
+        pairs = {
+            "qz_sample_reconstruct_batched_fwd": (
+                lambda: qr.qz_sample_reconstruct_batched_fwd(spec, P, steps),
+                lambda: qr.qz_sample_reconstruct_batched_fwd(
+                    spec, P_t, steps, None, False, win_t)),
+            "qz_sample_reconstruct_fwd": (
+                lambda: qr.qz_sample_reconstruct_fwd(spec, P[0], steps[:1]),
+                lambda: qr.qz_sample_reconstruct_fwd(spec, P_t[0], steps[:1],
+                                                     None, False, win_t)),
+            "qz_reconstruct_batched_fwd": (
+                lambda: qr.qz_reconstruct_batched_fwd(spec, P),
+                lambda: qr.qz_reconstruct_batched_fwd(spec, P_t, win_t)),
+            "qz_reconstruct_fwd": (
+                lambda: qr.qz_reconstruct_fwd(spec, P[0]),
+                lambda: qr.qz_reconstruct_fwd(spec, P_t[0], win_t)),
+            "qz_reconstruct_batched_bwd": (
+                lambda: qr.qz_reconstruct_batched_bwd(spec, G),
+                lambda: qr.qz_reconstruct_batched_bwd(spec, G_t, win_t)),
+            "qz_reconstruct_bwd": (
+                lambda: qr.qz_reconstruct_bwd(spec, G[0]),
+                lambda: qr.qz_reconstruct_bwd(spec, G_t[0], win_t)),
+            "qz_sample_pack_batched_fwd": (
+                lambda: qr.qz_sample_pack_batched_fwd(spec, P, steps),
+                lambda: qr.qz_sample_pack_batched_fwd(spec, P_t, steps, win_t)),
+            "qz_sample_pack_fwd": (
+                lambda: qr.qz_sample_pack_fwd(spec, P[0], 7),
+                lambda: qr.qz_sample_pack_fwd(spec, P_t[0], 7, win_t))}
+        if spec.m <= AXIS_PLAN_WHOLE:
+            pairs["qz_reconstruct_batched_bwd_plan"] = (
+                lambda: qr.qz_reconstruct_batched_bwd_plan(spec, G),
+                lambda: qr.qz_reconstruct_batched_bwd_plan(
+                    spec, G_t, "canonical", win_t))
+            pairs["qz_reconstruct_bwd_plan"] = (
+                lambda: qr.qz_reconstruct_bwd_plan(spec, G[0]),
+                lambda: qr.qz_reconstruct_bwd_plan(spec, G_t[0], "canonical",
+                                                   win_t))
+        times = {}
+        for name, (whole_fn, shard_fn) in pairs.items():
+            times[name] = (event_ms(whole_fn, 3), event_ms(shard_fn, 3))
+            whole_ms[name] = whole_ms.get(name, 0.0) + times[name][0]
+            shard_ms[name] = shard_ms.get(name, 0.0) + times[name][1]
+        qr.clear_caches()
+        say(f"model axis: {path} {spec.shape} K={K}, a shard against the "
+            f"whole leaf, ms: " + ", ".join(
+                f"{n} {t[1]:.4f} / {t[0]:.4f}" for n, t in times.items())
+            + f" ({card})")
+        del P, G, codecs, whole, whole1, k3w, k1w, g4, g2, l10, l9
+        torch.cuda.empty_cache()
+    say(f"model axis: every shard launch bitwise its whole leaf's block and "
+        f"its plain version: {checks} checks; one shard against the whole "
+        f"leaf, summed over the leaves (the plan walk over those of at most "
+        f"{AXIS_PLAN_WHOLE} weights): " + ", ".join(
+            f"{n} {shard_ms[n]:.4f} / {whole_ms[n]:.4f} ms "
+            f"({shard_ms[n] / whole_ms[n]:.3f})" for n in whole_ms)
+        + f" ({card})")
+    for name, n in checks.items():
+        if n == 0:
+            die(f"phase 24 (a) held no shard launch of {name}")
+    for row in rows:
+        if row["name"] in err:
+            row["max_abs_err"] = max(row["max_abs_err"], err[row["name"]])
+    for row in rows:
+        if row["name"] in whole_ms:
+            row["model_axis_shard_ms"] = shard_ms[row["name"]]
+            row["model_axis_whole_ms"] = whole_ms[row["name"]]
+    say(f"phase 24 (a) done in {time.perf_counter() - t0:.1f} s")
+
+
+def _axis_windows(spec, win, rng) -> list:
+    """A shard's first and last windows and AXIS_SAMPLED others."""
+    w0, w1 = win
+    rest = rng.randint(w0 + 1, max(w0 + 2, w1 - 1), size=AXIS_SAMPLED)
+    return sorted({w0, w1 - 1, *map(int, rest)})
+
+
+def _digest(t) -> str:
+    """A tensor's bytes, hashed (any dtype, bf16 too)."""
+    import hashlib
+
+    import torch
+
+    b = t.detach().contiguous().view(-1).view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(b.tobytes()).hexdigest()
+
+
+def axis_rank_b(a: dict, axes) -> dict:
+    """Phase 24 (b), one rank: Fig. 4's MNISTFC client of this rank's
+    data index, its sharded leaves split over its model group (or whole,
+    on a mesh without one), AXIS_ROUNDS rounds of sharded_client_update;
+    returns each round's state (this rank's slices) and loss, the
+    launches and the round times."""
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs.mnistfc import MNISTFC
+    from repro_torch.core.federated import (FederatedConfig,
+                                            sharded_client_update)
+    from repro_torch.core.zampling import ZamplingConfig, build_specs, state_to
+    from repro_torch.kernels import qz_decode
+    from repro_torch.kernels import qz_reconstruct as qr
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.mlp import mlp_loss, mlp_template
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(a["device"])
+    if a["device"] == "cpu":  # a rehearsal: no BLAS split by load
+        torch.set_num_threads(1)
+    d, m, ms = axes.data.index, axes.model.index, axes.model.size
+    zs = build_specs(mlp_template(MNISTFC), ZamplingConfig(
+        **FED_ZAMPLING, shard_align=AXIS_GRID_B[1]),
+        shard_plan_fn=_axis_plan(Mesh(("data", "model"), AXIS_GRID_B)))
+    cfg = FederatedConfig(**FED_CONFIG)
+    model = axes.model if ms > 1 else None
+    st = state_to(zs, a["state0"], dev)
+    if model is not None:
+        st = convert.to_model_rank(zs, st, m, ms)
+    _, stream = fed_data()
+    rounds = [next(stream) for _ in range(AXIS_ROUNDS)]
+    batches = [{n: torch.from_numpy(np.ascontiguousarray(b[i][d])).to(dev)
+                for i, n in enumerate(("x", "y"))} for b in rounds]
+    if a["device"] == "cuda":
+        qr.build()
+        torch.cuda.synchronize()
+    out = {"data": d, "model": m, "states": [], "losses": [], "round_s": []}
+    torch.distributed.barrier()
+    qr.reset_launches()
+    qz_decode.reset_launches()
+    for r in range(AXIS_ROUNDS):
+        t = time.perf_counter()
+        st, met = sharded_client_update(
+            zs, st, mlp_loss, batches[r], a["words"][r], cfg,
+            group=axes.data.group, row_sharding=model, round_index=r,
+            device=dev)
+        if a["device"] == "cuda":
+            torch.cuda.synchronize()
+        out["round_s"].append(time.perf_counter() - t)
+        out["states"].append(host_state(st))
+        out["losses"].append(float(met["loss"]))
+    out["launches"] = {**qr.LAUNCHES, **qz_decode.LAUNCHES}
+    return out
+
+
+def axis_rank_c(a: dict, axes) -> dict:
+    """Phase 24 (c), one rank: full-width qwen2-0.5b at the LM flags,
+    client of this rank's data index, one round of sharded_client_update
+    under REPRO_BWD_PLAN=scatter, its sharded leaves split over its model
+    group (or whole); returns digests of every model slice of its state
+    (its own slice only on a model axis), the loss, the round's seconds
+    and the peak device memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.core.federated import (FederatedConfig,
+                                            sharded_client_update)
+    from repro_torch.core.zampling import ZamplingConfig, build_specs, init_state
+    from repro_torch.data import lm_token_batches
+    from repro_torch.kernels import qz_decode
+    from repro_torch.kernels import qz_reconstruct as qr
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model import init_dense, loss_fn, param_template
+
+    os.environ["REPRO_BWD_PLAN"] = "scatter"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(a["device"])
+    cuda = a["device"] == "cuda"
+    # bits across processes: the embedding's backward adds by atomics
+    # unless torch runs its deterministic algorithms (a CPU rehearsal
+    # takes one thread, so its BLAS splits no sum by load)
+    torch.use_deterministic_algorithms(True)
+    if not cuda:
+        torch.set_num_threads(1)
+    d, m, ms = axes.data.index, axes.model.index, axes.model.size
+    grid_ms = AXIS_GRID_C[1]
+    cfg = a.get("cfg") or get_arch("qwen2-0.5b")
+    zs = build_specs(param_template(cfg), ZamplingConfig(
+        **AXIS_ZAMPLING, shard_align=grid_ms),
+        shard_plan_fn=_axis_plan(Mesh(("data", "model"), AXIS_GRID_C)))
+    rng = np.random.RandomState(0)
+    scores = {p: rng.rand(s.n).astype(np.float32)
+              for p, s in zs.specs.items()}
+    st = init_state(zs, scores, init_dense(cfg, zs.dense_paths, 0),
+                    device=dev)
+    del scores
+    model = axes.model if ms > 1 else None
+    if model is not None:
+        st = convert.to_model_rank(zs, st, m, ms)
+    k = AXIS_GRID_C[0]
+    lm = AXIS_LM
+    toks = next(lm_token_batches(cfg.vocab, k * lm["local_steps"]
+                                 * lm["batch"], lm["seq"] + 1, seed=0))
+    toks = torch.as_tensor(np.asarray(toks)).reshape(
+        k, lm["local_steps"], lm["batch"], lm["seq"] + 1)[d].to(dev)
+    batch = {"tokens": toks[..., :-1], "labels": toks[..., :-1]}
+    fcfg = FederatedConfig(num_clients=k, local_steps=lm["local_steps"],
+                           local_lr=lm["lr"])
+    if cuda:
+        qr.build()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    torch.distributed.barrier()
+    qr.reset_launches()
+    qz_decode.reset_launches()
+    t = time.perf_counter()
+    def one_client_loss(params, b):  # the LM loss takes a client axis
+        return loss_fn(cfg, {p: v[None] for p, v in params.items()},
+                       {n: v[None] for n, v in b.items()})[0]
+
+    new, met = sharded_client_update(
+        zs, st, one_client_loss, batch, a["word"], fcfg,
+        group=axes.data.group, row_sharding=model, device=dev)
+    if cuda:
+        torch.cuda.synchronize()
+    round_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    slices = ([(m, new)] if model is not None else
+              [(sid, convert.to_model_rank(zs, new, sid, grid_ms))
+               for sid in range(grid_ms)])
+    return {"data": d, "model": m, "round_s": round_s, "peak": peak,
+            "loss": float(met["loss"]),
+            "launches": {**qr.LAUNCHES, **qz_decode.LAUNCHES},
+            "scores": {sid: {p: _digest(v) for p, v in sl["scores"].items()}
+                       for sid, sl in slices},
+            "dense": {p: _digest(v) for p, v in new["dense"].items()}}
+
+
+def model_axis_phase(card: str, dev, fed: dict, rows: list) -> None:
+    """Phase 24: the model axis, (a) the ops at full width, (b) Fig. 4's
+    MNISTFC and (c) full-width qwen2-0.5b on grids of gloo ranks on this
+    card, against data-axis-only ranks on the same sharded specs."""
+    import numpy as np
+    import torch
+
+    from repro_torch import convert
+    from repro_torch.comm.shardmap import run_ranks
+    from repro_torch.configs.mnistfc import MNISTFC
+    from repro_torch.core.federated import FederatedConfig, encode_state
+    from repro_torch.core.zampling import ZamplingConfig, build_specs
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.mlp import mlp_template
+
+    t0 = time.perf_counter()
+    model_axis_ops(card, dev, fed, rows)
+    torch.cuda.empty_cache()
+
+    # (b) MNISTFC: the grid and the data-axis-only ranks
+    t1 = time.perf_counter()
+    grid = Mesh(("data", "model"), AXIS_GRID_B)
+    zs = build_specs(mlp_template(MNISTFC), ZamplingConfig(
+        **FED_ZAMPLING, shard_align=AXIS_GRID_B[1]),
+        shard_plan_fn=_axis_plan(grid))
+    rng = np.random.RandomState(SEED + 240)
+    scores = {p: rng.rand(s.n).astype(np.float32)
+              for p, s in zs.specs.items()}
+    dense = {p: np.zeros(zs.template[p].shape, np.float32)
+             for p in zs.dense_paths}
+    cfg = FederatedConfig(**FED_CONFIG)
+    state0 = host_state(encode_state(zs, cfg, {"scores": scores,
+                                               "dense": dense}, 5,
+                                     device="cpu"))
+    words = fed["round_words"][:AXIS_ROUNDS]
+    dev_name = "cuda" if dev.type == "cuda" else "cpu"
+    args = ({"state0": state0, "words": words, "device": dev_name},)
+    res = run_ranks(axis_rank_b, grid.size, args, backend="gloo",
+                    timeout=RANK_TIMEOUT, mesh=grid)
+    ref = run_ranks(axis_rank_b, AXIS_GRID_B[0], args, backend="gloo",
+                    timeout=RANK_TIMEOUT,
+                    mesh=Mesh(("data", "model"), (AXIS_GRID_B[0], 1)))
+    ms = AXIS_GRID_B[1]
+    want = {name: 0 for name in res[0]["launches"]}
+    want.update({"qz_sample_reconstruct_fwd": 3 * FED_E * AXIS_ROUNDS,
+                 "qz_reconstruct_bwd_plan": 3 * FED_E * AXIS_ROUNDS,
+                 "qz_sample_pack_fwd": 3 * AXIS_ROUNDS})
+    for r in res + ref:
+        if r["launches"] != want:
+            die(f"phase 24 (b): rank ({r['data']}, {r['model']}) launched "
+                f"{r['launches']}, not {want}")
+    same = True
+    for rnd in range(AXIS_ROUNDS):
+        for d in range(AXIS_GRID_B[0]):
+            parts = [r for r in res if r["data"] == d]
+            joined = convert.from_model_ranks(
+                zs, [r["states"][rnd] for r in sorted(
+                    parts, key=lambda r: r["model"])])
+            want_st = ref[d]["states"][rnd]
+            for part in ("scores", "dense"):
+                for p, v in want_st[part].items():
+                    same &= bool(np.array_equal(joined[part][p].view(np.uint8),
+                                                v.view(np.uint8)))
+            same &= all(r["losses"][rnd] == ref[d]["losses"][rnd]
+                        for r in parts)
+    grid_s = [max(r["round_s"][i] for r in res) for i in range(AXIS_ROUNDS)]
+    ref_s = [max(r["round_s"][i] for r in ref) for i in range(AXIS_ROUNDS)]
+    say(f"model axis (b): MNISTFC {MNISTFC} on a {AXIS_GRID_B[0]} x "
+        f"{AXIS_GRID_B[1]} grid (every leaf's major axis "
+        f"{[s.major_axis for s in zs.specs.values()]}, shards of "
+        f"{[s.nw_loc for s in zs.specs.values()]} windows), K="
+        f"{AXIS_GRID_B[0]}, E={FED_E}, {AXIS_ROUNDS} rounds: every round's "
+        f"score words (slices joined), dense leaves and loss bitwise the "
+        f"data-axis-only ranks' = {same}; losses "
+        f"{[ref[0]['losses'][i] for i in range(AXIS_ROUNDS)]}; round "
+        f"seconds grid {[round(t, 3) for t in grid_s]}, data axis only "
+        f"{[round(t, 3) for t in ref_s]}; launches a rank {want} ({card})")
+    if not same:
+        die("phase 24 (b): the grid's rounds differ from the data axis's")
+    say(f"phase 24 (b) done in {time.perf_counter() - t1:.1f} s")
+
+    # (c) full-width qwen2-0.5b
+    t1 = time.perf_counter()
+    grid_c = Mesh(("data", "model"), AXIS_GRID_C)
+    args = ({"word": int(fed["round_words"][0]), "device": dev_name,
+             **({"cfg": fed["axis_lm_cfg"]} if "axis_lm_cfg" in fed
+                else {})},)
+    res = run_ranks(axis_rank_c, grid_c.size, args, backend="gloo",
+                    timeout=RANK_TIMEOUT, mesh=grid_c)
+    ref = run_ranks(axis_rank_c, AXIS_GRID_C[0], args, backend="gloo",
+                    timeout=RANK_TIMEOUT,
+                    mesh=Mesh(("data", "model"), (AXIS_GRID_C[0], 1)))
+    same = all(r["scores"][r["model"]] == ref[r["data"]]["scores"][r["model"]]
+               and r["dense"] == ref[r["data"]]["dense"]
+               and r["loss"] == ref[r["data"]]["loss"] for r in res)
+    steps = 12 * AXIS_LM["local_steps"]
+    launches = res[0]["launches"]
+    say(f"model axis (c): full-width qwen2-0.5b on a {AXIS_GRID_C[0]} x "
+        f"{AXIS_GRID_C[1]} grid, K={AXIS_GRID_C[0]}, E="
+        f"{AXIS_LM['local_steps']}, batch {AXIS_LM['batch']}, sequence "
+        f"{AXIS_LM['seq']}, bf16, scatter: round 0's score slices, dense "
+        f"leaves and loss bitwise the data-axis-only ranks' (by digest) = "
+        f"{same}; loss {[r['loss'] for r in ref]}; round seconds grid "
+        f"{[round(r['round_s'], 3) for r in res]} (ranks), data axis only "
+        f"{[round(r['round_s'], 3) for r in ref]}; peak device memory a "
+        f"rank grid {[round(r['peak'] / 2**30, 3) for r in res]} GiB, data "
+        f"axis only {[round(r['peak'] / 2**30, 3) for r in ref]} GiB; "
+        f"launches a grid rank {launches} ({card})")
+    if not same:
+        die("phase 24 (c): the grid's round differs from the data axis's")
+    if (launches["qz_sample_reconstruct_fwd"] != steps
+            or launches["qz_reconstruct_bwd"] != steps):
+        die(f"phase 24 (c): a grid rank launched {launches}, not {steps} "
+            "each of kernels 7 and 2")
+    say(f"phase 24 (c) done in {time.perf_counter() - t1:.1f} s")
+    say(f"phase 24 done in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -4609,6 +5156,8 @@ def main() -> None:
     del carries
     torch.cuda.empty_cache()
     rows.append(sharded_phase(card, dev, fed, rows))
+    torch.cuda.empty_cache()
+    model_axis_phase(card, dev, fed, rows)
     say(f"card: {card}")
     say(f"total: {time.perf_counter() - T_START:.1f} s for the whole run")
     say(json.dumps({"kernels": rows}))

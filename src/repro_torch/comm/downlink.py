@@ -54,16 +54,21 @@ class DownlinkCodec:
         or the lane count of a packed codec."""
         return n
 
-    def encode(self, spec, scores: torch.Tensor, word) -> torch.Tensor:
+    def encode(self, spec, scores: torch.Tensor, word,
+               coord0: int = 0) -> torch.Tensor:
+        """Scores of the coordinates [coord0, coord0 + n) (a model rank's
+        slice of a sharded leaf, or all of them) -> their wire leaf."""
         raise NotImplementedError
 
-    def decode(self, spec, wire: torch.Tensor) -> torch.Tensor:
+    def decode(self, spec, wire: torch.Tensor, n=None) -> torch.Tensor:
+        """A wire leaf of n coordinates (spec.n by default) -> f32."""
         raise NotImplementedError
 
-    def wire_words(self, spec, wire: torch.Tensor) -> torch.Tensor:
-        """Wire leaf -> per-coordinate words (the leaf itself, or the
-        unpacked lanes of a packed codec)."""
-        del spec
+    def wire_words(self, spec, wire: torch.Tensor, n=None) -> torch.Tensor:
+        """Wire leaf of n coordinates (spec.n by default) ->
+        per-coordinate words (the leaf itself, or the unpacked lanes of a
+        packed codec)."""
+        del spec, n
         return wire
 
     def threshold_u24(self, words: torch.Tensor) -> torch.Tensor:
@@ -77,12 +82,12 @@ class F32Down(DownlinkCodec):
 
     name = "f32"
 
-    def encode(self, spec, scores, word):
-        del spec, word
+    def encode(self, spec, scores, word, coord0=0):
+        del spec, word, coord0
         return scores
 
-    def decode(self, spec, wire):
-        del spec
+    def decode(self, spec, wire, n=None):
+        del spec, n
         return wire
 
 
@@ -97,17 +102,19 @@ class QuantizedDown(DownlinkCodec):
         self.wire_dtype = wire_dtype
         self.scale = float((1 << bits) - 1)
 
-    def dither(self, spec, word, n: int, device) -> torch.Tensor:
-        """The shared dither in [0, 1) at coordinates 0..n-1."""
-        coords = torch.arange(n, dtype=torch.int64, device=device)
+    def dither(self, spec, word, n: int, device,
+               coord0: int = 0) -> torch.Tensor:
+        """The shared dither in [0, 1) at coordinates coord0..coord0+n-1."""
+        coords = torch.arange(coord0, coord0 + n, dtype=torch.int64,
+                              device=device)
         u = hash_u32(spec.seed, spec.tensor_id, QUANT_DITHER_CTR,
                      as_word(word), coords)
         return (u >> 8).to(torch.float32) * INV_2_24
 
-    def quantize(self, spec, scores, word) -> torch.Tensor:
+    def quantize(self, spec, scores, word, coord0: int = 0) -> torch.Tensor:
         """f32 scores -> the b-bit words, int32."""
         p = clip_probs(scores.to(torch.float32))
-        d = self.dither(spec, word, p.shape[-1], p.device)
+        d = self.dither(spec, word, p.shape[-1], p.device, coord0)
         # floor(p*S + 0.25 + 0.5*d), each op rounded on its own
         q = torch.floor((p * self.scale + 0.25) + d * 0.5)
         return torch.clamp(q, 0.0, self.scale).to(torch.int32)
@@ -119,10 +126,11 @@ class QuantizedDown(DownlinkCodec):
             return q.to(torch.int16).view(torch.uint16)
         return q.to(self.wire_dtype)
 
-    def encode(self, spec, scores, word):
-        return self.wire_of_words(self.quantize(spec, scores, word))
+    def encode(self, spec, scores, word, coord0=0):
+        return self.wire_of_words(self.quantize(spec, scores, word, coord0))
 
-    def encode_at(self, spec, scores, word, bits) -> torch.Tensor:
+    def encode_at(self, spec, scores, word, bits,
+                  coord0: int = 0) -> torch.Tensor:
         """The scheduled encode: quantize at width ``bits`` (an int, or a
         0-d int64 tensor on the scores' device) no wider than the codec,
         then widen into the codec's words.
@@ -135,7 +143,7 @@ class QuantizedDown(DownlinkCodec):
         coordinate are metered (``comm.metering.scheduled_wire_metrics``).
         """
         p = clip_probs(scores.to(torch.float32))
-        d = self.dither(spec, word, p.shape[-1], p.device)
+        d = self.dither(spec, word, p.shape[-1], p.device, coord0)
         b = torch.as_tensor(bits, dtype=torch.int64, device=p.device)
         s_b = (1 << b) - 1
         s_bf = s_b.to(torch.float32)
@@ -147,8 +155,8 @@ class QuantizedDown(DownlinkCodec):
     def threshold_u24(self, words):
         return quant_threshold_u24(word_values(words), self.bits)
 
-    def decode(self, spec, wire):
-        words = self.wire_words(spec, wire)
+    def decode(self, spec, wire, n=None):
+        words = self.wire_words(spec, wire, n)
         return self.threshold_u24(words).to(torch.float32) * INV_2_24
 
 
@@ -172,8 +180,8 @@ class PackedDown(QuantizedDown):
     def wire_of_words(self, q):
         return pack_words(q, self.bits)
 
-    def wire_words(self, spec, wire):
-        return unpack_words(wire, spec.n, self.bits)
+    def wire_words(self, spec, wire, n=None):
+        return unpack_words(wire, spec.n if n is None else n, self.bits)
 
 
 _REGISTRY: Dict[str, DownlinkCodec] = {}

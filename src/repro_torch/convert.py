@@ -18,9 +18,15 @@ their template's dtype: the LM round state of the JAX package's
 across exactly, for every model family (the MoE router and the SSM's
 ``A_log``, ``D`` and ``dt_bias`` stay float32, as their templates say;
 dense leaves are keyed by their nested paths, ``blocks/ssm/A_log``).  The port's spec set is
-rebuilt from the JAX template's shapes and config, and every QSpec is
-checked field by field against the JAX one, so a mismatch in leaf order
-(and so in tensor ids) raises here rather than serving other weights.
+rebuilt from the JAX template's shapes and config, each leaf's
+``major_axis``/``shard_count`` taken from the JAX spec (a spec set built
+with a ``shard_plan_fn``), and every QSpec is checked field by field
+against the JAX one, so a mismatch in leaf order (and so in tensor ids)
+raises here rather than serving other weights.
+
+On a model axis a rank holds its slice of each sharded leaf's scores
+(``kernels.qz_sharded``): ``to_model_rank`` cuts a whole round state to
+rank ``sid``'s, ``from_model_ranks`` joins the ranks' states back.
 
 Duck-typed: this module imports neither jax nor the JAX package; it
 reads attributes and converts with ``numpy.asarray``.
@@ -41,9 +47,18 @@ from .serve.state import ServeState, make_serve_state
 
 
 def zspecs_from_jax(jzspecs) -> ZamplingSpecs:
-    """The port's ZamplingSpecs for a JAX ``ZamplingSpecs``."""
+    """The port's ZamplingSpecs for a JAX ``ZamplingSpecs``, sharded
+    leaves included."""
     cfg = ZamplingConfig(**dataclasses.asdict(jzspecs.config))
-    zspecs = build_specs(jzspecs.template, cfg)
+    def plan(path, shape):
+        # JAX's spec names the axis where its plan sharded the leaf
+        del shape
+        spec = jzspecs.specs.get(path)
+        if spec is None or spec.shard_count == 1:
+            return None
+        return spec.major_axis
+
+    zspecs = build_specs(jzspecs.template, cfg, shard_plan_fn=plan)
     if set(zspecs.specs) != set(jzspecs.specs):
         raise ValueError("zampled leaves differ: port "
                          f"{sorted(zspecs.specs)}, JAX {sorted(jzspecs.specs)}")
@@ -53,6 +68,44 @@ def zspecs_from_jax(jzspecs) -> ZamplingSpecs:
             raise ValueError(f"QSpec of {path!r} differs: port "
                              f"{dataclasses.asdict(spec)}, JAX {theirs}")
     return zspecs
+
+
+def _slice_of(zspecs: ZamplingSpecs, path: str, leaf, sid: int, ms: int):
+    """Rank ``sid``'s slice of a score leaf (f32 scores, u8/u16 words or
+    packed lanes; the whole leaf for one a model axis replicates)."""
+    from .kernels.qz_sharded import shard_coords
+
+    spec = zspecs.specs[path]
+    if spec.shard_count == 1:
+        return leaf
+    c0, n = shard_coords(spec, sid, ms)
+    per = spec.n // leaf.shape[-1]  # coordinates a lane (1: a word each)
+    if per > 1 and (c0 % per or n % per):
+        raise ValueError(f"{path!r}: shard {sid}'s coordinates [{c0}, "
+                         f"{c0 + n}) hold no whole lanes of {per}")
+    return leaf[..., c0 // per:(c0 + n) // per]
+
+
+def to_model_rank(zspecs: ZamplingSpecs, state, sid: int, ms: int):
+    """Rank ``sid`` of a model axis of ``ms``: the round state with each
+    sharded leaf's scores cut to its slice; dense leaves (and any other
+    key) as they are."""
+    return {**state, "scores": {p: _slice_of(zspecs, p, v, sid, ms)
+                                for p, v in state["scores"].items()}}
+
+
+def from_model_ranks(zspecs: ZamplingSpecs, states):
+    """The whole round state from the model ranks' states, rank 0 first:
+    each sharded leaf's slices joined, the rest taken from rank 0."""
+    def join(path):
+        parts = [st["scores"][path] for st in states]
+        if zspecs.specs[path].shard_count == 1:
+            return parts[0]
+        if isinstance(parts[0], torch.Tensor):
+            return torch.cat(parts, -1)
+        return np.concatenate(parts, -1)
+
+    return {**states[0], "scores": {p: join(p) for p in zspecs.specs}}
 
 
 def serve_state_from_arrays(zspecs: ZamplingSpecs, codec: str, words, dense,

@@ -83,7 +83,20 @@ do.
 
 The sharded round's participation form (``client_id``, ``weight``,
 ``faults`` on each rank) all-reduces the weighted sums and the
-counters; its model axis comes with a later slice.
+counters.
+
+The model axis (``row_sharding``, a rank's model ``AxisGroup`` on a
+grid of data x model ranks, ``launch.mesh``): a client's leaves built
+with the sharding-major layout are split over its model group, each
+rank holding its slice of their scores (``core.zampling.shard_slice``)
+and drawing, reconstructing and transposing only its own windows; the
+dense leaves are replicated over the model group.  The uplink's
+collective, the dense mean and the loss's mean run over the data group
+(``group``) on each rank's slice, the downlink is re-encoded a slice at
+a time at global coordinates, and the metering counts the whole tensor
+once (the figures come from the specs).  Faults act on the slices with
+whole-upload checksums (a model all-reduce).  The frontier schedule,
+which needs a whole tensor's flip fraction, is refused on a model axis.
 """
 
 from __future__ import annotations
@@ -108,7 +121,8 @@ from ..optim import Optimizer, sgd
 from .sampling import (as_word, as_words, clip_probs, fold_word,
                        quant_threshold_u24_dyn)
 from .zampling import (MASK_MODES, MaskProgram, ZamplingSpecs,
-                       infer_downlink, state_to, validate_carried)
+                       infer_downlink, shard_slice, state_to,
+                       validate_carried)
 
 # (params with a leading K axis, batch with a leading K axis) -> (K,)
 LossFn = Callable[[Dict[str, torch.Tensor], Dict[str, torch.Tensor]],
@@ -257,6 +271,7 @@ def decode_state(zspecs: ZamplingSpecs, cfg: FederatedConfig, state, *,
 def local_update(zspecs: ZamplingSpecs, state: Dict[str, Any],
                  loss_fn: LossFn, batches: Dict[str, torch.Tensor], words,
                  cfg: FederatedConfig, opt: Optional[Optimizer] = None, *,
+                 constraints=None, row_sharding=None,
                  impl: Optional[str] = None):
     """K clients' local round at once, or one client's: E score steps,
     then the upload.
@@ -268,7 +283,10 @@ def local_update(zspecs: ZamplingSpecs, state: Dict[str, Any],
     (uploads {path: (K, L) lanes, or (K, n) f32 masks on an f32
     transport}, dense {path: (K, ...)}, (K,) mean losses over the E
     steps), without the K axis for one client: the JAX package's
-    ``local_update`` as the sharded round runs it, on the K=1 kernels."""
+    ``local_update`` as the sharded round runs it, on the K=1 kernels.
+    On a model axis (``row_sharding``) the state, the gradients and the
+    uploads of a sharded leaf are this rank's slices; ``constraints``
+    as ``core.zampling.weights_from_masks``."""
     opt = opt or sgd(cfg.local_lr)
     program = mask_program(zspecs, cfg, impl)
     dev = next(iter(state["scores"].values())).device
@@ -291,7 +309,7 @@ def local_update(zspecs: ZamplingSpecs, state: Dict[str, Any],
             raise ValueError(f"batch {name!r} has leading shape "
                              f"{tuple(v.shape[:len(lead)])}, expected "
                              f"{lead}")
-    scores0 = program.decode_scores(state["scores"])
+    scores0 = program.decode_scores(state["scores"], row_sharding)
     if one:
         step_words = step_words[:, 0]
     axis = lead[:-1]  # (K,), or () for one client
@@ -304,7 +322,8 @@ def local_update(zspecs: ZamplingSpecs, state: Dict[str, Any],
                   for p, t in trainable.items()}
         params = program.weights(
             {p: leaves[p] for p in zspecs.specs},
-            {p: leaves[p] for p in zspecs.dense_paths}, step_words[e])
+            {p: leaves[p] for p in zspecs.dense_paths}, step_words[e],
+            constraints, row_sharding)
         loss_k = loss_fn(params, {n: v[e] if one else v[:, e]
                                   for n, v in batches.items()})
         # a rounded (discretize) mask takes no gradient: its scores get 0
@@ -318,7 +337,7 @@ def local_update(zspecs: ZamplingSpecs, state: Dict[str, Any],
     # one client's upload word goes to kernel 9 as a scalar
     up_word = fold_word(words, steps) if one else step_words[steps]
     uploads = program.upload({p: trainable[p] for p in zspecs.specs},
-                             up_word)
+                             up_word, row_sharding)
     dense = {p: trainable[p] for p in zspecs.dense_paths}
     return uploads, dense, torch.stack(losses).mean(0)
 
@@ -421,18 +440,21 @@ def _wire_metrics(zspecs: ZamplingSpecs, cfg: FederatedConfig, k: int,
 
 
 def _encode_scores(zspecs, cfg, agg, word: int, round_index: int,
-                   b_vec=None):
+                   b_vec=None, row_sharding=None):
     """Re-encode p(t+1) as the next broadcast, dither keyed by
     ``fold_word(word, round_index)``; tensor i at width ``b_vec[i]``
-    when the round is scheduled."""
+    when the round is scheduled; a model rank's slices at their global
+    coordinates."""
     codec = get_codec(cfg.downlink)
     if not codec.quantized:
         return agg
     w = fold_word(word, round_index)
+    c0 = {p: shard_slice(spec, row_sharding)[0]
+          for p, spec in zspecs.specs.items()}
     if b_vec is None:
-        return {p: codec.encode(spec, agg[p], w)
+        return {p: codec.encode(spec, agg[p], w, c0[p])
                 for p, spec in zspecs.specs.items()}
-    return {p: codec.encode_at(spec, agg[p], w, b_vec[i])
+    return {p: codec.encode_at(spec, agg[p], w, b_vec[i], c0[p])
             for i, (p, spec) in enumerate(zspecs.specs.items())}
 
 
@@ -448,21 +470,37 @@ def _full_participation_metrics(k: int) -> Dict[str, float]:
 # ---------------------------------------------------------------------------
 
 def _resolve_faults(zspecs, packed: bool, z_all, faults, round_index: int,
-                    ids: torch.Tensor):
+                    ids: torch.Tensor, row_sharding=None):
     """The per-upload fault pipeline of every driver, keyed by client id.
     Returns (the uploads as received, fault codes, arrived, arrived and
-    valid)."""
+    valid).  On a model axis a sharded leaf's upload is this rank's
+    slice: its checksums are summed over the model group, so every rank
+    of a client judges the whole upload alike."""
+    total = offsets = None
+    if row_sharding is not None and row_sharding.size > 1:
+        sharded = {p for p, spec in zspecs.specs.items()
+                   if spec.shard_count > 1}
+
+        def total(path, x):
+            return _all_sum(x, row_sharding.group) if path in sharded else x
+
+        offsets = {p: shard_slice(spec, row_sharding)[0] // (32 if packed
+                                                             else 1)
+                   for p, spec in zspecs.specs.items()}
     declared = upload_counts(z_all, zspecs, packed)
+    if total is not None:
+        declared = {p: total(p, c) for p, c in declared.items()}
     if faults is not None:
         codes = draw_faults(faults, round_index, ids)
         z_wire = corrupt_uploads(faults, z_all, declared, codes == CORRUPT,
-                                 round_index, ids, zspecs, packed)
+                                 round_index, ids, zspecs, packed, offsets,
+                                 total)
     else:
         codes = torch.zeros_like(ids)
         z_wire = z_all
     arrived = (codes != DROP) & (codes != STRAGGLER)
     # the check reads the received payload, not the injector's flag
-    valid = validate_uploads(z_wire, declared, zspecs, packed)
+    valid = validate_uploads(z_wire, declared, zspecs, packed, total)
     return z_wire, codes, arrived, arrived & valid
 
 
@@ -533,15 +571,16 @@ def _client_words(kw: int, r: int, src):
 def _participation_round(zspecs, st, loss_fn, batches, kw: int, r: int,
                          cfg: FederatedConfig, opt, *, ids, src,
                          w: torch.Tensor, faults, k: int, chunk: int,
-                         impl=None):
+                         constraints=None, row_sharding=None, impl=None):
     """The weighted round over K clients, ``chunk`` at a time (K: the
     slab round), folding each chunk's validated uploads into the vote
     counts.  Returns (state', metrics)."""
     transport = resolve_transport(cfg.aggregate, cfg.mode)
     packed = transport.packed_wire
     dev = ids.device
-    votes = {p: transport.stream_init(spec.n, dev)
-             for p, spec in zspecs.specs.items()}
+    n_of = {p: shard_slice(spec, row_sharding)[1]
+            for p, spec in zspecs.specs.items()}
+    votes = {p: transport.stream_init(n_of[p], dev) for p in zspecs.specs}
     dense, loss = {p: None for p in zspecs.dense_paths}, None
     wsum = torch.zeros((), dtype=torch.int64, device=dev)
     counters = {c: torch.zeros((), device=dev) for c in _COUNTER_KEYS}
@@ -549,13 +588,14 @@ def _participation_round(zspecs, st, loss_fn, batches, kw: int, r: int,
         sl = slice(c0, min(c0 + chunk, k))
         uploads, dense_c, losses = local_update(
             zspecs, st, loss_fn, {n: v[sl] for n, v in batches.items()},
-            _client_words(kw, r, src[sl]), cfg, opt, impl=impl)
+            _client_words(kw, r, src[sl]), cfg, opt, constraints=constraints,
+            row_sharding=row_sharding, impl=impl)
         z_wire, codes, arrived, part = _resolve_faults(
-            zspecs, packed, uploads, faults, r, ids[sl])
+            zspecs, packed, uploads, faults, r, ids[sl], row_sharding)
         w_eff = w[sl] * part.to(torch.int64)
-        for p, spec in zspecs.specs.items():
+        for p in zspecs.specs:
             votes[p] = (transport.fold_stacked_packed_weighted(
-                votes[p], z_wire[p], spec.n, w_eff) if packed else
+                votes[p], z_wire[p], n_of[p], w_eff) if packed else
                 transport.fold_stacked_weighted(votes[p], z_wire[p], w_eff))
         w_f = w_eff.to(torch.float32)
         dense = {p: _ascending_fold(dense[p], dense_c[p], w_f)
@@ -569,7 +609,7 @@ def _participation_round(zspecs, st, loss_fn, batches, kw: int, r: int,
     recip = _recip(wsum_f)
     agg = {p: v.to(torch.float32) * recip for p, v in votes.items()}
     b_vec = _round_b_vec(zspecs, cfg, st, r, dev)
-    new_enc = _encode_scores(zspecs, cfg, agg, kw, r, b_vec)
+    new_enc = _encode_scores(zspecs, cfg, agg, kw, r, b_vec, row_sharding)
     skip = counters["num_participating"] < cfg.min_clients
     new_state = {
         "scores": {p: _keep_if(skip, st["scores"][p], new_enc[p])
@@ -591,8 +631,8 @@ def federated_round(zspecs: ZamplingSpecs, state: Dict[str, Any],
                     loss_fn: LossFn, client_batches, key,
                     cfg: FederatedConfig, opt: Optional[Optimizer] = None, *,
                     round_index=0, client_ids=None, weights=None,
-                    faults=None, impl: Optional[str] = None,
-                    device="cuda"):
+                    faults=None, constraints=None, row_sharding=None,
+                    impl: Optional[str] = None, device="cuda"):
     """One round over the K clients stacked on the batches' leading axis.
     ``key`` is the round's uint32 draw word; client k trains at
     ``fold_word(key, round_index, client_ids[k])``.
@@ -602,7 +642,11 @@ def federated_round(zspecs: ZamplingSpecs, state: Dict[str, Any],
     switch on the weighted partial-participation round; with all three
     None the plain round runs.  ``0 < cfg.stream_chunk < K`` runs the
     round in chunks.  Returns (state', metrics); state' carries
-    ``cfg.downlink``'s words (and a frontier schedule's widths)."""
+    ``cfg.downlink``'s words (and a frontier schedule's widths).  On a
+    model group (``row_sharding``, this rank's model AxisGroup) every
+    rank runs the K clients on its slices of the sharded leaves and
+    returns its slices of state'."""
+    _refuse_frontier(zspecs, cfg, row_sharding)
     dev = resolve_device(device)
     st = state_to(zspecs, state, dev)
     batches = {n: as_tensor(v, dev) for n, v in client_batches.items()}
@@ -618,23 +662,36 @@ def federated_round(zspecs: ZamplingSpecs, state: Dict[str, Any],
         return _participation_round(
             zspecs, st, loss_fn, batches, kw, r, cfg, opt, ids=ids, src=src,
             w=w, faults=faults, k=k,
-            chunk=cfg.stream_chunk if streaming else k, impl=impl)
+            chunk=cfg.stream_chunk if streaming else k,
+            constraints=constraints, row_sharding=row_sharding, impl=impl)
     words = [fold_word(kw, r, i) for i in range(k)]
-    uploads, dense_all, losses = local_update(zspecs, st, loss_fn, batches,
-                                              words, cfg, opt, impl=impl)
+    uploads, dense_all, losses = local_update(
+        zspecs, st, loss_fn, batches, words, cfg, opt,
+        constraints=constraints, row_sharding=row_sharding, impl=impl)
     if transport.packed_wire:
-        agg = {p: transport.aggregate_stacked_packed(uploads[p], spec.n)
-               for p, spec in zspecs.specs.items()}
+        agg = {p: transport.aggregate_stacked_packed(
+            uploads[p], shard_slice(spec, row_sharding)[1])
+            for p, spec in zspecs.specs.items()}
     else:
         agg = {p: transport.aggregate_stacked(uploads[p])
                for p in zspecs.specs}
     b_vec = _round_b_vec(zspecs, cfg, st, r, dev)
     metrics = {"loss": mean0(losses), **_wire_metrics(zspecs, cfg, k, b_vec),
                **_full_participation_metrics(k)}
-    new_state = {"scores": _encode_scores(zspecs, cfg, agg, kw, r, b_vec),
+    new_state = {"scores": _encode_scores(zspecs, cfg, agg, kw, r, b_vec,
+                                          row_sharding),
                  "dense": {p: mean0(d) for p, d in dense_all.items()},
                  **_schedule_state_out(zspecs, cfg, agg, b_vec)}
     return new_state, metrics
+
+
+def _refuse_frontier(zspecs, cfg: FederatedConfig, row_sharding) -> None:
+    if (row_sharding is not None and cfg.downlink_schedule == "frontier"
+            and any(s.shard_count > 1 for s in zspecs.specs.values())):
+        raise ValueError(
+            "downlink_schedule='frontier' needs each tensor's whole flip "
+            "fraction; it is not run on a model axis (ROADMAP, queue 1, "
+            "item 9 Part B)")
 
 
 def _all_sum(x: torch.Tensor, group) -> torch.Tensor:
@@ -647,6 +704,7 @@ def sharded_client_update(zspecs: ZamplingSpecs, state: Dict[str, Any],
                           loss_fn: LossFn, batches, key,
                           cfg: FederatedConfig,
                           opt: Optional[Optimizer] = None, *, group=None,
+                          constraints=None, row_sharding=None,
                           round_index=0, client_id=None, weight=None,
                           faults=None, impl: Optional[str] = None,
                           device="cuda"):
@@ -666,7 +724,15 @@ def sharded_client_update(zspecs: ZamplingSpecs, state: Dict[str, Any],
     sample count) and ``faults`` switch on the weighted round: fault
     draws and validation key on the client id, and the weighted sums and
     the counters meet in all-reduces, so a scenario gives the stacked
-    round's counters and words."""
+    round's counters and words.
+
+    On a grid ``group`` is this rank's data group and ``row_sharding``
+    its model ``AxisGroup``: ``state`` holds the rank's slices of the
+    sharded leaves (``convert.to_model_rank``), ``batches`` its client's
+    (the same on every rank of the model group), and the state it
+    returns holds the slices of the next broadcast.  ``constraints`` as
+    ``core.zampling.weights_from_masks``."""
+    _refuse_frontier(zspecs, cfg, row_sharding)
     dev = resolve_device(device)
     st = state_to(zspecs, state, dev)
     batch = {n: as_tensor(v, dev) for n, v in batches.items()}
@@ -677,27 +743,31 @@ def sharded_client_update(zspecs: ZamplingSpecs, state: Dict[str, Any],
     my_id = axis_index(group) if client_id is None else as_word(client_id)
     upload, dense, loss = local_update(
         zspecs, st, loss_fn, batch, fold_word(kw, r, my_id), cfg, opt,
-        impl=impl)
+        constraints=constraints, row_sharding=row_sharding, impl=impl)
     b_vec = _round_b_vec(zspecs, cfg, st, r, dev)
+    n_of = {p: shard_slice(spec, row_sharding)[1]
+            for p, spec in zspecs.specs.items()}
 
     if client_id is None and weight is None and faults is None:
         if packed:
             agg = {p: transport.aggregate_collective_packed(upload[p],
-                                                            spec.n, group)
-                   for p, spec in zspecs.specs.items()}
+                                                            n_of[p], group)
+                   for p in zspecs.specs}
         else:
             agg = {p: transport.aggregate_collective(upload[p], group)
                    for p in zspecs.specs}
         metrics = {"loss": pmean(loss, group),
                    **_wire_metrics(zspecs, cfg, k, b_vec),
                    **_full_participation_metrics(k)}
-        return {"scores": _encode_scores(zspecs, cfg, agg, kw, r, b_vec),
+        return {"scores": _encode_scores(zspecs, cfg, agg, kw, r, b_vec,
+                                         row_sharding),
                 "dense": {p: pmean(d, group) for p, d in dense.items()},
                 **_schedule_state_out(zspecs, cfg, agg, b_vec)}, metrics
 
     ids = torch.tensor(my_id, dtype=torch.int64, device=dev)
     z_wire, code, arrived, part = _resolve_faults(zspecs, packed, upload,
-                                                  faults, r, ids)
+                                                  faults, r, ids,
+                                                  row_sharding)
     w = torch.tensor(1 if weight is None else as_word(weight),
                      dtype=torch.int64, device=dev)
     w_eff = w * part.to(torch.int64)
@@ -711,12 +781,12 @@ def sharded_client_update(zspecs: ZamplingSpecs, state: Dict[str, Any],
     recip = _recip(wsum_f)
     if packed:
         agg = {p: transport.aggregate_collective_packed_weighted(
-            z_wire[p], spec.n, w_eff, group).to(torch.float32) * recip
-            for p, spec in zspecs.specs.items()}
+            z_wire[p], n_of[p], w_eff, group).to(torch.float32) * recip
+            for p in zspecs.specs}
     else:
         agg = {p: transport.aggregate_collective_weighted(
             z_wire[p], w_eff, group) * recip for p in zspecs.specs}
-    new_enc = _encode_scores(zspecs, cfg, agg, kw, r, b_vec)
+    new_enc = _encode_scores(zspecs, cfg, agg, kw, r, b_vec, row_sharding)
     w_f = w_eff.to(torch.float32)
     skip = counters["num_participating"] < cfg.min_clients
     new_state = {

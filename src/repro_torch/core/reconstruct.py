@@ -28,8 +28,10 @@ from __future__ import annotations
 
 import torch
 
-from .qspec import QSpec, padded_row_window, row_indices, row_values
-from .transpose_plan import build_transpose_plan, resolve_bwd_path, row_plan
+from .qspec import (QSpec, padded_row_valid, padded_row_window, row_indices,
+                    row_values)
+from .transpose_plan import (build_transpose_plan, plan_windows,
+                             resolve_bwd_path, row_plan)
 
 # edges the scatter transpose regenerates at once (bounds its temporaries)
 _SCATTER_CHUNK_EDGES = 1 << 22
@@ -83,6 +85,16 @@ def _insert_padding_batched(spec: QSpec, flat_moved: torch.Tensor):
         blocks, (0, spec.m_pad_loc - spec.m_blk)).reshape(k, spec.m_pad)
 
 
+def range_real_rows(spec: QSpec, windows, device) -> torch.Tensor:
+    """Which padded rows of the range ``windows`` are real (bool, one a
+    padded row): in ascending order they are the range's rows of the
+    moved flat order."""
+    w0, w1 = plan_windows(spec, windows)
+    rpw = spec.rows_per_window
+    return padded_row_valid(spec, torch.arange(
+        w0 * rpw, w1 * rpw, dtype=torch.int64, device=device))
+
+
 def _rows_sum(vals: torch.Tensor, zg: torch.Tensor) -> torch.Tensor:
     """sum_k vals[..., k] * zg[..., k] in ascending k, from the first
     product (the forward's order)."""
@@ -121,16 +133,19 @@ def reconstruct_ref(spec: QSpec, z: torch.Tensor) -> torch.Tensor:
 
 
 def plan_apply_batched(spec: QSpec, g_pad: torch.Tensor,
-                       order: str = "canonical") -> torch.Tensor:
+                       order: str = "canonical",
+                       windows=None) -> torch.Tensor:
     """Q^T over the ``order`` plan for K cotangents in padded row space:
     (K, m_pad) -> (K, n), each coordinate summing vals * g over its
-    plan edges in ascending e from +0."""
-    plan = build_transpose_plan(spec, g_pad.device, order)
-    k = g_pad.shape[0]
-    row0 = torch.arange(spec.num_windows, device=g_pad.device)[:, None, None]
+    plan edges in ascending e from +0.  Over ``windows`` (w0, w1) alone:
+    (K, (w1 - w0) * rows_per_window) -> (K, (w1 - w0) * window)."""
+    w0, w1 = plan_windows(spec, windows)
+    plan = build_transpose_plan(spec, g_pad.device, order, windows)
+    k, n = g_pad.shape[0], (w1 - w0) * spec.window
+    row0 = torch.arange(w1 - w0, device=g_pad.device)[:, None, None]
     rows = plan.rows.to(torch.int64) + row0 * spec.rows_per_window
-    gath = g_pad[:, rows.reshape(-1)].reshape(k, spec.n, plan.deg)
-    return _edge_sum(plan.vals.reshape(spec.n, plan.deg), gath)
+    gath = g_pad[:, rows.reshape(-1)].reshape(k, n, plan.deg)
+    return _edge_sum(plan.vals.reshape(n, plan.deg), gath)
 
 
 def scatter_windows(spec: QSpec, g_rows: torch.Tensor, w0: int,
@@ -170,18 +185,22 @@ def scatter_windows(spec: QSpec, g_rows: torch.Tensor, w0: int,
     return _edge_sum(t_vals.reshape(cells, deg), gath)
 
 
-def scatter_apply_batched(spec: QSpec, g_pad: torch.Tensor) -> torch.Tensor:
+def scatter_apply_batched(spec: QSpec, g_pad: torch.Tensor,
+                          windows=None) -> torch.Tensor:
     """Q^T for K cotangents in padded row space by the scatter: (K,
     m_pad) -> (K, n), holding no row plan and no transpose plan: a chunk
-    of windows at a time through ``scatter_windows``."""
+    of windows at a time through ``scatter_windows``.  Over ``windows``
+    (w0, w1) alone: (K, (w1 - w0) * rows_per_window) -> (K, (w1 - w0) *
+    window)."""
+    lo, hi = plan_windows(spec, windows)
     rpw, win = spec.rows_per_window, spec.window
-    out = torch.empty((g_pad.shape[0], spec.n), dtype=torch.float32,
-                      device=g_pad.device)
+    out = torch.empty((g_pad.shape[0], (hi - lo) * win),
+                      dtype=torch.float32, device=g_pad.device)
     per = max(1, _SCATTER_CHUNK_EDGES // (rpw * spec.d))
-    for w0 in range(0, spec.num_windows, per):
-        w1 = min(spec.num_windows, w0 + per)
-        out[:, w0 * win:w1 * win] = scatter_windows(
-            spec, g_pad[:, w0 * rpw:w1 * rpw], w0, w1)
+    for w0 in range(lo, hi, per):
+        w1 = min(hi, w0 + per)
+        out[:, (w0 - lo) * win:(w1 - lo) * win] = scatter_windows(
+            spec, g_pad[:, (w0 - lo) * rpw:(w1 - lo) * rpw], w0, w1)
     return out
 
 

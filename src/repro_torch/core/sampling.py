@@ -71,10 +71,12 @@ def mask_u32(seed: int, tensor_id: int, step, coords: torch.Tensor):
     return hash_u32(seed, tensor_id, MASK_CTR, step, coords)
 
 
-def _draw_words(step, n: int, device):
-    """(step word(s), coordinates) shaped to broadcast: a (K,) step
-    tensor draws one row of n coordinates per entry."""
-    coords = torch.arange(n, dtype=torch.int64, device=device)
+def _draw_words(step, n: int, device, coord0: int = 0):
+    """(step word(s), coordinates [coord0, coord0 + n)) shaped to
+    broadcast: a (K,) step tensor draws one row of n coordinates per
+    entry."""
+    coords = torch.arange(coord0, coord0 + n, dtype=torch.int64,
+                          device=device)
     if isinstance(step, torch.Tensor) and step.ndim:
         step = step.to(device=device, dtype=torch.int64)[..., None]
     elif not isinstance(step, torch.Tensor):
@@ -82,17 +84,21 @@ def _draw_words(step, n: int, device):
     return step, coords
 
 
-def sample_mask_hash(p: torch.Tensor, seed: int, tensor_id: int, step):
+def sample_mask_hash(p: torch.Tensor, seed: int, tensor_id: int, step,
+                     coord0: int = 0):
     """z ~ Bern(p) from the hash stream, float32 in {0, 1}; ``p`` is
-    (..., n) with coordinates last and ``step`` a word or a tensor of
-    words broadcasting against the leading axes.  No gradient."""
-    step, coords = _draw_words(step, p.shape[-1], p.device)
+    (..., n) with coordinates last (the slice from ``coord0`` of a
+    longer vector, which draws that slice's bits) and ``step`` a word or
+    a tensor of words broadcasting against the leading axes.  No
+    gradient."""
+    step, coords = _draw_words(step, p.shape[-1], p.device, coord0)
     return bernoulli_u32(mask_u32(seed, tensor_id, step, coords), p.detach())
 
 
-def sample_mask_st_hash(p: torch.Tensor, seed: int, tensor_id: int, step):
+def sample_mask_st_hash(p: torch.Tensor, seed: int, tensor_id: int, step,
+                        coord0: int = 0):
     """Straight-through hash Bernoulli: forward z, backward identity."""
-    z = sample_mask_hash(p, seed, tensor_id, step)
+    z = sample_mask_hash(p, seed, tensor_id, step, coord0)
     return p + (z - p).detach()
 
 
@@ -111,11 +117,11 @@ def word_values(q: torch.Tensor) -> torch.Tensor:
 
 
 def sample_mask_qhash(q: torch.Tensor, bits: int, seed: int, tensor_id: int,
-                      step):
+                      step, coord0: int = 0):
     """z ~ Bern(T(q) / 2^24) drawn straight from b-bit wire words: the
     integer compare ``(hash >> 8) < quant_threshold_u24(q, bits)``,
     bit-identical to ``sample_mask_hash`` on the decoded probability."""
-    step, coords = _draw_words(step, q.shape[-1], q.device)
+    step, coords = _draw_words(step, q.shape[-1], q.device, coord0)
     u = mask_u32(seed, tensor_id, step, coords)
     return ((u >> 8) < quant_threshold_u24(word_values(q), bits)).to(
         torch.float32)

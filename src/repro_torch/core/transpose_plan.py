@@ -33,6 +33,14 @@ from the same host sort, so the card holds neither the padded plan nor
 the row plan for a backward through the kernels; the padded plan serves
 the plain versions and the tests.
 
+Each builder takes ``windows``, a range ``(w0, w1)`` of the spec's
+windows (all of them by default): the plan of those windows alone, its
+coordinates counted from ``w0 * window`` and its rows from
+``w0 * rows_per_window``.  Window w's coordinates receive edges from
+window w's rows only, so a range's plan is the same lists as the whole
+plan's, and a model rank builds only its shard's
+(``kernels.qz_sharded``).
+
 The gate: ``REPRO_BWD_PLAN`` overrides the process default
 (``set_default_bwd_path``, ``plan``), and ``resolve_bwd_path`` turns a
 path into ``(kind, order)``: ``("plan", "canonical" | "slot")``, or
@@ -102,16 +110,31 @@ def _device(device) -> torch.device:
     return dev
 
 
-def row_plan(spec: QSpec, device="cpu"):
-    """``(gidx (m_pad, d) int64 global z coordinates, vals (m_pad, d)
-    f32)`` of every padded row, built once per (spec, device)."""
-    return _row_plan(spec, _device(device))
+def plan_windows(spec: QSpec, windows=None) -> tuple:
+    """``windows`` as (w0, w1), every window by default."""
+    if windows is None:
+        return 0, spec.num_windows
+    w0, w1 = (int(w) for w in windows)
+    if not 0 <= w0 < w1 <= spec.num_windows:
+        raise ValueError(f"windows ({w0}, {w1}) outside [0, "
+                         f"{spec.num_windows}]")
+    return w0, w1
+
+
+def row_plan(spec: QSpec, device="cpu", windows=None):
+    """``(gidx (rows, d) int64 z coordinates, vals (rows, d) f32)`` of
+    every padded row of ``windows`` (all by default, their coordinates
+    counted from the range's first), built once per (spec, device,
+    range)."""
+    return _row_plan(spec, _device(device), plan_windows(spec, windows))
 
 
 @functools.lru_cache(maxsize=32)
-def _row_plan(spec: QSpec, device: torch.device):
-    rp = torch.arange(spec.m_pad, dtype=torch.int64, device=device)
-    gidx = (padded_row_window(spec, rp)[:, None] * spec.window
+def _row_plan(spec: QSpec, device: torch.device, windows: tuple):
+    w0, w1 = windows
+    rpw = spec.rows_per_window
+    rp = torch.arange(w0 * rpw, w1 * rpw, dtype=torch.int64, device=device)
+    gidx = ((padded_row_window(spec, rp)[:, None] - w0) * spec.window
             + row_indices(spec, rp))
     return gidx, row_values(spec, rp)
 
@@ -127,9 +150,9 @@ class TransposePlan:
 
     order: str
     deg: int
-    rows: torch.Tensor  # (num_windows, window, deg) int32
-    vals: torch.Tensor  # (num_windows, window, deg) f32
-    counts: torch.Tensor  # (n,) int64
+    rows: torch.Tensor  # (windows, window, deg) int32
+    vals: torch.Tensor  # (windows, window, deg) f32
+    counts: torch.Tensor  # (windows * window,) int64
 
     @property
     def n_edges(self) -> int:
@@ -137,24 +160,31 @@ class TransposePlan:
 
 
 def build_transpose_plan(spec: QSpec, device="cpu",
-                         order: str = "canonical") -> TransposePlan:
-    """Invert the row plan into per-coordinate incoming-edge lists, in
-    ``order``."""
+                         order: str = "canonical",
+                         windows=None) -> TransposePlan:
+    """Invert the row plan of ``windows`` (all by default) into
+    per-coordinate incoming-edge lists, in ``order``."""
     if order not in ORDERS:
         raise ValueError(f"unknown plan order {order!r}; valid: {ORDERS}")
-    return _build_transpose_plan(spec, _device(device), order)
+    return _build_transpose_plan(spec, _device(device), order,
+                                 plan_windows(spec, windows))
 
 
-def _plan_entries(spec: QSpec, gidx: torch.Tensor, order: str):
+def _plan_entries(spec: QSpec, gidx: torch.Tensor, order: str,
+                  windows: tuple):
     """The plan's real entries in ``order``, by a counting sort on the
-    host of the row plan's coordinates ``gidx``: ``(coord, r_local, src,
-    counts)``, per entry its coordinate (ascending), window-local source
-    row and index into the flat row plan, and the in-degree (n,)."""
+    host of the row plan's coordinates ``gidx`` (of the range
+    ``windows``): ``(coord, r_local, src, counts)``, per entry its
+    coordinate (ascending), window-local source row and index into the
+    flat row plan, and the in-degree of the range's coordinates."""
     d = spec.d
-    rp = np.arange(spec.m_pad, dtype=np.int64)
+    w0, w1 = windows
+    rpw = spec.rows_per_window
+    rp = np.arange(w0 * rpw, w1 * rpw, dtype=np.int64)
+    rows = rp.size
     valid = padded_row_valid(spec, torch.from_numpy(rp)).numpy()
-    coord = gidx.cpu().numpy()  # (m_pad, d)
-    src = np.arange(spec.m_pad * d, dtype=np.int64).reshape(spec.m_pad, d)
+    coord = gidx.cpu().numpy()  # (rows, d)
+    src = np.arange(rows * d, dtype=np.int64).reshape(rows, d)
     r_local = np.broadcast_to((rp % spec.rows_per_window)[:, None],
                               coord.shape)
     valid = np.broadcast_to(valid[:, None], coord.shape)
@@ -167,23 +197,26 @@ def _plan_entries(spec: QSpec, gidx: torch.Tensor, order: str):
     src = src.reshape(-1)[valid]
     r_local = r_local.reshape(-1)[valid]
     perm = np.argsort(coord, kind="stable")
-    counts = np.bincount(coord, minlength=spec.n).astype(np.int64)
+    counts = np.bincount(coord, minlength=(w1 - w0) * spec.window).astype(
+        np.int64)
     return coord[perm], r_local[perm], src[perm], counts
 
 
 @functools.lru_cache(maxsize=32)
-def _build_transpose_plan(spec: QSpec, device: torch.device, order: str):
-    gidx, vals = row_plan(spec, device)
-    ks, rs, src, counts = _plan_entries(spec, gidx, order)
+def _build_transpose_plan(spec: QSpec, device: torch.device, order: str,
+                          windows: tuple):
+    gidx, vals = row_plan(spec, device, windows)
+    ks, rs, src, counts = _plan_entries(spec, gidx, order, windows)
+    n = counts.size
     deg = int(max(1, counts.max() if counts.size else 1))
     starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
     slot = ks * deg + (np.arange(ks.size, dtype=np.int64) - starts[ks])
-    rows = np.zeros(spec.n * deg, np.int32)
+    rows = np.zeros(n * deg, np.int32)
     rows[slot] = rs
-    flat_vals = torch.zeros(spec.n * deg, dtype=torch.float32, device=device)
+    flat_vals = torch.zeros(n * deg, dtype=torch.float32, device=device)
     flat_vals[torch.from_numpy(slot).to(device)] = vals.reshape(-1)[
         torch.from_numpy(src).to(device)]
-    shape = (spec.num_windows, spec.window, deg)
+    shape = (windows[1] - windows[0], spec.window, deg)
     return TransposePlan(
         order=order, deg=deg,
         rows=torch.from_numpy(rows).to(device).reshape(shape),
@@ -194,14 +227,15 @@ def _build_transpose_plan(spec: QSpec, device: torch.device, order: str):
 @dataclass(frozen=True, eq=False)
 class PlanLayout:
     """A transpose plan's real entries, in its order: coordinate ``c``'s
-    entries are ``[starts[c], starts[c+1])`` of ``rows`` (window-local
-    source rows; ``narrow``: uint16 bits in an int16 tensor, else int32)
-    and ``vals`` (f32).  ``max_slab`` is the most entries of one window."""
+    (counted from its range's first) entries are ``[starts[c],
+    starts[c+1])`` of ``rows`` (window-local source rows; ``narrow``:
+    uint16 bits in an int16 tensor, else int32) and ``vals`` (f32).
+    ``max_slab`` is the most entries of one window."""
 
     order: str
     rows: torch.Tensor  # (E,) int16 (uint16 bits) or int32
     vals: torch.Tensor  # (E,) f32
-    starts: torch.Tensor  # (n + 1,) int32
+    starts: torch.Tensor  # (range coordinates + 1,) int32
     narrow: bool
     max_slab: int
 
@@ -211,17 +245,19 @@ class PlanLayout:
         return (rows.view(np.uint16) if self.narrow else rows).astype(np.int64)
 
 
-def build_plan_layout(spec: QSpec, device="cpu",
-                      order: str = "canonical") -> PlanLayout:
-    """The ``order`` transpose plan's compact layout, from the same
-    counting sort as the padded plan, which it neither builds nor reads;
-    the row plan it sorts is made for it and dropped.  Not cached here:
-    the plan kernel's launch constants hold it."""
+def build_plan_layout(spec: QSpec, device="cpu", order: str = "canonical",
+                      windows=None) -> PlanLayout:
+    """The ``order`` transpose plan's compact layout of ``windows`` (all
+    by default), from the same counting sort as the padded plan, which
+    it neither builds nor reads; the row plan it sorts is made for it
+    and dropped.  Not cached here: the plan kernel's launch constants
+    hold it."""
     if order not in ORDERS:
         raise ValueError(f"unknown plan order {order!r}; valid: {ORDERS}")
     device = _device(device)
-    gidx, vals = _row_plan.__wrapped__(spec, device)
-    _, rows, src, counts = _plan_entries(spec, gidx, order)
+    windows = plan_windows(spec, windows)
+    gidx, vals = _row_plan.__wrapped__(spec, device, windows)
+    _, rows, src, counts = _plan_entries(spec, gidx, order, windows)
     starts = np.concatenate(([0], np.cumsum(counts)))
     if starts[-1] >= 1 << 31:
         raise ValueError(f"{starts[-1]} plan entries; the layout takes "

@@ -24,6 +24,20 @@ K clients with K draw words, which is how the federated round calls it
 (the JAX package vmaps a single client).  Reconstructed leaves come out
 in their template dtype (``LeafSpec.dtype``), cast from the kernels'
 f32; dense leaves are carried in it.
+
+The model axis.  ``build_specs(..., shard_plan_fn=)`` gives a leaf the
+sharding-major layout where the plan names an axis (``shard_count =
+config.shard_align``).  ``row_sharding``, this rank's model
+``comm.shardmap.AxisGroup``, makes every method below act on the rank's
+slice of such a leaf's scores (or wire words, or lanes): coordinates
+``shard_slice(spec, row_sharding)``, drawn, encoded and dithered at
+their global index.  A sharded leaf is reconstructed as the rank's
+block (``kernels.qz_sharded``, zero collectives) and reaches the model
+through ``comm.shardmap.gather_major``, whose backward hands the block's
+cotangent back: the model is the unsharded one on every rank.
+``constraints`` ({path: placement}, ``launch.sharding``) may name the
+model axis only on a leaf's major axis, the one placement that
+consumer honours; anything else raises.
 """
 
 from __future__ import annotations
@@ -174,12 +188,18 @@ def default_fan_in(path: str, shape) -> int:
 
 
 def build_specs(template: dict, config: ZamplingConfig,
-                fan_in_fn: Callable[[str, tuple], int] = default_fan_in
+                fan_in_fn: Callable[[str, tuple], int] = default_fan_in,
+                shard_plan_fn: Optional[
+                    Callable[[str, tuple], Optional[int]]] = None
                 ) -> ZamplingSpecs:
     """Assign a QSpec to every large leaf of a shape template.
 
     ``template``: nested or flat (``"a/b"`` paths) dict whose leaves
     are shapes, ``LeafSpec``s, or anything with ``.shape``.
+    ``shard_plan_fn(path, shape) -> axis | None``: the tensor axis a
+    model axis shards; such a leaf takes the sharding-major layout with
+    ``shard_count = config.shard_align`` (QSpec falls back to one block
+    where the axis does not divide).
     """
     specs: Dict[str, QSpec] = {}
     dense = []
@@ -191,15 +211,59 @@ def build_specs(template: dict, config: ZamplingConfig,
         for s in leaf.shape:
             m *= int(s)
         if len(leaf.shape) >= 2 and m >= config.min_size:
+            axis = shard_plan_fn(path, leaf.shape) if shard_plan_fn else None
             specs[path] = make_qspec(
                 tid, leaf.shape, fan_in_fn(path, leaf.shape),
                 compression=config.compression, d=config.d,
                 window=config.window, seed=config.seed,
-                align=config.shard_align)
+                align=config.shard_align,
+                major_axis=0 if axis is None else axis,
+                shard_count=1 if axis is None else config.shard_align)
         else:
             dense.append(path)
     return ZamplingSpecs(specs=specs, dense_paths=tuple(dense),
                          template=flat, config=config)
+
+
+def state_spec(zspecs: ZamplingSpecs) -> Dict[str, Dict[str, LeafSpec]]:
+    """Shapes and dtypes of the trainable state: (n,) f32 scores a
+    zampled leaf, the template's leaf a dense one."""
+    return {"scores": {p: LeafSpec((s.n,), "float32")
+                       for p, s in zspecs.specs.items()},
+            "dense": {p: zspecs.template[p] for p in zspecs.dense_paths}}
+
+
+def shard_slice(spec: QSpec, row_sharding=None) -> Tuple[int, int]:
+    """(first coordinate, coordinates) of the scores a rank holds of a
+    leaf: the whole vector, or on a model axis (``row_sharding``) its
+    shard's slice of a sharded leaf."""
+    if row_sharding is None or spec.shard_count == 1:
+        return 0, spec.n
+    from ..kernels.qz_sharded import shard_coords  # kernels sit above core
+
+    return shard_coords(spec, row_sharding.index, row_sharding.size)
+
+
+def check_constraints(zspecs: ZamplingSpecs, constraints) -> None:
+    """Each constraint ({path: placement}) may name the model axis only on
+    its leaf's major axis, and only for a sharded leaf: the block a model
+    rank reconstructs.  Any other placement raises ``ValueError``."""
+    for path, placement in (constraints or {}).items():
+        spec = zspecs.specs.get(path)
+        if spec is None:
+            raise ValueError(f"constraint on {path!r}, which is no zampled "
+                             "leaf")
+        for i, entry in enumerate(tuple(placement)):
+            if entry is None:
+                continue
+            if not (entry in ("model", ("model",))
+                    and i == spec.major_axis and spec.shard_count > 1):
+                raise ValueError(
+                    f"constraint {tuple(placement)} on {path!r}: a "
+                    "reconstructed leaf can be split over 'model' on its "
+                    f"major axis ({spec.major_axis}) only, with a sharded "
+                    f"spec (shard_count={spec.shard_count}); the port's "
+                    "consumer is the unsharded model")
 
 
 # ---------------------------------------------------------------------------
@@ -262,17 +326,19 @@ def infer_downlink(scores) -> str:
     return names.pop() if names else "f32"
 
 
-def validate_carried(zspecs: ZamplingSpecs, scores, carried: str) -> str:
-    """Check an explicit codec tag against the leaves' dtype and length;
-    returns the codec's name."""
+def validate_carried(zspecs: ZamplingSpecs, scores, carried: str,
+                     row_sharding=None) -> str:
+    """Check an explicit codec tag against the leaves' dtype and length
+    (a model rank's slices on a model axis); returns the codec's name."""
     from ..comm.downlink import get_codec
 
     codec = get_codec(carried)
     for path, spec in zspecs.specs.items():
         leaf = scores[path]
+        n = shard_slice(spec, row_sharding)[1]
         if codec.quantized:
             ok = (leaf.dtype == codec.wire_dtype
-                  and leaf.shape[-1] == codec.wire_len(spec.n))
+                  and leaf.shape[-1] == codec.wire_len(n))
         else:
             ok = leaf.dtype.is_floating_point
         if not ok:
@@ -280,16 +346,16 @@ def validate_carried(zspecs: ZamplingSpecs, scores, carried: str) -> str:
                 f"score leaf {path!r} (dtype {leaf.dtype}, trailing dim "
                 f"{leaf.shape[-1]}) cannot carry the tagged codec "
                 f"{codec.name!r} (wire dtype {codec.wire_dtype}, wire "
-                f"length {codec.wire_len(spec.n)} for n={spec.n})")
+                f"length {codec.wire_len(n)} for n={n})")
     return codec.name
 
 
 def resolve_carried(zspecs: ZamplingSpecs, scores,
-                    carried: Optional[str] = None) -> str:
+                    carried: Optional[str] = None, row_sharding=None) -> str:
     """An explicit tag, validated; else the codec the dtypes name (which
     raises on a packed carry: uint32 names no single codec)."""
     if carried is not None:
-        return validate_carried(zspecs, scores, carried)
+        return validate_carried(zspecs, scores, carried, row_sharding)
     return infer_downlink(scores)
 
 
@@ -303,7 +369,9 @@ class MaskProgram:
     ``fused``).  ``packed`` picks the upload's form: uint32 wire lanes,
     or the f32 {0,1} mask.  ``downlink`` names the codec of the server's
     broadcast; the ``*_from_wire`` path draws straight from its u8/u16
-    words or packed lanes."""
+    words or packed lanes.  Every method takes ``row_sharding``, this
+    rank's model AxisGroup (None: no model axis), and then reads and
+    writes the rank's slice of each sharded leaf's scores."""
 
     zspecs: ZamplingSpecs
     mode: str = "sample"
@@ -323,7 +391,8 @@ class MaskProgram:
 
         return get_codec(self.downlink)
 
-    def _wire_words(self, wire_scores, path: str) -> torch.Tensor:
+    def _wire_words(self, wire_scores, path: str,
+                    row_sharding=None) -> torch.Tensor:
         """One tensor's encoded leaf, its dtype checked (and a packed
         codec's lane count: every packed codec shares the uint32
         carrier, so the dtype cannot tell them apart)."""
@@ -335,7 +404,7 @@ class MaskProgram:
                 f"codec {codec.name!r} carries {codec.wire_dtype}; encode "
                 "the state first (core.federated.encode_state)")
         if codec.packed:
-            n = self.zspecs.specs[path].n
+            n = shard_slice(self.zspecs.specs[path], row_sharding)[1]
             if q.shape[-1] != codec.wire_len(n):
                 raise ValueError(
                     f"score leaf {path!r} has {q.shape[-1]} uint32 lanes "
@@ -344,58 +413,73 @@ class MaskProgram:
                     "packed codec's?")
         return q
 
-    def decode_scores(self, wire_scores) -> Dict[str, torch.Tensor]:
+    def decode_scores(self, wire_scores,
+                      row_sharding=None) -> Dict[str, torch.Tensor]:
         """Encoded broadcast -> the client's f32 trainable scores
         (the same tensors under the ``f32`` codec)."""
         codec = self.codec
         if not codec.quantized:
             return dict(wire_scores)
-        return {path: codec.decode(spec, self._wire_words(wire_scores, path))
+        return {path: codec.decode(
+                    spec, self._wire_words(wire_scores, path, row_sharding),
+                    shard_slice(spec, row_sharding)[1])
                 for path, spec in self.zspecs.specs.items()}
 
     # -- the composed path ---------------------------------------------
-    def mask(self, p: torch.Tensor, spec: QSpec, step) -> torch.Tensor:
+    def mask(self, p: torch.Tensor, spec: QSpec, step,
+             row_sharding=None) -> torch.Tensor:
         """One tensor's mask from CLIPPED probabilities ``p``: the
         straight-through draw at ``step`` (a word for (n,), K words for
         (K, n)), ``p`` itself, or the rounded mask."""
         if self.mode == "sample":
             if p.ndim == 2:
                 step = as_words(step, p.device)
-            return sample_mask_st_hash(p, spec.seed, spec.tensor_id, step)
+            return sample_mask_st_hash(p, spec.seed, spec.tensor_id, step,
+                                       shard_slice(spec, row_sharding)[0])
         if self.mode == "continuous":
             return p
         return discretize_mask(p)
 
-    def masks(self, scores, step) -> Dict[str, torch.Tensor]:
+    def masks(self, scores, step,
+              row_sharding=None) -> Dict[str, torch.Tensor]:
         """{path: mask}, one fresh draw per tensor at ``step``."""
-        return {path: self.mask(clip_probs(scores[path]), spec, step)
+        return {path: self.mask(clip_probs(scores[path]), spec, step,
+                                row_sharding)
                 for path, spec in self.zspecs.specs.items()}
 
-    def mask_from_wire(self, q: torch.Tensor, spec: QSpec, step):
+    def mask_from_wire(self, q: torch.Tensor, spec: QSpec, step,
+                       row_sharding=None):
         """One tensor's mask from its encoded broadcast words (a packed
         codec's lanes unpacked first): in sample mode the threshold
         compare (bit-identical to drawing on the decoded scores);
         otherwise the mode's mask of the decoded probabilities."""
         codec = self.codec
+        c0, n = shard_slice(spec, row_sharding)
         if codec.quantized and self.mode == "sample":
             words = as_words(step, q.device) if q.ndim == 2 else as_word(step)
-            return sample_mask_qhash(codec.wire_words(spec, q), codec.bits,
-                                     spec.seed, spec.tensor_id, words)
-        return self.mask(clip_probs(codec.decode(spec, q)), spec, step)
+            return sample_mask_qhash(codec.wire_words(spec, q, n), codec.bits,
+                                     spec.seed, spec.tensor_id, words, c0)
+        return self.mask(clip_probs(codec.decode(spec, q, n)), spec, step,
+                         row_sharding)
 
-    def masks_from_wire(self, wire_scores, step) -> Dict[str, torch.Tensor]:
+    def masks_from_wire(self, wire_scores, step,
+                        row_sharding=None) -> Dict[str, torch.Tensor]:
         """{path: mask} drawn directly from the encoded broadcast."""
-        return {path: self.mask_from_wire(self._wire_words(wire_scores, path),
-                                          spec, step)
+        return {path: self.mask_from_wire(
+                    self._wire_words(wire_scores, path, row_sharding), spec,
+                    step, row_sharding)
                 for path, spec in self.zspecs.specs.items()}
 
     # -- weights -------------------------------------------------------
-    def weights(self, scores, dense, steps) -> Dict[str, torch.Tensor]:
+    def weights(self, scores, dense, steps, constraints=None,
+                row_sharding=None) -> Dict[str, torch.Tensor]:
         """{path: leaf} of one forward pass: a fresh draw at ``steps``
         (a word for (n,) scores, K words for (K, n) scores)."""
+        check_constraints(self.zspecs, constraints)
         if not (self.fused and self.mode == "sample"):
-            return weights_from_masks(self.zspecs, self.masks(scores, steps),
-                                      {"dense": dense}, impl=self.impl)
+            return weights_from_masks(
+                self.zspecs, self.masks(scores, steps, row_sharding),
+                {"dense": dense}, row_sharding=row_sharding, impl=self.impl)
         from ..kernels import ops  # kernels sit above core
 
         leaves = {}
@@ -403,23 +487,32 @@ class MaskProgram:
             p = clip_probs(scores[path])
             op = (ops.sample_reconstruct_batched if p.ndim == 2
                   else ops.sample_reconstruct)
-            leaves[path] = _as_template(self.zspecs, path,
-                                        op(spec, p, steps, impl=self.impl))
+            leaves[path] = _leaf(self.zspecs, path, op(
+                spec, p, steps, impl=self.impl, row_sharding=row_sharding),
+                p.ndim == 2, row_sharding)
         leaves.update({path: dense[path] for path in self.zspecs.dense_paths})
         return leaves
 
-    def upload(self, scores, steps) -> Dict[str, torch.Tensor]:
+    def upload(self, scores, steps,
+               row_sharding=None) -> Dict[str, torch.Tensor]:
         """The end-of-round upload: in sample mode fresh gradient-free
         bits at ``steps``, as wire lanes when ``packed`` (drawn in the
         pack kernel when ``fused``), else f32 masks; in discretize mode
         the rounded bits, packed likewise; in continuous mode the
-        probabilities themselves (f32 only, the ``mean_f32`` wire)."""
+        probabilities themselves (f32 only, the ``mean_f32`` wire).  A
+        rank's slice packs into its lanes of the upload, so it must hold
+        whole lanes of 32 coordinates."""
         from ..comm.bitpack import pack_mask  # comm sits above core
         from ..kernels import ops
 
         out = {}
         for path, spec in self.zspecs.specs.items():
             p = clip_probs(scores[path].detach())
+            c0, n = shard_slice(spec, row_sharding)
+            if self.packed and self.mode != "continuous" and (c0 % 32
+                                                              or n % 32):
+                raise ValueError(f"{path!r}: a slice of coordinates [{c0}, "
+                                 f"{c0 + n}) holds no whole upload lanes")
             if self.mode == "continuous":
                 out[path] = p
                 continue
@@ -430,37 +523,42 @@ class MaskProgram:
             if self.packed and self.fused:
                 op = (ops.sample_pack_batched if p.ndim == 2
                       else ops.sample_pack)
-                out[path] = op(spec, p, steps, impl=self.impl)
+                out[path] = op(spec, p, steps, impl=self.impl,
+                               row_sharding=row_sharding)
                 continue
             words = (as_words(steps, p.device) if p.ndim == 2
                      else as_word(steps))
-            z = sample_mask_hash(p, spec.seed, spec.tensor_id, words)
+            z = sample_mask_hash(p, spec.seed, spec.tensor_id, words, c0)
             out[path] = pack_mask(z) if self.packed else z
         return out
 
-    def weights_from_wire(self, wire_scores, dense,
-                          steps) -> Dict[str, torch.Tensor]:
+    def weights_from_wire(self, wire_scores, dense, steps, constraints=None,
+                          row_sharding=None) -> Dict[str, torch.Tensor]:
         """One forward pass drawn straight from the encoded broadcast:
         in fused sample mode the threshold compare in the kernel, on the
         u8/u16 words or the packed lanes themselves, no f32 scores.
         Gradient-free; training decodes first (``decode_scores``)."""
         codec = self.codec
         if not codec.quantized:
-            return self.weights(wire_scores, dense, steps)
+            return self.weights(wire_scores, dense, steps, constraints,
+                                row_sharding)
+        check_constraints(self.zspecs, constraints)
         if not (self.fused and self.mode == "sample"):
             return weights_from_masks(
-                self.zspecs, self.masks_from_wire(wire_scores, steps),
-                {"dense": dense}, impl=self.impl)
+                self.zspecs,
+                self.masks_from_wire(wire_scores, steps, row_sharding),
+                {"dense": dense}, row_sharding=row_sharding, impl=self.impl)
         from ..kernels import ops
 
         leaves = {}
         for path, spec in self.zspecs.specs.items():
-            q = self._wire_words(wire_scores, path)
+            q = self._wire_words(wire_scores, path, row_sharding)
             op = (ops.sample_reconstruct_batched if q.ndim == 2
                   else ops.sample_reconstruct)
-            leaves[path] = _as_template(self.zspecs, path, op(
+            leaves[path] = _leaf(self.zspecs, path, op(
                 spec, q, steps, qbits=codec.bits, qpacked=codec.packed,
-                impl=self.impl))
+                impl=self.impl, row_sharding=row_sharding), q.ndim == 2,
+                row_sharding)
         leaves.update({path: dense[path] for path in self.zspecs.dense_paths})
         return leaves
 
@@ -472,27 +570,47 @@ def _as_template(zspecs: ZamplingSpecs, path: str, w: torch.Tensor):
     return w.to(zspecs.template[path].torch_dtype)
 
 
+def _leaf(zspecs: ZamplingSpecs, path: str, w: torch.Tensor, batched: bool,
+          row_sharding) -> torch.Tensor:
+    """A reconstructed leaf in its template dtype; on a model axis a
+    sharded leaf's block gathered whole along its major axis."""
+    w = _as_template(zspecs, path, w)
+    spec = zspecs.specs[path]
+    if row_sharding is None or spec.shard_count == 1:
+        return w
+    from ..comm.shardmap import gather_major  # comm sits above core
+
+    return gather_major(w, spec.major_axis + int(batched), row_sharding,
+                        front=int(batched))
+
+
 def weights_from_masks(zspecs: ZamplingSpecs, masks, state, *,
+                       constraints=None, row_sharding=None,
                        impl: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """{path: leaf}: every zampled leaf reconstructed from its mask
-    ((n,) on ``ops.reconstruct``, (K, n) on ``ops.reconstruct_batched``),
-    the dense leaves from ``state["dense"]``."""
+    ((n,) on ``ops.reconstruct``, (K, n) on ``ops.reconstruct_batched``;
+    on a model axis a rank's slice, its block gathered), the dense
+    leaves from ``state["dense"]``.  ``constraints``: {path: placement},
+    checked (``check_constraints``)."""
     from ..kernels import ops  # kernels sit above core
 
+    check_constraints(zspecs, constraints)
     leaves = {}
     for path, spec in zspecs.specs.items():
         z = masks[path]
         op = ops.reconstruct_batched if z.ndim == 2 else ops.reconstruct
-        leaves[path] = _as_template(zspecs, path, op(spec, z, impl=impl))
+        leaves[path] = _leaf(zspecs, path, op(spec, z, impl=impl,
+                                              row_sharding=row_sharding),
+                             z.ndim == 2, row_sharding)
     leaves.update({path: state["dense"][path] for path in zspecs.dense_paths})
     return leaves
 
 
 def _program(zspecs: ZamplingSpecs, st, mode, fused, downlink, carried,
-             impl) -> MaskProgram:
+             impl, row_sharding=None) -> MaskProgram:
     from ..comm.downlink import get_codec
 
-    resolved = resolve_carried(zspecs, st["scores"], carried)
+    resolved = resolve_carried(zspecs, st["scores"], carried, row_sharding)
     if downlink is not None and get_codec(downlink).name != resolved:
         raise ValueError(f"downlink={downlink!r} does not match the state's "
                          f"score representation ({resolved!r})")
@@ -502,18 +620,22 @@ def _program(zspecs: ZamplingSpecs, st, mode, fused, downlink, carried,
 
 def sample_masks(zspecs: ZamplingSpecs, state, key, *,
                  mode: Optional[str] = None,
-                 carried: Optional[str] = None,
+                 carried: Optional[str] = None, row_sharding=None,
                  device="cuda") -> Dict[str, torch.Tensor]:
     """{path: z} straight-through masks, one fresh draw per tensor at
     the draw word ``key``; a u8/u16 or packed carry draws by the
-    threshold compare (a packed one needs its ``carried`` tag)."""
+    threshold compare (a packed one needs its ``carried`` tag).  On a
+    model axis (``row_sharding``) the state holds, and the masks are,
+    this rank's slices."""
     st = state_to(zspecs, state, resolve_device(device))
-    program = _program(zspecs, st, mode, False, None, carried, None)
-    return program.masks_from_wire(st["scores"], as_word(key))
+    program = _program(zspecs, st, mode, False, None, carried, None,
+                       row_sharding)
+    return program.masks_from_wire(st["scores"], as_word(key), row_sharding)
 
 
 def sample_weights(zspecs: ZamplingSpecs, state, key, *,
                    mode: Optional[str] = None,
+                   constraints=None, row_sharding=None,
                    downlink: Optional[str] = None,
                    carried: Optional[str] = None,
                    impl: Optional[str] = None,
@@ -524,7 +646,11 @@ def sample_weights(zspecs: ZamplingSpecs, state, key, *,
     ``state["scores"]`` holds f32 scores or a codec's wire words
     (``carried`` names the codec; without it the dtypes do, which
     cannot name a packed codec); an explicit ``downlink`` must agree
-    with what the state carries."""
+    with what the state carries.  On a model axis (``row_sharding``)
+    the state holds this rank's slices and every rank gets the whole
+    network; ``constraints`` as ``weights_from_masks``."""
     st = state_to(zspecs, state, resolve_device(device))
-    program = _program(zspecs, st, mode, True, downlink, carried, impl)
-    return program.weights_from_wire(st["scores"], st["dense"], as_word(key))
+    program = _program(zspecs, st, mode, True, downlink, carried, impl,
+                       row_sharding)
+    return program.weights_from_wire(st["scores"], st["dense"], as_word(key),
+                                     constraints, row_sharding)

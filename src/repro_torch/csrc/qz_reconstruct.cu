@@ -138,6 +138,19 @@
 // written as int64 holding the uint32 value, the port's carrier for
 // 32-bit words.  Bound: bytes (4 bytes of probability in per bit out).
 //
+// Every body launches over a contiguous range of a spec's windows
+// (Range below): a model rank's shard of a sharding-major spec
+// (kernels/qz_sharded.py), or all of them.  Rows and coordinates are
+// hashed at their global index, so a shard's rows, bits and sums are the
+// whole launch's; what the range changes is where they live: its
+// operand and gradient hold only its coordinates, its W and G only its
+// real rows, a padded row r of block b (m_pad_loc rows, the first m_blk
+// real) at b * m_blk + r - b * m_pad_loc of the moved flat order, less
+// the range's first.  A window never straddles two blocks, so a shard
+// is a window range and a validity rule, not another walk; the plan
+// walk reads a layout built for the range's windows alone.  The whole
+// range of a single-block spec is the single-block launch, bit for bit.
+//
 // Draw words arrive as the port carries them: int64 holding the uint32
 // value (qz_sample_pack_one's one word as a scalar).  Every launch
 // function returns the launch's cudaError_t.
@@ -148,7 +161,39 @@
 
 #include "qz_common.cuh"
 
+// The rows and coordinates a launch covers: windows [w0, w0 + windows)
+// of a spec whose padded rows are cut into blocks of m_pad_loc (nw_loc
+// windows), the first m_blk rows of each real (core/qspec.py's
+// sharding-major layout; one block, the single-block layout, is
+// nw_loc = num_windows, m_pad_loc = m_pad, m_blk = m).  Real row r of
+// block b lies at b * m_blk + r - b * m_pad_loc of the moved flat order,
+// and at that less out_base in the launch's rows: m_out of them for a
+// client.  The launch's coordinates are its windows', n_out for a
+// client, hashed at their global index and stored from 0.  Made by
+// window_range in kernels/qz_reconstruct.py.
+struct Range {
+  unsigned w0, nw_loc, m_pad_loc, m_blk, out_base, m_out, n_out;
+};
+
 namespace {
+
+// Window w's real padded rows [lo, hi), and the shift that takes such a
+// row to its index in the launch's rows (r - shift).  A window never
+// straddles two blocks: m_pad_loc is nw_loc windows' rows.
+struct WindowRows {
+  uint32_t lo, hi, shift;
+};
+
+__device__ __forceinline__ WindowRows range_window(const Range& g, uint32_t w,
+                                                   uint32_t rows_per_window) {
+  const uint32_t blk = w / g.nw_loc;
+  const uint32_t lim = blk * g.m_pad_loc + g.m_blk;
+  WindowRows r;
+  r.lo = w * rows_per_window;
+  r.hi = r.lo < lim ? min(r.lo + rows_per_window, lim) : r.lo;
+  r.shift = blk * (g.m_pad_loc - g.m_blk) + g.out_base;
+  return r;
+}
 
 // sample_pack_kernel: threads per CTA
 constexpr int THREADS = 128;
@@ -183,8 +228,8 @@ constexpr int PLAN_THREADS = 256;
 struct PlanArgs {
   const void* rows;   // (E,) window-local rows, uint16 or uint32
   const float* vals;  // (E,)
-  const int* starts;  // (n + 1,) coordinate c's entries [starts[c], starts[c+1])
-  uint32_t m, n;
+  const int* starts;  // (n_out + 1,) coordinate c's entries [starts[c], starts[c+1])
+  Range rg;
   uint32_t window;
   uint32_t rows_per_window;
   int piece;  // slab entries staged at once
@@ -235,9 +280,10 @@ plan_bwd_kernel(const float* __restrict__ Gm, PlanArgs a,
   const int t = threadIdx.x;
   const uint32_t c0 = blockIdx.x * a.window;
   const int s0 = a.starts[c0], s1 = a.starts[c0 + a.window];
-  const uint32_t r0 = blockIdx.x * a.rows_per_window;
-  const uint32_t nr = r0 < a.m ? min(a.rows_per_window, a.m - r0) : 0u;
-  const float* __restrict__ gw = Gm + r0;
+  const WindowRows wr = range_window(a.rg, a.rg.w0 + blockIdx.x, a.rows_per_window);
+  const uint32_t nr = wr.hi - wr.lo;
+  const uint32_t m = a.rg.m_out, n = a.rg.n_out;
+  const float* __restrict__ gw = Gm + (nr > 0u ? wr.lo - wr.shift : 0u);
   for (int p0 = s0;; p0 += a.piece) {  // a window with no entry: one empty piece
     const int np = min(a.piece, s1 - p0);
     // the piece's values and rows; uint16 rows as the words that hold
@@ -258,7 +304,7 @@ plan_bwd_kernel(const float* __restrict__ Gm, PlanArgs a,
       const int kn = min(a.stage, a.K - k0);
       if (STAGE_G && (p0 == s0 || a.stage < a.K)) {  // else staged already
         for (int k = 0; k < kn; ++k) {
-          const float* gk = gw + static_cast<size_t>(k0 + k) * a.m;
+          const float* gk = gw + static_cast<size_t>(k0 + k) * m;
           for (uint32_t i = t; i < nr; i += PLAN_THREADS) copy_async4(sG + k * gs + i, gk + i);
         }
       }
@@ -269,12 +315,12 @@ plan_bwd_kernel(const float* __restrict__ Gm, PlanArgs a,
       for (uint32_t q = t; q < pairs; q += PLAN_THREADS) {
         const uint32_t c = q & wmask;
         const int k1 = static_cast<int>(q >> wshift) * G;
-        float* o = out + static_cast<size_t>(k0 + k1) * a.n + c0 + c;
+        float* o = out + static_cast<size_t>(k0 + k1) * n + c0 + c;
         const int e1 = min(a.starts[c0 + c + 1], p0 + np);
         float acc[G];
 #pragma unroll
         for (int g = 0; g < G; ++g) {
-          acc[g] = p0 == s0 || k1 + g >= kn ? 0.0f : o[static_cast<size_t>(g) * a.n];
+          acc[g] = p0 == s0 || k1 + g >= kn ? 0.0f : o[static_cast<size_t>(g) * n];
         }
         for (int e = max(a.starts[c0 + c], p0); e < e1; ++e) {
           const uint32_t row = sRow[off + e - p0];
@@ -283,14 +329,14 @@ plan_bwd_kernel(const float* __restrict__ Gm, PlanArgs a,
           for (int g = 0; g < G; ++g) {
             if (k1 + g < kn) {
               const float gv = STAGE_G ? sG[(k1 + g) * gs + row]
-                                       : gw[static_cast<size_t>(k0 + k1 + g) * a.m + row];
+                                       : gw[static_cast<size_t>(k0 + k1 + g) * m + row];
               acc[g] = __fadd_rn(acc[g], __fmul_rn(v, gv));
             }
           }
         }
 #pragma unroll
         for (int g = 0; g < G; ++g) {
-          if (k1 + g < kn) o[static_cast<size_t>(g) * a.n] = acc[g];
+          if (k1 + g < kn) o[static_cast<size_t>(g) * n] = acc[g];
         }
       }
       __syncthreads();  // the next group or piece reuses the shared memory
@@ -304,7 +350,7 @@ constexpr int SCATTER_THREADS = 256;
 
 struct ScatterArgs {
   qz::SpecArgs s;
-  uint32_t m, n;
+  Range rg;
   uint32_t K;
   uint32_t clients;      // clients a sweep
   uint32_t chunk_rows;   // rows a pass
@@ -400,8 +446,8 @@ scatter_bwd_kernel(const float* __restrict__ Gm, ScatterArgs a,
   uint32_t* sCount = smem + L.count;
 
   const uint32_t t = threadIdx.x, lane = t & 31u;
-  const uint32_t r_lo = blockIdx.x * a.s.rows_per_window;
-  const uint32_t r_hi = r_lo < a.m ? min(r_lo + a.s.rows_per_window, a.m) : r_lo;
+  const WindowRows wr = range_window(a.rg, a.rg.w0 + blockIdx.x, a.s.rows_per_window);
+  const uint32_t r_lo = wr.lo, r_hi = wr.hi;
   const uint32_t hq = qz::prefix2(a.s.seed, a.s.tensor_id);
   for (uint32_t j = t; j < d; j += SCATTER_THREADS) {
     sMa[j] = qz::fmix32(qz::CTR_VAL + 2u * j + qz::K1);
@@ -426,7 +472,9 @@ scatter_bwd_kernel(const float* __restrict__ Gm, ScatterArgs a,
         bool live = false;
         if (i < nrows) {
           for (uint32_t k = 0; k < cl; ++k) {  // the padding clients read 0
-            const float g = k < kn ? Gm[static_cast<size_t>(k0 + k) * a.m + r0 + i] : 0.0f;
+            const float g =
+                k < kn ? Gm[static_cast<size_t>(k0 + k) * a.rg.m_out + (r0 + i - wr.shift)]
+                       : 0.0f;
             sG[i * cl + k] = g;
             live |= g != 0.0f;
           }
@@ -485,7 +533,7 @@ scatter_bwd_kernel(const float* __restrict__ Gm, ScatterArgs a,
         for (int g = 0; g < G; ++g) {
           if (k1 + g >= kn) continue;
           if (last) {
-            out[static_cast<size_t>(k0 + k1 + g) * a.n + blockIdx.x * window + c] = acc[g];
+            out[static_cast<size_t>(k0 + k1 + g) * a.rg.n_out + blockIdx.x * window + c] = acc[g];
           } else {
             sAcc[(k1 + g) * window + c] = acc[g];
           }
@@ -507,12 +555,12 @@ constexpr int FWD_EDGE_ILP = 4;
 
 struct FwdArgs {
   qz::SpecArgs s;
-  uint32_t m, n;
+  Range rg;
   uint32_t K;
   uint32_t slices;   // CTAs a window
   uint32_t rows;     // a window's rows a CTA (the last slice may hold fewer)
   uint32_t clients;  // clients a sweep
-  uint32_t stride;   // a client's operand: n words, or its packed lanes
+  uint32_t stride;   // a client's operand: n_out words, or their packed lanes
   qz::PackedWidth pw;  // the width of a KIND_PB operand
 };
 
@@ -580,10 +628,11 @@ __device__ __forceinline__ void window_edges(const qz::RowEdges& e, int j0,
 // Phase 2 for one group of G clients: a thread a row of the CTA's slice,
 // row fastest, each client's sum from -0 in ascending j (window_edges);
 // where every product of a (row, client) is +-0, the sign rule.  Wg: the
-// group's first client's row of W.
+// group's first client's row of W, padded row r at r - shift.
 template <bool BITS, int G>
 __device__ __forceinline__ void window_rows(const FwdArgs& a, uint32_t hq, uint32_t r_lo,
-                                            uint32_t nrows, const uint32_t* __restrict__ bw,
+                                            uint32_t nrows, uint32_t shift,
+                                            const uint32_t* __restrict__ bw,
                                             uint32_t sh, int nlive,
                                             const float* __restrict__ sZg,
                                             const uint32_t* __restrict__ sMa,
@@ -634,7 +683,7 @@ __device__ __forceinline__ void window_rows(const FwdArgs& a, uint32_t hq, uint3
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       if ((live >> g) & 1u) {
-        Wg[static_cast<size_t>(g) * a.m + r] =
+        Wg[static_cast<size_t>(g) * a.rg.m_out + (r - shift)] =
             ((need >> g) & 1u) ? -0.0f : acc[g] == 0.0f ? 0.0f : acc[g];
       }
     }
@@ -657,13 +706,14 @@ __device__ __forceinline__ void reconstruct_window(const void* __restrict__ P,
   uint32_t* sBits = sHm + (DRAWN ? a.clients : 0u);
   float* sZ = reinterpret_cast<float*>(sBits + cw * window);
 
-  const uint32_t w = blockIdx.x / a.slices;
-  const uint32_t r_win = w * a.s.rows_per_window;
-  const uint32_t r_lo = r_win + (blockIdx.x - w * a.slices) * a.rows;
-  const uint32_t r_end = min(r_win + a.s.rows_per_window, a.m);
-  if (r_lo >= r_end) return;  // an empty slice (a ragged or empty last window)
-  const uint32_t nrows = min(a.rows, r_end - r_lo);
-  const uint32_t wbase = w * window;
+  const uint32_t lw = blockIdx.x / a.slices;  // the window within the launch
+  const uint32_t w = a.rg.w0 + lw;
+  const WindowRows wr = range_window(a.rg, w, a.s.rows_per_window);
+  const uint32_t r_lo = wr.lo + (blockIdx.x - lw * a.slices) * a.rows;
+  if (r_lo >= wr.hi) return;  // an empty slice (a ragged or empty last window)
+  const uint32_t nrows = min(a.rows, wr.hi - r_lo);
+  const uint32_t wbase = w * window;  // the coordinates hashed
+  const uint32_t lbase = lw * window;  // and where the operand holds them
   const uint32_t t = threadIdx.x;
   const uint32_t hq = qz::prefix2(a.s.seed, a.s.tensor_id);
   for (int j = t; j < d; j += FWD_THREADS) {
@@ -694,10 +744,10 @@ __device__ __forceinline__ void reconstruct_window(const void* __restrict__ P,
             const void* pk = client_words<KIND>(P, k0 + k, a.stride);
             bool bit;
             if (DRAWN) {
-              bit = qz::mask_bit<DRAWN ? KIND : qz::KIND_F32>(pk, sHm[k], wbase + c,
-                                                             a.pw);
+              bit = qz::mask_bit_at<DRAWN ? KIND : qz::KIND_F32>(pk, sHm[k], wbase + c,
+                                                                lbase + c, a.pw);
             } else {
-              const float z = static_cast<const float*>(pk)[wbase + c];
+              const float z = static_cast<const float*>(pk)[lbase + c];
               sZ[k * window + c] = z;
               bit = z != 0.0f;
               binary &= __float_as_uint(z) == 0u || z == 1.0f;
@@ -719,14 +769,17 @@ __device__ __forceinline__ void reconstruct_window(const void* __restrict__ P,
     for (uint32_t kg = 0; kg < kn; kg += G) {
       const uint32_t* bw = sBits + (kg >> 5) * window;
       const int nlive = kn - kg >= G ? G : static_cast<int>(kn - kg);
-      float* Wg = W + static_cast<size_t>(k0 + kg) * a.m;
+      float* Wg = W + static_cast<size_t>(k0 + kg) * a.rg.m_out;
       const float* sZg = sZ + kg * window;
       if constexpr (DRAWN) {
-        window_rows<true, G>(a, hq, r_lo, nrows, bw, kg & 31u, nlive, sZg, sMa, sMb, Wg);
+        window_rows<true, G>(a, hq, r_lo, nrows, wr.shift, bw, kg & 31u, nlive, sZg, sMa, sMb,
+                             Wg);
       } else if (masks) {
-        window_rows<true, G>(a, hq, r_lo, nrows, bw, kg & 31u, nlive, sZg, sMa, sMb, Wg);
+        window_rows<true, G>(a, hq, r_lo, nrows, wr.shift, bw, kg & 31u, nlive, sZg, sMa, sMb,
+                             Wg);
       } else {
-        window_rows<false, G>(a, hq, r_lo, nrows, bw, kg & 31u, nlive, sZg, sMa, sMb, Wg);
+        window_rows<false, G>(a, hq, r_lo, nrows, wr.shift, bw, kg & 31u, nlive, sZg, sMa, sMb,
+                              Wg);
       }
     }
     __syncthreads();  // the next sweep restages the shared memory
@@ -751,7 +804,7 @@ mask_reconstruct_window_kernel(const float* __restrict__ Z, FwdArgs a,
 __global__ void __launch_bounds__(THREADS)
 sample_pack_kernel(const float* __restrict__ P,
                    const long long* __restrict__ steps, uint32_t word,
-                   uint32_t n, uint32_t lanes, uint32_t seed,
+                   uint32_t n, uint32_t coord0, uint32_t lanes, uint32_t seed,
                    uint32_t tensor_id, long long* __restrict__ out) {
   const uint32_t coord = blockIdx.x * THREADS + threadIdx.x;
   const int k = blockIdx.y;
@@ -759,8 +812,9 @@ sample_pack_kernel(const float* __restrict__ P,
   const uint32_t step = steps ? static_cast<uint32_t>(steps[k]) : word;
   const uint32_t hm = qz::mask_prefix(seed, tensor_id, step);
   // every thread of the warp reaches the ballot; past n a bit is 0
-  const bool bit = coord < n && qz::mask_bit<qz::KIND_F32>(
-                                    P + static_cast<long long>(k) * n, hm, coord);
+  const bool bit = coord < n && qz::mask_bit_at<qz::KIND_F32>(
+                                    P + static_cast<long long>(k) * n, hm, coord0 + coord,
+                                    coord, qz::PackedWidth{});
   const uint32_t lane = __ballot_sync(0xFFFFFFFFu, bit);
   if ((threadIdx.x & 31u) == 0u && coord / 32u < lanes) {
     out[static_cast<long long>(k) * lanes + coord / 32u] = static_cast<long long>(lane);
@@ -824,9 +878,10 @@ struct ScatterConsts {
   unsigned rows_per_window;
   int d;
   float sigma;
-  unsigned m, n, num_windows, K, clients, group, chunk_rows, mask_stride,
-      div_m, div_s1, div_s2;
+  unsigned num_windows, K, clients, group, chunk_rows, mask_stride, div_m,
+      div_s1, div_s2;  // num_windows: the launch's, one CTA each
   int smem;
+  Range r;
 };
 
 // A leaf's launch constants for plan_bwd_kernel on one card: its compact
@@ -836,8 +891,9 @@ struct PlanConsts {
   const void* rows;
   const float* vals;
   const int* starts;
-  unsigned m, n, window, rows_per_window, num_windows;
+  unsigned window, rows_per_window, num_windows;  // num_windows: the launch's
   int piece, narrow, stage_g;
+  Range r;
 };
 
 // A leaf's launch constants for reconstruct_window at K clients, made
@@ -849,11 +905,24 @@ struct FwdConsts {
   unsigned rows_per_window;
   int d;
   float sigma;
-  unsigned m, n, num_windows, K, slices, rows, clients, group;
+  unsigned num_windows, K, slices, rows, clients, group;  // num_windows: the launch's
   int values, smem;
+  Range r;
 };
 
 namespace {
+
+// What every body needs of a range: whole windows a block, real rows a
+// block no more than its padded ones, the launch's coordinates its
+// windows', and its rows inside the 32-bit row space.
+bool range_ok(const Range& r, unsigned num_windows, unsigned window,
+              unsigned rows_per_window) {
+  return r.nw_loc >= 1 && num_windows >= 1 &&
+         static_cast<uint64_t>(r.nw_loc) * rows_per_window == r.m_pad_loc &&
+         r.m_blk <= r.m_pad_loc &&
+         static_cast<uint64_t>(num_windows) * window == r.n_out &&
+         static_cast<uint64_t>(r.w0 + num_windows) * rows_per_window < (1ull << 31);
+}
 
 // The forward's arguments from its launch constants, checked for what
 // the body needs: a power-of-two window, slices that cover a window's
@@ -867,18 +936,18 @@ int fwd_args(const FwdConsts* c, bool values, FwdArgs& a, int& g) {
       c->clients > c->K || g < 0 || c->rows < 1 || c->slices < 1 ||
       static_cast<uint64_t>(c->slices) * c->rows < c->rows_per_window ||
       static_cast<uint64_t>(c->slices) * c->num_windows >= (1ull << 31) ||
+      !range_ok(c->r, c->num_windows, w, c->rows_per_window) ||
       c->values != static_cast<int>(values) ||
       static_cast<size_t>(c->smem) != 4 * fwd_words(c->d, w, c->clients, values)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   a.s = spec_args(c->seed, c->tensor_id, c->window, c->rows_per_window, c->d, c->sigma);
-  a.m = c->m;
-  a.n = c->n;
+  a.rg = c->r;
   a.K = c->K;
   a.slices = c->slices;
   a.rows = c->rows;
   a.clients = c->clients;
-  a.stride = c->n;
+  a.stride = c->r.n_out;
   a.pw = qz::PackedWidth{};
   return 0;
 }
@@ -906,7 +975,7 @@ int qz_sample_reconstruct(const void* P, int kind, int bits,
   if (kind == PACKED_LANES) {  // the packed kind at this width
     kind = bits == 4 ? qz::KIND_P4 : bits == 2 ? qz::KIND_P2 : qz::KIND_PB;
     a.pw = qz::packed_width(static_cast<uint32_t>(bits));
-    a.stride = (c->n + a.pw.wpl - 1u) / a.pw.wpl;
+    a.stride = (c->r.n_out + a.pw.wpl - 1u) / a.pw.wpl;
   }
   auto kernel = kind == qz::KIND_F32 ? sample_fwd_kernel<qz::KIND_F32>(g)
               : kind == qz::KIND_U8  ? sample_fwd_kernel<qz::KIND_U8>(g)
@@ -946,6 +1015,7 @@ int qz_plan_bwd(const float* G, float* out, int K, int stage, int group,
   const uint32_t w = c->window;
   if (c->piece < 1 || w < 2 || (w & (w - 1)) || K < 1 || stage < 1 ||
       stage > K || (!c->stage_g && stage != K) ||
+      !range_ok(c->r, c->num_windows, w, c->rows_per_window) ||
       static_cast<size_t>(smem) !=
           plan_bytes(c->piece, c->narrow, c->stage_g, stage, c->rows_per_window)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -954,8 +1024,7 @@ int qz_plan_bwd(const float* G, float* out, int K, int stage, int group,
   a.rows = c->rows;
   a.vals = c->vals;
   a.starts = c->starts;
-  a.m = c->m;
-  a.n = c->n;
+  a.rg = c->r;
   a.window = c->window;
   a.rows_per_window = c->rows_per_window;
   a.piece = c->piece;
@@ -987,6 +1056,7 @@ int qz_scatter_bwd(const float* G, float* out, const ScatterConsts* c,
   if (w < 2 || w > 65536 || (w & (w - 1)) || c->d < 1 || c->chunk_rows < 1 ||
       32 * c->mask_stride < c->chunk_rows || c->K < 1 || c->clients < 1 ||
       c->clients > c->K || c->group < 1 ||
+      !range_ok(c->r, c->num_windows, static_cast<unsigned>(w), c->rows_per_window) ||
       static_cast<size_t>(c->smem) !=
           4 * scatter_layout(w, c->rows_per_window, c->mask_stride,
                              c->chunk_rows, c->d, c->clients,
@@ -995,8 +1065,7 @@ int qz_scatter_bwd(const float* G, float* out, const ScatterConsts* c,
   }
   ScatterArgs a;
   a.s = spec_args(c->seed, c->tensor_id, w, c->rows_per_window, c->d, c->sigma);
-  a.m = c->m;
-  a.n = c->n;
+  a.rg = c->r;
   a.K = c->K;
   a.clients = c->clients;
   a.chunk_rows = c->chunk_rows;
@@ -1017,32 +1086,36 @@ int qz_scatter_bwd(const float* G, float* out, const ScatterConsts* c,
 
 static int launch_sample_pack(const float* P, const long long* steps,
                               unsigned word, int K, long long n,
-                              unsigned seed, unsigned tensor_id,
-                              long long* out, void* stream) {
-  if (n <= 0 || n > 0xFFFFFFE0LL || K < 1) {
+                              unsigned coord0, unsigned seed,
+                              unsigned tensor_id, long long* out,
+                              void* stream) {
+  if (n <= 0 || n + coord0 > 0xFFFFFFE0LL || K < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const uint32_t lanes = static_cast<uint32_t>((n + 31) / 32);
   const dim3 grid((lanes * 32u + THREADS - 1) / THREADS, K);
   sample_pack_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      P, steps, word, static_cast<uint32_t>(n), lanes, seed, tensor_id, out);
+      P, steps, word, static_cast<uint32_t>(n), coord0, lanes, seed, tensor_id, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-// out (K, ceil(n/32)) lanes of Bern(P_k), P (K, n) f32 probabilities.
+// out (K, ceil(n/32)) lanes of Bern(P_k), P (K, n) f32 probabilities of
+// the coordinates [coord0, coord0 + n), hashed at those.
 int qz_sample_pack(const float* P, const long long* steps, int K, long long n,
-                   unsigned seed, unsigned tensor_id, long long* out,
-                   void* stream) {
-  return launch_sample_pack(P, steps, 0u, K, n, seed, tensor_id, out, stream);
+                   unsigned coord0, unsigned seed, unsigned tensor_id,
+                   long long* out, void* stream) {
+  return launch_sample_pack(P, steps, 0u, K, n, coord0, seed, tensor_id, out,
+                            stream);
 }
 
-// out (ceil(n/32),) lanes of Bern(p), p (n,) f32 probabilities drawn at
-// the one draw word ``word``: sample_pack_kernel at K = 1.
+// out (ceil(n/32),) lanes of Bern(p), p (n,) f32 probabilities of the
+// coordinates [coord0, coord0 + n) drawn at the one draw word ``word``:
+// sample_pack_kernel at K = 1.
 int qz_sample_pack_one(const float* p, unsigned word, unsigned n,
-                       unsigned seed, unsigned tensor_id, long long* out,
-                       void* stream) {
-  return launch_sample_pack(p, nullptr, word, 1, n, seed, tensor_id, out,
-                            stream);
+                       unsigned coord0, unsigned seed, unsigned tensor_id,
+                       long long* out, void* stream) {
+  return launch_sample_pack(p, nullptr, word, 1, n, coord0, seed, tensor_id,
+                            out, stream);
 }
 
 }  // extern "C"

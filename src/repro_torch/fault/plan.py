@@ -107,36 +107,49 @@ def draw_faults(plan: FaultPlan, round_index, client_ids,
 
 
 def _garbage_u32(plan, spec, round_index, client_ids: torch.Tensor,
-                 length: int) -> torch.Tensor:
-    """(..., length) garbage words at the corruption counter space."""
-    coords = torch.arange(length, dtype=torch.int64,
+                 length: int, first: int = 0) -> torch.Tensor:
+    """(..., length) garbage words at the corruption counter space, of the
+    lanes or coordinates [first, first + length)."""
+    coords = torch.arange(first, first + length, dtype=torch.int64,
                           device=client_ids.device)
     return hash_u32(plan.seed, spec.tensor_id, CORRUPT_CTR,
                     _round_word(round_index), client_ids[..., None], coords)
 
 
 def corrupt_uploads(plan: FaultPlan, z_all, declared, corrupt_mask,
-                    round_index, client_ids, zspecs, packed: bool):
+                    round_index, client_ids, zspecs, packed: bool,
+                    offsets=None, total=None):
     """The uploads as the server receives them: each flagged client's
     payload damaged, so its checksum differs from ``declared``.
 
     ``z_all``: {path: upload} with an optional leading client axis, lanes
     (int64) when ``packed``, else f32 masks or probabilities;
     ``declared``: ``fault.validate.upload_counts`` of the clean uploads;
-    ``corrupt_mask``: bool, shaped as the client axis (or 0-d)."""
+    ``corrupt_mask``: bool, shaped as the client axis (or 0-d).  On a
+    model rank ``z_all`` holds slices: ``offsets`` {path: index of the
+    slice's first lane (packed) or coordinate} and ``total(path, x)``
+    the whole upload's sum of a slice's checksum ``x`` (``declared`` is
+    whole already); only the slice holding index 0 flips it."""
     out = {}
     for path, spec in zspecs.specs.items():
         z = z_all[path]
+        first_at = 0 if offsets is None else offsets[path]
         g = _garbage_u32(plan, spec, round_index,
-                         _id_tensor(client_ids, z.device), z.shape[-1])
+                         _id_tensor(client_ids, z.device), z.shape[-1],
+                         first_at)
         if packed:
             bad = z.to(torch.int64) ^ g
-            clash = packed_total_popcount(bad) == declared[path]
-            first = torch.where(clash, bad[..., 0] ^ 1, bad[..., 0])
+            count = packed_total_popcount(bad)
         else:
             # garbage bits for the payload; the f32 sum checksum is exact
             bad = (g >> 31).to(z.dtype)
-            clash = bad.sum(-1) == declared[path]
+            count = bad.sum(-1)
+        if total is not None:
+            count = total(path, count)
+        clash = (count == declared[path]) & (first_at == 0)
+        if packed:
+            first = torch.where(clash, bad[..., 0] ^ 1, bad[..., 0])
+        else:
             first = torch.where(clash, 1.0 - bad[..., 0], bad[..., 0])
         bad = torch.cat([first[..., None], bad[..., 1:]], dim=-1)
         mask = corrupt_mask[..., None] if z.ndim > 1 else corrupt_mask

@@ -26,13 +26,16 @@ def upload_counts(z_all, zspecs, packed: bool):
             for path in zspecs.specs}
 
 
-def validate_uploads(z_all, declared, zspecs, packed: bool) -> torch.Tensor:
+def validate_uploads(z_all, declared, zspecs, packed: bool,
+                     total=None) -> torch.Tensor:
     """True where every tensor of a client's received upload has its
-    declared checksum and no more than ``spec.n`` set bits."""
+    declared checksum and no more than ``spec.n`` set bits.  On a model
+    rank (``z_all`` its slices) ``total(path, x)`` sums a slice's
+    checksum over the whole upload, as ``declared`` is."""
     received = upload_counts(z_all, zspecs, packed)
     valid = None
     for path, spec in zspecs.specs.items():
-        c = received[path]
+        c = received[path] if total is None else total(path, received[path])
         ok = (c == declared[path]) & (c <= spec.n)
         valid = ok if valid is None else valid & ok
     return valid

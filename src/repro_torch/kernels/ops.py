@@ -26,6 +26,16 @@ path; the CUDA kernels take every window.)
 10; a spec with ``window % 32 != 0`` takes the plain path, as the JAX
 package's does); ``sample_pack``, one client's upload, is kernel 9 at
 any window (the CUDA kernel packs by coordinate, whatever the window).
+THE MODEL AXIS.  ``model_size``/``row_sharding`` (a model
+``comm.shardmap.AxisGroup``, the JAX package's ``_resolve_model_size``)
+route a spec built with ``shard_count > 1`` to ``kernels.qz_sharded``,
+as the JAX package's ``_fwd_one``/``_bwd_one``/``_fwd_many``/
+``_bwd_many`` and fused forwards dispatch: the operand is this rank's
+slice of the scores (n_loc coordinates), the result its block of the
+tensor's major axis, and the backward its slice's gradient.  A spec
+with ``shard_count == 1`` takes the global op, replicated on every
+model rank.  The serve ops refuse a sharded layout, as the JAX
+package's do.
 Impl dispatch: ``"cuda"`` (the kernels) or ``"ref"``
 (the plain torch versions below), by the argument, else
 ``REPRO_RECONSTRUCT_IMPL``, else the tensor's device; ``"cuda"`` on a
@@ -85,13 +95,14 @@ from ..comm.bitpack import (pack_mask, packed_word_len, unpack_words,
 from ..core.hashrng import bernoulli_u32
 from ..core.qspec import QSpec, row_indices, row_values
 from ..core.reconstruct import (_insert_padding_batched, _move_batched,
-                                _unmove_batched, plan_apply_batched,
+                                _rows_sum, _unmove_batched,
+                                plan_apply_batched, range_real_rows,
                                 reconstruct_batched_ref,
                                 scatter_apply_batched, scatter_windows)
 from ..core.sampling import (as_word, as_words, mask_u32,
                               quant_threshold_u24, sample_mask_hash,
                               sample_mask_qhash, word_values)
-from ..core.transpose_plan import resolve_bwd_path
+from ..core.transpose_plan import plan_windows, resolve_bwd_path, row_plan
 
 SERVE_BM = 256
 VALID_SERVE_IMPLS = ("chunked", "cuda")
@@ -121,55 +132,92 @@ def resolve_impl(impl: Optional[str], x: torch.Tensor) -> str:
     return impl
 
 
+def _coords(spec: QSpec, windows) -> tuple:
+    """(first coordinate, coordinates) of the range ``windows``."""
+    w0, w1 = plan_windows(spec, windows)
+    return w0 * spec.window, (w1 - w0) * spec.window
+
+
 def _draw(spec: QSpec, P: torch.Tensor, steps: torch.Tensor, qbits,
-          qpacked: bool = False):
+          qpacked: bool = False, windows=None):
+    c0, n = _coords(spec, windows)
     if qbits is None:
-        return sample_mask_hash(P, spec.seed, spec.tensor_id, steps)
+        return sample_mask_hash(P, spec.seed, spec.tensor_id, steps, c0)
     if qpacked:  # the per-coordinate words first: JAX ops._sample_one
-        P = unpack_words(P, spec.n, qbits)
-    return sample_mask_qhash(P, qbits, spec.seed, spec.tensor_id, steps)
+        P = unpack_words(P, n, qbits)
+    return sample_mask_qhash(P, qbits, spec.seed, spec.tensor_id, steps, c0)
 
 
-def reconstruct_plain(spec: QSpec, Z: torch.Tensor) -> torch.Tensor:
+def _range_padding(spec: QSpec, G: torch.Tensor, windows) -> torch.Tensor:
+    """(K, m_out) cotangents of a range's real rows -> (K, its padded
+    rows), padding rows +0."""
+    G = G.to(torch.float32)
+    if windows is None:
+        return _insert_padding_batched(spec, G)
+    real = range_real_rows(spec, windows, G.device)
+    g_pad = G.new_zeros((G.shape[0], real.numel()))
+    g_pad[:, real] = G
+    return g_pad
+
+
+def reconstruct_plain(spec: QSpec, Z: torch.Tensor,
+                      windows=None) -> torch.Tensor:
     """The plain torch version of kernels 3 and 1: (K, n) operands ->
     W (K, m) in moved flat order, each row summing its edge value times
-    the client's operand in ascending k: ``reconstruct_batched_ref``."""
-    return _move_batched(spec, reconstruct_batched_ref(spec, Z))
+    the client's operand in ascending k: ``reconstruct_batched_ref``.
+    Over ``windows`` (w0, w1): the range's (K, n_out) operands -> its
+    (K, m_out) real rows, the same sums."""
+    if windows is None:
+        return _move_batched(spec, reconstruct_batched_ref(spec, Z))
+    n = _coords(spec, windows)[1]
+    if Z.ndim != 2 or Z.shape[-1] != n:
+        raise ValueError(f"Z has shape {tuple(Z.shape)}, the range "
+                         f"expects (K, {n})")
+    gidx, vals = row_plan(spec, Z.device, windows)
+    w_pad = _rows_sum(vals, Z.to(torch.float32)[:, gidx])
+    return w_pad[:, range_real_rows(spec, windows, Z.device)]
 
 
 def sample_reconstruct_plain(spec: QSpec, P: torch.Tensor, steps,
                              qbits: Optional[int] = None,
-                             qpacked: bool = False) -> torch.Tensor:
+                             qpacked: bool = False,
+                             windows=None) -> torch.Tensor:
     """The plain torch version of kernels 8 and 7: (K, n) operand (or,
     with ``qpacked``, (K, packed_word_len(n, qbits)) lanes, unpacked to
     words first) + (K,) draw words -> W (K, m) in moved flat order: the
     drawn masks through ``reconstruct_plain``, as the kernel multiplies
-    each edge value by the client's drawn bit."""
+    each edge value by the client's drawn bit.  Over ``windows``: the
+    range's operand, drawn at its global coordinates."""
     steps = as_words(steps, P.device).reshape(-1)
-    return reconstruct_plain(spec, _draw(spec, P, steps, qbits, qpacked))
+    return reconstruct_plain(
+        spec, _draw(spec, P, steps, qbits, qpacked, windows), windows)
 
 
-def plan_bwd_plain(spec: QSpec, G: torch.Tensor,
-                   order: str = "canonical") -> torch.Tensor:
+def plan_bwd_plain(spec: QSpec, G: torch.Tensor, order: str = "canonical",
+                   windows=None) -> torch.Tensor:
     """The plain torch version of kernel 6: (K, m) cotangents in moved
-    flat order -> (K, n) over the ``order`` transpose plan."""
-    return plan_apply_batched(
-        spec, _insert_padding_batched(spec, G.to(torch.float32)), order)
+    flat order -> (K, n) over the ``order`` transpose plan (over
+    ``windows``: the range's (K, m_out) -> (K, n_out))."""
+    return plan_apply_batched(spec, _range_padding(spec, G, windows), order,
+                              windows)
 
 
 def plan_bwd_one_plain(spec: QSpec, g: torch.Tensor,
-                       order: str = "canonical") -> torch.Tensor:
+                       order: str = "canonical",
+                       windows=None) -> torch.Tensor:
     """The plain torch version of kernel 5: one (m,) cotangent in moved
     flat order -> (n,) over the ``order`` transpose plan."""
-    return plan_bwd_plain(spec, g[None], order)[0]
+    return plan_bwd_plain(spec, g[None], order, windows)[0]
 
 
-def scatter_bwd_plain(spec: QSpec, G: torch.Tensor) -> torch.Tensor:
+def scatter_bwd_plain(spec: QSpec, G: torch.Tensor,
+                      windows=None) -> torch.Tensor:
     """The plain torch version of kernel 4: (K, m) cotangents in moved
     flat order -> (K, n) by the scatter, a chunk of windows at a time,
-    no plan held (``core.reconstruct.scatter_apply_batched``)."""
-    return scatter_apply_batched(
-        spec, _insert_padding_batched(spec, G.to(torch.float32)))
+    no plan held (``core.reconstruct.scatter_apply_batched``; over
+    ``windows``: the range's (K, m_out) -> (K, n_out))."""
+    return scatter_apply_batched(spec, _range_padding(spec, G, windows),
+                                 windows)
 
 
 def scatter_bwd_windows_plain(spec: QSpec, G: torch.Tensor,
@@ -192,28 +240,67 @@ def scatter_bwd_windows_plain(spec: QSpec, G: torch.Tensor,
     return torch.stack(outs, 1)
 
 
-def scatter_bwd_one_plain(spec: QSpec, g: torch.Tensor) -> torch.Tensor:
+def scatter_bwd_one_plain(spec: QSpec, g: torch.Tensor,
+                          windows=None) -> torch.Tensor:
     """The plain torch version of kernel 2: one (m,) cotangent -> (n,)."""
-    return scatter_bwd_plain(spec, g[None])[0]
+    return scatter_bwd_plain(spec, g[None], windows)[0]
 
 
-def sample_pack_plain(spec: QSpec, P: torch.Tensor, steps) -> torch.Tensor:
+def sample_pack_plain(spec: QSpec, P: torch.Tensor, steps,
+                      windows=None) -> torch.Tensor:
     """The plain torch version of kernel 10: (K, n) probabilities ->
-    (K, ceil(n/32)) upload lanes."""
+    (K, ceil(n/32)) upload lanes (over ``windows``: the range's
+    coordinates, drawn at their global index)."""
     steps = as_words(steps, P.device).reshape(-1)
-    return pack_mask(sample_mask_hash(P, spec.seed, spec.tensor_id, steps))
+    return pack_mask(sample_mask_hash(P, spec.seed, spec.tensor_id, steps,
+                                      _coords(spec, windows)[0]))
 
 
-def sample_pack_one_plain(spec: QSpec, p: torch.Tensor, step) -> torch.Tensor:
+def sample_pack_one_plain(spec: QSpec, p: torch.Tensor, step,
+                          windows=None) -> torch.Tensor:
     """The plain torch version of kernel 9: (n,) probabilities and one
     draw word -> (ceil(n/32),) upload lanes."""
     return pack_mask(sample_mask_hash(p, spec.seed, spec.tensor_id,
-                                      as_word(step)))
+                                      as_word(step),
+                                      _coords(spec, windows)[0]))
 
 
-def _fwd_many(spec, P, steps, impl, qbits, single, qpacked=False):
+def _model_shard(spec: QSpec, model_size, row_sharding):
+    """(sid, ms) where the op runs on a model rank's shard of ``spec``,
+    else None (no model axis, or a leaf the axis replicates)."""
+    if row_sharding is None:
+        if model_size not in (None, 1):
+            raise ValueError(f"model_size={model_size} needs row_sharding, "
+                             "this rank's model AxisGroup")
+        shard = None if model_size is None else (0, 1)
+    else:
+        if model_size is not None and model_size != row_sharding.size:
+            raise ValueError(f"model_size={model_size} but row_sharding "
+                             f"spans {row_sharding.size} ranks")
+        shard = (row_sharding.index, row_sharding.size)
+    if shard is None or spec.shard_count == 1:
+        return None
+    return shard
+
+
+def _fwd_many(spec, P, steps, impl, qbits, single, qpacked=False,
+              shard=None):
     """Kernels 7/8 (a draw at ``steps``) or 1/3 (``steps`` None: P is
-    the explicit operand)."""
+    the explicit operand); on ``shard`` (sid, ms) the shard's block."""
+    if shard is not None:
+        from . import qz_sharded as qs
+
+        if steps is None:
+            if single:
+                return qs.sharded_reconstruct(spec, P[0], *shard,
+                                              impl=impl)[None]
+            return qs.sharded_reconstruct_batched(spec, P, *shard, impl=impl)
+        if single:
+            return qs.sharded_sample_reconstruct(
+                spec, P[0], steps, *shard, qbits=qbits, qpacked=qpacked,
+                impl=impl)[None]
+        return qs.sharded_sample_reconstruct_batched(
+            spec, P, steps, *shard, qbits=qbits, qpacked=qpacked, impl=impl)
     if impl == "ref":
         if steps is None:
             return reconstruct_plain(spec, P)
@@ -231,10 +318,17 @@ def _fwd_many(spec, P, steps, impl, qbits, single, qpacked=False):
                                                 qpacked)
 
 
-def _bwd_many(spec, G, impl, single):
+def _bwd_many(spec, G, impl, single, shard=None):
     """The transpose the gate names, read when the backward runs: the
     plan of either order on kernel 6 (kernel 5 for one client), or the
-    scatter on kernel 4 (kernel 2 for one client)."""
+    scatter on kernel 4 (kernel 2 for one client); on ``shard`` over the
+    shard's windows, from the (K, *block) cotangent of its block."""
+    if shard is not None:
+        from . import qz_sharded as qs
+
+        if single:
+            return qs.sharded_grad_z(spec, G[0], *shard, impl=impl)[None]
+        return qs.sharded_grad_z_batched(spec, G, *shard, impl=impl)
     kind, order = resolve_bwd_path()
     if impl == "ref":
         if kind == "plan":
@@ -253,17 +347,18 @@ def _bwd_many(spec, G, impl, single):
 
 class _Reconstruct(torch.autograd.Function):
     """W = Q Z, or W = Q Bern(P) drawn at ``steps`` (straight-through);
-    either way grad = Q^T grad_W."""
+    either way grad = Q^T grad_W.  Without a shard W is (K, m) in moved
+    flat order; on a shard it is the (K, *block) block."""
 
     @staticmethod
-    def forward(ctx, P, steps, spec, impl, single):
-        ctx.spec, ctx.impl, ctx.single = spec, impl, single
-        return _fwd_many(spec, P, steps, impl, None, single)
+    def forward(ctx, P, steps, spec, impl, single, shard):
+        ctx.spec, ctx.impl, ctx.single, ctx.shard = spec, impl, single, shard
+        return _fwd_many(spec, P, steps, impl, None, single, shard=shard)
 
     @staticmethod
     def backward(ctx, gW):
-        return (_bwd_many(ctx.spec, gW.contiguous(), ctx.impl, ctx.single),
-                None, None, None, None)
+        return (_bwd_many(ctx.spec, gW.contiguous(), ctx.impl, ctx.single,
+                          ctx.shard), None, None, None, None, None)
 
 
 def _check_batched(spec, P, what, n=None):
@@ -273,52 +368,73 @@ def _check_batched(spec, P, what, n=None):
                          f"expects (K, {n})")
 
 
-def _sample_reconstruct(spec, P, steps, qbits, qpacked, impl, single):
+def _operand_n(spec: QSpec, shard) -> int:
+    """Coordinates of the operand: n, or a shard's n_loc."""
+    return spec.n if shard is None else spec.nw_loc * spec.window
+
+
+def _output(spec: QSpec, W: torch.Tensor, shard) -> torch.Tensor:
+    """(K, m) moved flat rows -> (K, *shape); a shard's block as it is."""
+    return W if shard is not None else _unmove_batched(spec, W)
+
+
+def _sample_reconstruct(spec, P, steps, qbits, qpacked, impl, single,
+                        model_size, row_sharding):
     if qpacked and qbits is None:
         raise ValueError("qpacked requires qbits (a packed codec width)")
+    shard = _model_shard(spec, model_size, row_sharding)
+    n = _operand_n(spec, shard)
     _check_batched(spec, P, "operand",
-                   packed_word_len(spec.n, int(qbits)) if qpacked else None)
+                   packed_word_len(n, int(qbits)) if qpacked else n)
     impl = resolve_impl(impl, P)
     steps = as_words(steps, P.device).reshape(-1)
     if qbits is not None:
         W = _fwd_many(spec, P.contiguous(), steps, impl, int(qbits), single,
-                      bool(qpacked))
+                      bool(qpacked), shard)
     else:
         W = _Reconstruct.apply(P.to(torch.float32).contiguous(), steps,
-                               spec, impl, single)
-    return _unmove_batched(spec, W)
+                               spec, impl, single, shard)
+    return _output(spec, W, shard)
 
 
-def _reconstruct(spec, Z, impl, single):
-    _check_batched(spec, Z, "Z")
+def _reconstruct(spec, Z, impl, single, model_size, row_sharding):
+    shard = _model_shard(spec, model_size, row_sharding)
+    _check_batched(spec, Z, "Z", _operand_n(spec, shard))
     impl = resolve_impl(impl, Z)
     W = _Reconstruct.apply(Z.to(torch.float32).contiguous(), None, spec,
-                           impl, single)
-    return _unmove_batched(spec, W)
+                           impl, single, shard)
+    return _output(spec, W, shard)
 
 
 def reconstruct_batched(spec: QSpec, Z: torch.Tensor, *,
-                        impl: Optional[str] = None) -> torch.Tensor:
+                        impl: Optional[str] = None, model_size=None,
+                        row_sharding=None) -> torch.Tensor:
     """W_k = Q z^(k) for K stacked clients: Z (K, n) -> (K, *spec.shape)
     f32, differentiable in Z (grad = Q^T grad_W).  Kernel 3 forward,
-    kernel 6 backward."""
-    return _reconstruct(spec, Z, impl, False)
+    kernel 6 backward.  On a model axis (``row_sharding``, see the
+    module's docstring) a sharded spec takes this rank's (K, n_loc)
+    slice and gives its (K, *block)."""
+    return _reconstruct(spec, Z, impl, False, model_size, row_sharding)
 
 
 def reconstruct(spec: QSpec, z: torch.Tensor, *,
-                impl: Optional[str] = None) -> torch.Tensor:
+                impl: Optional[str] = None, model_size=None,
+                row_sharding=None) -> torch.Tensor:
     """w = Q z for one operand: (n,) -> spec.shape f32, differentiable
-    in z.  Kernel 1 forward, kernel 5 backward."""
+    in z.  Kernel 1 forward, kernel 5 backward (on a model axis, a
+    rank's slice and block, as ``reconstruct_batched``)."""
     if z.ndim != 1:
         raise ValueError(f"z has shape {tuple(z.shape)}, spec expects "
                          f"({spec.n},)")
-    return _reconstruct(spec, z[None], impl, True)[0]
+    return _reconstruct(spec, z[None], impl, True, model_size,
+                        row_sharding)[0]
 
 
 def sample_reconstruct_batched(spec: QSpec, P: torch.Tensor, steps, *,
                                qbits: Optional[int] = None,
                                qpacked: bool = False,
-                               impl: Optional[str] = None) -> torch.Tensor:
+                               impl: Optional[str] = None, model_size=None,
+                               row_sharding=None) -> torch.Tensor:
     """Fused W_k = Q Bern(P_k) for K stacked clients: P (K, n) clipped
     probabilities + (K,) draw words -> (K, *spec.shape) f32.
 
@@ -326,29 +442,42 @@ def sample_reconstruct_batched(spec: QSpec, P: torch.Tensor, steps, *,
     ``clip_probs`` for the paper's gate.  With ``qbits`` P is the
     (K, n) u8/u16 word slab and the draw is the threshold compare; with
     ``qpacked`` too it is the (K, packed_word_len(n, qbits)) uint32 lane
-    slab of a packed codec."""
-    return _sample_reconstruct(spec, P, steps, qbits, qpacked, impl, False)
+    slab of a packed codec.  On a model axis a sharded spec takes this
+    rank's slice (n_loc coordinates, or their lanes) and gives its
+    block, drawn at global coordinates."""
+    return _sample_reconstruct(spec, P, steps, qbits, qpacked, impl, False,
+                               model_size, row_sharding)
 
 
 def sample_reconstruct(spec: QSpec, p: torch.Tensor, step, *,
                        qbits: Optional[int] = None, qpacked: bool = False,
-                       impl: Optional[str] = None) -> torch.Tensor:
+                       impl: Optional[str] = None, model_size=None,
+                       row_sharding=None) -> torch.Tensor:
     """Fused w = Q Bern(p) for one client: (n,) + a draw word ->
-    spec.shape f32 (``qbits``/``qpacked`` as for the batched op).
-    Kernel 7 (the batched kernel at K=1) forward, kernel 5 backward."""
+    spec.shape f32 (``qbits``/``qpacked``/``row_sharding`` as for the
+    batched op).  Kernel 7 (the batched kernel at K=1) forward, kernel
+    5 backward."""
     return _sample_reconstruct(spec, p[None], step, qbits, qpacked, impl,
-                               True)[0]
+                               True, model_size, row_sharding)[0]
 
 
 def sample_pack_batched(spec: QSpec, P: torch.Tensor, steps, *,
-                        impl: Optional[str] = None) -> torch.Tensor:
+                        impl: Optional[str] = None,
+                        row_sharding=None) -> torch.Tensor:
     """Fused upload draw for K clients: P (K, n) probabilities + (K,)
     draw words -> (K, ceil(n/32)) lanes (int64 holding uint32), equal
-    to ``pack_mask(sample_mask_hash(P, ...))``.  No gradient."""
-    if P.ndim != 2 or P.shape[-1] != spec.n:
+    to ``pack_mask(sample_mask_hash(P, ...))``.  No gradient.  On a
+    model axis a sharded spec packs this rank's (K, n_loc) slice into
+    its lanes of the upload."""
+    shard = _model_shard(spec, None, row_sharding)
+    if P.ndim != 2 or P.shape[-1] != _operand_n(spec, shard):
         raise ValueError(f"P has shape {tuple(P.shape)}, spec expects "
-                         f"(K, {spec.n})")
+                         f"(K, {_operand_n(spec, shard)})")
     impl = resolve_impl(impl, P)
+    if shard is not None:
+        from .qz_sharded import sharded_sample_pack_batched
+
+        return sharded_sample_pack_batched(spec, P, steps, *shard, impl=impl)
     steps = as_words(steps, P.device).reshape(-1)
     P = P.detach().to(torch.float32).contiguous()
     # the kernel emits whole lanes per window, as the Pallas one does
@@ -360,14 +489,20 @@ def sample_pack_batched(spec: QSpec, P: torch.Tensor, steps, *,
 
 
 def sample_pack(spec: QSpec, p: torch.Tensor, step: int, *,
-                impl: Optional[str] = None) -> torch.Tensor:
+                impl: Optional[str] = None,
+                row_sharding=None) -> torch.Tensor:
     """Fused upload draw for one client: p (n,) + one draw word ->
     (ceil(n/32),) lanes, equal to ``sample_pack_batched``'s row.  Kernel
-    9; no gradient."""
-    if p.ndim != 1 or p.shape[0] != spec.n:
+    9; no gradient (on a model axis, this rank's slice and lanes)."""
+    shard = _model_shard(spec, None, row_sharding)
+    if p.ndim != 1 or p.shape[0] != _operand_n(spec, shard):
         raise ValueError(f"p has shape {tuple(p.shape)}, spec expects "
-                         f"({spec.n},)")
+                         f"({_operand_n(spec, shard)},)")
     impl = resolve_impl(impl, p)
+    if shard is not None:
+        from .qz_sharded import sharded_sample_pack
+
+        return sharded_sample_pack(spec, p, step, *shard, impl=impl)
     p = p.detach().to(torch.float32).contiguous()
     if impl == "ref":
         return sample_pack_one_plain(spec, p, step)

@@ -38,6 +38,17 @@ holding the compact plan layout it reads, with ``plan_geometry``'s
 client group for each K.  So the card keeps no padded plan for either
 backward (``clear_caches`` drops the layouts).
 
+Each wrapper takes ``windows``, a contiguous range ``(w0, w1)`` of the
+spec's windows (all of them by default): the launch reads the range's
+operand coordinates (``(w1 - w0) * window`` a client, hashed at their
+global index) and writes the range's real rows in moved flat order, or
+the other way round for the backward (``window_range``).  A model
+rank's shard of a sharding-major spec (``shard_count > 1``) is the
+range ``kernels.qz_sharded.shard_windows``: its rows are its block of
+the tensor's major axis and its coordinates its slice of the scores
+(``kernels/qz_sharded.py``).  The single-block launch is the range of
+every window: the same geometry, the same bits.
+
 The source is ``csrc/qz_reconstruct.cu`` (design, bound and summation
 order are described there), built by ``kernels.nvcc`` at first use.
 Given CUDA tensors a wrapper launches its kernel, checks the launch and
@@ -126,11 +137,11 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.qz_reconstruct_batched.restype = I
     lib.qz_plan_bwd.argtypes = [P, P, I, I, I, I, P, P]
     lib.qz_plan_bwd.restype = I
-    lib.qz_sample_pack.argtypes = [P, P, I, L, U, U, P, P]
+    lib.qz_sample_pack.argtypes = [P, P, I, L, U, U, U, P, P]
     lib.qz_sample_pack.restype = I
     lib.qz_scatter_bwd.argtypes = [P, P, P, P]
     lib.qz_scatter_bwd.restype = I
-    lib.qz_sample_pack_one.argtypes = [P, U, U, U, U, P, P]
+    lib.qz_sample_pack_one.argtypes = [P, U, U, U, U, U, P, P]
     lib.qz_sample_pack_one.restype = I
 
 
@@ -330,6 +341,48 @@ def plan_geometry(rows_per_window: int, num_windows: int, max_slab: int,
                         -(-K // stage), group, smem, row_bytes)
 
 
+class WindowRange(NamedTuple):
+    """A launch's windows ``[w0, w1)`` of a spec: its real rows are
+    ``[out_base, out_base + m_out)`` of the moved flat order, its
+    coordinates ``[w0 * window, w1 * window)``, ``n_out`` of them."""
+
+    w0: int
+    w1: int
+    out_base: int
+    m_out: int
+    n_out: int
+
+
+def window_range(spec: QSpec, windows=None) -> WindowRange:
+    """The range of windows ``(w0, w1)`` (every window by default), its
+    real rows counted by the sharding-major layout: a block's first
+    ``m_blk`` of its ``m_pad_loc`` padded rows are real."""
+    w0, w1 = (0, spec.num_windows) if windows is None else map(int, windows)
+    if not 0 <= w0 < w1 <= spec.num_windows:
+        raise ValueError(f"windows ({w0}, {w1}) outside [0, "
+                         f"{spec.num_windows}]")
+
+    def out_row(w):  # moved flat index of window w's first row
+        return ((w // spec.nw_loc) * spec.m_blk
+                + min((w % spec.nw_loc) * spec.rows_per_window, spec.m_blk))
+
+    base = out_row(w0)
+    return WindowRange(w0, w1, base, out_row(w1) - base,
+                       (w1 - w0) * spec.window)
+
+
+class _Range(ctypes.Structure):
+    """Range of csrc/qz_reconstruct.cu."""
+
+    _fields_ = [(name, ctypes.c_uint) for name in (
+        "w0", "nw_loc", "m_pad_loc", "m_blk", "out_base", "m_out", "n_out")]
+
+
+def _range_struct(spec: QSpec, rng: WindowRange) -> _Range:
+    return _Range(rng.w0, spec.nw_loc, spec.m_pad_loc, spec.m_blk,
+                  rng.out_base, rng.m_out, rng.n_out)
+
+
 class _ScatterConsts(ctypes.Structure):
     """ScatterConsts of csrc/qz_reconstruct.cu."""
 
@@ -337,9 +390,9 @@ class _ScatterConsts(ctypes.Structure):
                 ("window", ctypes.c_int), ("rows_per_window", ctypes.c_uint),
                 ("d", ctypes.c_int), ("sigma", ctypes.c_float)] + [
         (name, ctypes.c_uint) for name in (
-            "m", "n", "num_windows", "K", "clients", "group", "chunk_rows",
+            "num_windows", "K", "clients", "group", "chunk_rows",
             "mask_stride", "div_m", "div_s1", "div_s2")] + [
-        ("smem", ctypes.c_int)]
+        ("smem", ctypes.c_int), ("r", _Range)]
 
 
 class _FwdConsts(ctypes.Structure):
@@ -349,8 +402,8 @@ class _FwdConsts(ctypes.Structure):
                 ("window", ctypes.c_int), ("rows_per_window", ctypes.c_uint),
                 ("d", ctypes.c_int), ("sigma", ctypes.c_float)] + [
         (name, ctypes.c_uint) for name in (
-            "m", "n", "num_windows", "K", "slices", "rows", "clients",
-            "group")] + [("values", ctypes.c_int), ("smem", ctypes.c_int)]
+            "num_windows", "K", "slices", "rows", "clients", "group")] + [
+        ("values", ctypes.c_int), ("smem", ctypes.c_int), ("r", _Range)]
 
 
 class _PlanConsts(ctypes.Structure):
@@ -358,47 +411,56 @@ class _PlanConsts(ctypes.Structure):
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "rows", "vals", "starts")] + [(name, ctypes.c_uint) for name in (
-            "m", "n", "window", "rows_per_window", "num_windows")] + [
-        (name, ctypes.c_int) for name in ("piece", "narrow", "stage_g")]
+            "window", "rows_per_window", "num_windows")] + [
+        (name, ctypes.c_int) for name in ("piece", "narrow", "stage_g")] + [
+        ("r", _Range)]
 
 
-def fwd_geometry(spec: QSpec, K: int = 1,
-                 values: bool = False) -> FwdGeometry:
+def fwd_geometry(spec: QSpec, K: int = 1, values: bool = False,
+                 windows=None) -> FwdGeometry:
     """The forward's geometry at a leaf for K clients (``values``: an
-    explicit operand, kernels 3 and 1; else drawn, kernels 8 and 7)."""
+    explicit operand, kernels 3 and 1; else drawn, kernels 8 and 7),
+    over ``windows`` (all by default)."""
+    rng = window_range(spec, windows)
     return reconstruct_geometry(spec.window, spec.rows_per_window, spec.d,
-                                spec.num_windows, K, values)
+                                rng.w1 - rng.w0, K, values)
 
 
 @functools.lru_cache(maxsize=64)
-def _fwd_consts(spec: QSpec, K: int, values: bool) -> tuple:
-    """The forward's launch constants at a leaf for K clients: (struct,
-    its address)."""
+def _fwd_consts(spec: QSpec, K: int, values: bool, windows=None) -> tuple:
+    """The forward's launch constants at a leaf for K clients over
+    ``windows``: (struct, its address)."""
     _check_spec(spec)
-    geo = fwd_geometry(spec, K, values)
+    rng = window_range(spec, windows)
+    geo = fwd_geometry(spec, K, values, windows)
     c = _FwdConsts(spec.seed & 0xFFFFFFFF, spec.tensor_id, spec.window,
-                   spec.rows_per_window, spec.d, sigma_f32(spec), spec.m,
-                   spec.n, spec.num_windows, K, geo.slices, geo.rows,
-                   geo.clients, geo.group, int(values), geo.smem)
+                   spec.rows_per_window, spec.d, sigma_f32(spec),
+                   rng.w1 - rng.w0, K, geo.slices, geo.rows, geo.clients,
+                   geo.group, int(values), geo.smem,
+                   _range_struct(spec, rng))
     return c, ctypes.addressof(c)
 
 
-def scatter_bwd_geometry(spec: QSpec, K: int = 1) -> ScatterGeometry:
-    """The scatter's geometry at a leaf for K clients."""
+def scatter_bwd_geometry(spec: QSpec, K: int = 1,
+                         windows=None) -> ScatterGeometry:
+    """The scatter's geometry at a leaf for K clients over ``windows``."""
+    rng = window_range(spec, windows)
     return scatter_geometry(spec.window, spec.rows_per_window, spec.d,
-                            spec.num_windows, K)
+                            rng.w1 - rng.w0, K)
 
 
 @functools.lru_cache(maxsize=64)
-def _scatter_consts(spec: QSpec, K: int) -> tuple:
-    """The scatter's launch constants at a leaf for K clients: (struct,
-    its address)."""
+def _scatter_consts(spec: QSpec, K: int, windows=None) -> tuple:
+    """The scatter's launch constants at a leaf for K clients over
+    ``windows``: (struct, its address)."""
     _check_spec(spec)
-    geo = scatter_bwd_geometry(spec, K)
+    rng = window_range(spec, windows)
+    geo = scatter_bwd_geometry(spec, K, windows)
     c = _ScatterConsts(spec.seed & 0xFFFFFFFF, spec.tensor_id, spec.window,
-                       spec.rows_per_window, spec.d, sigma_f32(spec), spec.m,
-                       spec.n, spec.num_windows, K, geo.clients, geo.group,
-                       geo.chunk_rows, geo.mask_stride, *geo.div_d, geo.smem)
+                       spec.rows_per_window, spec.d, sigma_f32(spec),
+                       rng.w1 - rng.w0, K, geo.clients, geo.group,
+                       geo.chunk_rows, geo.mask_stride, *geo.div_d, geo.smem,
+                       _range_struct(spec, rng))
     return c, ctypes.addressof(c)
 
 
@@ -411,23 +473,27 @@ class _PlanEntry(NamedTuple):
     address: int
 
 
-_PLAN_ENTRIES: Dict[tuple, _PlanEntry] = {}  # by (spec, device, order)
+_PLAN_ENTRIES: Dict[tuple, _PlanEntry] = {}  # by (spec, device, order, range)
 _PLAN_ENTRIES_MAX = 64
 
 
-def _plan_entry(spec: QSpec, device: int, order: str) -> _PlanEntry:
-    key = (spec, device, order)
+def _plan_entry(spec: QSpec, device: int, order: str,
+                windows=None) -> _PlanEntry:
+    rng = window_range(spec, windows)
+    key = (spec, device, order, rng.w0, rng.w1)
     entry = _PLAN_ENTRIES.get(key)
     if entry is not None:
         return entry
     _check_spec(spec)
-    layout = build_plan_layout(spec, torch.device("cuda", device), order)
-    geo = plan_geometry(spec.rows_per_window, spec.num_windows,
-                        layout.max_slab, layout.narrow)
+    layout = build_plan_layout(spec, torch.device("cuda", device), order,
+                               windows=(rng.w0, rng.w1))
+    nw = rng.w1 - rng.w0
+    geo = plan_geometry(spec.rows_per_window, nw, layout.max_slab,
+                        layout.narrow)
     c = _PlanConsts(layout.rows.data_ptr(), layout.vals.data_ptr(),
-                    layout.starts.data_ptr(), spec.m, spec.n, spec.window,
-                    spec.rows_per_window, spec.num_windows, geo.piece,
-                    int(layout.narrow), int(geo.stage_g))
+                    layout.starts.data_ptr(), spec.window,
+                    spec.rows_per_window, nw, geo.piece, int(layout.narrow),
+                    int(geo.stage_g), _range_struct(spec, rng))
     if len(_PLAN_ENTRIES) >= _PLAN_ENTRIES_MAX:  # the oldest goes
         del _PLAN_ENTRIES[next(iter(_PLAN_ENTRIES))]
     entry = _PLAN_ENTRIES[key] = _PlanEntry(layout, c, ctypes.addressof(c))
@@ -439,18 +505,21 @@ def _device_index(device) -> int:
     return torch.cuda.current_device() if dev.index is None else dev.index
 
 
-def plan_layout(spec: QSpec, device, order: str = "canonical") -> PlanLayout:
-    """The compact plan layout the plan walk reads at a leaf on a card
-    (built there at first use, and held for later launches)."""
-    return _plan_entry(spec, _device_index(device), order).layout
+def plan_layout(spec: QSpec, device, order: str = "canonical",
+                windows=None) -> PlanLayout:
+    """The compact plan layout the plan walk reads at a leaf on a card,
+    of ``windows`` (all by default; built there at first use, and held
+    for later launches)."""
+    return _plan_entry(spec, _device_index(device), order, windows).layout
 
 
 def plan_bwd_geometry(spec: QSpec, device, order: str = "canonical",
-                      K: int = 1) -> PlanGeometry:
-    """The plan walk's geometry at a leaf on a card for K clients (builds
-    its layout there)."""
-    lay = plan_layout(spec, device, order)
-    return plan_geometry(spec.rows_per_window, spec.num_windows,
+                      K: int = 1, windows=None) -> PlanGeometry:
+    """The plan walk's geometry at a leaf on a card for K clients over
+    ``windows`` (builds its layout there)."""
+    rng = window_range(spec, windows)
+    lay = plan_layout(spec, device, order, windows)
+    return plan_geometry(spec.rows_per_window, rng.w1 - rng.w0,
                          lay.max_slab, lay.narrow, K)
 
 
@@ -469,11 +538,19 @@ def clear_caches() -> None:
     _PLAN_ENTRIES.clear()
 
 
-def _check_one_cotangent(spec: QSpec, g: torch.Tensor) -> None:
+def _windows(spec: QSpec, windows):
+    """``windows`` as the hashable (w0, w1) the caches key on (None: all)."""
+    if windows is None:
+        return None
+    rng = window_range(spec, windows)
+    return rng.w0, rng.w1
+
+
+def _check_one_cotangent(g: torch.Tensor, m: int) -> None:
     """A one-client backward reads m floats from g's pointer."""
-    if (g.dtype != torch.float32 or g.shape != (spec.m,)
+    if (g.dtype != torch.float32 or g.shape != (m,)
             or not g.is_contiguous()):
-        raise ValueError(f"g must be contiguous ({spec.m},) float32, got "
+        raise ValueError(f"g must be contiguous ({m},) float32, got "
                          f"{tuple(g.shape)} {g.dtype}")
 
 
@@ -488,25 +565,27 @@ def _step_words(steps: torch.Tensor, K: int, device) -> torch.Tensor:
 
 
 def _check_spec(spec: QSpec) -> None:
-    if spec.shard_count != 1:
-        raise ValueError("the kernels take the single-block layout "
-                         f"(shard_count=1), got {spec.shard_count}")
     if spec.m_pad >= MAX_ROWS or spec.n >= MAX_ROWS:
         raise ValueError(f"spec has m_pad={spec.m_pad}, n={spec.n}; the "
                          f"kernels take fewer than {MAX_ROWS}")
 
 
 def _check_operand(spec: QSpec, P: torch.Tensor, qbits,
-                   qpacked: bool = False) -> int:
+                   qpacked: bool = False, n: Optional[int] = None) -> int:
     """The operand's client count K, after checking its shape and dtype:
     (K, n) f32 probabilities or u8/u16 words, or with ``qpacked`` the
-    (K, packed_word_len(n, qbits)) uint32 lanes of a packed codec."""
+    (K, packed_word_len(n, qbits)) uint32 lanes of a packed codec; ``n``
+    the launch's coordinates (all of the spec's by default)."""
+    n = spec.n if n is None else n
     if qpacked:
         if qbits is None:
             raise ValueError("qpacked requires qbits (a packed codec width)")
-        want, dtype = packed_word_len(spec.n, qbits), torch.uint32
+        if n != spec.n and n % (32 // qbits):
+            raise ValueError(f"a range of {n} coordinates holds no whole "
+                             f"lanes of {32 // qbits} {qbits}-bit words")
+        want, dtype = packed_word_len(n, qbits), torch.uint32
     elif qbits in _KIND:
-        want, dtype = spec.n, _DTYPE[qbits]
+        want, dtype = n, _DTYPE[qbits]
     else:
         raise ValueError(f"qbits={qbits}: words a coordinate are u8 or u16; "
                          "narrower words come packed (qpacked=True)")
@@ -521,14 +600,16 @@ def _check_operand(spec: QSpec, P: torch.Tensor, qbits,
     return K
 
 
-def _launch_sample_reconstruct(spec: QSpec, P, steps, qbits, qpacked):
+def _launch_sample_reconstruct(spec: QSpec, P, steps, qbits, qpacked,
+                               windows):
     if not P.is_cuda:
         raise ValueError("the sample-reconstruct kernel takes CUDA tensors")
     _check_spec(spec)
-    K = _check_operand(spec, P, qbits, qpacked)
+    rng = window_range(spec, windows)
+    K = _check_operand(spec, P, qbits, qpacked, rng.n_out)
     words = _step_words(steps, K, P.device)
-    address = _fwd_consts(spec, K, False)[1]
-    W = torch.empty((K, spec.m), dtype=torch.float32, device=P.device)
+    address = _fwd_consts(spec, K, False, windows)[1]
+    W = torch.empty((K, rng.m_out), dtype=torch.float32, device=P.device)
     rc = build().qz_sample_reconstruct(
         P.data_ptr(), PACKED_LANES if qpacked else _KIND[qbits],
         qbits if qpacked else 0, words.data_ptr(), W.data_ptr(), address,
@@ -540,74 +621,83 @@ def _launch_sample_reconstruct(spec: QSpec, P, steps, qbits, qpacked):
 def qz_sample_reconstruct_batched_fwd(spec: QSpec, P: torch.Tensor,
                                       steps: torch.Tensor,
                                       qbits: Optional[int] = None,
-                                      qpacked: bool = False):
-    """W (K, m) moved flat order = Q Bern(P_k), drawn at words ``steps``
-    (K,); ``P`` (K, n) clipped f32 probabilities, or u8/u16 words, or
-    with ``qpacked`` (K, packed_word_len(n, qbits)) uint32 lanes."""
+                                      qpacked: bool = False, windows=None):
+    """W (K, m_out) moved flat order = Q Bern(P_k) over ``windows``,
+    drawn at words ``steps`` (K,); ``P`` (K, n_out) clipped f32
+    probabilities, or u8/u16 words, or with ``qpacked`` (K,
+    packed_word_len(n_out, qbits)) uint32 lanes."""
+    windows = _windows(spec, windows)
     if not P.is_cuda:
         from .ops import sample_reconstruct_plain
 
-        return sample_reconstruct_plain(spec, P, steps, qbits, qpacked)
-    W = _launch_sample_reconstruct(spec, P, steps, qbits, qpacked)
+        return sample_reconstruct_plain(spec, P, steps, qbits, qpacked,
+                                        windows)
+    W = _launch_sample_reconstruct(spec, P, steps, qbits, qpacked, windows)
     LAUNCHES["qz_sample_reconstruct_batched_fwd"] += 1
     return W
 
 
 def qz_sample_reconstruct_fwd(spec: QSpec, p: torch.Tensor, step: torch.Tensor,
                               qbits: Optional[int] = None,
-                              qpacked: bool = False):
-    """w (m,) = Q Bern(p) for one client: the batched kernel at K=1, so
-    it equals a row of ``qz_sample_reconstruct_batched_fwd`` bit for bit."""
+                              qpacked: bool = False, windows=None):
+    """w (m_out,) = Q Bern(p) for one client: the batched kernel at K=1,
+    so it equals a row of ``qz_sample_reconstruct_batched_fwd`` bit for
+    bit."""
+    windows = _windows(spec, windows)
     if not p.is_cuda:
         from .ops import sample_reconstruct_plain
 
         return sample_reconstruct_plain(spec, p[None], step, qbits,
-                                        qpacked)[0]
-    w = _launch_sample_reconstruct(spec, p[None], step, qbits, qpacked)[0]
+                                        qpacked, windows)[0]
+    w = _launch_sample_reconstruct(spec, p[None], step, qbits, qpacked,
+                                   windows)[0]
     LAUNCHES["qz_sample_reconstruct_fwd"] += 1
     return w
 
 
-def _launch_reconstruct(spec: QSpec, Z: torch.Tensor):
+def _launch_reconstruct(spec: QSpec, Z: torch.Tensor, windows):
     _check_spec(spec)
-    K = _check_operand(spec, Z, None)
-    address = _fwd_consts(spec, K, True)[1]
-    W = torch.empty((K, spec.m), dtype=torch.float32, device=Z.device)
+    rng = window_range(spec, windows)
+    K = _check_operand(spec, Z, None, n=rng.n_out)
+    address = _fwd_consts(spec, K, True, windows)[1]
+    W = torch.empty((K, rng.m_out), dtype=torch.float32, device=Z.device)
     rc = build().qz_reconstruct_batched(Z.data_ptr(), W.data_ptr(), address,
                                         _stream(Z))
     raise_on(rc, "qz_reconstruct_batched")
     return W
 
 
-def qz_reconstruct_batched_fwd(spec: QSpec, Z: torch.Tensor):
-    """W (K, m) moved flat order = Q Z_k; ``Z`` (K, n) f32 operands
-    (masks, or probabilities in continuous mode)."""
+def qz_reconstruct_batched_fwd(spec: QSpec, Z: torch.Tensor, windows=None):
+    """W (K, m_out) moved flat order = Q Z_k over ``windows``; ``Z`` (K,
+    n_out) f32 operands (masks, or probabilities in continuous mode)."""
+    windows = _windows(spec, windows)
     if not Z.is_cuda:
         from .ops import reconstruct_plain
 
-        return reconstruct_plain(spec, Z)
-    W = _launch_reconstruct(spec, Z)
+        return reconstruct_plain(spec, Z, windows)
+    W = _launch_reconstruct(spec, Z, windows)
     LAUNCHES["qz_reconstruct_batched_fwd"] += 1
     return W
 
 
-def qz_reconstruct_fwd(spec: QSpec, z: torch.Tensor):
-    """w (m,) moved flat order = Q z for one operand z (n,) f32: the
-    batched kernel at K=1, so it equals a row of
+def qz_reconstruct_fwd(spec: QSpec, z: torch.Tensor, windows=None):
+    """w (m_out,) moved flat order = Q z for one operand z (n_out,) f32:
+    the batched kernel at K=1, so it equals a row of
     ``qz_reconstruct_batched_fwd`` bit for bit."""
+    windows = _windows(spec, windows)
     if not z.is_cuda:
         from .ops import reconstruct_plain
 
-        return reconstruct_plain(spec, z[None])[0]
-    w = _launch_reconstruct(spec, z[None])[0]
+        return reconstruct_plain(spec, z[None], windows)[0]
+    w = _launch_reconstruct(spec, z[None], windows)[0]
     LAUNCHES["qz_reconstruct_fwd"] += 1
     return w
 
 
-def _check_cotangent(spec: QSpec, G: torch.Tensor) -> torch.Tensor:
+def _check_cotangent(spec: QSpec, G: torch.Tensor, m: int) -> torch.Tensor:
     _check_spec(spec)
-    if G.dtype != torch.float32 or G.ndim != 2 or G.shape[1] != spec.m:
-        raise ValueError(f"G must be (K, {spec.m}) float32, got "
+    if G.dtype != torch.float32 or G.ndim != 2 or G.shape[1] != m:
+        raise ValueError(f"G must be (K, {m}) float32, got "
                          f"{tuple(G.shape)} {G.dtype}")
     if not 1 <= G.shape[0] <= MAX_K:
         raise ValueError(f"{G.shape[0]} clients outside [1, {MAX_K}]")
@@ -615,12 +705,13 @@ def _check_cotangent(spec: QSpec, G: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_plan_bwd(spec: QSpec, G: torch.Tensor, K: int, out_shape,
-                     order: str) -> torch.Tensor:
-    """``plan_bwd_kernel`` on K contiguous (m,) f32 cotangents at G's
-    pointer, into a new tensor of ``out_shape`` (K * n floats)."""
+                     order: str, windows) -> torch.Tensor:
+    """``plan_bwd_kernel`` on K contiguous (m_out,) f32 cotangents at G's
+    pointer, into a new tensor of ``out_shape`` (K * n_out floats)."""
     dev = G.get_device()
-    entry = _plan_entry(spec, dev, order)
-    geo = plan_geometry(spec.rows_per_window, spec.num_windows,
+    entry = _plan_entry(spec, dev, order, windows)
+    rng = window_range(spec, windows)
+    geo = plan_geometry(spec.rows_per_window, rng.w1 - rng.w0,
                         entry.layout.max_slab, entry.layout.narrow, K)
     out = G.new_empty(out_shape)
     raise_on(build().qz_plan_bwd(
@@ -630,11 +721,11 @@ def _launch_plan_bwd(spec: QSpec, G: torch.Tensor, K: int, out_shape,
     return out
 
 
-def _launch_scatter_bwd(spec: QSpec, G: torch.Tensor, K: int,
-                        out_shape) -> torch.Tensor:
-    """``scatter_bwd_kernel`` on K contiguous (m,) f32 cotangents at G's
-    pointer, into a new tensor of ``out_shape`` (K * n floats)."""
-    address = _scatter_consts(spec, K)[1]
+def _launch_scatter_bwd(spec: QSpec, G: torch.Tensor, K: int, out_shape,
+                        windows) -> torch.Tensor:
+    """``scatter_bwd_kernel`` on K contiguous (m_out,) f32 cotangents at
+    G's pointer, into a new tensor of ``out_shape`` (K * n_out floats)."""
+    address = _scatter_consts(spec, K, windows)[1]
     out = G.new_empty(out_shape)
     raise_on(build().qz_scatter_bwd(
         G.data_ptr(), out.data_ptr(), address,
@@ -644,106 +735,135 @@ def _launch_scatter_bwd(spec: QSpec, G: torch.Tensor, K: int,
 
 
 def qz_reconstruct_batched_bwd_plan(spec: QSpec, G: torch.Tensor,
-                                    order: str = "canonical"):
-    """grad_Z (K, n) = Q^T G_k over the ``order`` transpose plan; ``G``
-    (K, m) f32 cotangents in moved flat order."""
+                                    order: str = "canonical", windows=None):
+    """grad_Z (K, n_out) = Q^T G_k over the ``order`` transpose plan of
+    ``windows``; ``G`` (K, m_out) f32 cotangents in moved flat order."""
+    windows = _windows(spec, windows)
     if not G.is_cuda:
         from .ops import plan_bwd_plain
 
-        return plan_bwd_plain(spec, G, order)
-    G = _check_cotangent(spec, G)
+        return plan_bwd_plain(spec, G, order, windows)
+    rng = window_range(spec, windows)
+    G = _check_cotangent(spec, G, rng.m_out)
     K = G.shape[0]
-    out = _launch_plan_bwd(spec, G, K, (K, spec.n), order)
+    out = _launch_plan_bwd(spec, G, K, (K, rng.n_out), order, windows)
     LAUNCHES["qz_reconstruct_batched_bwd_plan"] += 1
     return out
 
 
 def qz_reconstruct_bwd_plan(spec: QSpec, g: torch.Tensor,
-                            order: str = "canonical"):
-    """grad_z (n,) = Q^T g over the ``order`` transpose plan for one
-    cotangent g (m,) f32 in moved flat order: the batched kernel at K=1,
-    so it equals a row of ``qz_reconstruct_batched_bwd_plan`` bit for
-    bit."""
+                            order: str = "canonical", windows=None):
+    """grad_z (n_out,) = Q^T g over the ``order`` transpose plan for one
+    cotangent g (m_out,) f32 in moved flat order: the batched kernel at
+    K=1, so it equals a row of ``qz_reconstruct_batched_bwd_plan`` bit
+    for bit."""
+    windows = _windows(spec, windows)
     if not g.is_cuda:
         from .ops import plan_bwd_one_plain
 
-        return plan_bwd_one_plain(spec, g, order)
-    _check_one_cotangent(spec, g)
-    out = _launch_plan_bwd(spec, g, 1, (spec.n,), order)
+        return plan_bwd_one_plain(spec, g, order, windows)
+    rng = window_range(spec, windows)
+    _check_spec(spec)
+    _check_one_cotangent(g, rng.m_out)
+    out = _launch_plan_bwd(spec, g, 1, (rng.n_out,), order, windows)
     LAUNCHES["qz_reconstruct_bwd_plan"] += 1
     return out
 
 
-def qz_reconstruct_batched_bwd(spec: QSpec, G: torch.Tensor):
-    """grad_Z (K, n) = Q^T G_k by the scatter, Q regenerated in the
-    kernel and no plan held; ``G`` (K, m) f32 cotangents in moved flat
-    order.  Equals ``qz_reconstruct_batched_bwd_plan`` on the canonical
-    plan bit for bit."""
+def qz_reconstruct_batched_bwd(spec: QSpec, G: torch.Tensor, windows=None):
+    """grad_Z (K, n_out) = Q^T G_k by the scatter over ``windows``, Q
+    regenerated in the kernel and no plan held; ``G`` (K, m_out) f32
+    cotangents in moved flat order.  Equals
+    ``qz_reconstruct_batched_bwd_plan`` on the canonical plan bit for
+    bit."""
+    windows = _windows(spec, windows)
     if not G.is_cuda:
         from .ops import scatter_bwd_plain
 
-        return scatter_bwd_plain(spec, G)
-    G = _check_cotangent(spec, G)
+        return scatter_bwd_plain(spec, G, windows)
+    rng = window_range(spec, windows)
+    G = _check_cotangent(spec, G, rng.m_out)
     K = G.shape[0]
-    out = _launch_scatter_bwd(spec, G, K, (K, spec.n))
+    out = _launch_scatter_bwd(spec, G, K, (K, rng.n_out), windows)
     LAUNCHES["qz_reconstruct_batched_bwd"] += 1
     return out
 
 
-def qz_reconstruct_bwd(spec: QSpec, g: torch.Tensor):
-    """grad_z (n,) = Q^T g by the scatter for one cotangent g (m,) f32
-    in moved flat order: the batched kernel at K=1, so it equals a row of
-    ``qz_reconstruct_batched_bwd`` bit for bit."""
+def qz_reconstruct_bwd(spec: QSpec, g: torch.Tensor, windows=None):
+    """grad_z (n_out,) = Q^T g by the scatter for one cotangent g
+    (m_out,) f32 in moved flat order: the batched kernel at K=1, so it
+    equals a row of ``qz_reconstruct_batched_bwd`` bit for bit."""
+    windows = _windows(spec, windows)
     if not g.is_cuda:
         from .ops import scatter_bwd_one_plain
 
-        return scatter_bwd_one_plain(spec, g)
-    _check_one_cotangent(spec, g)
-    out = _launch_scatter_bwd(spec, g, 1, (spec.n,))
+        return scatter_bwd_one_plain(spec, g, windows)
+    rng = window_range(spec, windows)
+    _check_spec(spec)
+    _check_one_cotangent(g, rng.m_out)
+    out = _launch_scatter_bwd(spec, g, 1, (rng.n_out,), windows)
     LAUNCHES["qz_reconstruct_bwd"] += 1
     return out
 
 
 def qz_sample_pack_batched_fwd(spec: QSpec, P: torch.Tensor,
-                               steps: torch.Tensor):
-    """Upload lanes (K, ceil(n/32)) int64 holding uint32 of Bern(P_k),
-    ``comm.bitpack.pack_mask``'s layout; ``P`` (K, n) f32 probabilities."""
+                               steps: torch.Tensor, windows=None):
+    """Upload lanes (K, ceil(n_out/32)) int64 holding uint32 of Bern(P_k),
+    ``comm.bitpack.pack_mask``'s layout; ``P`` (K, n_out) f32
+    probabilities of the coordinates of ``windows``, hashed at their
+    global index (a range of more than one lane starts at a whole lane)."""
+    windows = _windows(spec, windows)
     if not P.is_cuda:
         from .ops import sample_pack_plain
 
-        return sample_pack_plain(spec, P, steps)
+        return sample_pack_plain(spec, P, steps, windows)
     _check_spec(spec)
-    K = _check_operand(spec, P, None)
+    rng = window_range(spec, windows)
+    K = _check_operand(spec, P, None, n=rng.n_out)
     words = _step_words(steps, K, P.device)
-    out = torch.empty((K, (spec.n + 31) // 32), dtype=torch.int64,
+    out = torch.empty((K, (rng.n_out + 31) // 32), dtype=torch.int64,
                       device=P.device)
     rc = build().qz_sample_pack(
-        P.data_ptr(), words.data_ptr(), K, spec.n, spec.seed & 0xFFFFFFFF,
-        spec.tensor_id, out.data_ptr(), _stream(P))
+        P.data_ptr(), words.data_ptr(), K, rng.n_out,
+        _lane_start(spec, rng), spec.seed & 0xFFFFFFFF, spec.tensor_id,
+        out.data_ptr(), _stream(P))
     raise_on(rc, "qz_sample_pack")
     LAUNCHES["qz_sample_pack_batched_fwd"] += 1
     return out
 
 
-def qz_sample_pack_fwd(spec: QSpec, p: torch.Tensor, step: int):
-    """Upload lanes (ceil(n/32),) int64 holding uint32 of Bern(p) for one
-    client, drawn at the scalar word ``step``; ``p`` (n,) contiguous f32
-    probabilities.  The bits of ``qz_sample_pack_batched_fwd``'s row at
-    the same probabilities and word."""
+def _lane_start(spec: QSpec, rng: WindowRange) -> int:
+    """The range's first coordinate, which must start a lane of 32."""
+    c0 = rng.w0 * spec.window
+    if c0 % 32:
+        raise ValueError(f"windows from {rng.w0} start at coordinate {c0}, "
+                         "inside an upload lane of 32")
+    return c0
+
+
+def qz_sample_pack_fwd(spec: QSpec, p: torch.Tensor, step: int,
+                       windows=None):
+    """Upload lanes (ceil(n_out/32),) int64 holding uint32 of Bern(p) for
+    one client, drawn at the scalar word ``step``; ``p`` (n_out,)
+    contiguous f32 probabilities of ``windows``.  The bits of
+    ``qz_sample_pack_batched_fwd``'s row at the same probabilities and
+    word."""
+    windows = _windows(spec, windows)
     if not p.is_cuda:
         from .ops import sample_pack_one_plain
 
-        return sample_pack_one_plain(spec, p, step)
+        return sample_pack_one_plain(spec, p, step, windows)
     _check_spec(spec)
-    if (p.dtype != torch.float32 or tuple(p.shape) != (spec.n,)
+    rng = window_range(spec, windows)
+    if (p.dtype != torch.float32 or tuple(p.shape) != (rng.n_out,)
             or not p.is_contiguous()):
-        raise ValueError(f"p must be contiguous ({spec.n},) float32, got "
+        raise ValueError(f"p must be contiguous ({rng.n_out},) float32, got "
                          f"{tuple(p.shape)} {p.dtype}")
-    out = torch.empty(((spec.n + 31) // 32,), dtype=torch.int64,
+    out = torch.empty(((rng.n_out + 31) // 32,), dtype=torch.int64,
                       device=p.device)
     rc = build().qz_sample_pack_one(
-        p.data_ptr(), as_word(step), spec.n, spec.seed & 0xFFFFFFFF,
-        spec.tensor_id, out.data_ptr(), _stream(p))
+        p.data_ptr(), as_word(step), rng.n_out, _lane_start(spec, rng),
+        spec.seed & 0xFFFFFFFF, spec.tensor_id, out.data_ptr(), _stream(p))
     raise_on(rc, "qz_sample_pack_one")
     LAUNCHES["qz_sample_pack_fwd"] += 1
     return out

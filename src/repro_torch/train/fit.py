@@ -131,15 +131,18 @@ def streamed_federated_fit(zspecs: ZamplingSpecs, state: Dict[str, Any],
 def sharded_client_fit(zspecs: ZamplingSpecs, state: Dict[str, Any],
                        loss_fn: LossFn, round_batches, words: Sequence[int],
                        cfg: FederatedConfig, opt: Optional[Optimizer] = None,
-                       *, group=None, client_ids=None, weights=None,
-                       faults=None, impl: Optional[str] = None,
-                       device="cuda"):
+                       *, group=None, constraints=None, row_sharding=None,
+                       client_ids=None, weights=None, faults=None,
+                       impl: Optional[str] = None, device="cuda"):
     """R rounds of ``sharded_client_update`` on this rank's client;
     ``round_batches`` is its {name: (R, E, B, ...)} and ``words`` the
     (R,) round words, the same on every rank; ``client_ids`` and
     ``weights`` this rank's (R,) global ids and sample counts.  Returns
-    (state', metrics stacked to (R,)), the same on every rank."""
+    (state', metrics stacked to (R,)), the same on every rank of a data
+    group.  On a grid ``group`` is the data group and ``row_sharding``
+    the model AxisGroup (the state: this rank's slices)."""
     return _fit(lambda st, batch, word, r, cid, w: sharded_client_update(
         zspecs, st, loss_fn, batch, word, cfg, opt, group=group,
-        round_index=r, client_id=cid, weight=w, faults=faults, impl=impl,
-        device=device), state, round_batches, words, client_ids, weights)
+        constraints=constraints, row_sharding=row_sharding, round_index=r,
+        client_id=cid, weight=w, faults=faults, impl=impl, device=device),
+        state, round_batches, words, client_ids, weights)

@@ -74,7 +74,9 @@ def test_every_module_and_chip_smoke_import_without_jax():
               "configs.mixtral_8x7b", "configs.olmoe_1b_7b",
               "configs.pixtral_12b", "configs.qwen1_5_4b",
               "configs.qwen3_14b", "configs.seamless_m4t_medium",
-              "configs.yi_9b", "configs.zamba2_7b"):
+              "configs.yi_9b", "configs.zamba2_7b", "core.bitpack",
+              "kernels.ref", "kernels.qz_sharded", "launch.mesh",
+              "launch.sharding", "launch.dryrun"):
         assert f"repro_torch.{m}" in mods
     code = _BLOCKED + "\n".join(
         ["import importlib", f"sys.path.insert(0, {str(ROOT)!r})"]
