@@ -21,8 +21,25 @@ has a place on each axis: an ``AxisGroup``, the axis's subgroup with its
 size and the rank's index on it (``launch.mesh.mesh_axes`` makes them).
 The model axis's ``AxisGroup`` is the ``row_sharding`` handle of the
 reconstruction ops: a model rank reconstructs only its block of a
-sharded leaf (``kernels.qz_sharded``), and ``gather_major`` hands the
-model the whole tensor.
+sharded leaf (``kernels.qz_sharded``).  The round hands the model that
+block as a ``Block`` (the tensor, the dim the model axis splits, the
+axis), and the model's partitioned consumers take it as it is, with
+Megatron's four mappings between replicated and split activations:
+``copy_to_model`` (identity forward, all-reduce backward: the input of
+a column-parallel product), ``reduce_from_model`` (all-reduce forward,
+identity backward: the output of a row-parallel product),
+``gather_from_model`` and ``scatter_to_model`` (an activation's blocks
+joined, or a replicated activation's block taken, each the other's
+backward).  ``gather_major`` (``Block.whole``) hands the model a whole
+leaf: the small leaves a consumer cannot use as a block, and the
+families without partitioned consumers.
+
+Every collective here counts itself in ``COUNTS`` (calls and bytes by
+kind; the bytes are the tensor a rank hands the collective: an
+all-reduce's whole operand, an all-gather's own block), and each whole
+leaf gather in ``GATHERED`` by leaf path; ``reset_counts`` zeroes both.
+A CUDA tensor on a gloo group goes through the host; the copies are
+exact, and every rank of a group receives the same bits.
 """
 
 from __future__ import annotations
@@ -34,6 +51,7 @@ import queue
 import tempfile
 import time
 import traceback
+from collections import Counter
 from dataclasses import dataclass
 from datetime import timedelta
 from typing import Any, Callable, List, Optional, Sequence
@@ -71,17 +89,48 @@ class AxisGroup:
                              f"{self.size}")
 
 
-def all_gather_cat(x: torch.Tensor, dim: int, axis: AxisGroup):
+COUNTS: Counter = Counter()  # {kind: calls, kind + "_bytes": bytes}
+GATHERED: Counter = Counter()  # {leaf path: whole gathers}
+
+
+def reset_counts() -> None:
+    """Zero the collective counters and the gathered leaves."""
+    COUNTS.clear()
+    GATHERED.clear()
+
+
+def _count(kind: str, x: torch.Tensor) -> None:
+    COUNTS[kind] += 1
+    COUNTS[kind + "_bytes"] += x.numel() * x.element_size()
+
+
+def _via_host(x: torch.Tensor, axis: AxisGroup) -> bool:
+    return x.is_cuda and dist.get_backend(axis.group) == "gloo"
+
+
+def all_gather_cat(x: torch.Tensor, dim: int, axis: AxisGroup,
+                   kind: str = "all_gather"):
     """The axis's tensors, each rank's ``x`` (the same shape on every
-    rank), concatenated along ``dim`` in rank order.  gloo gathers host
-    tensors only, so a CUDA tensor on a gloo group goes through the
-    host; the copies are exact."""
+    rank), concatenated along ``dim`` in rank order, counted under
+    ``kind``."""
     x = x.contiguous()
-    host = x.is_cuda and dist.get_backend(axis.group) == "gloo"
+    _count(kind, x)
+    host = _via_host(x, axis)
     src = x.cpu() if host else x
     parts = [torch.empty_like(src) for _ in range(axis.size)]
     dist.all_gather(parts, src, group=axis.group)
     out = torch.cat(parts, dim)
+    return out.to(x.device) if host else out
+
+
+def all_reduce(x: torch.Tensor, axis: AxisGroup, op=None) -> torch.Tensor:
+    """A new tensor: the axis's ``x`` reduced by ``op`` (a sum by
+    default) in ``x``'s dtype (gloo reduces bf16 as it is)."""
+    _count("all_reduce", x)
+    host = _via_host(x, axis)
+    out = x.detach().to("cpu" if host else x.device, copy=True).contiguous()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM if op is None else op,
+                    group=axis.group)
     return out.to(x.device) if host else out
 
 
@@ -93,30 +142,151 @@ class _GatherMajor(torch.autograd.Function):
     cotangent already."""
 
     @staticmethod
-    def forward(ctx, block, dim, axis, front):
+    def forward(ctx, block, dim, axis, front, kind):
         ctx.dim, ctx.axis = dim, axis
-        moved = all_gather_cat(block.movedim(dim, front), front, axis)
+        moved = all_gather_cat(block.movedim(dim, front), front, axis, kind)
         return moved.movedim(front, dim)
 
     @staticmethod
     def backward(ctx, g):
         size = g.shape[ctx.dim] // ctx.axis.size
         return (g.narrow(ctx.dim, ctx.axis.index * size, size).contiguous(),
-                None, None, None)
+                None, None, None, None)
 
 
 def gather_major(block: torch.Tensor, dim: int, axis: AxisGroup,
-                 front: int = 0) -> torch.Tensor:
+                 front: int = 0, path: str = "") -> torch.Tensor:
     """A sharded leaf's whole tensor from this model rank's block along
     its major axis ``dim``: an all-gather of the blocks (never a sum of
-    zero-padded blocks, which would turn -0 into +0), differentiable.
+    zero-padded blocks, which would turn -0 into +0), differentiable,
+    counted in ``GATHERED`` under ``path``.
     The blocks travel with ``dim`` moved to ``front`` (0, or 1 past a
     client axis): a reconstructed block is a view of its rows in that
     moved order, so they travel without a copy, and the whole tensor
     comes back as the same view of the whole moved order, with the
     strides the unsharded op gives (a product reads them, and may round
     otherwise for other strides)."""
-    return _GatherMajor.apply(block, dim, axis, front)
+    GATHERED[path] += 1
+    return _GatherMajor.apply(block, dim, axis, front, "leaf_gather")
+
+
+@dataclass(frozen=True, eq=False)
+class Block:
+    """A model rank's block of a leaf: ``t`` holds the rows
+    ``[index * b, (index + 1) * b)`` of dim ``dim`` of the whole tensor
+    (``b = t.shape[dim]``), split over ``axis``; ``front`` leading
+    client axes; ``path`` names the leaf.  The round makes it from the
+    leaf's placement (its constraint, which names the spec's major
+    axis); nothing reads a placement off a shape."""
+
+    t: torch.Tensor
+    dim: int
+    axis: AxisGroup
+    path: str = ""
+    front: int = 0
+
+    @property
+    def cols(self) -> bool:
+        """Split on the last axis: a column-parallel weight."""
+        return self.dim == self.t.ndim - 1
+
+    @property
+    def rows(self) -> bool:
+        """Split on the second-to-last axis: a row-parallel weight (an
+        embedding table's vocabulary rows)."""
+        return self.dim == self.t.ndim - 2
+
+    def whole(self) -> torch.Tensor:
+        """The whole leaf (``gather_major``)."""
+        return gather_major(self.t, self.dim, self.axis, self.front,
+                            self.path)
+
+    def lead(self) -> "Block":
+        """The block with a leading client axis of one."""
+        return Block(self.t[None], self.dim + 1, self.axis, self.path,
+                     self.front + 1)
+
+    def unbind(self, dim: int):
+        """Per-index blocks along an axis before the split one (a layer
+        stack's)."""
+        if dim >= self.dim:
+            raise ValueError(f"{self.path!r}: unbinding dim {dim} of a "
+                             f"block split on dim {self.dim}")
+        return tuple(Block(t, self.dim - 1, self.axis, self.path,
+                           self.front) for t in self.t.unbind(dim))
+
+
+def whole(x):
+    """A tensor as it is; a ``Block``'s whole leaf."""
+    return x.whole() if isinstance(x, Block) else x
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.axis), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        size = x.shape[dim] // axis.size
+        return x.narrow(dim, axis.index * size, size).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        d = ctx.dim % g.ndim
+        return (all_gather_cat(g.movedim(d, 0), 0, ctx.axis).movedim(0, d),
+                None, None)
+
+
+def copy_to_model(x: torch.Tensor, axis: AxisGroup) -> torch.Tensor:
+    """A replicated activation entering column-parallel products: the
+    same tensor, whose cotangent (each rank's part) is summed over the
+    axis."""
+    return _CopyToModel.apply(x, axis)
+
+
+def reduce_from_model(x: torch.Tensor, axis: AxisGroup) -> torch.Tensor:
+    """The axis's partial results summed (a row-parallel product's), in
+    ``x``'s dtype; the cotangent passes as it is."""
+    return _ReduceFromModel.apply(x, axis)
+
+
+def gather_from_model(x: torch.Tensor, dim: int,
+                      axis: AxisGroup) -> torch.Tensor:
+    """An activation's blocks along ``dim`` joined in rank order (a
+    contiguous tensor); the cotangent's block comes back."""
+    d = dim % x.ndim
+    return _GatherMajor.apply(x, d, axis, d, "all_gather").contiguous()
+
+
+def scatter_to_model(x: torch.Tensor, dim: int,
+                     axis: AxisGroup) -> torch.Tensor:
+    """This rank's block along ``dim`` of a replicated tensor; the
+    cotangent's blocks are joined back."""
+    return _ScatterToModel.apply(x, dim, axis)
+
+
+def max_over_model(x: torch.Tensor, axis: AxisGroup) -> torch.Tensor:
+    """The axis's elementwise maximum (no gradient)."""
+    return all_reduce(x.detach(), axis, dist.ReduceOp.MAX)
 
 
 def _rank_main(call_path: str, rank: int, world: int, store_path: str,

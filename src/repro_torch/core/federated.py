@@ -95,8 +95,12 @@ collective, the dense mean and the loss's mean run over the data group
 (``group``) on each rank's slice, the downlink is re-encoded a slice at
 a time at global coordinates, and the metering counts the whole tensor
 once (the figures come from the specs).  Faults act on the slices with
-whole-upload checksums (a model all-reduce).  The frontier schedule,
-which needs a whole tensor's flip fraction, is refused on a model axis.
+whole-upload checksums (a model all-reduce).  The frontier schedule
+sums each tensor's flips exactly (``_flip_total``), a rank its slice,
+and the sums meet over the model group, so its widths are the data-axis
+ranks' bit for bit.  A local step hands the loss each sharded leaf as
+this rank's block (``comm.shardmap.Block``), which the port's models
+consume partitioned.
 """
 
 from __future__ import annotations
@@ -285,8 +289,11 @@ def local_update(zspecs: ZamplingSpecs, state: Dict[str, Any],
     steps), without the K axis for one client: the JAX package's
     ``local_update`` as the sharded round runs it, on the K=1 kernels.
     On a model axis (``row_sharding``) the state, the gradients and the
-    uploads of a sharded leaf are this rank's slices; ``constraints``
-    as ``core.zampling.weights_from_masks``."""
+    uploads of a sharded leaf are this rank's slices, and ``loss_fn``
+    receives its reconstructed block as a ``comm.shardmap.Block`` in
+    its placement (``constraints``, as
+    ``core.zampling.weights_from_masks``), which the port's models
+    consume partitioned (``models.common``)."""
     opt = opt or sgd(cfg.local_lr)
     program = mask_program(zspecs, cfg, impl)
     dev = next(iter(state["scores"].values())).device
@@ -323,7 +330,7 @@ def local_update(zspecs: ZamplingSpecs, state: Dict[str, Any],
         params = program.weights(
             {p: leaves[p] for p in zspecs.specs},
             {p: leaves[p] for p in zspecs.dense_paths}, step_words[e],
-            constraints, row_sharding)
+            constraints, row_sharding, blocks=True)
         loss_k = loss_fn(params, {n: v[e] if one else v[:, e]
                                   for n, v in batches.items()})
         # a rounded (discretize) mask takes no gradient: its scores get 0
@@ -381,48 +388,73 @@ def _round_b_vec(zspecs: ZamplingSpecs, cfg: FederatedConfig, state,
                       device=device)
 
 
-def _flip_fraction(p: torch.Tensor, b, b_hi) -> torch.Tensor:
-    """The expected share of draws that flip between widths ``b`` and
-    ``b_hi`` at probabilities ``p``: a draw at width b fires iff ``(u >>
-    8) < T_b``, so a coordinate flips with probability ``|T_b - T_hi| *
-    2^-24``.  An f32 mean over n (XLA sums in its own order: allclose to
-    the JAX package's, not bitwise)."""
+def _flip_total(p: torch.Tensor, b, b_hi) -> torch.Tensor:
+    """The exact int64 sum over ``p`` of ``|T_b - T_hi|``: a draw at
+    width b fires iff ``(u >> 8) < T_b``, so a coordinate flips between
+    widths ``b`` and ``b_hi`` with probability ``|T_b - T_hi| * 2^-24``."""
     def thr(bits):
         bf = ((1 << bits) - 1).to(torch.float32)
         q = torch.floor(p * bf + 0.5)
         q = torch.minimum(torch.maximum(q, q.new_zeros(())), bf)
         return quant_threshold_u24_dyn(q.to(torch.int64), bits)
 
-    diff = (thr(b) - thr(b_hi)).abs()
-    return diff.to(torch.float32).mean() * float(np.float32(2.0 ** -24))
+    return (thr(b) - thr(b_hi)).abs().sum()
+
+
+def _flip_share(total: torch.Tensor, n) -> torch.Tensor:
+    """f32 ``total * 2^-24 / n`` from an exact sum, the same bits
+    wherever the sum was taken."""
+    return (total.to(torch.float64) * 2.0 ** -24 / n).to(torch.float32)
+
+
+def _flip_fraction(p: torch.Tensor, b, b_hi) -> torch.Tensor:
+    """The expected share of draws at probabilities ``p`` that flip
+    between widths ``b`` and ``b_hi``: the exact sum's share
+    (``_flip_total``), allclose to the JAX package's f32 mean."""
+    return _flip_share(_flip_total(p, b, b_hi), p.numel())
 
 
 def _frontier_next_b(zspecs: ZamplingSpecs, cfg: FederatedConfig, agg,
-                     b_vec: torch.Tensor) -> torch.Tensor:
+                     b_vec: torch.Tensor, row_sharding=None) -> torch.Tensor:
     """Next round's frontier widths from the round's f32 aggregate (before
     it is quantized): tensor i's width rises by 2 where the flip fraction
     between b and b + 2 exceeds ``frontier_threshold``, falls by 2 where
-    it is under a quarter of it, within [schedule_b_min, codec bits]."""
+    it is under a quarter of it, within [schedule_b_min, codec bits].
+    On a model axis a sharded leaf's exact sums meet over the model
+    group (one all-reduce of every tensor's), so the widths are the
+    whole tensors' on every rank, bit for bit."""
     b_max = get_codec(cfg.downlink).bits
     up_at = float(np.float32(cfg.frontier_threshold))
     down_at = float(np.float32(cfg.frontier_threshold / 4.0))
+    totals = torch.stack([
+        _flip_total(clip_probs(agg[path].to(torch.float32)), b_vec[i],
+                    torch.clamp(b_vec[i] + 2, max=b_max))
+        for i, path in enumerate(zspecs.specs)])
+    if row_sharding is not None and row_sharding.size > 1:
+        from ..comm.shardmap import all_reduce  # comm sits above core
+
+        # a replicated leaf's sum counts once: rank 0's
+        own = torch.tensor([spec.shard_count > 1 or row_sharding.index == 0
+                            for spec in zspecs.specs.values()],
+                           device=totals.device)
+        totals = all_reduce(torch.where(own, totals, 0), row_sharding)
     nxt = []
-    for i, path in enumerate(zspecs.specs):
+    for i, spec in enumerate(zspecs.specs.values()):
         b = b_vec[i]
-        p = clip_probs(agg[path].to(torch.float32))
-        flip = _flip_fraction(p, b, torch.clamp(b + 2, max=b_max))
+        flip = _flip_share(totals[i], spec.n)
         nb = torch.where(flip > up_at, b + 2,
                          torch.where((flip < down_at) & (b > 2), b - 2, b))
         nxt.append(torch.clamp(nb, cfg.schedule_b_min, b_max))
     return torch.stack(nxt)
 
 
-def _schedule_state_out(zspecs, cfg, agg, b_vec, skip=None):
+def _schedule_state_out(zspecs, cfg, agg, b_vec, skip=None,
+                        row_sharding=None):
     """The frontier state's next widths (kept on a skipped round); {} for
     the other schedules."""
     if cfg.downlink_schedule != "frontier":
         return {}
-    nb = _frontier_next_b(zspecs, cfg, agg, b_vec)
+    nb = _frontier_next_b(zspecs, cfg, agg, b_vec, row_sharding)
     if skip is not None:
         nb = torch.where(skip, b_vec, nb)
     return {"downlink_b": nb}
@@ -617,7 +649,7 @@ def _participation_round(zspecs, st, loss_fn, batches, kw: int, r: int,
         "dense": {p: _keep_if(skip, st["dense"][p],
                               (dense[p] * recip).to(st["dense"][p].dtype))
                   for p in zspecs.dense_paths},
-        **_schedule_state_out(zspecs, cfg, agg, b_vec, skip)}
+        **_schedule_state_out(zspecs, cfg, agg, b_vec, skip, row_sharding)}
     uplink_units = counters.pop("uplink_units")
     metrics = {"loss": loss * _recip(counters["num_participating"]),
                **realized_wire_metrics(_wire_metrics(zspecs, cfg, k, b_vec),
@@ -646,7 +678,6 @@ def federated_round(zspecs: ZamplingSpecs, state: Dict[str, Any],
     model group (``row_sharding``, this rank's model AxisGroup) every
     rank runs the K clients on its slices of the sharded leaves and
     returns its slices of state'."""
-    _refuse_frontier(zspecs, cfg, row_sharding)
     dev = resolve_device(device)
     st = state_to(zspecs, state, dev)
     batches = {n: as_tensor(v, dev) for n, v in client_batches.items()}
@@ -681,17 +712,9 @@ def federated_round(zspecs: ZamplingSpecs, state: Dict[str, Any],
     new_state = {"scores": _encode_scores(zspecs, cfg, agg, kw, r, b_vec,
                                           row_sharding),
                  "dense": {p: mean0(d) for p, d in dense_all.items()},
-                 **_schedule_state_out(zspecs, cfg, agg, b_vec)}
+                 **_schedule_state_out(zspecs, cfg, agg, b_vec,
+                                       row_sharding=row_sharding)}
     return new_state, metrics
-
-
-def _refuse_frontier(zspecs, cfg: FederatedConfig, row_sharding) -> None:
-    if (row_sharding is not None and cfg.downlink_schedule == "frontier"
-            and any(s.shard_count > 1 for s in zspecs.specs.values())):
-        raise ValueError(
-            "downlink_schedule='frontier' needs each tensor's whole flip "
-            "fraction; it is not run on a model axis (ROADMAP, queue 1, "
-            "item 9 Part B)")
 
 
 def _all_sum(x: torch.Tensor, group) -> torch.Tensor:
@@ -732,7 +755,6 @@ def sharded_client_update(zspecs: ZamplingSpecs, state: Dict[str, Any],
     (the same on every rank of the model group), and the state it
     returns holds the slices of the next broadcast.  ``constraints`` as
     ``core.zampling.weights_from_masks``."""
-    _refuse_frontier(zspecs, cfg, row_sharding)
     dev = resolve_device(device)
     st = state_to(zspecs, state, dev)
     batch = {n: as_tensor(v, dev) for n, v in batches.items()}
@@ -762,7 +784,8 @@ def sharded_client_update(zspecs: ZamplingSpecs, state: Dict[str, Any],
         return {"scores": _encode_scores(zspecs, cfg, agg, kw, r, b_vec,
                                          row_sharding),
                 "dense": {p: pmean(d, group) for p, d in dense.items()},
-                **_schedule_state_out(zspecs, cfg, agg, b_vec)}, metrics
+                **_schedule_state_out(zspecs, cfg, agg, b_vec,
+                                      row_sharding=row_sharding)}, metrics
 
     ids = torch.tensor(my_id, dtype=torch.int64, device=dev)
     z_wire, code, arrived, part = _resolve_faults(zspecs, packed, upload,
@@ -795,7 +818,7 @@ def sharded_client_update(zspecs: ZamplingSpecs, state: Dict[str, Any],
         "dense": {p: _keep_if(skip, st["dense"][p], (_all_sum(
             d.to(torch.float32) * w_f, group) * recip).to(d.dtype))
             for p, d in dense.items()},
-        **_schedule_state_out(zspecs, cfg, agg, b_vec, skip)}
+        **_schedule_state_out(zspecs, cfg, agg, b_vec, skip, row_sharding)}
     uplink_units = counters.pop("uplink_units")
     loss_sum = _all_sum(loss.to(torch.float32) * part.to(torch.float32),
                         group)

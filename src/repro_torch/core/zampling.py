@@ -32,12 +32,16 @@ config.shard_align``).  ``row_sharding``, this rank's model
 slice of such a leaf's scores (or wire words, or lanes): coordinates
 ``shard_slice(spec, row_sharding)``, drawn, encoded and dithered at
 their global index.  A sharded leaf is reconstructed as the rank's
-block (``kernels.qz_sharded``, zero collectives) and reaches the model
-through ``comm.shardmap.gather_major``, whose backward hands the block's
-cotangent back: the model is the unsharded one on every rank.
-``constraints`` ({path: placement}, ``launch.sharding``) may name the
-model axis only on a leaf's major axis, the one placement that
-consumer honours; anything else raises.
+block (``kernels.qz_sharded``, zero collectives).  With ``blocks`` (the
+round's local steps) it reaches the model as that block, a
+``comm.shardmap.Block`` in its placement, and the model's partitioned
+consumers take it as it is (``models.common``); without, it is gathered
+whole through ``comm.shardmap.gather_major``, whose backward hands the
+block's cotangent back.  ``constraints`` ({path: placement},
+``launch.sharding``) may name the model axis only on a leaf's major
+axis, the block a rank reconstructs; anything else raises, and a
+sharded leaf whose constraint names no model axis reaches the model
+whole.
 """
 
 from __future__ import annotations
@@ -262,8 +266,8 @@ def check_constraints(zspecs: ZamplingSpecs, constraints) -> None:
                     f"constraint {tuple(placement)} on {path!r}: a "
                     "reconstructed leaf can be split over 'model' on its "
                     f"major axis ({spec.major_axis}) only, with a sharded "
-                    f"spec (shard_count={spec.shard_count}); the port's "
-                    "consumer is the unsharded model")
+                    f"spec (shard_count={spec.shard_count}), the block a "
+                    "model rank reconstructs")
 
 
 # ---------------------------------------------------------------------------
@@ -472,14 +476,17 @@ class MaskProgram:
 
     # -- weights -------------------------------------------------------
     def weights(self, scores, dense, steps, constraints=None,
-                row_sharding=None) -> Dict[str, torch.Tensor]:
+                row_sharding=None, blocks: bool = False
+                ) -> Dict[str, torch.Tensor]:
         """{path: leaf} of one forward pass: a fresh draw at ``steps``
-        (a word for (n,) scores, K words for (K, n) scores)."""
+        (a word for (n,) scores, K words for (K, n) scores); on a model
+        axis with ``blocks``, a sharded leaf as this rank's ``Block``."""
         check_constraints(self.zspecs, constraints)
         if not (self.fused and self.mode == "sample"):
             return weights_from_masks(
                 self.zspecs, self.masks(scores, steps, row_sharding),
-                {"dense": dense}, row_sharding=row_sharding, impl=self.impl)
+                {"dense": dense}, constraints=constraints,
+                row_sharding=row_sharding, impl=self.impl, blocks=blocks)
         from ..kernels import ops  # kernels sit above core
 
         leaves = {}
@@ -489,7 +496,7 @@ class MaskProgram:
                   else ops.sample_reconstruct)
             leaves[path] = _leaf(self.zspecs, path, op(
                 spec, p, steps, impl=self.impl, row_sharding=row_sharding),
-                p.ndim == 2, row_sharding)
+                p.ndim == 2, row_sharding, constraints, blocks)
         leaves.update({path: dense[path] for path in self.zspecs.dense_paths})
         return leaves
 
@@ -547,7 +554,8 @@ class MaskProgram:
             return weights_from_masks(
                 self.zspecs,
                 self.masks_from_wire(wire_scores, steps, row_sharding),
-                {"dense": dense}, row_sharding=row_sharding, impl=self.impl)
+                {"dense": dense}, constraints=constraints,
+                row_sharding=row_sharding, impl=self.impl)
         from ..kernels import ops
 
         leaves = {}
@@ -558,7 +566,7 @@ class MaskProgram:
             leaves[path] = _leaf(self.zspecs, path, op(
                 spec, q, steps, qbits=codec.bits, qpacked=codec.packed,
                 impl=self.impl, row_sharding=row_sharding), q.ndim == 2,
-                row_sharding)
+                row_sharding, constraints)
         leaves.update({path: dense[path] for path in self.zspecs.dense_paths})
         return leaves
 
@@ -571,27 +579,35 @@ def _as_template(zspecs: ZamplingSpecs, path: str, w: torch.Tensor):
 
 
 def _leaf(zspecs: ZamplingSpecs, path: str, w: torch.Tensor, batched: bool,
-          row_sharding) -> torch.Tensor:
+          row_sharding, constraints=None, blocks: bool = False):
     """A reconstructed leaf in its template dtype; on a model axis a
-    sharded leaf's block gathered whole along its major axis."""
+    sharded leaf's block, as a ``Block`` on its major axis with
+    ``blocks`` and a constraint that names the model axis (or none),
+    else gathered whole along it."""
     w = _as_template(zspecs, path, w)
     spec = zspecs.specs[path]
     if row_sharding is None or spec.shard_count == 1:
         return w
-    from ..comm.shardmap import gather_major  # comm sits above core
+    from ..comm.shardmap import Block, gather_major  # comm sits above core
 
-    return gather_major(w, spec.major_axis + int(batched), row_sharding,
-                        front=int(batched))
+    dim, front = spec.major_axis + int(batched), int(batched)
+    placed = constraints is None or path not in constraints or any(
+        e is not None for e in constraints[path])
+    if blocks and placed:
+        return Block(w, dim, row_sharding, path, front)
+    return gather_major(w, dim, row_sharding, front, path)
 
 
 def weights_from_masks(zspecs: ZamplingSpecs, masks, state, *,
                        constraints=None, row_sharding=None,
-                       impl: Optional[str] = None) -> Dict[str, torch.Tensor]:
+                       impl: Optional[str] = None,
+                       blocks: bool = False) -> Dict[str, torch.Tensor]:
     """{path: leaf}: every zampled leaf reconstructed from its mask
     ((n,) on ``ops.reconstruct``, (K, n) on ``ops.reconstruct_batched``;
-    on a model axis a rank's slice, its block gathered), the dense
-    leaves from ``state["dense"]``.  ``constraints``: {path: placement},
-    checked (``check_constraints``)."""
+    on a model axis a rank's slice, its block handed on as a ``Block``
+    with ``blocks``, else gathered), the dense leaves from
+    ``state["dense"]``.  ``constraints``: {path: placement}, checked
+    (``check_constraints``)."""
     from ..kernels import ops  # kernels sit above core
 
     check_constraints(zspecs, constraints)
@@ -601,7 +617,7 @@ def weights_from_masks(zspecs: ZamplingSpecs, masks, state, *,
         op = ops.reconstruct_batched if z.ndim == 2 else ops.reconstruct
         leaves[path] = _leaf(zspecs, path, op(spec, z, impl=impl,
                                               row_sharding=row_sharding),
-                             z.ndim == 2, row_sharding)
+                             z.ndim == 2, row_sharding, constraints, blocks)
     leaves.update({path: state["dense"][path] for path in zspecs.dense_paths})
     return leaves
 

@@ -16,11 +16,20 @@ a device, per (arch, shape, mesh, mode):
    uplink's over the data axes under each transport (``psum_u32``: an
    all-reduce of its lanes' counts; ``allgather_packed``: an all-gather
    of the lanes; ``mean_f32``: an all-reduce of f32 masks), the model
-   axis's all-gathers of each sharded leaf a local step
-   (``comm.shardmap.gather_major``: the whole leaf in its dtype, read
-   from the constraints), the dense leaves' f32 mean, and in mode
-   ``baseline`` dense data-parallel training's f32 gradient all-reduce
-   of each rank's parameter shard;
+   axis's collectives a local step, the dense leaves' f32 mean, and in
+   mode ``baseline`` dense data-parallel training's f32 gradient
+   all-reduce of each rank's parameter shard.  On the model axis the
+   dense decoder's partitioned consumers (``models.common``) make, a
+   layer, the row-parallel products' forward all-reduces and the
+   column-parallel inputs' backward all-reduces (or, where a block
+   splits a head, the gathers of q/k/v and of ``wo``'s input
+   cotangent), the embedding's all-reduce, ``lm_head``'s input
+   cotangent and the vocab-parallel CE's three f32 all-reduces
+   (``model_axis_per_step``: count and bytes a rank hands each, an
+   all-reduce's operand, an all-gather's own block); the leaves they
+   do not take as blocks (norm scales), and every sharded leaf of the
+   other families, are gathered whole (``model_gather_per_step``: the
+   whole leaves' bytes, read from the constraints);
  - JAX's ``zampling`` meta (``m_total``, ``n_total``, ``compression``,
    ``comm_bits``), its skip rules (``ArchConfig.supports_shape``) and
    the ``long_500k`` sliding-window note.
@@ -49,7 +58,9 @@ from ..configs.base import ArchConfig
 from ..configs.registry import ARCHS, SHAPES, InputShape, get_arch, get_shape
 from ..core.zampling import (ZamplingConfig, ZamplingSpecs, build_specs,
                              check_constraints, flatten, state_spec)
-from ..models.model import build_model, param_template
+from ..models.common import CE_CHUNK
+from ..models.model import (_BLOCK_LEAVES, _dense_decoder, build_model,
+                            param_template)
 from . import sharding as shp
 from .input_specs import input_specs
 from .mesh import Mesh, data_axes, data_size, make_production_mesh
@@ -119,9 +130,13 @@ def train_zampling(cfg: ArchConfig, shape: InputShape, mesh: Mesh,
     lanes = sum(packed_len(n) for n in n_rank.values())
     dense = sum(_nbytes(leaf.shape, leaf.torch_dtype)
                 for leaf in tstate["dense"].values())
+    placed = {p: shp.model_axis_of(constraints[p]) for p in zspecs.specs}
+    consumers = (_consumer_collectives(cfg, shape, mesh, zspecs, placed)
+                 if _dense_decoder(cfg) and ms > 1 else {})
     gathers = {p: _nbytes(spec.shape, zspecs.template[p].torch_dtype)
                for p, spec in zspecs.specs.items()
-               if shp.model_axis_of(constraints[p]) is not None}
+               if placed[p] is not None
+               and not (consumers and p.rsplit("/", 1)[-1] in _BLOCK_LEAVES)}
     uplink = {"psum_u32": {"all-reduce": 4 * lanes},
               "allgather_packed": {"all-gather": 4 * lanes * dn},
               "mean_f32": {"all-reduce": 4 * sum(n_rank.values())}}
@@ -135,6 +150,8 @@ def train_zampling(cfg: ArchConfig, shape: InputShape, mesh: Mesh,
             "uplink": uplink,
             "model_gather_per_step": sum(gathers.values()),
             "model_gather": local_steps * sum(gathers.values()),
+            "model_gathered_leaves": sorted(gathers),
+            "model_axis_per_step": consumers,
             "dense_mean": {"all-reduce": f32_dense},
         },
         "sharded_leaves": len(gathers),
@@ -142,6 +159,95 @@ def train_zampling(cfg: ArchConfig, shape: InputShape, mesh: Mesh,
                      "compression": zspecs.compression,
                      "comm_bits": zspecs.comm_bits_per_round()},
     }
+
+
+def _tally(out: dict, name: str, nbytes: int, count: int = 1) -> None:
+    entry = out.setdefault(name, {"count": 0, "bytes": 0})
+    entry["count"] += count
+    entry["bytes"] += nbytes
+
+
+def _consumer_collectives(cfg: ArchConfig, shape: InputShape, mesh: Mesh,
+                          zspecs: ZamplingSpecs, placed) -> Dict[str, Any]:
+    """The dense decoder's model-axis collectives a local step, a rank:
+    {name: {"count", "bytes"}}, as ``models.common``, ``models.attention``
+    and ``models.model`` make them for one client at this shape's
+    per-rank batch, the blocks those ``placed`` ({path: split dim or
+    None}) names on the zampled sharded leaves."""
+    ms = mesh.axis_size("model")
+    dn = data_size(mesh)
+    b = shape.global_batch
+    b = b // dn if b % dn == 0 and b >= dn else b
+    tok = b * shape.seq_len
+    act = torch.empty((), dtype=_dtype(cfg.dtype)).element_size()
+    tmpl = zspecs.template
+    D, L = cfg.d_model, cfg.n_layers
+
+    def kind(path):
+        """'c' (column block), 'r' (row block) or None (whole)."""
+        spec = zspecs.specs.get(path)
+        if spec is None or spec.shard_count == 1 or placed[path] is None:
+            return None
+        nd = len(tmpl[path].shape)
+        return {nd - 1: "c", nd - 2: "r"}.get(placed[path])
+
+    out: Dict[str, Any] = {}
+
+    def project(path, d_in, d_out, shared_input=False):
+        """``models.common.project``'s collectives, ``L`` layers."""
+        k = kind(path)
+        if k == "c":
+            _tally(out, "activation_gather", L * tok * d_out // ms * act, L)
+            if not shared_input:
+                _tally(out, "column_parallel_backward", L * tok * d_in * act,
+                       L)
+        elif k == "r":
+            _tally(out, "row_parallel_forward", L * tok * d_out * act, L)
+            _tally(out, "activation_gather", L * tok * d_in // ms * act, L)
+
+    def column_input(paths, d_in):
+        if any(kind(p) == "c" for p in paths):
+            _tally(out, "column_parallel_backward", L * tok * d_in * act, L)
+
+    hd = cfg.resolved_head_dim
+    h, kv = cfg.n_heads * hd, cfg.n_kv * hd
+    attn = [f"blocks/attn/{w}" for w in ("wq", "wk", "wv", "wo")]
+    column_input(attn[:3], D)
+    if ([kind(p) for p in attn] == ["c", "c", "c", "r"]
+            and cfg.n_kv % ms == 0):
+        _tally(out, "row_parallel_forward", L * tok * D * act, L)
+    else:
+        for p, d_out in zip(attn[:3], (h, kv, kv)):
+            project(p, D, d_out, shared_input=True)
+        project(attn[3], h, D)
+    mlp = [f"blocks/mlp/{w}" for w in ("gate", "up", "down")]
+    column_input(mlp[:2], D)
+    if [kind(p) for p in mlp] == ["c", "c", "r"]:
+        _tally(out, "row_parallel_forward", L * tok * D * act, L)
+    else:
+        for p in mlp[:2]:
+            project(p, D, cfg.d_ff, shared_input=True)
+        project(mlp[2], cfg.d_ff, D)
+    if not cfg.embed_stub:
+        if kind("embed") == "r":
+            _tally(out, "embedding", tok * D * act)
+        elif kind("embed") == "c":
+            _tally(out, "embedding", tok * D // ms * act)
+    V = cfg.padded_vocab
+    if kind("lm_head") == "c":
+        _tally(out, "column_parallel_backward", tok * D * act)
+        t = b * (shape.seq_len - 1)  # CE tokens a client, chunk-padded
+        t = -(-t // CE_CHUNK) * CE_CHUNK if t > CE_CHUNK else t
+        _tally(out, "cross_entropy", 3 * 4 * t, 3)
+    elif kind("lm_head") == "r":
+        _tally(out, "row_parallel_forward", tok * V * act)
+        _tally(out, "activation_gather", tok * D // ms * act)
+    for p, spec in zspecs.specs.items():  # the leaves gathered whole
+        if (spec.shard_count > 1 and placed[p] is not None
+                and p.rsplit("/", 1)[-1] not in _BLOCK_LEAVES):
+            _tally(out, "small_leaf_gather",
+                   _nbytes(tmpl[p].shape, tmpl[p].torch_dtype) // ms)
+    return out
 
 
 def _param_bytes(cfg: ArchConfig, mesh: Mesh) -> int:

@@ -17,6 +17,16 @@ lane's values equal the single-request path's.
 ``decode_self_attention`` is one token of one model (no client axis),
 as the JAX package's; ``encode_kv`` and ``cross_attention`` take the K
 axis as ``self_attention`` does.
+
+On a model axis (``comm.shardmap.Block`` leaves, ``models.common``)
+``self_attention`` runs head-parallel where the blocks hold whole
+heads: ``wq``/``wk``/``wv`` column blocks and ``wo`` a row block on one
+axis whose size divides ``n_kv``, each rank its ``n_heads / ms`` query
+heads beside their ``n_kv / ms`` KV heads, ``wo``'s partial products
+summed.  Where a block splits a head, the rank's projections are
+gathered into whole q/k/v (the activation, never the weight), attention
+runs replicated, and ``wo`` takes its block of the output.  The bias
+blocks add to the projection blocks; the qk-norm scales come whole.
 """
 
 from __future__ import annotations
@@ -24,9 +34,14 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
+import dataclasses
+
 import torch
 
-from .common import linear, rms_norm, rope
+from ..comm.shardmap import (Block, gather_from_model, reduce_from_model,
+                             scatter_to_model, whole)
+from .common import (lined_up, linear, model_input, project, rms_norm,
+                     rope)
 
 NEG_INF = -1e30
 FLASH_THRESHOLD = 4096  # the JAX package's blockwise attention from here
@@ -93,35 +108,81 @@ def _sdpa_rows(q, k, v, mask, n_rep: int):
     return out.reshape(B, Sq, H, hd)
 
 
-def self_attention(params, x, dims: AttnDims, positions):
-    """Full-sequence self-attention of K clients: ``x`` (K, B, S, D),
-    every leaf of ``params`` with a leading K axis, ``positions`` (B, S);
-    returns (K, B, S, D).  From ``FLASH_THRESHOLD`` tokens on, the
-    blockwise form, which assumes positions == arange, as in JAX."""
-    K, B, S, _ = x.shape
-    q, k, v = (linear(x, params[w]).reshape(K * B, S, -1)
-               for w in ("wq", "wk", "wv"))
-    # the K*B rows, each beside its client's bias and norm scales
-    rows = {name: params[name].repeat_interleave(B, 0)[:, None]
-            for name in ("bq", "bk", "bv") if name in params}
-    rows.update({name: params[name].repeat_interleave(B, 0)[:, None, None]
-                 for name in ("q_norm", "k_norm") if name in params})
+def _attend(rows, q, k, v, dims: AttnDims, positions, K: int):
+    """Attention of the K*B rows' raw (K*B, S, ·) q/k/v: ``finish_qkv``,
+    then the plain form or, from ``FLASH_THRESHOLD`` tokens on, the
+    blockwise one; (K*B, S, H*hd) before ``wo``."""
+    S = q.shape[1]
     pos = positions.repeat(K, 1)
     q, k, v = finish_qkv(rows, q, k, v, dims, pos)
     if S >= FLASH_THRESHOLD:
         from .flash import blockwise_attention
 
-        out = blockwise_attention(q, k, v, causal=dims.causal,
-                                  window=dims.window)
-        return linear(out.reshape(K, B, S, -1), params["wo"])
+        return blockwise_attention(q, k, v, causal=dims.causal,
+                                   window=dims.window).reshape(q.shape[0],
+                                                               S, -1)
     qi, ki = pos[:, None, :, None], pos[:, None, None, :]
-    mask = torch.zeros((K * B, 1, S, S), dtype=torch.float32, device=x.device)
+    mask = torch.zeros((q.shape[0], 1, S, S), dtype=torch.float32,
+                       device=q.device)
     if dims.causal:
         mask = torch.where(ki > qi, NEG_INF, mask)
     if dims.window is not None:
         mask = torch.where(ki <= qi - dims.window, NEG_INF, mask)
     out = _sdpa_rows(q, k, v, mask, dims.n_heads // dims.n_kv)
-    return linear(out.reshape(K, B, S, -1), params["wo"])
+    return out.reshape(q.shape[0], S, -1)
+
+
+def _bias_block(b, w: Block):
+    """A bias for ``w``'s output block: its own block, or this rank's
+    block of a replicated bias."""
+    if isinstance(b, Block):
+        return b.t
+    return scatter_to_model(b, -1, w.axis)
+
+
+def _client_rows(b: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """A (K, out) bias beside a (K, B, S, out) activation."""
+    return b.reshape(b.shape[0], *([1] * (y.ndim - 2)), b.shape[-1])
+
+
+def self_attention(params, x, dims: AttnDims, positions):
+    """Full-sequence self-attention of K clients: ``x`` (K, B, S, D),
+    every leaf of ``params`` with a leading K axis, ``positions`` (B, S);
+    returns (K, B, S, D).  From ``FLASH_THRESHOLD`` tokens on, the
+    blockwise form, which assumes positions == arange, as in JAX.  On a
+    model axis, head-parallel or on gathered projections (the module's
+    note)."""
+    K, B, S, _ = x.shape
+    names = ("wq", "wk", "wv")
+    xin = model_input(x, [params[w] for w in names])
+    axis = lined_up(*(params[w] for w in names + ("wo",)), pattern="cccr")
+    heads = axis is not None and dims.n_kv % axis.size == 0
+    qkv = []
+    for w, b in zip(names, ("bq", "bk", "bv")):
+        wt = params[w]
+        bias = params[b] if dims.qkv_bias else None
+        if isinstance(wt, Block) and wt.cols:
+            y = linear(xin, wt.t)
+            if bias is not None:  # the bias's block beside the output's
+                y = y + _client_rows(_bias_block(bias, wt), y)
+            if not heads:
+                y = gather_from_model(y, -1, wt.axis)
+        else:
+            y = project(x, wt)
+            if bias is not None:  # each client's bias beside its rows
+                y = y + _client_rows(whole(bias), y)
+        qkv.append(y.reshape(K * B, S, -1))
+    local = dataclasses.replace(dims, qkv_bias=False)
+    if heads:
+        local = dataclasses.replace(local, n_heads=dims.n_heads // axis.size,
+                                    n_kv=dims.n_kv // axis.size)
+    # the K*B rows, each beside its client's norm scales
+    rows = {n: whole(params[n]).repeat_interleave(B, 0)[:, None, None]
+            for n in ("q_norm", "k_norm") if n in params}
+    out = _attend(rows, *qkv, local, positions, K).reshape(K, B, S, -1)
+    if heads:
+        return reduce_from_model(linear(out, params["wo"].t), axis)
+    return project(out, params["wo"])
 
 
 def init_cache(batch: int, seq_len: int, dims: AttnDims, dtype,

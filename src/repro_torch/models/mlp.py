@@ -9,6 +9,13 @@ with inputs ``(K, B, in)``, runs the K clients' networks as
 ``vmap``.  Initial parameters come from numpy (``init_mlp_params``; the
 JAX package's ``dense_init`` draws from ``jax.random``, which has no
 torch twin).
+
+On a model axis a sharded kernel arrives as this rank's
+``comm.shardmap.Block`` and ``models.common.project`` consumes it: a
+column block's output columns are gathered (the next layer reads the
+whole row), a row block takes its rows of the input and the partial
+products meet in one all-reduce; the bias, a dense leaf, adds to the
+whole output.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core.zampling import LeafSpec
+from .common import project
 
 SMALL_DIMS = (784, 20, 20, 10)
 MNISTFC_DIMS = (784, 300, 100, 10)
@@ -56,10 +64,7 @@ def mlp_forward(params: Dict[str, torch.Tensor], x: torch.Tensor):
     n = sum(1 for k in params if k.endswith("/kernel"))
     for i in range(n):
         w, b = params[f"layer{i}/kernel"], params[f"layer{i}/bias"]
-        if w.ndim == 3:
-            x = torch.bmm(x, w) + b[:, None, :]
-        else:
-            x = x @ w + b
+        x = project(x, w) + (b[:, None, :] if b.ndim == 2 else b)
         if i < n - 1:
             x = torch.relu(x)
     return x

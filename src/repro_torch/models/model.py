@@ -30,6 +30,19 @@ activations would crowd the card at full width) each run under
 changes memory, not values.  Initial parameters come from numpy
 (``init_params`` draws from ``jax.random``, which has no torch twin).
 
+On a model axis the round hands each sharded leaf over as this rank's
+``comm.shardmap.Block``.  The dense decoder (``dense`` and ``vlm``
+families) consumes its matrices as blocks (``models.common``,
+``models.attention``): ``embed``'s vocabulary rows look up the tokens
+they hold and the rows meet in one all-reduce (a masked sum, which
+turns an embedding value of -0 into +0), ``lm_head``'s vocabulary
+columns feed the vocab-parallel CE (``loss_fn``; ``forward`` gathers
+the logits), the attention and MLP projections are column or row
+parallel.  Its other blocks (norm scales) are gathered whole before
+the layers unbind, one gather a leaf; the families without partitioned
+consumers (``moe``, ``ssm``, ``hybrid``, ``encdec``) gather every block
+whole.
+
 Decoding (``Model.init_cache``, ``Model.decode_step``) runs one model
 over a flat {path: leaf} dict without the client axis, the caches those
 of the JAX package.  The dense decoder decodes in float32 through
@@ -47,12 +60,14 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..comm.shardmap import (Block, copy_to_model, gather_from_model,
+                             reduce_from_model, scatter_to_model)
 from ..configs.base import ArchConfig
 from ..core.zampling import LeafSpec, flatten
 from . import attention as attn
 from .attention import (AttnDims, KVCache, cross_attention,
                         decode_self_attention, encode_kv, self_attention)
-from .common import cross_entropy, linear, rms_norm, swiglu
+from .common import cross_entropy, linear, project, rms_norm, swiglu
 from .moe import moe_block
 from .ssm import (SSMCache, SSMDims, init_ssm_cache, ssm_block,
                   ssm_decode_step, ssm_dims, ssm_param_shapes)
@@ -406,12 +421,67 @@ def _layer(stacks: dict, layer: int) -> dict:
     return {p: v[layer] for p, v in stacks.items()}
 
 
-def _embed(emb: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+# the dense decoder's leaves its consumers take as blocks
+_BLOCK_LEAVES = frozenset(("embed", "lm_head", "wq", "wk", "wv", "wo", "bq",
+                           "bk", "bv", "gate", "up", "down"))
+
+
+def client_axis(tree: dict) -> dict:
+    """Leaves of one model (tensors or ``Block``s) as K=1 clients."""
+    return {p: v.lead() if isinstance(v, Block) else v[None]
+            for p, v in tree.items()}
+
+
+def _placed(cfg: ArchConfig, params: dict) -> dict:
+    """``params`` as the family's consumers take them: the dense
+    decoder's block leaves as they are, every other ``Block`` whole; a
+    replicated q/k/v bias beside a column block of its weight becomes
+    this rank's block of it here, before the layers unbind, so its
+    cotangent's blocks are joined once a step, not once a layer."""
+    keep = _BLOCK_LEAVES if _dense_decoder(cfg) else frozenset()
+    out = {p: v if not isinstance(v, Block) or p.rsplit("/", 1)[-1] in keep
+           else v.whole() for p, v in params.items()}
+    for b, w in (("bq", "wq"), ("bk", "wk"), ("bv", "wv")):
+        bias, wt = out.get(f"blocks/attn/{b}"), out.get(f"blocks/attn/{w}")
+        if (keep and torch.is_tensor(bias) and isinstance(wt, Block)
+                and wt.cols):
+            out[f"blocks/attn/{b}"] = Block(
+                scatter_to_model(bias, -1, wt.axis), bias.ndim - 1, wt.axis,
+                f"blocks/attn/{b}", wt.front)
+    return out
+
+
+def _embed(emb, tokens: torch.Tensor) -> torch.Tensor:
     """K clients' lookups: emb (K, V, D), tokens (K, B, S) -> (K, B, S,
-    D)."""
+    D).  A block of vocabulary rows looks up the tokens it holds (the
+    others give +0) and the model axis sums the lookups; a block of
+    columns looks up its columns, gathered."""
     K = tokens.shape[0]
-    return torch.stack([torch.index_select(emb[k], 0, tokens[k].reshape(-1))
-                        for k in range(K)]).reshape(*tokens.shape, -1)
+    if not isinstance(emb, Block):
+        return torch.stack([torch.index_select(emb[k], 0,
+                                               tokens[k].reshape(-1))
+                            for k in range(K)]).reshape(*tokens.shape, -1)
+    if emb.cols:
+        return gather_from_model(_embed(emb.t, tokens), -1, emb.axis)
+    vb = emb.t.shape[1]
+    parts = []
+    for k in range(K):
+        idx = tokens[k].reshape(-1) - emb.axis.index * vb
+        held = (idx >= 0) & (idx < vb)
+        rows = torch.index_select(emb.t[k], 0, idx.clamp(0, vb - 1))
+        parts.append(torch.where(held[:, None], rows,
+                                 torch.zeros((), dtype=rows.dtype,
+                                             device=rows.device)))
+    return reduce_from_model(torch.stack(parts),
+                             emb.axis).reshape(*tokens.shape, -1)
+
+
+def _head(x: torch.Tensor, w):
+    """(logits, vocab AxisGroup or None): a column block of ``lm_head``
+    gives this rank's vocabulary columns."""
+    if isinstance(w, Block) and w.cols:
+        return linear(copy_to_model(x, w.axis), w.t), w.axis
+    return project(x, w), None
 
 
 def _norm(x, scale):
@@ -466,13 +536,27 @@ def forward_with_aux(cfg: ArchConfig, params: Dict[str, torch.Tensor], batch,
     models.  ``batch``: {"tokens": (K, B, S)} (a tensor is taken for
     the tokens), with ``embeds`` (K, B, S, D) for a VLM's stubbed
     embeddings and ``enc_embeds`` (K, B, Se, D) for the enc-dec
-    encoder."""
+    encoder.  On a model axis every rank gets the whole logits."""
+    logits, aux, axis = _forward(cfg, params, batch,
+                                 window_override=window_override)
+    if axis is not None:
+        logits = gather_from_model(logits, -1, axis)
+    return logits, aux
+
+
+def _forward(cfg: ArchConfig, params, batch, *, window_override=None):
+    """``forward_with_aux``'s (logits, aux, vocab AxisGroup): on a model
+    axis with a column block of ``lm_head``, the logits are this rank's
+    vocabulary columns of that group."""
     if torch.is_tensor(batch):
         batch = {"tokens": batch}
+    params = _placed(cfg, params)
     fam = family(cfg)
     dims = attn_dims(cfg, window_override)
-    K = params["lm_head"].shape[0]
-    dev = params["lm_head"].device
+    head = params["lm_head"]
+    lm = head.t if isinstance(head, Block) else head
+    K = lm.shape[0]
+    dev = lm.device
     aux = torch.zeros((K,), dtype=torch.float32, device=dev)
     tokens = batch.get("tokens")
     if tokens is not None:
@@ -521,7 +605,8 @@ def forward_with_aux(cfg: ArchConfig, params: Dict[str, torch.Tensor], batch,
             x = x + swiglu(_norm(x, bp["ln2"]), bp["mlp/gate"], bp["mlp/up"],
                            bp["mlp/down"])
     x = _norm(x, params["final_norm"])
-    return linear(x, params["lm_head"]), {"aux_loss": aux}
+    logits, axis = _head(x, params["lm_head"])
+    return logits, {"aux_loss": aux}, axis
 
 
 def forward(cfg: ArchConfig, params: Dict[str, torch.Tensor], batch, *,
@@ -537,12 +622,15 @@ def loss_fn(cfg: ArchConfig, params: Dict[str, torch.Tensor],
             window_override=None) -> torch.Tensor:
     """(K,) next-token cross-entropy (logits at positions [0, S-1)
     against labels at [1, S), vocabulary padding masked out) plus each
-    client's MoE aux loss."""
-    logits, aux = forward_with_aux(cfg, params, batch,
-                                   window_override=window_override)
+    client's MoE aux loss; on a model axis with a column block of
+    ``lm_head``, the vocab-parallel CE of the rank's vocabulary
+    columns."""
+    logits, aux, axis = _forward(cfg, params, batch,
+                                 window_override=window_override)
     labels = batch["labels"].to(torch.int64)
     return cross_entropy(logits[:, :, :-1], labels[:, :, 1:],
-                         num_classes=cfg.vocab, lead=1) + aux["aux_loss"]
+                         num_classes=cfg.vocab, lead=1,
+                         vocab_axis=axis) + aux["aux_loss"]
 
 
 # ---------------------------------------------------------------------------

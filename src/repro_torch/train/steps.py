@@ -26,7 +26,7 @@ from typing import Any, NamedTuple
 import torch
 
 from ..core.zampling import MaskProgram, ZamplingSpecs
-from ..models.model import Model
+from ..models.model import Model, client_axis
 from ..optim import Optimizer, apply_updates
 
 
@@ -51,7 +51,7 @@ def init_train_state(trainable, optimizer: Optimizer) -> TrainState:
 
 def _one_model_loss(model: Model, params, batch) -> torch.Tensor:
     """The model's loss on one model's params and a (B, S) batch."""
-    return model.loss({p: v[None] for p, v in params.items()},
+    return model.loss(client_axis(params),
                       {n: v[None] for n, v in batch.items()})[0]
 
 

@@ -13,6 +13,13 @@ on f32 probabilities, u8/u16 words and packed lanes (b in {2, 4}) and on
 explicit operands, at K in {1, 3, 33}; the plan walk (both orders) and
 the scatter at K in {1, 4}; the upload pack at K in {1, 3}.  Each launch
 counts once in its wrapper's counter.
+
+The partitioned consumers on the card: the reduced qwen2-0.5b (f32) on a
+model group of 2 (whole heads a rank) and of 4 (KV heads split
+mid-head), gloo ranks on one card, its loss within ``LOSS_RTOL`` and
+every leaf's cotangent block within ``GRAD_RTOL`` of the leaf's largest
+unsharded cotangent, as ``tests/test_torch_model_axis.py`` holds them on
+the CPU; no matrix leaf gathered whole.
 """
 
 import numpy as np
@@ -20,10 +27,18 @@ import pytest
 import torch
 
 from repro_torch.comm.downlink import get_codec
+from repro_torch.comm.shardmap import run_ranks
 from repro_torch.core.qspec import make_qspec
 from repro_torch.kernels import ops, qz_reconstruct as qr, qz_sharded as qs
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models.common import matrix_gathers
+
+import _torch_model_axis_ranks as ranks_mod
 
 pytestmark = pytest.mark.gpu
+
+LOSS_RTOL = 1e-5  # partitioned sums against whole ones, f32
+GRAD_RTOL = 1e-5  # of a leaf's largest cotangent
 
 # (shape, major axis, shard count, compression, d, window): blocks with
 # padding rows (m_blk < m_pad_loc) and without, every major axis
@@ -187,3 +202,18 @@ def test_upload_pack_on_each_shard(cuda, case, K):
         lanes = n_loc // 32
         assert torch.equal(got, whole[:, sid * lanes:(sid + 1) * lanes])
         assert torch.equal(got, ops.sample_pack_plain(spec, p, steps, win))
+
+
+@pytest.mark.parametrize("ms", [2, 4])
+def test_partitioned_consumers_on_the_card(cuda, tmp_path, ms):
+    out = run_ranks(ranks_mod.gpu_lm_blocks, ms, (ms,),
+                    mesh=Mesh(("data", "model"), (1, ms)), timeout=300,
+                    tmpdir=str(tmp_path))
+    for res in out:
+        np.testing.assert_allclose(res["loss"][1], res["loss"][0],
+                                   rtol=LOSS_RTOL)
+        for p, (want, got) in res["grads"].items():
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=GRAD_RTOL * np.abs(want).max())
+        assert matrix_gathers(res["counts"][1]) == 0
+        assert res["counts"][0]["all_reduce"] == 2 * 4 + 1 + 3 + 1

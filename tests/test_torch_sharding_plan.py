@@ -203,6 +203,41 @@ def test_the_shims_are_their_targets():
         assert getattr(ref, name) is getattr(trec, name)
 
 
+BLOCKS = ("embed", "lm_head", "wq", "wk", "wv", "wo", "bq", "bk", "bv",
+          "gate", "up", "down")  # the dense decoder's block leaves
+
+
+@pytest.mark.parametrize("mesh_shape", [(16, 16), (1, 2)])
+def test_dry_run_counts_the_partitioned_consumers(mesh_shape):
+    """qwen2-0.5b's model-axis collectives a local step at train_4k, by
+    hand: heads split at 16 model ranks (q/k/v and wo's input cotangent
+    gathered), whole at 2 (head-parallel); no leaf gathered whole."""
+    cfg = get_arch("qwen2-0.5b")
+    mesh = tmesh.Mesh(("data", "model"), mesh_shape)
+    res = dryrun.train_zampling(cfg, get_shape("train_4k"), mesh)
+    coll = res["collective_bytes_per_rank"]
+    assert coll["model_gathered_leaves"] == []
+    assert coll["model_gather_per_step"] == 0
+    ms = mesh_shape[1]
+    tok = 256 // mesh_shape[0] * 4096  # a data rank's tokens
+    act, L, D = 2, 24, 896  # bf16 activations
+    want = {"row_parallel_forward": {"count": 2 * L,
+                                     "bytes": 2 * L * tok * D * act},
+            "column_parallel_backward": {"count": 2 * L + 1,
+                                         "bytes": (2 * L + 1) * tok * D
+                                         * act},
+            "embedding": {"count": 1, "bytes": tok * D * act},
+            # 3 f32 values a token, the tokens padded to whole CE chunks
+            "cross_entropy": {"count": 3, "bytes": 3 * 4 * -(-(
+                tok - tok // 4096) // 8192) * 8192}}
+    if ms == 16:
+        q, kv = 14 * 64, 2 * 64
+        want["activation_gather"] = {
+            "count": 4 * L,
+            "bytes": L * tok * (q + kv + kv + q) // ms * act}
+    assert coll["model_axis_per_step"] == want
+
+
 @pytest.mark.parametrize("multi_pod", [False, True])
 def test_dry_run_of_every_arch_and_shape(multi_pod, tmp_path):
     """Every (arch, shape) on the production mesh: the skips and the SWA
@@ -246,9 +281,27 @@ def test_dry_run_of_every_arch_and_shape(multi_pod, tmp_path):
             assert coll["uplink"]["allgather_packed"]["all-gather"] == \
                 dn * coll["uplink"]["psum_u32"]["all-reduce"]
             leaves = dict(jz._flatten(jzs.template))
+            tc = get_arch(arch)
+            covered = tc.family in ("dense", "vlm") and tc.moe is None
+            whole = [p for p, s in jzs.specs.items() if s.shard_count > 1
+                     and not (covered and p.rsplit("/", 1)[-1] in BLOCKS)]
+            assert coll["model_gathered_leaves"] == sorted(whole)
             assert coll["model_gather"] == sum(
-                int(np.prod(s.shape)) * leaves[p].dtype.itemsize
-                for p, s in jzs.specs.items() if s.shard_count > 1)
+                int(np.prod(jzs.specs[p].shape)) * leaves[p].dtype.itemsize
+                for p in whole)
+            per = coll["model_axis_per_step"]
+            if not covered:
+                assert per == {}
+                continue
+            # every dense decoder's heads split at 16 model ranks: q/k/v
+            # and wo's input cotangent gathered a layer
+            assert tc.n_kv % 16
+            L = tc.n_layers
+            assert per["row_parallel_forward"]["count"] == 2 * L
+            assert per["column_parallel_backward"]["count"] == 2 * L + 1
+            assert per["activation_gather"]["count"] == 4 * L
+            assert per["cross_entropy"]["count"] == 3
+            assert ("embedding" in per) is not tc.embed_stub
     baseline = dryrun.dryrun_one("qwen2-0.5b", "train_4k",
                                  multi_pod=multi_pod, mode="baseline")
     assert baseline["collective_bytes_per_rank"]["grad_all_reduce"][
