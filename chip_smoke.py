@@ -236,7 +236,23 @@ Phases, one printed line or more each:
    round, against 2 data-axis-only ranks, and (d) on AXIS_GRID_D ranks
    (its 2 KV heads split mid-head), one local step, against one rank:
    round 0's loss within AXIS_LM_LOSS_RTOL, its u8 words within
-   AXIS_FLIP_SHARE.
+   AXIS_FLIP_SHARE.  The other families' partitioned consumers (the
+   MoE's experts on E, the SSD on each rank's heads, the enc-dec's
+   cross attention) at the same flags: (e) full-width mamba2-1.3b (48
+   layers, 16 of 64 SSD heads a rank) and (f) full-width olmoe-1b-7b
+   (AXIS_OLMOE_LAYERS of 16 layers, 16 of 64 experts a rank) on
+   AXIS_GRID_D ranks, one local step each, against one rank; (g)
+   zamba2-7b and seamless-m4t-medium at reduced() (bf16) on
+   AXIS_GRID_C ranks, one round each, against 2 data-axis-only ranks;
+   the same bounds, and each grid rank's peak below the data-axis
+   rank's.  In (c)-(g) the words' bound holds for each leaf too; the
+   first local step's gradients of every leaf's scores and of every
+   dense leaf differ from the data axis's by at most AXIS_GRAD_RTOL of
+   the leaf's gradient (norms: a cotangent not summed over the model
+   group misses by (ms - 1) / ms of it, while a token routed to another
+   expert near a tie moves a few elements), and the dense leaves after
+   the round by at most AXIS_GRAD_RTOL of the leaf's largest value.
+   (c)-(g) run in one spawn of 4 ranks.
 
 Usage, from the repo root on a machine with a CUDA GPU:
     python3 chip_smoke.py
@@ -353,8 +369,21 @@ AXIS_LM = dict(local_steps=2, batch=4, seq=128, lr=0.05)  # (c): the LM flags
 # trajectories, and a words share beside the yardstick's
 AXIS_MLP_LOSS_RTOL = SHARDED_LOSS_RTOL
 AXIS_MLP_FLIP_SHARE = 1e-2
-AXIS_LM_LOSS_RTOL = 1e-2  # (c), (d): bf16
-AXIS_FLIP_SHARE = 1e-3  # (c), (d): u8 words differing, of n_total
+AXIS_LM_LOSS_RTOL = 1e-2  # (c)-(g): bf16
+AXIS_FLIP_SHARE = 1e-3  # (c)-(g): u8 words differing, of n_total and
+# of each leaf's
+# (c)-(g): the first step's gradients' difference, of the leaf's
+# gradient (norms), and the dense leaves' after the round, of the leaf's
+# largest value. A cotangent left unsummed over a model group of ms
+# ranks loses (ms - 1) / ms of it; bf16 rounding reads 1e-2 to 4e-2,
+# and up to 0.1 at olmoe-1b-7b's expert stacks, where a token near a
+# tie takes another expert on the grid than on the data axis
+AXIS_GRAD_RTOL = 0.25
+AXIS_FAMILIES = ("mamba2-1.3b", "olmoe-1b-7b")  # (e), (f): full width
+# (f): olmoe-1b-7b's layers: at all 16 its expert stacks hold 2^31
+# weights a leaf, and the training kernels take fewer (MAX_ROWS)
+AXIS_OLMOE_LAYERS = 15
+AXIS_REDUCED = ("zamba2-7b", "seamless-m4t-medium")  # (g): reduced(), bf16
 PAPER_STEPS = 100  # phase 22: local steps of a training experiment's cell
 PAPER_ROUNDS = 3  # phase 22: rounds of a federated experiment's cell
 LOCAL_BATCH = 128
@@ -4562,16 +4591,18 @@ def axis_rank_b(a: dict, axes) -> dict:
 
 
 def _axis_lm_round(a: dict, grid, steps: int, data, model,
-                   barrier_group) -> dict:
-    """One round of full-width qwen2-0.5b at the LM flags (``steps``
-    local steps) under REPRO_BWD_PLAN=scatter, on the client of ``data``'s
-    index, its sharded leaves (placed for the mesh ``grid``) split over
-    ``model`` through the partitioned consumers (or whole, for None);
-    the ranks of ``barrier_group`` (None: every rank) run it together.
+                   barrier_group, cfg=None) -> dict:
+    """One round of ``cfg`` (full-width qwen2-0.5b by default) at the LM
+    flags (``steps`` local steps) under REPRO_BWD_PLAN=scatter, on the
+    client of ``data``'s index, its sharded leaves (placed for the mesh
+    ``grid``) split over ``model`` through the partitioned consumers (or
+    whole, for None); the ranks of ``barrier_group`` (None: every rank)
+    run it together.  The scores are drawn on the device from SEED.
     Returns this rank's slice of the new u8 words (every model slice of
-    the grid's, when whole), the dense leaves, the loss, the round's
-    seconds, the peak device memory, the launches and the model axis's
-    collectives and whole-leaf gathers."""
+    the grid's, when whole; host tensors, for ``_axis_compare``), the dense
+    leaves, the loss, the round's seconds, the peak device memory, the
+    launches, the zampled leaves' count and the model axis's collectives
+    and whole-leaf gathers."""
     import numpy as np
     import torch
 
@@ -4580,31 +4611,37 @@ def _axis_lm_round(a: dict, grid, steps: int, data, model,
     from repro_torch.configs import get_arch
     from repro_torch.core.federated import (FederatedConfig,
                                             sharded_client_update)
-    from repro_torch.core.zampling import ZamplingConfig, build_specs, init_state
+    from repro_torch.core.zampling import ZamplingConfig, build_specs, state_to
     from repro_torch.data import lm_token_batches
     from repro_torch.kernels import qz_decode
     from repro_torch.kernels import qz_reconstruct as qr
+    from repro_torch.configs import InputShape
+    from repro_torch.launch.input_specs import make_batch
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models.model import (client_axis, init_dense, loss_fn,
                                           param_template)
 
+    t0 = time.perf_counter()
     dev = torch.device(a["device"])
     cuda = a["device"] == "cuda"
     d = data.index
     m = model.index if model is not None else 0
     grid_ms = grid[1]
-    cfg = a.get("cfg") or get_arch("qwen2-0.5b")
+    cfg = cfg or a.get("cfg") or get_arch("qwen2-0.5b")
     zs = build_specs(param_template(cfg), ZamplingConfig(
         **AXIS_ZAMPLING, shard_align=grid_ms),
         shard_plan_fn=_axis_plan(Mesh(("data", "model"), grid)))
-    rng = np.random.RandomState(0)
-    scores = {p: rng.rand(s.n).astype(np.float32)
-              for p, s in zs.specs.items()}
-    st = init_state(zs, scores, init_dense(cfg, zs.dense_paths, 0),
-                    device=dev)
+    gen = torch.Generator(device=dev)
+    scores = {}
+    for i, (p, s) in enumerate(zs.specs.items()):
+        gen.manual_seed(SEED + i)
+        scores[p] = torch.rand(s.n, generator=gen, device=dev)
+    st = state_to(zs, {"scores": scores,
+                       "dense": init_dense(cfg, zs.dense_paths, 0)}, dev)
     del scores
-    if model is not None:
+    if model is not None:  # the slices alone, as a rank holds them
         st = convert.to_model_rank(zs, st, m, model.size)
+        st["scores"] = {p: v.clone() for p, v in st["scores"].items()}
     k = grid[0]
     lm = AXIS_LM
     toks = next(lm_token_batches(cfg.vocab, k * steps * lm["batch"],
@@ -4612,6 +4649,12 @@ def _axis_lm_round(a: dict, grid, steps: int, data, model,
     toks = torch.as_tensor(np.asarray(toks)).reshape(
         k, steps, lm["batch"], lm["seq"] + 1)[d].to(dev)
     batch = {"tokens": toks[..., :-1], "labels": toks[..., :-1]}
+    if cfg.family in ("encdec", "audio"):  # the encoder's stubbed frames
+        enc = make_batch(cfg, InputShape("axis", lm["seq"], k * steps
+                                         * lm["batch"], "train"), seed=0,
+                         device=dev)["enc_embeds"]
+        batch["enc_embeds"] = enc.reshape(k, steps, lm["batch"],
+                                          *enc.shape[1:])[d]
     fcfg = FederatedConfig(num_clients=k, local_steps=steps,
                            local_lr=lm["lr"])
     if cuda:
@@ -4622,6 +4665,7 @@ def _axis_lm_round(a: dict, grid, steps: int, data, model,
     qz_decode.reset_launches()
     shardmap.reset_counts()
     t = time.perf_counter()
+    setup_s = t - t0
 
     def one_client_loss(params, b):  # the LM loss takes a client axis
         return loss_fn(cfg, client_axis(params),
@@ -4634,31 +4678,138 @@ def _axis_lm_round(a: dict, grid, steps: int, data, model,
         torch.cuda.synchronize()
     round_s = time.perf_counter() - t
     peak = torch.cuda.max_memory_allocated() if cuda else 0
-    slices = ([(m, new)] if model is not None else
-              [(sid, convert.to_model_rank(zs, new, sid, grid_ms))
-               for sid in range(grid_ms)])
+    def mine(tree):  # this rank's slices, or every model slice's
+        if model is not None:
+            return {m: tree["scores"]}
+        return {sid: convert.to_model_rank(zs, tree, sid, grid_ms)["scores"]
+                for sid in range(grid_ms)}
+
     out = {"data": d, "model": m, "round_s": round_s, "peak": peak,
-           "loss": float(met["loss"]),
+           "loss": float(met["loss"]), "leaves": len(zs.specs),
            "launches": {**qr.LAUNCHES, **qz_decode.LAUNCHES},
            "counts": dict(shardmap.COUNTS),
            "gathered": dict(shardmap.GATHERED),
-           "scores": {sid: {p: v.cpu().numpy()
-                            for p, v in sl["scores"].items()}
-                      for sid, sl in slices},
+           "scores": {sid: {p: v.cpu() for p, v in sl.items()}
+                      for sid, sl in mine(new).items()},
            "dense": {p: v.float().cpu().numpy()
                      for p, v in new["dense"].items()}}
-    del st, new, slices
+    del new
+    out["pack_s"] = time.perf_counter() - t - round_s
+    grads = _axis_grads(cfg, zs, fcfg, st, batch, a["word"], model)
+    out["grads"], out["dense_grads"] = mine(grads), grads["dense"]
+    del st, grads
     if cuda:
         torch.cuda.empty_cache()
+    out["setup_s"] = setup_s
     return out
 
 
+def _axis_grads(cfg, zs, fcfg, st, batch, word: int, model) -> dict:
+    """The gradients of the round's first local step from the round's
+    state ``st`` (one client's ``batch``, a fresh draw at ``word``):
+    each zampled leaf's score gradient (this rank's slice) and each
+    dense leaf's, host f32 tensors; through the partitioned consumers
+    on the model group ``model``, or whole leaves for None."""
+    import torch
+
+    from repro_torch.core.federated import mask_program
+    from repro_torch.models.model import client_axis, loss_fn
+
+    program = mask_program(zs, fcfg)
+    leaves = {p: v.detach().clone().requires_grad_(True) for p, v in {
+        **program.decode_scores(st["scores"], model),
+        **st["dense"]}.items()}
+    params = program.weights({p: leaves[p] for p in zs.specs},
+                             {p: leaves[p] for p in zs.dense_paths}, word,
+                             None, model, blocks=True)
+    loss = loss_fn(cfg, client_axis(params),
+                   {n: v[:1] for n, v in batch.items()})[0]
+    got = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    g = {p: (torch.zeros_like(leaves[p]) if v is None else v).float().cpu()
+         for p, v in zip(leaves, got)}
+    return {"scores": {p: g[p] for p in zs.specs},
+            "dense": {p: g[p] for p in zs.dense_paths}}
+
+
+def _norm(t) -> float:
+    """A tensor's Euclidean norm."""
+    import torch
+
+    return float(torch.linalg.vector_norm(t))
+
+
+def _largest(t) -> float:
+    """A tensor's largest magnitude."""
+    return float(t.abs().max())
+
+
+def _rel_err(got, want, norm=_norm) -> float:
+    """The difference's ``norm`` relative to ``want``'s (the difference's
+    own where ``want`` is all zeros)."""
+    err, top = norm(got - want), norm(want)
+    return err / top if top > 0 else err
+
+
+def _axis_compare(res: dict, ref, model) -> None:
+    """Phase 24's words and gradients compared on the ranks, not shipped
+    to the parent: each rank of the model group ``model`` (an AxisGroup)
+    gathers its slices of the grid's new words and of its first step's
+    score gradients (``res``, popped) to the group's rank 0, which also
+    ran the data-axis round ``ref`` (None elsewhere) and compares them
+    leaf by leaf.  It records in its ``res`` the words that differ
+    (``differ`` of ``words``), the worst leaf's share of them
+    (``leaf_share``), and the worst leaf's gradient error (``_rel_err``)
+    of the scores (``grad_err``; ``grad_top``, by the largest element)
+    and of its own dense leaves (``dense_grad_err``), each beside the
+    leaf's path."""
+    import torch
+    import torch.distributed as dist
+
+    words_of = res.pop("scores")[model.index]
+    grads_of = res.pop("grads")[model.index]
+    dense = res.pop("dense_grads")
+    root = dist.get_rank() - model.index  # mesh_axes's layout
+    here = ref is not None
+
+    def gather(t):
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(model.size)] if here \
+            else None
+        dist.gather(t, parts, dst=root, group=model.group)
+        return parts
+
+    differ = words = 0
+    share, grad_err, grad_top = (0.0, ""), (0.0, ""), (0.0, "")
+    for p in sorted(words_of):
+        got_w, got_g = gather(words_of[p]), gather(grads_of[p])
+        if not here:
+            continue
+        n = sum(int((got != ref["scores"][sid][p]).sum())
+                for sid, got in enumerate(got_w))
+        w = sum(got.numel() for got in got_w)
+        differ, words = differ + n, words + w
+        share = max(share, (n / w, p))
+        got = torch.cat(got_g)
+        want = torch.cat([ref["grads"][sid][p] for sid in range(model.size)])
+        grad_err = max(grad_err, (_rel_err(got, want), p))
+        grad_top = max(grad_top, (_rel_err(got, want, _largest), p))
+    if here:
+        res.update(differ=differ, words=words, leaf_share=share,
+                   grad_err=grad_err, grad_top=grad_top, dense_grad_err=max(
+                       [(0.0, "")] + [(_rel_err(v, ref["dense_grads"][p]), p)
+                                      for p, v in dense.items()]))
+        for k in ("scores", "grads", "dense_grads"):
+            del ref[k]
+
+
 def axis_rank_lm(a: dict, axes) -> dict:
-    """Phase 24 (c) and (d), one rank of one spawn of AXIS_GRID_C's ranks
+    """Phase 24 (c)-(g), one rank of one spawn of AXIS_GRID_C's ranks
     (a spawn's start-up is the most of a part's time): (c) the grid's
     round, then its data-axis ranks' (the model index 0 of each data
     index, whole leaves); (d) the same ranks as a model group of
-    AXIS_GRID_D's 4, one local step, then rank 0 alone, whole."""
+    AXIS_GRID_D's 4, one local step, then rank 0 alone, whole; (e) and
+    (f) likewise for ``a["families"]``; (g) each of ``a["reduced"]`` as
+    (c)."""
     import torch
     import torch.distributed as dist
 
@@ -4678,17 +4829,50 @@ def axis_rank_lm(a: dict, axes) -> dict:
     else:
         torch.set_num_threads(1)
     steps = AXIS_LM["local_steps"]
+    t = time.perf_counter()
     out = {"c": _axis_lm_round(a, AXIS_GRID_C, steps, axes.data,
                                axes.model, None)}
     if axes.model.index == 0:
         out["c_ref"] = _axis_lm_round(a, AXIS_GRID_C, steps, axes.data, None,
                                       axes.data.group)
+    _axis_compare(out["c"], out.get("c_ref"), axes.model)
     line = mesh_axes(Mesh(("data", "model"), AXIS_GRID_D))
     solo = dist.new_group([0])  # every rank makes every group
+    part_s = {"c": time.perf_counter() - t}
+    t = time.perf_counter()
     out["d"] = _axis_lm_round(a, AXIS_GRID_D, 1, line.data, line.model, None)
     if dist.get_rank() == 0:
         out["d_ref"] = _axis_lm_round(a, AXIS_GRID_D, 1, AxisGroup(solo, 1, 0),
                                       None, solo)
+    _axis_compare(out["d"], out.get("d_ref"), line.model)
+    part_s["d"] = time.perf_counter() - t
+    # (e)-(g): float cumsum on the card has no deterministic algorithm
+    # (the SSD's chunk scan; the MoE's slot counts of 0/1 picks, exact),
+    # so from here torch warns instead of raising
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    # (e), (f): the full-width families on AXIS_GRID_D ranks, one step
+    for tag, cfg in zip("ef", a["families"]):
+        t = time.perf_counter()
+        out[tag] = _axis_lm_round(a, AXIS_GRID_D, 1, line.data, line.model,
+                                  None, cfg)
+        if dist.get_rank() == 0:
+            out[tag + "_ref"] = _axis_lm_round(
+                a, AXIS_GRID_D, 1, AxisGroup(solo, 1, 0), None, solo, cfg)
+        _axis_compare(out[tag], out.get(tag + "_ref"), line.model)
+        part_s[tag] = time.perf_counter() - t
+    # (g): the reduced families on the AXIS_GRID_C grid, one round
+    out["g"] = []
+    t = time.perf_counter()
+    for cfg in a["reduced"]:
+        out["g"].append({"grid": _axis_lm_round(
+            a, AXIS_GRID_C, steps, axes.data, axes.model, None, cfg)})
+        if axes.model.index == 0:
+            out["g"][-1]["ref"] = _axis_lm_round(
+                a, AXIS_GRID_C, steps, axes.data, None, axes.data.group, cfg)
+        _axis_compare(out["g"][-1]["grid"], out["g"][-1].get("ref"),
+                    axes.model)
+    part_s["g"] = time.perf_counter() - t
+    out["part_s"] = part_s
     return out
 
 
@@ -4698,43 +4882,65 @@ def _per_step(counts: dict, steps: int) -> dict:
 
 
 def _axis_lm(tag: str, grid, steps: int, heads: str, res: list, ref: list,
-             card: str) -> None:
-    """Phase 24 (c) or (d): full-width qwen2-0.5b on a ``grid`` of ranks
-    through the partitioned consumers (``res``, a rank each), ``steps``
-    local steps, against data-axis-only ranks on the same specs
-    (``ref``, a data index each): the loss within AXIS_LM_LOSS_RTOL, the
-    u8 words (slices joined) differing at no more than AXIS_FLIP_SHARE
-    of n_total, no matrix leaf gathered whole."""
+             card: str, what: str = "full-width qwen2-0.5b") -> None:
+    """Phase 24 (c)-(g): ``what`` on a ``grid`` of ranks through the
+    partitioned consumers (``res``, a rank each), ``steps`` local steps,
+    against data-axis-only ranks on the same specs (``ref``, a data index
+    each): the loss within AXIS_LM_LOSS_RTOL, the u8 words (slices
+    joined) differing at no more than AXIS_FLIP_SHARE of n_total, and of
+    each leaf's words; each leaf's score gradient and dense gradient at
+    the first local step within AXIS_GRAD_RTOL of the leaf's (norms),
+    each dense leaf after the round within AXIS_GRAD_RTOL of its largest
+    value; no matrix leaf gathered whole,
+    each grid rank's peak below the data axis's, kernels 7 and 2
+    launched once a zampled leaf a step."""
     import numpy as np
 
     from repro_torch.models.common import matrix_gathers
 
-    n_total = sum(v.size for v in ref[0]["scores"][0].values()) * grid[1]
-    differ, loss_err, dense_err = 0, 0.0, 0.0
+    # each data index's words and gradients once: its model ranks'
+    # slices, compared on the ranks (_axis_compare)
+    roots = [r for r in res if "differ" in r]
+    differ = sum(r["differ"] for r in roots)
+    words = sum(r["words"] for r in roots)
+    leaf_share = max(r["leaf_share"] for r in roots)
+    grad_err = max(r["grad_err"] for r in roots)
+    grad_top = max(r["grad_top"] for r in roots)
+    dense_grad_err = max(r["dense_grad_err"] for r in roots)
+    loss_err, dense_err = 0.0, (0.0, "")
     for r in res:
         want = ref[r["data"]]
-        differ += sum(int((v != want["scores"][r["model"]][p]).sum())
-                      for p, v in r["scores"][r["model"]].items())
         loss_err = max(loss_err, abs(r["loss"] - want["loss"])
                        / abs(want["loss"]))
-        dense_err = max([dense_err] + [float(np.abs(v - want["dense"][p])
-                                             .max())
-                                       for p, v in r["dense"].items()])
-    # each data index's words once: its model ranks' slices
-    share = differ / (grid[0] * n_total)
+        for p, v in r["dense"].items():
+            top = float(np.abs(want["dense"][p]).max())
+            err = float(np.abs(v - want["dense"][p]).max())
+            dense_err = max(dense_err, (err / top if top > 0 else err, p))
+    share = differ / words
     gathers = [matrix_gathers(r["gathered"]) for r in res]
     launches = res[0]["launches"]
-    say(f"model axis ({tag}): full-width qwen2-0.5b on a {grid[0]} x "
+    say(f"model axis ({tag}): {what} on a {grid[0]} x "
         f"{grid[1]} grid (the partitioned consumers; {heads}), "
         f"K={grid[0]}, E={steps}, batch {AXIS_LM['batch']}, sequence "
         f"{AXIS_LM['seq']}, bf16, scatter: loss {[r['loss'] for r in res]} "
         f"against {[r['loss'] for r in ref]} data axis only (worst relative "
         f"{loss_err:.3e}, bound {AXIS_LM_LOSS_RTOL}); u8 words differing "
-        f"{differ} of {grid[0] * n_total} ({share:.3e}, bound "
-        f"{AXIS_FLIP_SHARE}); dense leaves' worst difference "
-        f"{dense_err:.3e}; round seconds grid "
+        f"{differ} of {words} ({share:.3e}, bound "
+        f"{AXIS_FLIP_SHARE}), the worst leaf's {leaf_share[0]:.3e} "
+        f"({leaf_share[1]}); the first step's gradients against the data "
+        f"axis's, the difference's norm of the leaf's: scores' worst "
+        f"{grad_err[0]:.3e} ({grad_err[1]}), dense leaves' worst "
+        f"{dense_grad_err[0]:.3e} ({dense_grad_err[1]}), bound "
+        f"{AXIS_GRAD_RTOL} (scores' largest element of the leaf's largest "
+        f"{grad_top[0]:.3e}, {grad_top[1]}); dense leaves after "
+        f"the round, of the leaf's largest: worst {dense_err[0]:.3e} "
+        f"({dense_err[1]}), bound {AXIS_GRAD_RTOL}; round seconds grid "
         f"{[round(r['round_s'], 3) for r in res]} (ranks), data axis only "
-        f"{[round(r['round_s'], 3) for r in ref]}; peak device memory a "
+        f"{[round(r['round_s'], 3) for r in ref]}, a rank's set-up and "
+        f"packing seconds grid {round(res[0]['setup_s'], 3)}, "
+        f"{round(res[0]['pack_s'], 3)}, data axis only "
+        f"{round(ref[0]['setup_s'], 3)}, {round(ref[0]['pack_s'], 3)}; "
+        f"peak device memory a "
         f"rank grid {[round(r['peak'] / 2**30, 3) for r in res]} GiB, data "
         f"axis only {[round(r['peak'] / 2**30, 3) for r in ref]} GiB; a "
         f"grid rank's model-axis collectives a local step "
@@ -4743,12 +4949,18 @@ def _axis_lm(tag: str, grid, steps: int, heads: str, res: list, ref: list,
         f"a grid rank {launches} ({card})")
     if loss_err > AXIS_LM_LOSS_RTOL:
         die(f"phase 24 ({tag}): the grid's loss is off the data axis's")
-    if share > AXIS_FLIP_SHARE:
+    if max(share, leaf_share[0]) > AXIS_FLIP_SHARE:
         die(f"phase 24 ({tag}): the grid's words differ from the data "
             "axis's")
+    if max(grad_err[0], dense_grad_err[0], dense_err[0]) > AXIS_GRAD_RTOL:
+        die(f"phase 24 ({tag}): the grid's gradients or dense leaves are "
+            "off the data axis's")
     if any(gathers):
         die(f"phase 24 ({tag}): a matrix leaf was gathered whole")
-    want_l = 12 * steps
+    if max(r["peak"] for r in res) >= min(r["peak"] for r in ref):
+        die(f"phase 24 ({tag}): a grid rank's peak is not below the data "
+            "axis rank's")
+    want_l = res[0]["leaves"] * steps
     if (launches["qz_sample_reconstruct_fwd"] != want_l
             or launches["qz_reconstruct_bwd"] != want_l):
         die(f"phase 24 ({tag}): a grid rank launched {launches}, not "
@@ -4757,9 +4969,11 @@ def _axis_lm(tag: str, grid, steps: int, heads: str, res: list, ref: list,
 
 def model_axis_phase(card: str, dev, fed: dict, rows: list) -> None:
     """Phase 24: the model axis, (a) the ops at full width, (b) Fig. 4's
-    MNISTFC and (c, d) full-width qwen2-0.5b on grids of gloo ranks on
-    this card through the partitioned consumers, against data-axis-only
-    ranks on the same sharded specs."""
+    MNISTFC, (c, d) full-width qwen2-0.5b, (e, f) full-width mamba2-1.3b
+    and olmoe-1b-7b and (g) the reduced zamba2-7b and
+    seamless-m4t-medium on grids of gloo ranks on this card through the
+    partitioned consumers, against data-axis-only ranks on the same
+    sharded specs."""
     import numpy as np
     import torch
 
@@ -4875,24 +5089,63 @@ def model_axis_phase(card: str, dev, fed: dict, rows: list) -> None:
         die("phase 24 (b): a matrix leaf was gathered whole")
     say(f"phase 24 (b) done in {time.perf_counter() - t1:.1f} s")
 
-    # (c) full-width qwen2-0.5b, heads whole a rank; (d) split mid-head;
-    # one spawn of ranks runs both and their data-axis references
+    axis_lm_phase(card, dev_name, fed)
+    say(f"phase 24 done in {time.perf_counter() - t0:.1f} s")
+
+
+def axis_lm_phase(card: str, dev_name: str, fed: dict) -> None:
+    """Phase 24 (c)-(g): (c) full-width qwen2-0.5b, heads whole a rank;
+    (d) split mid-head; (e), (f) full-width mamba2-1.3b and olmoe-1b-7b;
+    (g) the reduced zamba2-7b and seamless-m4t-medium; one spawn of
+    ranks runs them all and their data-axis references."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.comm.shardmap import run_ranks
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.ssm import ssm_dims
+
     t1 = time.perf_counter()
     torch.cuda.empty_cache()
+    families = [get_arch(AXIS_FAMILIES[0]), dataclasses.replace(
+        get_arch(AXIS_FAMILIES[1]), n_layers=AXIS_OLMOE_LAYERS)]
+    reduced = [dataclasses.replace(get_arch(n).reduced(), dtype="bfloat16")
+               for n in AXIS_REDUCED]
     args = ({"word": int(fed["round_words"][0]), "device": dev_name,
+             "families": families, "reduced": reduced,
              **({"cfg": fed["axis_lm_cfg"]} if "axis_lm_cfg" in fed
                 else {})},)
     res = run_ranks(axis_rank_lm, AXIS_GRID_C[0] * AXIS_GRID_C[1], args,
                     backend="gloo", timeout=RANK_TIMEOUT,
                     mesh=Mesh(("data", "model"), AXIS_GRID_C))
+    say(f"phase 24 (c)-(g): one spawn of {len(res)} ranks returned in "
+        f"{time.perf_counter() - t1:.1f} s, rank 0's parts "
+        f"{ {k: round(v, 1) for k, v in res[0]['part_s'].items()} } s")
     _axis_lm("c", AXIS_GRID_C, AXIS_LM["local_steps"], "whole heads a rank",
              [r["c"] for r in res],
              sorted((r["c_ref"] for r in res if "c_ref" in r),
                     key=lambda r: r["data"]), card)
     _axis_lm("d", AXIS_GRID_D, 1, "KV heads split mid-head",
              [r["d"] for r in res], [res[0]["d_ref"]], card)
-    say(f"phase 24 (c) and (d) done in {time.perf_counter() - t1:.1f} s")
-    say(f"phase 24 done in {time.perf_counter() - t0:.1f} s")
+    ms = AXIS_GRID_D[1]
+    heads = ssm_dims(families[0].d_model, families[0].ssm).n_heads // ms
+    for tag, cfg, how in zip("ef", families, (
+            f"the SSD on {heads} heads a rank",
+            f"{families[1].moe.num_experts // ms} experts a rank, "
+            f"{families[1].n_layers} layers")):
+        _axis_lm(tag, AXIS_GRID_D, 1, how, [r[tag] for r in res],
+                 [res[0][tag + "_ref"]], card,
+                 f"{'full-width' if cfg.d_model >= 2048 else 'cut'} "
+                 f"{cfg.name}")
+    for i, cfg in enumerate(reduced):
+        _axis_lm(f"g{i}", AXIS_GRID_C, AXIS_LM["local_steps"],
+                 f"{cfg.family} family", [r["g"][i]["grid"] for r in res],
+                 sorted((r["g"][i]["ref"] for r in res
+                         if "ref" in r["g"][i]), key=lambda r: r["data"]),
+                 card, f"reduced {cfg.name}")
+    say(f"phase 24 (c)-(g) done in {time.perf_counter() - t1:.1f} s")
 
 
 def main() -> None:

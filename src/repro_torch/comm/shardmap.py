@@ -30,9 +30,11 @@ a column-parallel product), ``reduce_from_model`` (all-reduce forward,
 identity backward: the output of a row-parallel product),
 ``gather_from_model`` and ``scatter_to_model`` (an activation's blocks
 joined, or a replicated activation's block taken, each the other's
-backward).  ``gather_major`` (``Block.whole``) hands the model a whole
-leaf: the small leaves a consumer cannot use as a block, and the
-families without partitioned consumers.
+backward), and a fifth, ``sum_over_model`` (all-reduce both ways: a
+partial sum that each rank then uses on its own block, such as a split
+RMSNorm's sum of squares).  ``gather_major`` (``Block.whole``) hands
+the model a whole leaf: the small leaves a consumer cannot use as a
+block (norm scales, the SSM's conv taps).
 
 Every collective here counts itself in ``COUNTS`` (calls and bytes by
 kind; the bytes are the tensor a rank hands the collective: an
@@ -242,6 +244,17 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return all_reduce(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.axis), None
+
+
 class _ScatterToModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, axis):
@@ -256,32 +269,46 @@ class _ScatterToModel(torch.autograd.Function):
                 None, None)
 
 
-def copy_to_model(x: torch.Tensor, axis: AxisGroup) -> torch.Tensor:
+def copy_to_model(x: torch.Tensor, axis: Optional[AxisGroup]
+                  ) -> torch.Tensor:
     """A replicated activation entering column-parallel products: the
     same tensor, whose cotangent (each rank's part) is summed over the
-    axis."""
-    return _CopyToModel.apply(x, axis)
+    axis.  Here and in the helpers below, ``axis`` None (no model
+    axis) gives ``x`` as it is."""
+    return x if axis is None else _CopyToModel.apply(x, axis)
 
 
-def reduce_from_model(x: torch.Tensor, axis: AxisGroup) -> torch.Tensor:
+def reduce_from_model(x: torch.Tensor, axis: Optional[AxisGroup]
+                      ) -> torch.Tensor:
     """The axis's partial results summed (a row-parallel product's), in
     ``x``'s dtype; the cotangent passes as it is."""
-    return _ReduceFromModel.apply(x, axis)
+    return x if axis is None else _ReduceFromModel.apply(x, axis)
+
+
+def sum_over_model(x: torch.Tensor, axis: Optional[AxisGroup]
+                   ) -> torch.Tensor:
+    """The axis's partial sums summed, for each rank to use on its own
+    block: the cotangent differs by rank, so it is summed over the axis
+    too (``reduce_from_model``'s identity backward holds only where what
+    follows is replicated)."""
+    return x if axis is None else _SumOverModel.apply(x, axis)
 
 
 def gather_from_model(x: torch.Tensor, dim: int,
-                      axis: AxisGroup) -> torch.Tensor:
+                      axis: Optional[AxisGroup]) -> torch.Tensor:
     """An activation's blocks along ``dim`` joined in rank order (a
     contiguous tensor); the cotangent's block comes back."""
+    if axis is None:
+        return x
     d = dim % x.ndim
     return _GatherMajor.apply(x, d, axis, d, "all_gather").contiguous()
 
 
 def scatter_to_model(x: torch.Tensor, dim: int,
-                     axis: AxisGroup) -> torch.Tensor:
+                     axis: Optional[AxisGroup]) -> torch.Tensor:
     """This rank's block along ``dim`` of a replicated tensor; the
     cotangent's blocks are joined back."""
-    return _ScatterToModel.apply(x, dim, axis)
+    return x if axis is None else _ScatterToModel.apply(x, dim, axis)
 
 
 def max_over_model(x: torch.Tensor, axis: AxisGroup) -> torch.Tensor:

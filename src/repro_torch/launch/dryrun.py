@@ -18,18 +18,23 @@ a device, per (arch, shape, mesh, mode):
    of the lanes; ``mean_f32``: an all-reduce of f32 masks), the model
    axis's collectives a local step, the dense leaves' f32 mean, and in
    mode ``baseline`` dense data-parallel training's f32 gradient
-   all-reduce of each rank's parameter shard.  On the model axis the
-   dense decoder's partitioned consumers (``models.common``) make, a
-   layer, the row-parallel products' forward all-reduces and the
-   column-parallel inputs' backward all-reduces (or, where a block
-   splits a head, the gathers of q/k/v and of ``wo``'s input
-   cotangent), the embedding's all-reduce, ``lm_head``'s input
-   cotangent and the vocab-parallel CE's three f32 all-reduces
-   (``model_axis_per_step``: count and bytes a rank hands each, an
-   all-reduce's operand, an all-gather's own block); the leaves they
-   do not take as blocks (norm scales), and every sharded leaf of the
-   other families, are gathered whole (``model_gather_per_step``: the
-   whole leaves' bytes, read from the constraints);
+   all-reduce of each rank's parameter shard.  On the model axis every
+   family's partitioned consumers (``models.common``, ``attention``,
+   ``moe``, ``ssm``, ``model``) make, for one client at the shape's
+   per-rank batch (``consumer_collectives``, ``model_axis_per_step``:
+   count and bytes a rank hands each, an all-reduce's operand, an
+   all-gather's own block), the row-parallel products' forward
+   all-reduces and the column-parallel inputs' backward all-reduces (or,
+   where a block splits a head, the gathers of q/k/v and of ``wo``'s
+   input cotangent), the MoE's logits and combine, the SSM's gathered
+   projections and split norm sums (its layers' forward collectives
+   twice: the backward recomputes them), the replicated leaves and
+   activations that meet rank-local work, the embedding's all-reduce,
+   ``lm_head``'s input cotangent and the vocab-parallel CE's three f32
+   all-reduces; the sharded leaves no consumer takes as a block (norm
+   scales, the SSM's conv taps) are gathered whole
+   (``model_gather_per_step``: the whole leaves' bytes, read from the
+   constraints; ``model_gathered_leaves`` names them);
  - JAX's ``zampling`` meta (``m_total``, ``n_total``, ``compression``,
    ``comm_bits``), its skip rules (``ArchConfig.supports_shape``) and
    the ``long_500k`` sliding-window note.
@@ -59,8 +64,10 @@ from ..configs.registry import ARCHS, SHAPES, InputShape, get_arch, get_shape
 from ..core.zampling import (ZamplingConfig, ZamplingSpecs, build_specs,
                              check_constraints, flatten, state_spec)
 from ..models.common import CE_CHUNK
-from ..models.model import (_BLOCK_LEAVES, _dense_decoder, build_model,
-                            param_template)
+from ..models.model import (_BLOCK_LEAVES, attn_dims, build_model,
+                            enc_attn_dims, family, param_template)
+from ..models.moe import GROUP_SIZE
+from ..models.ssm import in_proj_dim, ssm_dims
 from . import sharding as shp
 from .input_specs import input_specs
 from .mesh import Mesh, data_axes, data_size, make_production_mesh
@@ -131,12 +138,11 @@ def train_zampling(cfg: ArchConfig, shape: InputShape, mesh: Mesh,
     dense = sum(_nbytes(leaf.shape, leaf.torch_dtype)
                 for leaf in tstate["dense"].values())
     placed = {p: shp.model_axis_of(constraints[p]) for p in zspecs.specs}
-    consumers = (_consumer_collectives(cfg, shape, mesh, zspecs, placed)
-                 if _dense_decoder(cfg) and ms > 1 else {})
+    consumers = (consumer_collectives(cfg, shape, mesh, zspecs, placed)
+                 if ms > 1 else {})
     gathers = {p: _nbytes(spec.shape, zspecs.template[p].torch_dtype)
                for p, spec in zspecs.specs.items()
-               if placed[p] is not None
-               and not (consumers and p.rsplit("/", 1)[-1] in _BLOCK_LEAVES)}
+               if _whole(p, spec, placed)}
     uplink = {"psum_u32": {"all-reduce": 4 * lanes},
               "allgather_packed": {"all-gather": 4 * lanes * dn},
               "mean_f32": {"all-reduce": 4 * sum(n_rank.values())}}
@@ -161,19 +167,55 @@ def train_zampling(cfg: ArchConfig, shape: InputShape, mesh: Mesh,
     }
 
 
+def _whole(path: str, spec, placed) -> bool:
+    """A sharded leaf that no consumer takes as a block: gathered whole
+    (``models.model._placed``)."""
+    return (spec.shard_count > 1 and placed[path] is not None
+            and path.rsplit("/", 1)[-1] not in _BLOCK_LEAVES)
+
+
+# model_axis_per_step's entries by the kind ``comm.shardmap.COUNTS``
+# counts them under
+COUNTED_AS = {
+    "row_parallel_forward": "all_reduce",  # partial products summed
+    "column_parallel_backward": "all_reduce",  # an input's cotangent
+    "replicated_cotangent": "all_reduce",  # a replicated value used by rank
+    "norm_sum": "all_reduce",  # a split RMSNorm's sum, both ways
+    "embedding": "all_reduce",
+    "cross_entropy": "all_reduce",
+    "activation_gather": "all_gather",  # blocks of an activation joined
+    "embedding_gather": "all_gather",
+    "bias_gather": "all_gather",  # replicated biases' cotangent blocks
+    "small_leaf_gather": "leaf_gather",
+}
+
+
+def as_counts(per_step: Dict[str, Any]) -> Dict[str, int]:
+    """``model_axis_per_step`` in ``comm.shardmap.COUNTS``'s form:
+    {kind: calls, kind + "_bytes": bytes}."""
+    out: Dict[str, int] = {}
+    for name, entry in per_step.items():
+        kind = COUNTED_AS[name]
+        out[kind] = out.get(kind, 0) + entry["count"]
+        out[kind + "_bytes"] = out.get(kind + "_bytes", 0) + entry["bytes"]
+    return out
+
+
 def _tally(out: dict, name: str, nbytes: int, count: int = 1) -> None:
+    if not count:
+        return
     entry = out.setdefault(name, {"count": 0, "bytes": 0})
     entry["count"] += count
     entry["bytes"] += nbytes
 
 
-def _consumer_collectives(cfg: ArchConfig, shape: InputShape, mesh: Mesh,
-                          zspecs: ZamplingSpecs, placed) -> Dict[str, Any]:
-    """The dense decoder's model-axis collectives a local step, a rank:
-    {name: {"count", "bytes"}}, as ``models.common``, ``models.attention``
-    and ``models.model`` make them for one client at this shape's
-    per-rank batch, the blocks those ``placed`` ({path: split dim or
-    None}) names on the zampled sharded leaves."""
+def consumer_collectives(cfg: ArchConfig, shape: InputShape, mesh: Mesh,
+                         zspecs: ZamplingSpecs, placed) -> Dict[str, Any]:
+    """The partitioned consumers' model-axis collectives a local step, a
+    rank: {name: {"count", "bytes"}}, as ``models.common``,
+    ``attention``, ``moe``, ``ssm`` and ``model`` make them for one
+    client at this shape's per-rank batch, the blocks those ``placed``
+    ({path: split dim or None}) names on the zampled sharded leaves."""
     ms = mesh.axis_size("model")
     dn = data_size(mesh)
     b = shape.global_batch
@@ -182,57 +224,173 @@ def _consumer_collectives(cfg: ArchConfig, shape: InputShape, mesh: Mesh,
     act = torch.empty((), dtype=_dtype(cfg.dtype)).element_size()
     tmpl = zspecs.template
     D, L = cfg.d_model, cfg.n_layers
-
-    def kind(path):
-        """'c' (column block), 'r' (row block) or None (whole)."""
-        spec = zspecs.specs.get(path)
-        if spec is None or spec.shard_count == 1 or placed[path] is None:
-            return None
-        nd = len(tmpl[path].shape)
-        return {nd - 1: "c", nd - 2: "r"}.get(placed[path])
-
     out: Dict[str, Any] = {}
 
-    def project(path, d_in, d_out, shared_input=False):
-        """``models.common.project``'s collectives, ``L`` layers."""
+    def kind(path):
+        """'c' (column block), 'r' (row block), 'e' (an expert stack's E
+        block) or None (whole: replicated or gathered)."""
+        spec = zspecs.specs.get(path)
+        if (spec is None or spec.shard_count == 1 or placed[path] is None
+                or path.rsplit("/", 1)[-1] not in _BLOCK_LEAVES):
+            return None
+        nd = len(tmpl[path].shape)
+        return {nd - 1: "c", nd - 2: "r", nd - 3: "e"}.get(placed[path])
+
+    def nbytes(path, n=1):
+        """``n`` elements of a leaf's dtype, in bytes."""
+        return n * tmpl[path].torch_dtype.itemsize
+
+    def project(path, t, d_in, d_out, n, shared_input=False, fwd=1):
+        """``models.common.project``'s collectives, ``n`` uses of ``t``
+        tokens, the forward ones ``fwd`` times each (2: recomputed)."""
         k = kind(path)
         if k == "c":
-            _tally(out, "activation_gather", L * tok * d_out // ms * act, L)
+            _tally(out, "activation_gather", fwd * n * t * d_out // ms * act,
+                   fwd * n)
             if not shared_input:
-                _tally(out, "column_parallel_backward", L * tok * d_in * act,
-                       L)
+                _tally(out, "column_parallel_backward", n * t * d_in * act,
+                       n)
         elif k == "r":
-            _tally(out, "row_parallel_forward", L * tok * d_out * act, L)
-            _tally(out, "activation_gather", L * tok * d_in // ms * act, L)
+            _tally(out, "row_parallel_forward", fwd * n * t * d_out * act,
+                   fwd * n)
+            _tally(out, "activation_gather", n * t * d_in // ms * act, n)
 
-    def column_input(paths, d_in):
+    def column_input(paths, t, d_in, n):
         if any(kind(p) == "c" for p in paths):
-            _tally(out, "column_parallel_backward", L * tok * d_in * act, L)
+            _tally(out, "column_parallel_backward", n * t * d_in * act, n)
 
-    hd = cfg.resolved_head_dim
-    h, kv = cfg.n_heads * hd, cfg.n_kv * hd
-    attn = [f"blocks/attn/{w}" for w in ("wq", "wk", "wv", "wo")]
-    column_input(attn[:3], D)
-    if ([kind(p) for p in attn] == ["c", "c", "c", "r"]
-            and cfg.n_kv % ms == 0):
-        _tally(out, "row_parallel_forward", L * tok * D * act, L)
+    def attention(pre, dims, t, n, layers):
+        """``self_attention`` (``n`` uses of ``t`` tokens; ``layers``
+        stacked, 0 for the hybrid's shared block), and ``_placed``'s
+        bias blocks and qk-norm copies, once a step."""
+        hd = dims.head_dim
+        q, kv = dims.n_heads * hd, dims.n_kv * hd
+        w = [pre + x for x in ("wq", "wk", "wv", "wo")]
+        column_input(w[:3], t, D, n)
+        heads = ([kind(p) for p in w] == ["c", "c", "c", "r"]
+                 and dims.n_kv % ms == 0)
+        if heads:
+            _tally(out, "row_parallel_forward", n * t * D * act, n)
+        else:
+            for p, d_out in zip(w[:3], (q, kv, kv)):
+                project(p, t, D, d_out, n, shared_input=True)
+            project(w[3], t, q, D, n)
+        per = max(layers, 1)
+        for bias, wt, d_out in (("bq", "wq", q), ("bk", "wk", kv),
+                                ("bv", "wv", kv)):
+            if pre + bias in tmpl and kind(pre + bias) is None \
+                    and kind(pre + wt) == "c":
+                _tally(out, "bias_gather", nbytes(pre + bias,
+                                                  per * d_out // ms))
+        for norm in ("q_norm", "k_norm"):
+            if heads and pre + norm in tmpl:
+                _tally(out, "replicated_cotangent",
+                       nbytes(pre + norm, per * hd))
+
+    def mlp(pre, t, d_ff, n):
+        w = [pre + x for x in ("gate", "up", "down")]
+        column_input(w[:2], t, D, n)
+        if [kind(p) for p in w] == ["c", "c", "r"]:
+            _tally(out, "row_parallel_forward", n * t * D * act, n)
+        else:
+            for p in w[:2]:
+                project(p, t, D, d_ff, n, shared_input=True)
+            project(w[2], t, d_ff, D, n)
+
+    def moe(pre, t, n):
+        """``models.moe.moe_block``: the router's logits, the experts on E
+        or on F, the combine."""
+        mc = cfg.moe
+        E = mc.num_experts
+        G = min(GROUP_SIZE, t)
+        G = t if t % G else G
+        C = max(1, int(mc.capacity_factor * G * mc.top_k / E))
+        split = {("e", "e", "e"): "experts", ("c", "c", "r"): "ffn"}.get(
+            tuple(kind(pre + x) for x in ("gate", "up", "down")))
+        if split is not None:  # the input through copy_to_model
+            _tally(out, "column_parallel_backward", n * t * D * act, n)
+        router = kind(pre + "router")
+        if router == "c":
+            _tally(out, "activation_gather", n * t * E // ms * 4, n)
+            if split is None:
+                _tally(out, "column_parallel_backward", n * t * D * act, n)
+        elif router == "r":
+            _tally(out, "row_parallel_forward", n * t * E * 4, n)
+            _tally(out, "activation_gather", n * t * D // ms * act, n)
+        if split == "experts":  # the combine's slice joined
+            _tally(out, "activation_gather", n * t * E // ms * C * act, n)
+        elif split == "ffn":  # the combine's partial cotangents summed
+            _tally(out, "replicated_cotangent", n * t * E * C * act, n)
+        if split is not None:
+            _tally(out, "row_parallel_forward", n * t * D * act, n)
+
+    def ssm(pre, t, n):
+        """``models.ssm.ssm_block`` on the rank's heads, its forward
+        collectives twice (the layer is recomputed in the backward), and
+        ``_placed``'s replicated leaves, once a step."""
+        sd = ssm_dims(D, cfg.ssm)
+        leaves = [pre + x for x in ("in_proj", "out_proj", "A_log", "D",
+                                    "dt_bias", "norm")]
+        if all(kind(p) is None for p in leaves):
+            return
+        di, H, n_in = sd.d_inner, sd.n_heads, in_proj_dim(sd)
+        project(pre + "in_proj", t, D, n_in, n, fwd=2)
+        _tally(out, "replicated_cotangent", n * t * n_in * act, n)  # zxbcdt
+        cd = di + 2 * sd.n_groups * sd.d_state
+        for p, width in ((pre + "conv_w", sd.conv_width),
+                         (pre + "conv_b", 1)):
+            _tally(out, "replicated_cotangent", nbytes(p, n * width * cd))
+        for p, width in ((pre + "A_log", H), (pre + "D", H),
+                         (pre + "dt_bias", H), (pre + "norm", di)):
+            if kind(p) is None:  # this rank's block of a replicated leaf
+                _tally(out, "bias_gather", nbytes(p, n * width // ms))
+        _tally(out, "norm_sum", 3 * n * t * 4, 3 * n)
+        _tally(out, "activation_gather", 2 * n * t * di // ms * act, 2 * n)
+        project(pre + "out_proj", t, di, D, n, fwd=2)
+
+    fam = family(cfg)
+    dims = attn_dims(cfg)
+    if fam == "decoder":
+        attention("blocks/attn/", dims, tok, L, L)
+        if cfg.moe is not None:
+            moe("blocks/moe/", tok, L)
+        else:
+            mlp("blocks/mlp/", tok, cfg.d_ff, L)
+    elif fam in ("ssm", "hybrid"):
+        pre = "blocks/ssm/" if fam == "ssm" else "mamba/ssm/"
+        ssm(pre, tok, L)
+        if fam == "hybrid":
+            uses = -(-L // cfg.attn_every)
+            attention("shared_attn/attn/", dims, tok, uses, 0)
+            mlp("shared_attn/mlp/", tok, cfg.d_ff, uses)
     else:
-        for p, d_out in zip(attn[:3], (h, kv, kv)):
-            project(p, D, d_out, shared_input=True)
-        project(attn[3], h, D)
-    mlp = [f"blocks/mlp/{w}" for w in ("gate", "up", "down")]
-    column_input(mlp[:2], D)
-    if [kind(p) for p in mlp] == ["c", "c", "r"]:
-        _tally(out, "row_parallel_forward", L * tok * D * act, L)
-    else:
-        for p in mlp[:2]:
-            project(p, D, cfg.d_ff, shared_input=True)
-        project(mlp[2], cfg.d_ff, D)
-    if not cfg.embed_stub:
-        if kind("embed") == "r":
+        te = b * (shape.seq_len // 4)  # the encoder's frames
+        ec = cfg.encoder
+        attention("enc_blocks/attn/", enc_attn_dims(cfg), te, ec.n_layers,
+                  ec.n_layers)
+        mlp("enc_blocks/mlp/", te, ec.d_ff, ec.n_layers)
+        attention("dec_blocks/attn/", dims, tok, L, L)
+        mlp("dec_blocks/mlp/", tok, cfg.d_ff, L)
+        cross = [f"dec_blocks/cross/{w}" for w in ("wq", "wk", "wv", "wo")]
+        hd = dims.head_dim
+        q, kv = dims.n_heads * hd, dims.n_kv * hd
+        if kind(cross[1]) == "c" or kind(cross[2]) == "c":  # enc_in
+            _tally(out, "column_parallel_backward", te * D * act)
+        if ([kind(p) for p in cross] == ["c", "c", "c", "r"]
+                and dims.n_kv % ms == 0):
+            _tally(out, "column_parallel_backward", L * tok * D * act, L)
+            _tally(out, "row_parallel_forward", L * tok * D * act, L)
+        else:
+            project(cross[0], tok, D, q, L)
+            for p in cross[1:3]:
+                project(p, te, D, kv, L, shared_input=True)
+            project(cross[3], tok, q, D, L)
+    emb = "dec_embed" if fam == "encdec" else "embed"
+    if fam == "encdec" or not cfg.embed_stub:  # the encoder's are stubs
+        if kind(emb) == "r":
             _tally(out, "embedding", tok * D * act)
-        elif kind("embed") == "c":
-            _tally(out, "embedding", tok * D // ms * act)
+        elif kind(emb) == "c":
+            _tally(out, "embedding_gather", tok * D // ms * act)
     V = cfg.padded_vocab
     if kind("lm_head") == "c":
         _tally(out, "column_parallel_backward", tok * D * act)
@@ -243,8 +401,7 @@ def _consumer_collectives(cfg: ArchConfig, shape: InputShape, mesh: Mesh,
         _tally(out, "row_parallel_forward", tok * V * act)
         _tally(out, "activation_gather", tok * D // ms * act)
     for p, spec in zspecs.specs.items():  # the leaves gathered whole
-        if (spec.shard_count > 1 and placed[p] is not None
-                and p.rsplit("/", 1)[-1] not in _BLOCK_LEAVES):
+        if _whole(p, spec, placed):
             _tally(out, "small_leaf_gather",
                    _nbytes(tmpl[p].shape, tmpl[p].torch_dtype) // ms)
     return out

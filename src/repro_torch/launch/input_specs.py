@@ -20,6 +20,7 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..configs.registry import InputShape
+from ..device import resolve_device
 
 ENC_DOWNSAMPLE = 4
 
@@ -57,9 +58,11 @@ def input_specs(cfg: ArchConfig, shape: InputShape) -> Dict[str, TensorSpec]:
 
 
 def make_batch(cfg: ArchConfig, shape: InputShape, seed: int = 0, *,
-               device="cpu") -> Dict[str, torch.Tensor]:
+               device="cuda") -> Dict[str, torch.Tensor]:
     """A random batch with the structure of ``input_specs``, on
-    ``device``."""
+    ``device`` (the card by default; ``device.resolve_device`` raises
+    where there is none)."""
+    device = resolve_device(device)
     rng = np.random.RandomState(seed)
     out = {}
     for name, spec in input_specs(cfg, shape).items():

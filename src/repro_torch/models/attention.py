@@ -16,7 +16,7 @@ the one-hot blend ``k * (1 - oh) + oh * k_new``, as in JAX, so each
 lane's values equal the single-request path's.
 ``decode_self_attention`` is one token of one model (no client axis),
 as the JAX package's; ``encode_kv`` and ``cross_attention`` take the K
-axis as ``self_attention`` does.
+axis as ``self_attention`` does, and the model axis as it does.
 
 On a model axis (``comm.shardmap.Block`` leaves, ``models.common``)
 ``self_attention`` runs head-parallel where the blocks hold whole
@@ -26,7 +26,10 @@ heads beside their ``n_kv / ms`` KV heads, ``wo``'s partial products
 summed.  Where a block splits a head, the rank's projections are
 gathered into whole q/k/v (the activation, never the weight), attention
 runs replicated, and ``wo`` takes its block of the output.  The bias
-blocks add to the projection blocks; the qk-norm scales come whole.
+blocks add to the projection blocks; the qk-norm scales come whole,
+and where the heads are the rank's, through ``copy_to_model``
+(``models.model`` does both once a step), since each rank normalizes
+its own heads with them.
 """
 
 from __future__ import annotations
@@ -38,8 +41,8 @@ import dataclasses
 
 import torch
 
-from ..comm.shardmap import (Block, gather_from_model, reduce_from_model,
-                             scatter_to_model, whole)
+from ..comm.shardmap import (Block, copy_to_model, gather_from_model,
+                             reduce_from_model, scatter_to_model, whole)
 from .common import (lined_up, linear, model_input, project, rms_norm,
                      rope)
 
@@ -145,6 +148,15 @@ def _client_rows(b: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return b.reshape(b.shape[0], *([1] * (y.ndim - 2)), b.shape[-1])
 
 
+def head_axis(params, dims: AttnDims):
+    """The model AxisGroup when an attention runs head-parallel:
+    ``wq``/``wk``/``wv`` column blocks and ``wo`` a row block on one axis
+    whose size divides ``n_kv``, else None."""
+    axis = lined_up(*(params[w] for w in ("wq", "wk", "wv", "wo")),
+                    pattern="cccr")
+    return axis if axis is not None and dims.n_kv % axis.size == 0 else None
+
+
 def self_attention(params, x, dims: AttnDims, positions):
     """Full-sequence self-attention of K clients: ``x`` (K, B, S, D),
     every leaf of ``params`` with a leading K axis, ``positions`` (B, S);
@@ -155,8 +167,8 @@ def self_attention(params, x, dims: AttnDims, positions):
     K, B, S, _ = x.shape
     names = ("wq", "wk", "wv")
     xin = model_input(x, [params[w] for w in names])
-    axis = lined_up(*(params[w] for w in names + ("wo",)), pattern="cccr")
-    heads = axis is not None and dims.n_kv % axis.size == 0
+    axis = head_axis(params, dims)
+    heads = axis is not None
     qkv = []
     for w, b in zip(names, ("bq", "bk", "bv")):
         wt = params[w]
@@ -266,15 +278,29 @@ def decode_self_attention(params, x, cache: KVCache, dims: AttnDims):
     return out @ params["wo"], new_cache
 
 
-def encode_kv(params, enc_out, dims: AttnDims):
+def encode_kv(params, enc_out, dims: AttnDims, enc_in=None):
     """K clients' cross-attention keys and values: enc_out (K, B, Se, D)
-    -> k, v (K, B, Se, n_kv, hd)."""
+    -> k, v (K, B, Se, n_kv, hd).  On a model axis a column block of
+    ``wk``/``wv`` takes the replicated encoder output through
+    ``copy_to_model`` (``enc_in``, ``model_input``'s, shared by the
+    layers) and gives this rank's KV heads where the cross attention
+    runs head-parallel, else its columns gathered."""
     K, B, Se, _ = enc_out.shape
-    k = linear(enc_out, params["wk"]).reshape(K, B, Se, dims.n_kv,
-                                              dims.head_dim)
-    v = linear(enc_out, params["wv"]).reshape(K, B, Se, dims.n_kv,
-                                              dims.head_dim)
-    return k, v
+    heads = head_axis(params, dims)
+    n_kv = dims.n_kv // (heads.size if heads is not None else 1)
+    out = []
+    for w in ("wk", "wv"):
+        wt = params[w]
+        if isinstance(wt, Block) and wt.cols:
+            xin = (copy_to_model(enc_out, wt.axis) if enc_in is None
+                   else enc_in)
+            y = linear(xin, wt.t)
+            if heads is None:
+                y = gather_from_model(y, -1, wt.axis)
+        else:
+            y = project(enc_out, wt)
+        out.append(y.reshape(K, B, Se, n_kv, dims.head_dim))
+    return tuple(out)
 
 
 def cross_attention(params, x, enc_k, enc_v, dims: AttnDims, enc_mask=None):
@@ -282,11 +308,19 @@ def cross_attention(params, x, enc_k, enc_v, dims: AttnDims, enc_mask=None):
     (K, B, Se, KV, hd) precomputed, ``enc_mask`` (K*B, Se) bool or None.
     No rope on q.  The blockwise form under JAX's condition: a side of
     ``FLASH_THRESHOLD`` tokens or more, no mask, both sides multiples
-    of 1024."""
+    of 1024.  On a model axis, head-parallel (``encode_kv``'s heads, a
+    column block of ``wq``, ``wo``'s partial products summed) or on
+    gathered projections, as ``self_attention``."""
     K, B, S, _ = x.shape
     Se = enc_k.shape[2]
-    q = linear(x, params["wq"]).reshape(K * B, S, dims.n_heads,
-                                        dims.head_dim)
+    heads = head_axis(params, dims)
+    if heads is not None:
+        q = linear(copy_to_model(x, heads), params["wq"].t)
+        dims = dataclasses.replace(dims, n_heads=dims.n_heads // heads.size,
+                                   n_kv=dims.n_kv // heads.size)
+    else:
+        q = project(x, params["wq"])
+    q = q.reshape(K * B, S, dims.n_heads, dims.head_dim)
     ek = enc_k.reshape(K * B, Se, dims.n_kv, dims.head_dim)
     ev = enc_v.reshape(K * B, Se, dims.n_kv, dims.head_dim)
     if (max(S, Se) >= FLASH_THRESHOLD and enc_mask is None
@@ -294,10 +328,13 @@ def cross_attention(params, x, enc_k, enc_v, dims: AttnDims, enc_mask=None):
         from .flash import blockwise_attention
 
         out = blockwise_attention(q, ek, ev, causal=False)
-        return linear(out.reshape(K, B, S, -1), params["wo"])
-    mask = None
-    if enc_mask is not None:
-        mask = torch.where(enc_mask[:, None, None, :], 0.0, NEG_INF).to(
-            torch.float32)
-    out = _sdpa_rows(q, ek, ev, mask, dims.n_heads // dims.n_kv)
-    return linear(out.reshape(K, B, S, -1), params["wo"])
+    else:
+        mask = None
+        if enc_mask is not None:
+            mask = torch.where(enc_mask[:, None, None, :], 0.0, NEG_INF).to(
+                torch.float32)
+        out = _sdpa_rows(q, ek, ev, mask, dims.n_heads // dims.n_kv)
+    out = out.reshape(K, B, S, -1)
+    if heads is not None:
+        return reduce_from_model(linear(out, params["wo"].t), heads)
+    return project(out, params["wo"])

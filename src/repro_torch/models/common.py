@@ -36,15 +36,22 @@ from ..comm.shardmap import (Block, copy_to_model, gather_from_model,
                              scatter_to_model)
 
 CE_CHUNK = 8192  # tokens per CE chunk (the JAX package's)
-# the leaves the partitioned consumers take as matrices: a whole gather
-# of one of these is what the model axis exists to avoid
-MATRIX_LEAVES = ("embed", "lm_head", "wq", "wk", "wv", "wo", "gate", "up",
-                 "down", "kernel")
+# the leaves the partitioned consumers take as matrices, by the last
+# component of their path: a whole gather of one of these is what the
+# model axis exists to avoid
+MATRIX_LEAVES = ("embed", "dec_embed", "lm_head", "wq", "wk", "wv", "wo",
+                 "gate", "up", "down", "router", "in_proj", "out_proj",
+                 "kernel")
 
 
 def matrix_gathers(gathered) -> int:
     """Whole gathers of matrix leaves in a {path: gathers} count
-    (``comm.shardmap.GATHERED``)."""
+    (``comm.shardmap.GATHERED``).  The SSM's depthwise conv taps
+    (``conv_w``, ``conv_b``; 3-D and zampled at full width) count as
+    small leaves, as the norm scales do: a rank needs its heads' ``x``
+    channels beside the ``B`` and ``C`` channels every head shares,
+    which no contiguous block of ``conv_dim`` holds, and they weigh
+    ``conv_width + 1`` weights a channel a layer."""
     return sum(n for p, n in gathered.items()
                if p.rsplit("/", 1)[-1] in MATRIX_LEAVES)
 

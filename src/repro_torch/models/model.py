@@ -31,17 +31,16 @@ changes memory, not values.  Initial parameters come from numpy
 (``init_params`` draws from ``jax.random``, which has no torch twin).
 
 On a model axis the round hands each sharded leaf over as this rank's
-``comm.shardmap.Block``.  The dense decoder (``dense`` and ``vlm``
-families) consumes its matrices as blocks (``models.common``,
-``models.attention``): ``embed``'s vocabulary rows look up the tokens
-they hold and the rows meet in one all-reduce (a masked sum, which
-turns an embedding value of -0 into +0), ``lm_head``'s vocabulary
+``comm.shardmap.Block``, and every family consumes its matrices as
+blocks (``models.common``, ``models.attention``, ``models.moe``,
+``models.ssm``): ``embed``'s (``dec_embed``'s) vocabulary rows look up
+the tokens they hold and the rows meet in one all-reduce (a masked sum,
+which turns an embedding value of -0 into +0), ``lm_head``'s vocabulary
 columns feed the vocab-parallel CE (``loss_fn``; ``forward`` gathers
 the logits), the attention and MLP projections are column or row
-parallel.  Its other blocks (norm scales) are gathered whole before
-the layers unbind, one gather a leaf; the families without partitioned
-consumers (``moe``, ``ssm``, ``hybrid``, ``encdec``) gather every block
-whole.
+parallel, the MoE's experts split on E or on F, the SSM's SSD runs on
+the rank's heads.  Its other blocks (norm scales, the SSM's conv taps)
+are gathered whole before the layers unbind, one gather a leaf.
 
 Decoding (``Model.init_cache``, ``Model.decode_step``) runs one model
 over a flat {path: leaf} dict without the client axis, the caches those
@@ -58,7 +57,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from ..comm.shardmap import (Block, copy_to_model, gather_from_model,
                              reduce_from_model, scatter_to_model)
@@ -67,7 +66,8 @@ from ..core.zampling import LeafSpec, flatten
 from . import attention as attn
 from .attention import (AttnDims, KVCache, cross_attention,
                         decode_self_attention, encode_kv, self_attention)
-from .common import cross_entropy, linear, project, rms_norm, swiglu
+from .common import (cross_entropy, linear, model_input, project,
+                     rms_norm, swiglu)
 from .moe import moe_block
 from .ssm import (SSMCache, SSMDims, init_ssm_cache, ssm_block,
                   ssm_decode_step, ssm_dims, ssm_param_shapes)
@@ -421,9 +421,16 @@ def _layer(stacks: dict, layer: int) -> dict:
     return {p: v[layer] for p, v in stacks.items()}
 
 
-# the dense decoder's leaves its consumers take as blocks
-_BLOCK_LEAVES = frozenset(("embed", "lm_head", "wq", "wk", "wv", "wo", "bq",
-                           "bk", "bv", "gate", "up", "down"))
+# the leaves the families' consumers take as blocks (by the last
+# component of their path); any other sharded leaf is gathered whole
+_BLOCK_LEAVES = frozenset((
+    "embed", "dec_embed", "lm_head", "wq", "wk", "wv", "wo", "bq", "bk",
+    "bv", "gate", "up", "down", "router", "in_proj", "out_proj", "A_log",
+    "D", "dt_bias", "norm"))
+# the self-attention blocks (their replicated q/k/v biases take blocks)
+_SELF_ATTN = ("blocks/attn/", "shared_attn/attn/", "enc_blocks/attn/",
+              "dec_blocks/attn/")
+_SSM = ("blocks/ssm/", "mamba/ssm/")  # the SSM layers' stacks
 
 
 def client_axis(tree: dict) -> dict:
@@ -433,21 +440,47 @@ def client_axis(tree: dict) -> dict:
 
 
 def _placed(cfg: ArchConfig, params: dict) -> dict:
-    """``params`` as the family's consumers take them: the dense
-    decoder's block leaves as they are, every other ``Block`` whole; a
-    replicated q/k/v bias beside a column block of its weight becomes
-    this rank's block of it here, before the layers unbind, so its
-    cotangent's blocks are joined once a step, not once a layer."""
-    keep = _BLOCK_LEAVES if _dense_decoder(cfg) else frozenset()
-    out = {p: v if not isinstance(v, Block) or p.rsplit("/", 1)[-1] in keep
-           else v.whole() for p, v in params.items()}
-    for b, w in (("bq", "wq"), ("bk", "wk"), ("bv", "wv")):
-        bias, wt = out.get(f"blocks/attn/{b}"), out.get(f"blocks/attn/{w}")
-        if (keep and torch.is_tensor(bias) and isinstance(wt, Block)
-                and wt.cols):
-            out[f"blocks/attn/{b}"] = Block(
-                scatter_to_model(bias, -1, wt.axis), bias.ndim - 1, wt.axis,
-                f"blocks/attn/{b}", wt.front)
+    """``params`` as the families' consumers take them: the block leaves
+    as they are, every other ``Block`` whole.  A replicated q/k/v bias
+    beside a column block of its weight becomes this rank's block of it,
+    and the qk-norm scales of a head-parallel attention pass through
+    ``copy_to_model``, here, before the layers unbind: their cotangents'
+    parts meet once a step, not once a layer.  So do the SSM's on a
+    model axis: a replicated ``A_log``, ``D``, ``dt_bias`` or ``norm``
+    becomes this rank's block of its heads, and the conv taps, which
+    each rank uses on its own channels, pass through
+    ``copy_to_model``."""
+    out = {p: v if not isinstance(v, Block)
+           or p.rsplit("/", 1)[-1] in _BLOCK_LEAVES else v.whole()
+           for p, v in params.items()}
+    for pre in _SELF_ATTN:
+        if pre + "wq" not in out:
+            continue
+        for b, w in (("bq", "wq"), ("bk", "wk"), ("bv", "wv")):
+            bias, wt = out.get(pre + b), out[pre + w]
+            if torch.is_tensor(bias) and isinstance(wt, Block) and wt.cols:
+                out[pre + b] = Block(scatter_to_model(bias, -1, wt.axis),
+                                     bias.ndim - 1, wt.axis, pre + b,
+                                     wt.front)
+        dims = enc_attn_dims(cfg) if pre == "enc_blocks/attn/" else \
+            attn_dims(cfg)
+        axis = attn.head_axis(_sub(out, pre), dims)
+        for n in ("q_norm", "k_norm"):
+            if axis is not None and pre + n in out:
+                out[pre + n] = copy_to_model(out[pre + n], axis)
+    for pre in _SSM:
+        blocks = [v for p, v in out.items()
+                  if p.startswith(pre) and isinstance(v, Block)]
+        if not blocks:
+            continue
+        axis, front = blocks[0].axis, blocks[0].front
+        for n in ("A_log", "D", "dt_bias", "norm"):
+            v = out[pre + n]
+            if torch.is_tensor(v):
+                out[pre + n] = Block(scatter_to_model(v, -1, axis),
+                                     v.ndim - 1, axis, pre + n, front)
+        for n in ("conv_w", "conv_b"):
+            out[pre + n] = copy_to_model(out[pre + n], axis)
     return out
 
 
@@ -510,9 +543,13 @@ def _ssm_layer_remat(bp, x, sdims: SSMDims):
     wanted (the JAX package's per-layer remat)."""
     if not torch.is_grad_enabled():
         return _ssm_layer(bp, x, sdims)
-    return checkpoint(lambda x_, *vals: _ssm_layer(dict(zip(bp, vals)), x_,
-                                                   sdims),
-                      x, *bp.values(), use_reentrant=False)
+    # on a model axis the whole layer again, never stopped early: every
+    # rank must issue every collective of the forward once more
+    early = not any(isinstance(v, Block) for v in bp.values())
+    with set_checkpoint_early_stop(early):
+        return checkpoint(lambda x_, *vals: _ssm_layer(dict(zip(bp, vals)),
+                                                       x_, sdims),
+                          x, *bp.values(), use_reentrant=False)
 
 
 def _encode(cfg: ArchConfig, params, enc_embeds: torch.Tensor):
@@ -595,11 +632,16 @@ def _forward(cfg: ArchConfig, params, batch, *, window_override=None):
             x = _ssm_layer_remat(_layer(stacks, layer), x, sdims)
     else:
         stacks = _unstack(params, "dec_blocks/")
+        # one copy of the encoder's output for every layer's column
+        # blocks of cross/wk and cross/wv: its cotangent's parts meet in
+        # one all-reduce a step
+        enc_in = model_input(enc_out, [params["dec_blocks/cross/wk"],
+                                       params["dec_blocks/cross/wv"]])
         for layer in range(cfg.n_layers):
             bp = _layer(stacks, layer)
             x = x + self_attention(_sub(bp, "attn/"), _norm(x, bp["ln1"]),
                                    dims, positions)
-            ek, ev = encode_kv(_sub(bp, "cross/"), enc_out, dims)
+            ek, ev = encode_kv(_sub(bp, "cross/"), enc_out, dims, enc_in)
             x = x + cross_attention(_sub(bp, "cross/"), _norm(x, bp["ln3"]),
                                     ek, ev, dims)
             x = x + swiglu(_norm(x, bp["ln2"]), bp["mlp/gate"], bp["mlp/up"],

@@ -312,3 +312,239 @@ def gpu_lm_blocks(ms, axes):
     ``ms``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     return lm_blocks(lm_config(), axes.model, device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# the other families' partitioned consumers (test_torch_model_axis_families)
+# ---------------------------------------------------------------------------
+
+def moe_ffn_config():
+    """The reduced mixtral-8x7b with 3 experts: on a model axis of 2
+    ``param_spec`` splits its experts on F and its router on D."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("mixtral-8x7b").reduced()
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                            num_experts=3))
+
+
+def family_config(name: str):
+    """A case's config: an arch at ``reduced()`` (f32), or ``moe-ffn``."""
+    from repro_torch.configs import get_arch
+
+    return moe_ffn_config() if name == "moe-ffn" else get_arch(name).reduced()
+
+
+def family_specs(cfg, mesh: Mesh, zc: dict):
+    """The config's specs with each zampled leaf's major axis where
+    ``param_spec`` puts ``mesh``'s model axis, aligned to its size."""
+    from repro_torch.models.model import param_template
+
+    def plan(path, shape):
+        return model_axis_of(param_spec(path, shape, mesh))
+
+    return build_specs(param_template(cfg), ZamplingConfig(
+        **zc, shard_align=mesh.axis_size("model")), shard_plan_fn=plan)
+
+
+def family_batch(cfg, rng, b: int, s: int, lead=(1,)):
+    """Token ids (and, for the enc-dec, encoder frames) of ``lead``
+    clients (local steps), labels the tokens."""
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab, (*lead, b, s)))
+    batch = {"tokens": toks, "labels": toks}
+    if cfg.family in ("encdec", "audio"):
+        batch["enc_embeds"] = torch.from_numpy(rng.randn(
+            *lead, b, s // 4, cfg.d_model).astype(np.float32))
+    return batch
+
+
+def _products_equal(zs, axis, rng, b: int):
+    """Whether, at the column blocks' shapes of ``zs`` on ``axis``, a
+    column block's products (forward ``x @ W``, backward ``x^T @ g``)
+    equal the whole products' columns: the precondition of holding a
+    partitioned forward to the whole one by bits."""
+    out = []
+    for p, spec in zs.specs.items():
+        shape = zs.template[p].shape
+        if spec.shard_count == 1 or spec.major_axis != len(shape) - 1:
+            continue
+        d_in, d_out = shape[-2], shape[-1]
+        x = torch.from_numpy(rng.randn(b, d_in).astype(np.float32))
+        w = torch.from_numpy(rng.randn(d_in, d_out).astype(np.float32))
+        g = torch.from_numpy(rng.randn(b, d_out).astype(np.float32))
+        out.append(torch.equal(_block_of(x @ w, 1, axis),
+                               x @ _block_of(w, 1, axis))
+                   and torch.equal(_block_of(x.t() @ g, 1, axis),
+                                   x.t() @ _block_of(g, 1, axis)))
+    return out
+
+
+def family_step(name: str, zc: dict, axis, seed: int = 0, b: int = 2,
+                s: int = 16):
+    """One local step of one client of the case ``name`` (the loss at
+    the round's draw, then the gradients of the scores and dense
+    leaves), on the data axis alone (whole leaves) and through the
+    partitioned consumers on the model group ``axis``: the losses, each
+    sharded leaf's (whole gradient's slice, slice's gradient), each
+    dense leaf's gradients, the collectives and whole-leaf gathers of
+    the partitioned step, the whole leaves and the batch (for JAX's
+    ``loss_fn``), and the column products' precondition."""
+    from repro_torch.core.zampling import MaskProgram, shard_slice
+    from repro_torch.models.model import client_axis, init_dense, loss_fn
+
+    cfg = family_config(name)
+    mesh = Mesh(("data", "model"), (1, axis.size))
+    zs = family_specs(cfg, mesh, zc)
+    rng = np.random.RandomState(seed)
+    scores = {p: torch.from_numpy(rng.rand(sp.n).astype(np.float32))
+              for p, sp in zs.specs.items()}
+    dense = {p: torch.from_numpy(v)
+             for p, v in init_dense(cfg, zs.dense_paths, seed).items()}
+    batch = family_batch(cfg, rng, b, s)
+    program = MaskProgram(zs)
+    word = 1000 + seed
+
+    def step(sc, row_sharding):
+        leaves = {p: v.clone().requires_grad_(True)
+                  for p, v in {**sc, **dense}.items()}
+        params = program.weights({p: leaves[p] for p in zs.specs},
+                                 {p: leaves[p] for p in zs.dense_paths},
+                                 word, None, row_sharding, blocks=True)
+        loss = loss_fn(cfg, client_axis(params), batch)[0]
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+        return loss.detach(), dict(zip(leaves, grads)), params
+
+    ref, ref_g, whole = step(scores, None)
+    cut = {p: shard_slice(sp, axis) for p, sp in zs.specs.items()}
+    shardmap.reset_counts()
+    got, got_g, mine = step({p: v[cut[p][0]:cut[p][0] + cut[p][1]]
+                             for p, v in scores.items()}, axis)
+    counts = (dict(shardmap.COUNTS), dict(shardmap.GATHERED))
+    routing = (None if cfg.moe is None else _routing(
+        cfg, whole["blocks/moe/router"], mine["blocks/moe/router"], rng,
+        b * s))
+
+    def npy(g, like):
+        return (torch.zeros_like(like) if g is None else g).numpy()
+
+    return {
+        "loss": (ref.numpy(), got.numpy()),
+        "scores": {p: (npy(ref_g[p], scores[p])[c0:c0 + n],
+                       npy(got_g[p], scores[p][c0:c0 + n]))
+                   for p, (c0, n) in cut.items()},
+        "dense": {p: (npy(ref_g[p], dense[p]), npy(got_g[p], dense[p]))
+                  for p in zs.dense_paths},
+        "counts": counts,
+        "whole": {p: v.detach().numpy() for p, v in whole.items()},
+        "batch": {n: v[0].numpy() for n, v in batch.items()},
+        "products_equal": _products_equal(zs, axis, rng, b * s),
+        "routing": routing,
+    }
+
+
+def _routing(cfg, whole, block, rng, t: int):
+    """The first layer's MoE routing of ``t`` random tokens from the whole
+    router and from this rank's router (a ``Block``, or the replicated
+    leaf): whether the f32 logits, and then the dispatch, the combine,
+    the probabilities and the picks, are the same bits, and the logits'
+    largest difference relative to their largest magnitude."""
+    from repro_torch.comm.shardmap import Block
+    from repro_torch.models import moe
+
+    x = torch.from_numpy(rng.randn(1, 1, t, cfg.d_model).astype(np.float32))
+    with torch.no_grad():  # the first layer's, as one client's
+        want = moe._router_logits(x, whole[:1].detach(), None)
+        if isinstance(block, Block):
+            one = block.unbind(0)[0].lead()
+            block = Block(one.t.detach(), one.dim, one.axis, one.path,
+                          one.front)
+        else:
+            block = block[:1].detach()
+        got = moe._router_logits(x, block, None)
+        same = all(torch.equal(a, b) for a, b in zip(
+            moe._dispatch(want, cfg.moe, x.dtype),
+            moe._dispatch(got, cfg.moe, x.dtype)))
+    return {"logits_equal": torch.equal(want, got), "routing_equal": same,
+            "logits_err": float((want - got).abs().max()
+                                / want.abs().max())}
+
+
+def family_grid(name: str, zc: dict, axes, seed: int = 0, b: int = 2,
+                s: int = 16):
+    """One round (one local step) of the case ``name`` on a grid
+    (``axes``: this rank's data and model groups; a client a data
+    index), through the partitioned consumers, then on the data-axis
+    ranks alone (the model index 0 of each data index, whole leaves):
+    each rank's new scores (its slice; every slice for a whole rank),
+    dense leaves and loss, and the grid round's collectives and
+    whole-leaf gathers."""
+    from repro_torch.core.federated import FederatedConfig
+    from repro_torch.core.zampling import init_state
+    from repro_torch.models.model import client_axis, init_dense, loss_fn
+
+    cfg = family_config(name)
+    grid = Mesh(("data", "model"), (axes.data.size, axes.model.size))
+    zs = family_specs(cfg, grid, zc)
+    rng = np.random.RandomState(seed)
+    scores = {p: rng.rand(sp.n).astype(np.float32)
+              for p, sp in zs.specs.items()}
+    state = init_state(zs, scores, init_dense(cfg, zs.dense_paths, seed),
+                       device="cpu")
+    batch = {n: v[axes.data.index] for n, v in family_batch(
+        cfg, rng, b, s, lead=(axes.data.size, 1)).items()}
+    fcfg = FederatedConfig(num_clients=axes.data.size, local_steps=1,
+                           local_lr=0.05)
+
+    def loss(params, bb):  # the LM loss takes a client axis
+        return loss_fn(cfg, client_axis(params),
+                       {n: v[None] for n, v in bb.items()})[0]
+
+    def run(st, model, group):
+        new, met = fed.sharded_client_update(
+            zs, st, loss, batch, 7 + seed, fcfg, group=group,
+            row_sharding=model, device="cpu")
+        return {"scores": {p: v.numpy() for p, v in new["scores"].items()},
+                "dense": {p: v.numpy() for p, v in new["dense"].items()},
+                "loss": float(met["loss"])}
+
+    m = axes.model.index
+    shardmap.reset_counts()
+    out = {"data": axes.data.index, "model": m,
+           "grid": run(convert.to_model_rank(zs, state, m, axes.model.size),
+                       axes.model, axes.data.group)}
+    out["counts"] = (dict(shardmap.COUNTS), dict(shardmap.GATHERED))
+    if m == 0:
+        whole = run(state, None, axes.data.group)
+        out["data_axis"] = whole
+    return out
+
+
+FAMILY_CASES = {  # name: min_size, each case's zampled leaves
+    "olmoe-1b-7b": 1024,  # the router (2, 256, 4): a column block over E
+    "mamba2-1.3b": 1024,  # A_log, D, dt_bias replicated; conv taps whole
+    "moe-ffn": 1024,  # the router (2, 256, 3): a row block over D
+    "zamba2-7b": 32,  # A_log, D, dt_bias blocks of heads; ln gathered
+    "seamless-m4t-medium": 1024,
+}
+FAMILY_GROUPS = (("olmoe-1b-7b", "mamba2-1.3b", "moe-ffn"),
+                 ("zamba2-7b", "seamless-m4t-medium"))
+GRID_CASE = "zamba2-7b"
+
+
+def family_zc(name: str, zc: dict) -> dict:
+    return {**zc, "min_size": FAMILY_CASES[name]}
+
+
+def rank_families(zc, axes):
+    """``test_torch_model_axis_families.py``'s ranks, a 2 x 2 grid: each
+    data index's model group runs its share of the cases' local steps
+    (``family_step``), then the grid runs a round of GRID_CASE against
+    its data-axis ranks (``family_grid``)."""
+    torch.set_num_threads(1)
+    out = {n: family_step(n, family_zc(n, zc), axes.model)
+           for n in FAMILY_GROUPS[axes.data.index]}
+    out["grid"] = family_grid(GRID_CASE, family_zc(GRID_CASE, zc), axes)
+    return out

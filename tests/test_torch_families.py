@@ -121,7 +121,7 @@ def test_template_specs_and_batch_are_the_jax_packages(arch):
             specs = input_specs.input_specs(cfg, sh)
             jspecs = jinp.input_specs(jcfg, jsh)
             assert list(specs) == list(jspecs)
-            got = input_specs.make_batch(cfg, sh, seed=3)
+            got = input_specs.make_batch(cfg, sh, seed=3, device="cpu")
             want = jinp.make_batch(jcfg, jsh, seed=3)
             for name, t in got.items():
                 w = np.asarray(want[name])
@@ -142,7 +142,8 @@ def test_template_specs_and_batch_are_the_jax_packages(arch):
 def test_forward_loss_and_gradients_against_jax(arch):
     cfg, jcfg, jm = _built(arch)
     params = _params(cfg)
-    bs = [input_specs.make_batch(cfg, SMOKE, seed=k) for k in range(K)]
+    bs = [input_specs.make_batch(cfg, SMOKE, seed=k, device="cpu")
+          for k in range(K)]
     jbs = [jinp.make_batch(jcfg, jreg.InputShape("smoke", 32, 2, "train"),
                            seed=k) for k in range(K)]
     stacked = {p: jnp.asarray(v) for p, v in params.items()}

@@ -34,6 +34,7 @@ import time
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs.registry import get_arch as jget_arch
@@ -51,6 +52,16 @@ from repro_torch.launch import train as ttrain
 LOSS_RTOL = 1e-5
 DENSE_ATOL = 1e-6
 MAX_FLIP_SHARE = 1e-3
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these tests run beside other test processes,
+    and torch's thread pools would only contend with them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def trajectories(argv):

@@ -58,6 +58,16 @@ DENSE_ATOL = 1e-6  # dense leaves after E SGD steps at lr 0.05
 MAX_FLIP_SHARE = 1e-3  # upload bits flipped by rounding, of all bits
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these tests run beside other test processes,
+    and torch's thread pools would only contend with them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _path(keys):
     return "/".join(str(getattr(k, "key", k)) for k in keys)
 

@@ -58,6 +58,16 @@ ZC = dict(compression=4, d=5, window=128, min_size=128, seed=0)
 SPECS = [((784, 20), 784, 128, 5), ((96, 80), 96, 128, 50)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these tests run beside other test processes,
+    and torch's thread pools would only contend with them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _specs(i, tid=2):
     shape, fan_in, window, d = SPECS[i]
     kw = dict(compression=4, d=d, window=window, seed=0)

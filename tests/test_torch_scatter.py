@@ -44,6 +44,16 @@ SPECS = [((96, 80), 96, 8, 10, 128), ((6, 112), 6, 8, 8, 16),
          ((24, 40), 24, 1, 256, 512)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these tests run beside other test processes,
+    and torch's thread pools would only contend with them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _specs(i, tid=4):
     shape, fan_in, c, d, window = SPECS[i]
     kw = dict(compression=c, d=d, window=window, seed=1)

@@ -36,6 +36,16 @@ TOKENS = [5, 17, 42, 7]
 SEQ = 12
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these tests run beside other test processes,
+    and torch's thread pools would only contend with them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_state(cfg, min_size, seed=0):
     jmodel = jbuild_model(cfg)
     tmpl = jax.eval_shape(jmodel.init_params, jax.random.PRNGKey(0))

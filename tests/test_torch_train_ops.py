@@ -41,6 +41,16 @@ SUM_RTOL = 1e-5
 SPECS = [((96, 80), 96, 128), ((40, 24), 40, 32), ((7, 300), 7, 64)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these tests run beside other test processes,
+    and torch's thread pools would only contend with them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _specs(i, tid=3):
     shape, fan_in, window = SPECS[i]
     kw = dict(compression=8, d=10, window=window, seed=1)

@@ -47,6 +47,16 @@ WIDTHS = (1, 2, 3, 4, 6, 8, 16)
 FIG4_ZC = dict(compression=8, d=10, window=128, min_size=128, seed=1)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread: these tests run beside other test processes,
+    and torch's thread pools would only contend with them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(x):
     return np.asarray(x)
 
